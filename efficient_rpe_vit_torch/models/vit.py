@@ -1,0 +1,121 @@
+"""Vision Transformer skeleton.
+
+Counterpart of `efficient_rpe_vit_tpu/models/vit.py`: reshape-based
+patchify with the (C, p, p) patch layout, linear patch embedding, learned
+CLS token + learned absolute positional embedding (always present, even
+with RPE), depth x transformer blocks, LayerNorm + Linear head on the CLS
+output in fp32. Images come in NHWC, as in the JAX package.
+
+Init (`reset_parameters`, from an explicit generator): Xavier-uniform
+linear weights / zero biases, unit LayerNorms, N(0, 0.02) for
+pos_embedding, cls_token and KERPLE biases, Omega drawn per block.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from .attention import _KernelAttention
+from .dense import Dense, LayerNorm, torch_dtype
+from .layers import TransformerBlock
+from .rpe import KerpleRPE
+
+
+def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) NHWC images -> (B, num_patches, C*p*p) patches in the
+    (C, p, p) vector layout."""
+    B, H, W, C = x.shape
+    p = patch_size
+    x = x.permute(0, 3, 1, 2)  # NCHW
+    x = x.reshape(B, C, H // p, p, W // p, p)
+    x = x.permute(0, 2, 4, 1, 3, 5)  # (B, H/p, W/p, C, p, p)
+    return x.reshape(B, (H // p) * (W // p), C * p * p)
+
+
+class ViT(nn.Module):
+    """Configurable-attention/RPE Vision Transformer.
+
+    State-dict names follow the reference torch model (`patch_embedding`,
+    `cls_token`, `pos_embedding`, `transformer_blocks.{i}.*`,
+    `mlp_head.{0,1}`), so `efficient_rpe_vit_tpu.utils.import_torch` maps
+    them onto the JAX package's params.
+    """
+
+    def __init__(self, image_size: int, in_channels: int, patch_size: int,
+                 num_classes: int, dim: int, depth: int, heads: int,
+                 mlp_dim: int, dropout: float = 0.1,
+                 attention_type: str = "favor_plus",
+                 rpe_type: Optional[str] = None,
+                 attention_kwargs: Optional[Dict[str, Any]] = None,
+                 rpe_kwargs: Optional[Dict[str, Any]] = None,
+                 dtype: str = "float32"):
+        super().__init__()
+        self.image_size = image_size
+        self.in_channels = in_channels
+        self.patch_size = patch_size
+        self.compute_dtype = torch_dtype(dtype)
+        n = self.num_patches + 1  # CLS included
+        self.patch_embedding = Dense(self.patch_dim, dim,
+                                     compute_dtype=self.compute_dtype)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
+        self.pos_embedding = nn.Parameter(torch.empty(1, n, dim))
+        self.transformer_blocks = nn.ModuleList(
+            TransformerBlock(dim, heads, mlp_dim, n, dropout, attention_type,
+                             rpe_type, attention_kwargs, rpe_kwargs,
+                             self.compute_dtype)
+            for _ in range(depth)
+        )
+        self.mlp_head = nn.Sequential(LayerNorm(dim, eps=1e-5),
+                                      nn.Linear(dim, num_classes))
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.patch_size * self.patch_size
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every parameter and Omega buffer from `generator` (a CPU
+        generator gives the same model on every device)."""
+        def draw(fill, t, *args):
+            tmp = torch.empty(t.shape, dtype=t.dtype)
+            fill(tmp, *args, generator=generator)
+            t.copy_(tmp)
+
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                draw(nn.init.xavier_uniform_, m.weight)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, KerpleRPE):
+                draw(nn.init.normal_, m.rel_pos_bias, 0.0, 0.02)
+            elif isinstance(m, _KernelAttention):
+                m.omega.copy_(m.draw_omega(generator))
+        draw(nn.init.normal_, self.cls_token, 0.0, 0.02)
+        draw(nn.init.normal_, self.pos_embedding, 0.0, 0.02)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, H, W, C] float images -> [B, num_classes] fp32 logits."""
+        B = x.shape[0]
+        if tuple(x.shape[1:]) != (self.image_size, self.image_size,
+                                  self.in_channels):
+            raise ValueError(
+                f"expected input [B, {self.image_size}, {self.image_size}, "
+                f"{self.in_channels}], got {tuple(x.shape)}"
+            )
+        dt = self.compute_dtype
+        x = self.patch_embedding(patchify(x, self.patch_size).to(dt))
+        cls = self.cls_token.to(dt).expand(B, -1, -1)
+        x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
+        for block in self.transformer_blocks:
+            x = block(x)
+        return self.mlp_head(x[:, 0].float())  # head in fp32
