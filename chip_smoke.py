@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what CI runs: build, check, serve
-    python3 chip_smoke.py --profile  # also trace one served batch
+    python3 chip_smoke.py            # what CI runs: build, check, serve, train
+    python3 chip_smoke.py --profile  # also trace one served batch and one train step
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
-  2. build: every CUDA source under efficient_rpe_vit_torch/csrc, with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the serving shape and at ragged shapes, timed beside its bound;
+  2. build: every CUDA source under efficient_rpe_vit_torch/csrc, with nvcc,
+     all at once;
+  3. kernels: each kernel (KERPLE forward; backward dq, dkv, dc, dc_reduce)
+     against its plain PyTorch version on the card at the serving and
+     training shapes and at ragged shapes, in bf16 and fp32, timed (calls
+     replayed from a CUDA graph, so without the wrapper's host work) beside
+     its bound;
   4. serve: ViT-B/16 performer_favor_most_general (bf16, random weights from
      a seed) answers 4 requests of 32 images through `make_eval_step`; the
      kernel launch counts of that run are checked, and the logits are held
-     against the same model on the plain (dense) KERPLE path.
-The line before the last lists every kernel as JSON; the last line is
+     against the same model on the plain (dense) KERPLE path;
+  5. train: the same model takes 5 steps of batch 64 through
+     `create_train_state` / `make_train_step`; launch counts per step,
+     finite gradients for every parameter, step-1 gradients against the
+     dense KERPLE path and bitwise across two runs, finite losses beside the
+     dense path's, and ms per step for both.
+The line before the last lists every kernel as JSON, one row per kernel and
+main path (the forward runs on both); the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the rest of the
 repository beside it, the script fails before printing any result.
 """
@@ -52,10 +62,43 @@ DEN_RTOL = 1e-4
 LOGIT_REL_TOL = 5e-2
 MIN_TOP1_AGREEMENT = 0.99
 
+# backward kernels vs their plain versions: max |kernel - plain| <= tol *
+# max |plain| per output. fp32: summation order only. bf16: dA and A*T are
+# rounded to bf16 from fp32 sums taken in another order, so an element may
+# round the other way (one bf16 ulp, 2^-8 relative) before the products.
+# dcoeffs and the dc windows are fp32 sums of fp32 products in both dtypes.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DCOEFF_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+# train step-1 gradients, kernel path vs dense path (same weights, bf16):
+# ||g_kernel - g_dense|| / ||g_dense|| per parameter tensor.
+GRAD_REL_TOL = 5e-2
+
 VITB = dict(image_size=224, patch_size=16, in_channels=3, num_classes=1000,
             dim=768, depth=12, heads=12, mlp_dim=3072, dropout=0.0,
             compute_dtype="bfloat16", batch_size=32)
 REQUESTS = 4
+TRAIN_BATCH = 64
+TRAIN_STEPS = 5
+TIMED_STEPS = 5
+# (B, H, N, F, D): the ViT-B/16 training shape, ragged shapes, the JAX
+# package's kernel-test shape
+BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
+              (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
+BWD_KERNELS = ("masked_linear_coeffs_bwd_dq", "masked_linear_coeffs_bwd_dkv",
+               "masked_linear_coeffs_bwd_dc", "masked_linear_coeffs_bwd_dc_reduce")
+
+# --profile sums device time by these groups of kernel names, first match wins
+PROFILE_GROUPS = [
+    ("KERPLE kernels (this repo)", lambda k: "mlc_" in k),
+    ("fp32 GEMMs (phi projection x@Omega, fwd and bwd)", lambda k: "f32f32" in k or "sgemm" in k),
+    ("bf16 GEMMs (cuBLAS)", lambda k: "nvjet" in k or "gemm" in k),
+    ("optimizer (multi-tensor apply)", lambda k: "multi_tensor" in k),
+    ("copies and casts", lambda k: "copy" in k),
+    ("reductions", lambda k: "reduce" in k),
+    ("other elementwise", lambda k: "elementwise" in k),
+    ("other", lambda k: True),
+]
 
 
 def log(phase: str, msg: str) -> None:
@@ -77,6 +120,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one kernel call: `iters` calls captured in one
+    CUDA graph, so the wrapper's host work (checks, allocation, ctypes) is
+    outside the timed replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
+
+
 def kerple_bound(B, H, N, F, D, dtype: str):
     """(bound_ms, bound_by) for one KERPLE forward: inputs read once,
     outputs written once; S = q'k'^T and W v products plus the
@@ -90,11 +152,123 @@ def kerple_bound(B, H, N, F, D, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kerple_bwd_bounds(B, H, N, F, D, dtype: str, tile: int):
+    """{kernel: (bound_ms, bound_by)} for the four backward kernels with
+    `tile`-row tiles (the wrapper's BWD_TILE): each input read once (gn, v,
+    q', k' in the input dtype; s, coeffs, windows in fp32), each output
+    written once; the products M = gn v^T, A = q'k'^T and the
+    accumulations, plus the elementwise mask / subtract / multiply work.
+    The reduce is fp32 adds, outside the tensor cores."""
+    elt = 2 if dtype == "bfloat16" else 4
+    bhn, nn = B * H * N, B * H * N * N
+    n_t = -(-N // tile)
+    win_bytes = 4 * H * n_t * n_t * (2 * tile - 1)
+    coef_bytes, s_bytes = 4 * H * (2 * N - 1), 4 * bhn
+    peak = PEAK_OPS_PER_S[dtype]
+    work = {
+        "masked_linear_coeffs_bwd_dq": (
+            elt * bhn * (D + D + F + F) + s_bytes + coef_bytes,
+            2 * nn * (D + F) + 3 * nn, peak),
+        "masked_linear_coeffs_bwd_dkv": (
+            elt * bhn * (D + D + F + F + F + D) + s_bytes + coef_bytes,
+            2 * nn * (2 * F + 2 * D) + 5 * nn, peak),
+        "masked_linear_coeffs_bwd_dc": (
+            elt * bhn * (D + D + F + F) + s_bytes + win_bytes,
+            2 * nn * (F + D) + 3 * nn + H * n_t * n_t * tile * tile, peak),
+        "masked_linear_coeffs_bwd_dc_reduce": (
+            win_bytes + coef_bytes, H * n_t * n_t * (2 * tile - 1),
+            PEAK_OPS_PER_S["float32"]),
+    }
+    out = {}
+    for name, (nbytes, ops, rate) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| / max |want| over the tensor."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def check_bwd_kernels(mlc):
+    """Phase 3b: the four backward kernels, one by one and through the
+    backward wrapper, against their plain versions on the card."""
+    results = {}
+    for B, H, N, F, D in BWD_SHAPES:
+        for name, dtype in (("bfloat16", torch.bfloat16),
+                            ("float32", torch.float32)):
+            g = torch.Generator(device="cuda").manual_seed(N * 1000 + F + 7)
+            q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
+            k = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
+            v = torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
+            c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
+            cot = torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
+            out, den = mlc.masked_linear_attention_coeffs_reference(q, k, v, c)
+            gn, s = mlc.kerple_bwd_residuals(den, out, cot)
+            windows = mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k)
+            runs = {
+                "masked_linear_coeffs_bwd_dq": (
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, k, c),
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dq_reference(gn, s, v, k, c),
+                    BWD_TOL[name]),
+                "masked_linear_coeffs_bwd_dkv": (
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q, k, c),
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dkv_reference(gn, s, v, q, k, c),
+                    BWD_TOL[name]),
+                "masked_linear_coeffs_bwd_dc": (
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k),
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dc_reference(gn, s, v, q, k),
+                    DCOEFF_TOL[name]),
+                # the reduce is held against its plain version on the same windows
+                "masked_linear_coeffs_bwd_dc_reduce": (
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dc_reduce(windows, N),
+                    lambda: mlc.masked_linear_attention_coeffs_bwd_dc_reduce_reference(windows, N),
+                    DCOEFF_TOL[name]),
+            }
+            shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
+            for kname, (kernel_fn, plain_fn, tol) in runs.items():
+                got, want = kernel_fn(), plain_fn()
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                rels = [_max_rel(a, b) for a, b in zip(got, want)]
+                errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+                finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+                log("kernel", f"{kname} {shape}: max|err|/max|plain| "
+                    f"{', '.join(f'{r:.3e}' for r in rels)} (tol {tol}), finite {finite}")
+                if not (finite and max(rels) <= tol):
+                    raise AssertionError(f"{kname} disagrees with its plain version at {shape}")
+                if (B, H, N, F, D) == BWD_SHAPES[0] and name == "bfloat16":
+                    ms = kernel_ms(kernel_fn)
+                    plain_ms = time_ms(plain_fn, iters=5, warmup=1)
+                    bound_ms, bound_by = kerple_bwd_bounds(
+                        B, H, N, F, D, name, mlc.BWD_TILE[dtype])[kname]
+                    log("kernel", f"{kname} {shape}: kernel {ms:.4f} ms, plain "
+                        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                        f"kernel/bound {ms / bound_ms:.2f}x")
+                    results[kname] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by)
+            # the whole backward, as autograd calls it, against the plain backward
+            got = mlc.masked_linear_attention_coeffs_bwd(q, k, v, c, den, out, cot)
+            want = mlc.masked_linear_attention_coeffs_bwd_reference(q, k, v, c, den, out, cot)
+            tols = (BWD_TOL[name],) * 3 + (DCOEFF_TOL[name],)
+            rels = [_max_rel(a, b) for a, b in zip(got, want)]
+            log("kernel", f"masked_linear_attention_coeffs_bwd {shape}: (dq', dk', dv, "
+                f"dcoeffs) max|err|/max|plain| {', '.join(f'{r:.3e}' for r in rels)}")
+            if any(r > t for r, t in zip(rels, tols)):
+                raise AssertionError(f"the backward disagrees with its plain version at {shape}")
+    return results
+
+
 def check_kernels(mlc):
-    """Phase 3: the KERPLE kernel against its plain version on the card."""
+    """Phase 3: the KERPLE forward kernel against its plain version on the card."""
     shapes = [
         # (B, H, N, F, D): the ViT-B/16 serving shape first
         (32, 12, 197, 266, 64),
+        (TRAIN_BATCH, 12, 197, 266, 64),  # the training shape
         (4, 12, 17, 266, 64),    # one ragged q/kv tile
         (4, 12, 130, 266, 64),   # three tiles, the last ragged
         (2, 2, 197, 44, 16),     # the JAX package's kernel-test shape
@@ -122,16 +296,17 @@ def check_kernels(mlc):
                 f"rel err {den_rel:.3e} (rtol {DEN_RTOL}), finite {finite}")
             if not (ok_out and den_rel <= DEN_RTOL and finite):
                 raise AssertionError(f"kernel disagrees with its plain version at {shape}")
-            if (B, H, N, F, D) == shapes[0]:
-                ms = time_ms(lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c))
+            # timed at the serving shape (both dtypes) and the training shape (bf16)
+            if (B, H, N, F, D) in shapes[:2] and (name == "bfloat16" or B != TRAIN_BATCH):
+                ms = kernel_ms(lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c))
                 plain_ms = time_ms(lambda: mlc.masked_linear_attention_coeffs_reference(q, k, v, c))
                 bound_ms, bound_by = kerple_bound(B, H, N, F, D, name)
                 log("kernel", f"masked_linear_coeffs_fwd {shape}: kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                     f"kernel/bound {ms / bound_ms:.2f}x")
-                results[name] = dict(max_abs_err=err.max().item(), ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+                results[(name, B)] = dict(max_abs_err=err.max().item(), ms=ms,
+                                          plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by)
     return results
 
 
@@ -223,23 +398,154 @@ def serve(mlc, card: str, profile: bool):
             f"of {B}, {B * iters / dt:.1f} images/s on {card}")
 
     if profile:
-        profile_step(step, requests[0], card)
+        profile_step("one served batch", lambda: step(*requests[0]), card)
     return launches
 
 
-def profile_step(step, request, card: str) -> None:
-    """Device time by kernel for one served batch (torch.profiler); only
+def _counts(mlc):
+    return {"masked_linear_coeffs_fwd": mlc.masked_linear_attention_coeffs_fwd.launches,
+            "masked_linear_coeffs_bwd_dq": mlc.masked_linear_attention_coeffs_bwd_dq.launches,
+            "masked_linear_coeffs_bwd_dkv": mlc.masked_linear_attention_coeffs_bwd_dkv.launches,
+            "masked_linear_coeffs_bwd_dc": mlc.masked_linear_attention_coeffs_bwd_dc.launches,
+            "masked_linear_coeffs_bwd_dc_reduce":
+                mlc.masked_linear_attention_coeffs_bwd_dc_reduce.launches}
+
+
+def _zero_counts(mlc) -> None:
+    for fn in (mlc.masked_linear_attention_coeffs_fwd,
+               mlc.masked_linear_attention_coeffs_bwd_dq,
+               mlc.masked_linear_attention_coeffs_bwd_dkv,
+               mlc.masked_linear_attention_coeffs_bwd_dc,
+               mlc.masked_linear_attention_coeffs_bwd_dc_reduce):
+        fn.launches = 0
+
+
+def train(mlc, card: str, profile: bool):
+    """Phase 5: ViT-B/16 trains TRAIN_STEPS steps of batch TRAIN_BATCH through
+    create_train_state / make_train_step, on the kernel path and on the
+    dense path from the same weights. Returns the launch counts of the
+    kernel path's run."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    cfg = mnist_config(**dict(VITB, batch_size=TRAIN_BATCH))
+    depth = VITB["depth"]
+    t0 = time.perf_counter()
+    models = {arm: create_model("performer_favor_most_general", cfg,
+                                rpe_config={"method": arm}, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+              for arm in ("pallas", "dense")}
+    initial = {k: v.clone() for k, v in models["pallas"].state_dict().items()}
+    steps = {arm: make_train_step(m) for arm, m in models.items()}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    size = VITB["image_size"]
+    x = torch.randn(TRAIN_BATCH, size, size, VITB["in_channels"], generator=g, device="cuda")
+    y = torch.randint(0, VITB["num_classes"], (TRAIN_BATCH,), generator=g, device="cuda")
+    log("train", f"ViT-B/16 performer_favor_most_general bf16, batch {TRAIN_BATCH}, "
+        f"optimizer {cfg.train.optimizer} / {cfg.train.scheduler} lr "
+        f"{cfg.train.learning_rate}; two models built in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+    def fresh(arm):
+        """The arm's model reset to the initial weights, with a new state."""
+        models[arm].load_state_dict(initial)
+        return create_train_state(models[arm], cfg, steps_per_epoch=100)
+
+    def one_step(arm, state):
+        state, loss, _ = steps[arm](state, x, y, torch.Generator(device="cuda").manual_seed(3))
+        return state, loss
+
+    def grads(arm):
+        missing = [n for n, p in models[arm].named_parameters() if p.grad is None]
+        if missing:
+            raise AssertionError(f"{arm} path: no gradient reached {missing}")
+        return {n: p.grad.detach().clone() for n, p in models[arm].named_parameters()}
+
+    # step 1 on the kernel path: launch counts, finite gradients
+    _zero_counts(mlc)
+    one_step("pallas", fresh("pallas"))
+    torch.cuda.synchronize()
+    counts = _counts(mlc)
+    log("train", f"kernel launches in one train step: {counts} (expected {depth} each)")
+    if any(n != depth for n in counts.values()):
+        raise AssertionError(f"expected {depth} launches of each kernel per step, got {counts}")
+    g1 = grads("pallas")
+    bad = [n for n, t in g1.items() if not bool(torch.isfinite(t).all())]
+    if bad:
+        raise AssertionError(f"non-finite gradients: {bad}")
+    log("train", f"all {len(g1)} parameter tensors have finite gradients")
+
+    # the main path's run: TRAIN_STEPS steps from the same weights, whose
+    # first step must give bitwise the same gradients
+    _zero_counts(mlc)
+    state, loss = one_step("pallas", fresh("pallas"))
+    differ = [n for n, t in grads("pallas").items() if not torch.equal(t, g1[n])]
+    if differ:
+        raise AssertionError(f"step-1 gradients differ between two runs: {differ}")
+    log("train", "step-1 gradients are bitwise identical across two runs")
+    losses = [loss]
+    for _ in range(TRAIN_STEPS - 1):
+        state, loss = one_step("pallas", state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = _counts(mlc)
+    expected = depth * TRAIN_STEPS
+    log("train", f"{TRAIN_STEPS} steps: kernel launches {launches} (expected {expected} each)")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"expected {expected} launches of each kernel, got {launches}")
+
+    # the dense path from the same weights
+    state_d, loss_d = one_step("dense", fresh("dense"))
+    gd = grads("dense")
+    rel = {n: ((g1[n].float() - gd[n].float()).norm()
+               / gd[n].float().norm().clamp_min(1e-30)).item() for n in g1}
+    worst = max(rel, key=rel.get)
+    for n in sorted(rel):
+        if "rel_pos_bias" in n or "attention.qkv" in n:
+            log("train", f"  grad {n}: ||kernel - dense|| / ||dense|| {rel[n]:.3e}")
+    log("train", f"step-1 gradients vs dense path: worst tensor {worst} at "
+        f"{rel[worst]:.3e} (tol {GRAD_REL_TOL}); median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e}")
+    if rel[worst] > GRAD_REL_TOL:
+        raise AssertionError(f"gradient of {worst} disagrees with the dense path")
+    losses_d = [loss_d]
+    for _ in range(TRAIN_STEPS - 1):
+        state_d, loss_d = one_step("dense", state_d)
+        losses_d.append(loss_d)
+    for i, (a, b) in enumerate(zip(losses, losses_d)):
+        log("train", f"step {i + 1}: loss kernel path {a.item():.6f}, dense path {b.item():.6f}")
+    if not all(bool(torch.isfinite(v)) for v in losses + losses_d):
+        raise AssertionError("a training loss is not finite")
+
+    # time per step: host clock around synchronised steps, after the warm-up above
+    for arm, st in (("pallas", state), ("dense", state_d)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            st, _ = one_step(arm, st)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TIMED_STEPS
+        log("train", f"{arm} KERPLE path: {dt * 1e3:.3f} ms/step of {TRAIN_BATCH}, "
+            f"{TRAIN_BATCH / dt:.1f} images/s on {card}")
+    log("train", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_step("one train step", lambda: one_step("pallas", state), card)
+    return launches
+
+
+def profile_step(what: str, run, card: str) -> None:
+    """Device time by kernel for one call of `run` (torch.profiler); only
     the device-side kernel events are summed, not the operators that
     launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x, y = request
-    step(x, y)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(x, y)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -255,16 +561,23 @@ def profile_step(step, request, card: str) -> None:
     if total == 0:
         log("profile", "the profiler recorded no device time (not measured)")
         return
-    log("profile", f"one batch: device busy {total:.1f} us of {wall_us:.1f} us wall "
+    log("profile", f"{what}: device busy {total:.1f} us of {wall_us:.1f} us wall "
         f"({100 * total / wall_us:.1f}%) on {card}")
-    for dev, count, key in sorted(rows, reverse=True)[:12]:
+    for dev, count, key in sorted(rows, reverse=True)[:16]:
         log("profile", f"{dev:10.1f} us {100 * dev / total:5.1f}% x{count:<4d} {key[:90]}")
+    groups = {}
+    for dev, count, key in rows:
+        group = next(g for g, hit in PROFILE_GROUPS if hit(key))
+        groups[group] = groups.get(group, 0.0) + dev
+    for group, dev in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log("profile", f"group {group}: {dev:.1f} us ({100 * dev / total:.1f}%)")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace one served batch with torch.profiler")
+                        help="trace one served batch and one train step with "
+                             "torch.profiler")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -298,24 +611,37 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     kernel = check_kernels(mlc)
+    kernel_bwd = check_bwd_kernels(mlc)
 
-    # 4. serve ViT-B/16
-    main_path_launches = serve(mlc, card, args.profile)
+    # 4. serve ViT-B/16; 5. train it
+    serve_launches = serve(mlc, card, args.profile)
+    train_launches = train(mlc, card, args.profile)
 
-    row = kernel["bfloat16"]
+    # one row per kernel and main path: its launches in that path's run, its
+    # times at that path's shape (serve B=32, train B=64)
+    pallas = "efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py"
+    src = "efficient_rpe_vit_torch/csrc"
+    fwd = ("masked_linear_coeffs_fwd", f"{src}/masked_linear_coeffs_fwd.cu", f"{pallas}:140")
+    rows = [(*fwd, "serve", kernel[("bfloat16", VITB["batch_size"])], serve_launches),
+            (*fwd, "train", kernel[("bfloat16", TRAIN_BATCH)],
+             train_launches["masked_linear_coeffs_fwd"])]
+    for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+        rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{pallas}:{line}",
+                     "train", kernel_bwd[name], train_launches[name]))
     print(json.dumps({"kernels": [{
-        "name": "masked_linear_coeffs_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "efficient_rpe_vit_torch/csrc/masked_linear_coeffs_fwd.cu",
-        "replaces": "efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py:140",
-        "launches": main_path_launches,
+        "source": source,
+        "replaces": replaces,
+        "path": path,
+        "launches": launches,
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    } for name, source, replaces, path, row, launches in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,8 +7,9 @@ easy to find; every Pallas kernel becomes a hand-written CUDA kernel under
 `csrc/`, bound in `ops/kernels/` beside its plain PyTorch version. The
 JAX package stays the reference: nothing here imports it.
 
-Entry points (`models.create_model`, `train.make_eval_step`) run on the
-GPU unless the caller passes `device="cpu"`.
+Entry points (`models.create_model`, `train.make_eval_step`,
+`train.make_train_step`) run on the GPU unless the caller passes
+`device="cpu"`.
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,19 @@
-"""Kernelised attention modules: FAVOR+ O(N) and ReLU O(N), forward only.
+"""Kernelised attention modules: FAVOR+ O(N) and ReLU O(N).
 
 Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
   * fused QKV projection, optional bias,
   * linear-attention scale d^-1/4 on both q and k, except under KERPLE,
     which L2-normalises q and k instead (clamp inside the sqrt),
   * raise on return_attention,
-  * Omega in the non-trainable buffer `omega` [heads, head_dim, m].
+  * Omega in the non-trainable buffer `omega` [heads, head_dim, m],
+  * optional feature redraw in train mode every `feature_redraw_interval`
+    calls, counted in the buffer `redraw_counter` (the JAX package's
+    'state' collection), Omega drawn from the caller's generator,
+  * phi recomputed in the backward (a checkpoint) once the fp32 phi of one
+    of q, k would exceed PHI_CHECKPOINT_BYTES,
+  * dropout on the output, masks from the caller's generator.
 
-The softmax module comes with the softmax slice; feature redraw with the
-training slice.
+The softmax module comes with the softmax slice.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (
     default_num_features,
@@ -27,11 +33,12 @@ from ..ops import (
     phi_relu,
 )
 from ..ops.feature_maps import mxu_num_features
-from .dense import Dense
+from .dense import Dense, Dropout
 from .rpe import KerpleRPE
 
-# Byte size past which the training step recomputes phi in the backward
-# instead of keeping it (used by the training slice).
+# Byte size of one fp32 phi (4 * B * H * N * m) past which phi(q) and phi(k)
+# are recomputed in the backward instead of keeping their fp32
+# intermediates (the JAX package's long-N memory guard); read at call time.
 PHI_CHECKPOINT_BYTES = 128 * 1024 ** 2
 
 
@@ -78,8 +85,11 @@ class _KernelAttention(nn.Module):
         self.feature_redraw_interval = feature_redraw_interval
         self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=compute_dtype)
         self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.register_buffer("omega", torch.empty(heads, self.head_dim, self.m))
+        if feature_redraw_interval is not None:
+            self.register_buffer("redraw_counter",
+                                 torch.zeros((), dtype=torch.int32))
 
     @property
     def head_dim(self) -> int:
@@ -100,13 +110,31 @@ class _KernelAttention(nn.Module):
                 else gaussian_features)
         return draw(generator, self.heads, self.head_dim, self.m)
 
-    def _phi(self, x: torch.Tensor) -> torch.Tensor:
+    def _phi(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         if self.feature_kind == "favor_plus":
-            return phi_positive(x, self.omega)
-        return phi_relu(x, self.omega)
+            return phi_positive(x, omega)
+        return phi_relu(x, omega)
+
+    def _phi_pair(self, q: torch.Tensor, k: torch.Tensor,
+                  omega: torch.Tensor):
+        return self._phi(q, omega), self._phi(k, omega)
+
+    @torch.no_grad()
+    def _maybe_redraw(self, generator: Optional[torch.Generator]) -> None:
+        """Train mode: redraw Omega on the calls where counter % interval ==
+        0 (the first call included), then count the call."""
+        if generator is None:
+            raise ValueError("feature redraw in train mode needs a generator: "
+                             "pass one to the model's forward")
+        # the host reads the counter (on the GPU, a sync per block and call)
+        # so that the QR draw runs only on the redraw calls
+        if int(self.redraw_counter) % self.feature_redraw_interval == 0:
+            self.omega.copy_(self.draw_omega(generator))
+        self.redraw_counter += 1
 
     def forward(self, x: torch.Tensor, rpe: Optional[nn.Module] = None,
-                return_attention: bool = False) -> torch.Tensor:
+                return_attention: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if return_attention:
             raise NotImplementedError(
                 "Linear attention doesn't compute explicit attention "
@@ -114,9 +142,7 @@ class _KernelAttention(nn.Module):
                 "computation."
             )
         if self.training and self.feature_redraw_interval is not None:
-            raise NotImplementedError(
-                "feature redraw is a training-time feature; it comes with "
-                "the training slice of the port")
+            self._maybe_redraw(generator)
         q, k, v = (_split_heads(t, self.heads)
                    for t in self.qkv(x).chunk(3, dim=-1))
 
@@ -129,12 +155,21 @@ class _KernelAttention(nn.Module):
             scale = self.head_dim ** -0.25  # d^-1/4 on both q and k
             q, k = q * scale, k * scale
 
-        q_prime, k_prime = self._phi(q), self._phi(k)
+        B, H, N, _ = q.shape
+        if torch.is_grad_enabled() and 4 * B * H * N * self.m > PHI_CHECKPOINT_BYTES:
+            # keep only q', k' (the attention core saves them anyway); phi's
+            # fp32 intermediates are recomputed in the backward. phi draws
+            # no random numbers, so no RNG state needs restoring.
+            q_prime, k_prime = checkpoint(self._phi_pair, q, k, self.omega,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+        else:
+            q_prime, k_prime = self._phi_pair(q, k, self.omega)
         if use_kerple:
             out = rpe.attention(q_prime, k_prime, v.contiguous())
         else:
             out = linear_attention(q_prime, k_prime, v)
-        return self.drop(self.proj(_merge_heads(out)))
+        return self.drop(self.proj(_merge_heads(out)), generator)
 
 
 class FavorPlusAttention(_KernelAttention):

@@ -14,23 +14,30 @@ import torch
 from torch import nn
 
 from .attention import ATTENTION_REGISTRY
-from .dense import Dense, LayerNorm
+from .dense import Dense, Dropout, LayerNorm
 from .rpe import RPE_REGISTRY
 
 
 class Mlp(nn.Sequential):
     """Linear -> GELU(exact erf) -> Dropout -> Linear -> Dropout; the
-    linears are `mlp.0` and `mlp.3` in a state dict."""
+    linears are `mlp.0` and `mlp.3` in a state dict. The dropout masks come
+    from the generator passed to forward."""
 
     def __init__(self, dim: int, mlp_dim: int, dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(
             Dense(dim, mlp_dim, compute_dtype=compute_dtype),
             nn.GELU(approximate="none"),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             Dense(mlp_dim, dim, compute_dtype=compute_dtype),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for layer in self:
+            x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+        return x
 
 
 class TransformerBlock(nn.Module):
@@ -58,6 +65,8 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-5, compute_dtype=compute_dtype)
         self.mlp = Mlp(dim, mlp_dim, dropout, compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.norm1(x), rpe=self.rpe)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` feeds dropout and feature redraw in train mode."""
+        x = x + self.attention(self.norm1(x), rpe=self.rpe, generator=generator)
+        return x + self.mlp(self.norm2(x), generator)

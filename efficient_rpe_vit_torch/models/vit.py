@@ -8,7 +8,8 @@ output in fp32. Images come in NHWC, as in the JAX package.
 
 Init (`reset_parameters`, from an explicit generator): Xavier-uniform
 linear weights / zero biases, unit LayerNorms, N(0, 0.02) for
-pos_embedding, cls_token and KERPLE biases, Omega drawn per block.
+pos_embedding, cls_token and KERPLE biases, Omega drawn per block (and
+the feature-redraw counters zeroed).
 """
 
 from __future__ import annotations
@@ -100,11 +101,18 @@ class ViT(nn.Module):
                 draw(nn.init.normal_, m.rel_pos_bias, 0.0, 0.02)
             elif isinstance(m, _KernelAttention):
                 m.omega.copy_(m.draw_omega(generator))
+                if m.feature_redraw_interval is not None:
+                    m.redraw_counter.zero_()
         draw(nn.init.normal_, self.cls_token, 0.0, 0.02)
         draw(nn.init.normal_, self.pos_embedding, 0.0, 0.02)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, H, W, C] float images -> [B, num_classes] fp32 logits."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, H, W, C] float images -> [B, num_classes] fp32 logits.
+
+        In train mode, dropout masks and redrawn random features come from
+        `generator` (on x's device), which is then required where either is
+        live; eval mode never draws."""
         B = x.shape[0]
         if tuple(x.shape[1:]) != (self.image_size, self.image_size,
                                   self.in_channels):
@@ -117,5 +125,5 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
         for block in self.transformer_blocks:
-            x = block(x)
+            x = block(x, generator)
         return self.mlp_head(x[:, 0].float())  # head in fp32

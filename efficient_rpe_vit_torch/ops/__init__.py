@@ -1,4 +1,4 @@
-from .fft_toeplitz import toeplitz_from_coeffs
+from .fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
 from .feature_maps import (
     default_num_features,
     gaussian_features,
@@ -11,9 +11,11 @@ from .attention_core import (
     EPS,
     linear_attention,
     kerple_linear_attention,
+    masked_linear_vjp_residual,
 )
 
 __all__ = [
+    "toeplitz_diag_sums",
     "toeplitz_from_coeffs",
     "default_num_features",
     "gaussian_features",
@@ -24,4 +26,5 @@ __all__ = [
     "EPS",
     "linear_attention",
     "kerple_linear_attention",
+    "masked_linear_vjp_residual",
 ]

@@ -11,20 +11,26 @@ Counterpart of `efficient_rpe_vit_tpu/ops/attention_core.py`:
 KERPLE dispatch. The JAX package's dense-vs-kernel constants were measured
 on its own accelerator and are not inherited: here `method` picks the arm
 explicitly, and `"auto"` means the hand-written kernel until measurements
-on the GPU set a real dispatch.
+on the GPU set a real dispatch. Both arms are differentiable with the
+explicit residual VJP (`masked_linear_vjp_residual`): the kernel arm through
+the backward kernels, the dense arm as plain tensor code over T.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from .fft_toeplitz import toeplitz_from_coeffs
 from .kernels.masked_linear_coeffs import (
     EPS,
+    kerple_dense_forward,
     masked_linear_attention_coeffs,
-    masked_linear_attention_coeffs_reference,
+    masked_linear_vjp_residual,
 )
 
-__all__ = ["EPS", "linear_attention", "kerple_linear_attention"]
+__all__ = ["EPS", "linear_attention", "kerple_linear_attention",
+           "masked_linear_vjp_residual"]
 
 
 def linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
@@ -49,6 +55,30 @@ def linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
     return (num / (den[..., None] + EPS)).to(v.dtype)
 
 
+class _KerpleDenseCore(torch.autograd.Function):
+    """Dense KERPLE over (q', k', v, T) whose backward is the residual VJP
+    from the saved (den, out), as the JAX package's `_kerple_dense_core`
+    custom VJP; autograd handles only the coeffs -> T gather."""
+
+    @staticmethod
+    def forward(ctx, q_prime, k_prime, v, t):
+        out, den = kerple_dense_forward(q_prime, k_prime, v, t)
+        ctx.save_for_backward(q_prime, k_prime, v, t, den, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return masked_linear_vjp_residual(*ctx.saved_tensors, g)
+
+
+def kerple_dense(q_prime: torch.Tensor, k_prime: torch.Tensor,
+                 v: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """The exact O(N^2) path: W = (q' k'^T) * T, out = W v / W 1."""
+    t = toeplitz_from_coeffs(coeffs.float(), q_prime.shape[2])  # [H, N, N]
+    return _KerpleDenseCore.apply(q_prime, k_prime, v, t)
+
+
 def kerple_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
                             v: torch.Tensor, coeffs: torch.Tensor,
                             method: str = "auto") -> torch.Tensor:
@@ -70,8 +100,7 @@ def kerple_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
     if method == "pallas":
         return masked_linear_attention_coeffs(q_prime, k_prime, v, coeffs)
     if method == "dense":
-        return masked_linear_attention_coeffs_reference(
-            q_prime, k_prime, v, coeffs)[0]
+        return kerple_dense(q_prime, k_prime, v, coeffs)
     if method == "fft":
         raise NotImplementedError(
             "KERPLE method='fft' (the streamed FFT path) is not ported yet; "

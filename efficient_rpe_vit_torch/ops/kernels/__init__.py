@@ -6,12 +6,16 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/`. CUDA sources live in
 
 from .masked_linear_coeffs import (
     masked_linear_attention_coeffs,
+    masked_linear_attention_coeffs_bwd,
+    masked_linear_attention_coeffs_bwd_reference,
     masked_linear_attention_coeffs_fwd,
     masked_linear_attention_coeffs_reference,
 )
 
 __all__ = [
     "masked_linear_attention_coeffs",
+    "masked_linear_attention_coeffs_bwd",
+    "masked_linear_attention_coeffs_bwd_reference",
     "masked_linear_attention_coeffs_fwd",
     "masked_linear_attention_coeffs_reference",
 ]

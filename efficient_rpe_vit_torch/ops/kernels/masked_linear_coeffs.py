@@ -1,52 +1,186 @@
-"""Coeffs-native Toeplitz-masked linear attention (KERPLE) forward.
+"""Coeffs-native Toeplitz-masked linear attention (KERPLE), forward and
+backward.
 
     out_i = sum_j c[j-i+N-1] (q'_i.k'_j) v_j / (den_i + eps),
     den_i = sum_j c[j-i+N-1] (q'_i.k'_j)
 
-Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`
-(`_fwd_kernel`). The kernel is hand-written CUDA C++ for sm_90a in
-`csrc/masked_linear_coeffs_fwd.cu`; it builds each Toeplitz tile from a
-window of the coefficient vector, so no [H, N, N] tensor exists.
+Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`:
+the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
+`csrc/masked_linear_coeffs_fwd.cu`; the backward `_bwd_impl` (`_dq_kernel`,
+`_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
+kernels in `csrc/masked_linear_coeffs_bwd.cu`. Each builds its Toeplitz
+tiles from a window of the coefficient vector, so no [H, N, N] tensor
+exists on the kernel path.
 
-The wrapper checks its inputs, then takes the plain version for CPU
-tensors and launches the kernel for CUDA tensors (never falling back).
-`masked_linear_attention_coeffs_fwd.launches` counts kernel launches.
+Every kernel has a wrapper that checks its inputs, takes the plain version
+for CPU tensors and launches the kernel for CUDA tensors (never falling
+back), and counts its launches in `<wrapper>.launches`. The plain versions
+(`*_reference`) sit beside them. `masked_linear_attention_coeffs` is the
+differentiable op: a `torch.autograd.Function` over the forward wrapper
+whose backward is `masked_linear_attention_coeffs_bwd`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from ..fft_toeplitz import toeplitz_from_coeffs
+from ..fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
 from ._build import load
 
 EPS = 1e-6  # denominator stabiliser, as in the JAX package
 
 _SOURCE = "masked_linear_coeffs_fwd"
+_BWD_SOURCE = "masked_linear_coeffs_bwd"
 _DTYPES = (torch.bfloat16, torch.float32)
+# rows per q / kv tile of the backward kernels (64 for bf16; 32 for fp32 so
+# that the dkv block fits in shared memory); the dc windows are
+# [H, n_t, n_t, 2 * tile - 1] with n_t = ceil(N / tile)
+BWD_TILE: Dict[torch.dtype, int] = {torch.bfloat16: 64, torch.float32: 32}
 
 
-def masked_linear_attention_coeffs_reference(
-        q_prime: torch.Tensor, k_prime: torch.Tensor, v: torch.Tensor,
-        coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel, with the same precision rule: scores and
-    weights in fp32, weights rounded to v's dtype for the value product
-    (fp32 accumulation), den in fp32.
+# ─── plain versions ─────────────────────────────────────────────────────
+
+def kerple_dense_forward(q_prime: torch.Tensor, k_prime: torch.Tensor,
+                         v: torch.Tensor, t: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward from a materialised Toeplitz matrix t [H, N, N], with the
+    kernel's precision rule: scores and weights in fp32, weights rounded to
+    v's dtype for the value product (fp32 accumulation), den in fp32.
 
     Returns:
         (out [B, H, N, D] in v's dtype, den [B, H, N] fp32).
     """
-    n = q_prime.shape[2]
-    t = toeplitz_from_coeffs(coeffs.float(), n)  # [H, N, N]
     w = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float()) * t
     num = torch.einsum("bhij,bhjd->bhid", w.to(v.dtype).float(), v.float())
     den = w.sum(dim=-1)
     return (num / (den[..., None] + EPS)).to(v.dtype), den
 
+
+def masked_linear_attention_coeffs_reference(
+        q_prime: torch.Tensor, k_prime: torch.Tensor, v: torch.Tensor,
+        coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel.
+
+    Returns:
+        (out [B, H, N, D] in v's dtype, den [B, H, N] fp32).
+    """
+    t = toeplitz_from_coeffs(coeffs.float(), q_prime.shape[2])  # [H, N, N]
+    return kerple_dense_forward(q_prime, k_prime, v, t)
+
+
+def kerple_bwd_residuals(den: torch.Tensor, out: torch.Tensor,
+                         g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gn = g / (den + eps) rounded to g's dtype, and s = sum(g * out) / (den
+    + eps) with the product and its sum in g's dtype, divided in fp32 (the
+    JAX `_bwd_impl` rule: gn at the cotangent dtype keeps every gn product
+    in that dtype; s stays fp32, it is only used elementwise)."""
+    gn = (g.float() / (den[..., None] + EPS)).to(g.dtype)
+    s = (g * out).sum(dim=-1) / (den + EPS)
+    return gn, s
+
+
+def masked_linear_vjp_residual(q_prime, k_prime, v, t, den, out, g):
+    """VJP of Toeplitz-masked linear attention from the saved (den, out)
+    residuals, without recomputing the forward:
+
+        dW = gn v^T - s, dA = dW*T, dT = sum_b dW*A,
+        dq' = dA k', dk' = dA^T q', dv = (A*T)^T gn.
+
+    Counterpart of `efficient_rpe_vit_tpu/ops/attention_core.py::
+    masked_linear_vjp_residual`, with its precision rule: every product
+    operand in the input dtype (dA and A*T rounded to it), fp32
+    accumulation, dT in fp32.
+
+    Returns:
+        (dq' [B,H,N,F], dk' [B,H,N,F], dv [B,H,N,D] in the input dtypes,
+        dT [H,N,N] in t's dtype).
+    """
+    gn, s = kerple_bwd_residuals(den, out, g)
+    a = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float())
+    dw = torch.einsum("bhid,bhjd->bhij", gn.float(), v.float()) - s[..., None]
+    da = (dw * t).to(q_prime.dtype).float()
+    dt = (dw * a).sum(dim=0)
+    dq = torch.einsum("bhij,bhjf->bhif", da, k_prime.float()).to(q_prime.dtype)
+    dk = torch.einsum("bhij,bhif->bhjf", da, q_prime.float()).to(k_prime.dtype)
+    dv = torch.einsum("bhij,bhid->bhjd", (a * t).to(gn.dtype).float(),
+                      gn.float()).to(v.dtype)
+    return dq, dk, dv, dt.to(t.dtype)
+
+
+def masked_linear_attention_coeffs_bwd_reference(
+        q_prime, k_prime, v, coeffs, den, out, g):
+    """Plain version of the backward: the residual VJP, then dcoeffs as the
+    diagonal sums of dT.
+
+    Returns:
+        (dq' , dk', dv in the input dtypes, dcoeffs [H, 2N-1] fp32).
+    """
+    t = toeplitz_from_coeffs(coeffs.float(), q_prime.shape[2])
+    dq, dk, dv, dt = masked_linear_vjp_residual(q_prime, k_prime, v, t, den,
+                                                out, g)
+    return dq, dk, dv, toeplitz_diag_sums(dt)
+
+
+def _dw(gn, s, v):
+    """dW = gn v^T - s, fp32 [B, H, N, N]."""
+    return torch.einsum("bhid,bhjd->bhij", gn.float(), v.float()) - s[..., None]
+
+
+def masked_linear_attention_coeffs_bwd_dq_reference(gn, s, v, k_prime, coeffs):
+    """Plain version of the dq kernel: dq' = round(dW*T) k'."""
+    t = toeplitz_from_coeffs(coeffs.float(), k_prime.shape[2])
+    da = (_dw(gn, s, v) * t).to(k_prime.dtype).float()
+    return torch.einsum("bhij,bhjf->bhif", da, k_prime.float()).to(k_prime.dtype)
+
+
+def masked_linear_attention_coeffs_bwd_dkv_reference(gn, s, v, q_prime,
+                                                     k_prime, coeffs):
+    """Plain version of the dkv kernel: dk' = round(dW*T)^T q',
+    dv = round(A*T)^T gn."""
+    t = toeplitz_from_coeffs(coeffs.float(), k_prime.shape[2])
+    da = (_dw(gn, s, v) * t).to(q_prime.dtype).float()
+    dk = torch.einsum("bhij,bhif->bhjf", da, q_prime.float()).to(k_prime.dtype)
+    a = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float())
+    dv = torch.einsum("bhij,bhid->bhjd", (a * t).to(gn.dtype).float(),
+                      gn.float()).to(v.dtype)
+    return dk, dv
+
+
+def masked_linear_attention_coeffs_bwd_dc_reference(gn, s, v, q_prime, k_prime):
+    """Plain version of the dc kernel: the diagonal sums of every
+    [tile, tile] block of dT = sum_b dW*A, [H, n_t, n_t, 2*tile-1] fp32 with
+    window index m = b - a + tile - 1."""
+    tile = BWD_TILE[q_prime.dtype]
+    a = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float())
+    dt = (_dw(gn, s, v) * a).sum(dim=0)  # [H, N, N]
+    H, n = dt.shape[0], dt.shape[-1]
+    n_t = -(-n // tile)
+    pad = n_t * tile - n
+    blocks = F.pad(dt, (0, pad, 0, pad)).reshape(H, n_t, tile, n_t, tile)
+    return toeplitz_diag_sums(blocks.transpose(2, 3))
+
+
+def masked_linear_attention_coeffs_bwd_dc_reduce_reference(windows, n: int):
+    """Plain version of the reduce kernel: add every tile pair's window into
+    dcoeffs [H, 2n-1] at offset base = (jk - iq) * tile + n - tile."""
+    H, n_t, _, win = windows.shape
+    tile = (win + 1) // 2
+    buf = windows.new_zeros(H, (2 * n_t - 2) * tile + win)
+    for iq in range(n_t):
+        for jk in range(n_t):
+            o = (jk - iq + n_t - 1) * tile
+            buf[:, o:o + win] += windows[:, iq, jk]
+    start = n_t * tile - n
+    return buf[:, start:start + 2 * n - 1]
+
+
+# ─── input checks and launches ──────────────────────────────────────────
 
 def _check_inputs(q_prime, k_prime, v, coeffs) -> None:
     tensors = {"q_prime": q_prime, "k_prime": k_prime, "v": v,
@@ -79,6 +213,52 @@ def _check_inputs(q_prime, k_prime, v, coeffs) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_bwd_inputs(gn, s, v, k_prime, q_prime=None, coeffs=None) -> None:
+    """Inputs of the backward kernels: gn and v [B, H, N, D], q' and k'
+    [B, H, N, F] in one dtype, s [B, H, N] and coeffs [H, 2N-1] in fp32, all
+    contiguous and on one device."""
+    if v.dim() != 4:
+        raise ValueError("v must be [B, H, N, D]")
+    B, H, N, _ = v.shape
+    feats = {"k_prime": k_prime, **({} if q_prime is None else {"q_prime": q_prime})}
+    tensors = {"gn": gn, "s": s, "v": v, **feats,
+               **({} if coeffs is None else {"coeffs": coeffs})}
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {devices}")
+    if gn.shape != v.shape:
+        raise ValueError(f"gn {tuple(gn.shape)} != v {tuple(v.shape)}")
+    if s.shape != (B, H, N):
+        raise ValueError(f"s must be [B, H, N] = {(B, H, N)}, got {tuple(s.shape)}")
+    for name, t in feats.items():
+        if t.dim() != 4 or t.shape[:3] != (B, H, N) or t.shape != k_prime.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match v "
+                             f"{tuple(v.shape)} in [B, H, N]")
+    if coeffs is not None and coeffs.shape != (H, 2 * N - 1):
+        raise ValueError(f"coeffs must be [H, 2N-1] = [{H}, {2 * N - 1}], "
+                         f"got {tuple(coeffs.shape)}")
+    if len({gn.dtype, v.dtype, *(t.dtype for t in feats.values())}) != 1:
+        raise TypeError("gn, v, q_prime and k_prime must share a dtype")
+    if v.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {v.dtype}: bfloat16 or float32")
+    for name, t in (("s", s), ("coeffs", coeffs)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version); raises for devices other than
+    CPU and CUDA."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
 @functools.cache
 def _kernel_fns():
     lib = load(_SOURCE)
@@ -90,6 +270,48 @@ def _kernel_fns():
     lib.mlc_error_string.restype = ctypes.c_char_p
     return lib
 
+
+@functools.cache
+def _bwd_kernel_fns():
+    lib = load(_BWD_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for suffix in ("bf16", "f32"):
+        getattr(lib, f"mlc_bwd_dq_{suffix}").argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        getattr(lib, f"mlc_bwd_dkv_{suffix}").argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        getattr(lib, f"mlc_bwd_dc_{suffix}").argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        for kind in ("dq", "dkv", "dc"):
+            getattr(lib, f"mlc_bwd_{kind}_{suffix}").restype = i32
+    lib.mlc_bwd_dc_reduce.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.mlc_bwd_dc_reduce.restype = i32
+    lib.mlc_bwd_tile.argtypes = [i32]
+    lib.mlc_bwd_tile.restype = i32
+    lib.mlc_bwd_error_string.argtypes = [i32]
+    lib.mlc_bwd_error_string.restype = ctypes.c_char_p
+    for dtype, tile in BWD_TILE.items():
+        built = lib.mlc_bwd_tile(int(dtype == torch.bfloat16))
+        if built != tile:
+            raise RuntimeError(f"{_BWD_SOURCE}.cu tiles {dtype} by {built} "
+                               f"rows, the wrapper expects {tile}")
+    return lib
+
+
+def _launch(lib, errors, name: str, fn, tensors, ints) -> None:
+    """Call one C launcher on the current stream of the tensors' device;
+    raise if the launch was refused."""
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch refused at {ints}: CUDA error "
+                           f"{err} ({errors(err).decode()})")
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+# ─── forward ────────────────────────────────────────────────────────────
 
 def masked_linear_attention_coeffs_fwd(
         q_prime: torch.Tensor, k_prime: torch.Tensor, v: torch.Tensor,
@@ -112,26 +334,17 @@ def masked_linear_attention_coeffs_fwd(
         kernel launch is refused.
     """
     _check_inputs(q_prime, k_prime, v, coeffs)
-    if q_prime.device.type == "cpu":
+    if _on_cpu(q_prime):
         return masked_linear_attention_coeffs_reference(
             q_prime, k_prime, v, coeffs)
-    if q_prime.device.type != "cuda":
-        raise ValueError(f"unsupported device {q_prime.device}")
-    B, H, N, F = q_prime.shape
+    B, H, N, F_ = q_prime.shape
     D = v.shape[-1]
     lib = _kernel_fns()
     out = torch.empty_like(v)
     den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
-    fn = lib.mlc_fwd_bf16 if q_prime.dtype == torch.bfloat16 else lib.mlc_fwd_f32
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(q_prime.data_ptr(), k_prime.data_ptr(), v.data_ptr(),
-                 coeffs.data_ptr(), out.data_ptr(), den.data_ptr(),
-                 B, H, N, F, D, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"masked_linear_coeffs_fwd launch refused at F={F}, D={D}: CUDA "
-            f"error {err} ({lib.mlc_error_string(err).decode()})")
+    _launch(lib, lib.mlc_error_string, "masked_linear_coeffs_fwd",
+            getattr(lib, f"mlc_fwd_{_suffix(v.dtype)}"),
+            (q_prime, k_prime, v, coeffs, out, den), (B, H, N, F_, D))
     masked_linear_attention_coeffs_fwd.launches += 1
     return out, den
 
@@ -139,9 +352,156 @@ def masked_linear_attention_coeffs_fwd(
 masked_linear_attention_coeffs_fwd.launches = 0
 
 
+# ─── backward kernels ───────────────────────────────────────────────────
+
+def masked_linear_attention_coeffs_bwd_dq(gn, s, v, k_prime, coeffs):
+    """dq' = round(dW*T) k' ([B, H, N, F] in k's dtype) from gn, s
+    (`kerple_bwd_residuals`), v, k' and coeffs. Replaces `_dq_kernel`."""
+    _check_bwd_inputs(gn, s, v, k_prime, coeffs=coeffs)
+    if _on_cpu(v):
+        return masked_linear_attention_coeffs_bwd_dq_reference(
+            gn, s, v, k_prime, coeffs)
+    B, H, N, F_ = k_prime.shape
+    lib = _bwd_kernel_fns()
+    dq = torch.empty_like(k_prime)
+    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dq",
+            getattr(lib, f"mlc_bwd_dq_{_suffix(v.dtype)}"),
+            (gn, s, v, k_prime, coeffs, dq), (B, H, N, F_, v.shape[-1]))
+    masked_linear_attention_coeffs_bwd_dq.launches += 1
+    return dq
+
+
+def masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q_prime, k_prime, coeffs):
+    """(dk' = round(dW*T)^T q', dv = round(A*T)^T gn) in the input dtype.
+    Replaces `_dkv_kernel`."""
+    _check_bwd_inputs(gn, s, v, k_prime, q_prime, coeffs)
+    if _on_cpu(v):
+        return masked_linear_attention_coeffs_bwd_dkv_reference(
+            gn, s, v, q_prime, k_prime, coeffs)
+    B, H, N, F_ = k_prime.shape
+    lib = _bwd_kernel_fns()
+    dk = torch.empty_like(k_prime)
+    dv = torch.empty_like(v)
+    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dkv",
+            getattr(lib, f"mlc_bwd_dkv_{_suffix(v.dtype)}"),
+            (gn, s, v, q_prime, k_prime, coeffs, dk, dv),
+            (B, H, N, F_, v.shape[-1]))
+    masked_linear_attention_coeffs_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def masked_linear_attention_coeffs_bwd_dc(gn, s, v, q_prime, k_prime):
+    """Per tile pair, the diagonal sums of sum_b dW*A: windows
+    [H, n_t, n_t, 2*tile-1] fp32 (tile = BWD_TILE[dtype]). Replaces
+    `_dc_kernel`."""
+    _check_bwd_inputs(gn, s, v, k_prime, q_prime)
+    if _on_cpu(v):
+        return masked_linear_attention_coeffs_bwd_dc_reference(
+            gn, s, v, q_prime, k_prime)
+    B, H, N, F_ = k_prime.shape
+    tile = BWD_TILE[v.dtype]
+    n_t = -(-N // tile)
+    lib = _bwd_kernel_fns()
+    windows = torch.empty((H, n_t, n_t, 2 * tile - 1), dtype=torch.float32,
+                          device=v.device)
+    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc",
+            getattr(lib, f"mlc_bwd_dc_{_suffix(v.dtype)}"),
+            (gn, s, v, q_prime, k_prime, windows), (B, H, N, F_, v.shape[-1]))
+    masked_linear_attention_coeffs_bwd_dc.launches += 1
+    return windows
+
+
+def masked_linear_attention_coeffs_bwd_dc_reduce(windows: torch.Tensor,
+                                                 n: int) -> torch.Tensor:
+    """Windows [H, n_t, n_t, 2*tile-1] -> dcoeffs [H, 2n-1] fp32, summed in
+    a fixed order (no atomics). Replaces `_scatter_windows`."""
+    if windows.dim() != 4 or windows.shape[1] != windows.shape[2] \
+            or windows.shape[3] % 2 != 1:
+        raise ValueError(f"windows must be [H, n_t, n_t, 2*tile-1], got "
+                         f"{tuple(windows.shape)}")
+    H, n_t, _, win = windows.shape
+    tile = (win + 1) // 2
+    if n_t != -(-n // tile):
+        raise ValueError(f"{n_t} tiles of {tile} rows do not cover n={n}")
+    if windows.dtype != torch.float32 or not windows.is_contiguous():
+        raise ValueError("windows must be contiguous float32")
+    if _on_cpu(windows):
+        return masked_linear_attention_coeffs_bwd_dc_reduce_reference(windows, n)
+    lib = _bwd_kernel_fns()
+    dcoeffs = torch.empty((H, 2 * n - 1), dtype=torch.float32,
+                          device=windows.device)
+    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc_reduce",
+            lib.mlc_bwd_dc_reduce, (windows, dcoeffs), (H, n, tile))
+    masked_linear_attention_coeffs_bwd_dc_reduce.launches += 1
+    return dcoeffs
+
+
+for _fn in (masked_linear_attention_coeffs_bwd_dq,
+            masked_linear_attention_coeffs_bwd_dkv,
+            masked_linear_attention_coeffs_bwd_dc,
+            masked_linear_attention_coeffs_bwd_dc_reduce):
+    _fn.launches = 0
+del _fn
+
+
+def masked_linear_attention_coeffs_bwd(q_prime, k_prime, v, coeffs, den, out, g):
+    """Backward of the KERPLE forward from its saved (den, out).
+
+    Args:
+        q_prime, k_prime, v, coeffs: the forward's inputs.
+        den [B, H, N] fp32, out [B, H, N, D]: the forward's outputs.
+        g: [B, H, N, D] cotangent of out, in v's dtype, contiguous.
+    Returns:
+        (dq', dk', dv in the input dtypes, dcoeffs [H, 2N-1] fp32).
+        CPU tensors take the plain version; CUDA tensors launch the dq, dkv,
+        dc and reduce kernels.
+    """
+    _check_inputs(q_prime, k_prime, v, coeffs)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != v.shape or t.dtype != v.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {v.dtype} tensor "
+                             f"of v's shape {tuple(v.shape)}")
+    if den.shape != v.shape[:3] or den.dtype != torch.float32:
+        raise ValueError("den must be [B, H, N] float32")
+    if _on_cpu(v):
+        return masked_linear_attention_coeffs_bwd_reference(
+            q_prime, k_prime, v, coeffs, den, out, g)
+    gn, s = kerple_bwd_residuals(den, out, g)
+    dq = masked_linear_attention_coeffs_bwd_dq(gn, s, v, k_prime, coeffs)
+    dk, dv = masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q_prime,
+                                                    k_prime, coeffs)
+    windows = masked_linear_attention_coeffs_bwd_dc(gn, s, v, q_prime, k_prime)
+    dcoeffs = masked_linear_attention_coeffs_bwd_dc_reduce(windows, v.shape[2])
+    return dq, dk, dv, dcoeffs
+
+
+# ─── the differentiable op ──────────────────────────────────────────────
+
+class _MaskedLinearCoeffs(torch.autograd.Function):
+    """Forward kernel; backward kernels from the saved (den, out)."""
+
+    @staticmethod
+    def forward(ctx, q_prime, k_prime, v, coeffs):
+        out, den = masked_linear_attention_coeffs_fwd(q_prime, k_prime, v, coeffs)
+        ctx.save_for_backward(q_prime, k_prime, v, coeffs, den, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # the cotangent arrives through the head merge's transpose
+        return masked_linear_attention_coeffs_bwd(*ctx.saved_tensors,
+                                                  g.contiguous())
+
+
 def masked_linear_attention_coeffs(q_prime: torch.Tensor,
                                    k_prime: torch.Tensor, v: torch.Tensor,
                                    coeffs: torch.Tensor) -> torch.Tensor:
-    """`masked_linear_attention_coeffs_fwd` without the denominator:
-    [B, H, N, D] in v's dtype."""
-    return masked_linear_attention_coeffs_fwd(q_prime, k_prime, v, coeffs)[0]
+    """Differentiable KERPLE attention, [B, H, N, D] in v's dtype; its
+    backward is `masked_linear_attention_coeffs_bwd`.
+
+    Without autograd (inference mode, no_grad, or no input that needs a
+    gradient) autograd records no node and drops what the forward saved, so
+    this is one forward launch and keeps nothing.
+    """
+    return _MaskedLinearCoeffs.apply(q_prime, k_prime, v, coeffs)

@@ -1,10 +1,11 @@
 """Load the JAX package's flax variables into the port's ViT.
 
-`params` and `constants` are the JAX model's variable collections as
-nested dicts of arrays (numpy arrays, or anything `numpy.asarray` takes).
-Dense kernels [in, out] become Linear weights [out, in], LayerNorm
-`scale` becomes `weight`, and Omega is copied from `constants`, never
-redrawn. The names produced are the reference torch naming that
+`params`, `constants` and `state` are the JAX model's variable collections
+as nested dicts of arrays (numpy arrays, or anything `numpy.asarray`
+takes). Dense kernels [in, out] become Linear weights [out, in], LayerNorm
+`scale` becomes `weight`, Omega is copied from `constants`, never redrawn,
+and the feature-redraw counters come from `state`. The names produced are
+the reference torch naming that
 `efficient_rpe_vit_tpu.utils.import_torch.state_dict_to_params` maps back.
 """
 
@@ -22,9 +23,10 @@ def _tensor(a) -> torch.Tensor:
 
 
 def flax_to_state_dict(params: Mapping[str, Any],
-                       constants: Optional[Mapping[str, Any]] = None
+                       constants: Optional[Mapping[str, Any]] = None,
+                       state: Optional[Mapping[str, Any]] = None
                        ) -> Dict[str, torch.Tensor]:
-    """flax (params, constants) -> reference-named torch state dict."""
+    """flax (params, constants, state) -> reference-named torch state dict."""
     sd: Dict[str, torch.Tensor] = {}
 
     def dense(prefix: str, p: Mapping[str, Any]) -> None:
@@ -54,6 +56,10 @@ def flax_to_state_dict(params: Mapping[str, Any],
         if constants is not None and f"block_{i}" in constants:
             sd[pre + "attention.omega"] = _tensor(
                 constants[f"block_{i}"]["attention"]["omega"])
+        if state is not None and f"block_{i}" in state:
+            sd[pre + "attention.redraw_counter"] = torch.from_numpy(np.array(
+                state[f"block_{i}"]["attention"]["redraw_counter"],
+                dtype=np.int32))
         i += 1
     norm("mlp_head.0", params["head_norm"])
     dense("mlp_head.1", params["head"])
@@ -61,8 +67,11 @@ def flax_to_state_dict(params: Mapping[str, Any],
 
 
 def load_flax_variables(model: nn.Module, params: Mapping[str, Any],
-                        constants: Optional[Mapping[str, Any]] = None) -> nn.Module:
-    """Copy flax variables into `model` (strict: every parameter and Omega
-    buffer must be covered, with matching shapes). Returns the model."""
-    model.load_state_dict(flax_to_state_dict(params, constants), strict=True)
+                        constants: Optional[Mapping[str, Any]] = None,
+                        state: Optional[Mapping[str, Any]] = None) -> nn.Module:
+    """Copy flax variables into `model` (strict: every parameter, Omega
+    buffer and redraw counter must be covered, with matching shapes).
+    Returns the model."""
+    model.load_state_dict(flax_to_state_dict(params, constants, state),
+                          strict=True)
     return model

@@ -130,3 +130,223 @@ def test_kernel_source_is_in_the_package():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path(mlc._SOURCE)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+# ─── backward ───────────────────────────────────────────────────────────
+#
+# The port's plain backward against jax.grad of the JAX package's Pallas op
+# (interpret mode, 128-blocks, as tests/test_pallas_kernels.py runs it) at
+# that file's fp32 tolerance, and against the JAX dense VJP at a ragged N.
+
+import jax  # noqa: E402
+
+from efficient_rpe_vit_tpu.ops import attention_core as jax_core  # noqa: E402
+
+
+def _cotangent(seed, B, H, N, D):
+    return np.random.default_rng(seed).normal(size=(B, H, N, D)).astype(np.float32)
+
+
+def _port_bwd(qp, kp, v, coeffs, g, dtype=torch.float32):
+    t = [torch.from_numpy(a).to(dtype) for a in (qp, kp, v)]
+    c = torch.from_numpy(coeffs)
+    out, den = mlc.masked_linear_attention_coeffs_fwd(*t, c)
+    return mlc.masked_linear_attention_coeffs_bwd(
+        *t, c, den, out, torch.from_numpy(g).to(dtype))
+
+
+def _jax_grads(fn, qp, kp, v, coeffs, g):
+    return jax.grad(lambda *a: jnp.vdot(fn(*a), jnp.asarray(g)),
+                    argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (qp, kp, v, coeffs)))
+
+
+def test_plain_backward_matches_jax_pallas_backward():
+    shape = (2, 2, 197, 44, 16)
+    qp, kp, v, coeffs = _inputs(3, *shape)
+    g = _cotangent(4, 2, 2, 197, 16)
+    got = _port_bwd(qp, kp, v, coeffs, g)
+    want = _jax_grads(lambda *a: jax_mlc(*a, 128, 128, True), qp, kp, v, coeffs, g)
+    assert got[3].dtype == torch.float32 and got[3].shape == (2, 393)
+    for name, a, b in zip(("dq'", "dk'", "dv", "dcoeffs"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **FP32_TOL)
+
+
+def test_plain_backward_matches_jax_dense_vjp_ragged():
+    qp, kp, v, coeffs = _inputs(5, 3, 2, 17, 44, 16)
+    g = _cotangent(6, 3, 2, 17, 16)
+    got = _port_bwd(qp, kp, v, coeffs, g)
+    want = _jax_grads(jax_core._kerple_dense, qp, kp, v, coeffs, g)
+    for name, a, b in zip(("dq'", "dk'", "dv", "dcoeffs"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **FP32_TOL)
+
+
+def test_plain_backward_matches_jax_dense_vjp_bf16():
+    """bf16 inputs: gn, dA and A*T are rounded to bf16 where the JAX VJP
+    rounds them; dcoeffs are fp32 sums in both."""
+    qp, kp, v, coeffs = _inputs(7, 2, 2, 50, 44, 16)
+    g = _cotangent(8, 2, 2, 50, 16)
+    got = _port_bwd(qp, kp, v, coeffs, g, torch.bfloat16)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3 + [torch.float32]
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    want = jax.grad(lambda q, k, vv, c: jnp.vdot(
+        jax_core._kerple_dense(q, k, vv, c).astype(jnp.float32), jnp.asarray(g)),
+        argnums=(0, 1, 2, 3))(bf(qp), bf(kp), bf(v), jnp.asarray(coeffs))
+    for name, a, b in zip(("dq'", "dk'", "dv", "dcoeffs"), got, want):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b.astype(jnp.float32)),
+                                   err_msg=name, **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [17, 130])
+def test_per_kernel_plain_versions_compose_to_the_backward(n, dtype):
+    """The plain versions of the dq, dkv, dc and reduce kernels, chained as
+    the CUDA path chains the kernels, give the plain backward; the dc
+    windows use the dtype's tile (BWD_TILE) and the ragged last tile."""
+    qp, kp, v, coeffs = (torch.from_numpy(a) for a in _inputs(9, 2, 3, n, 20, 8))
+    qp, kp, v = qp.to(dtype), kp.to(dtype), v.to(dtype)
+    g = torch.from_numpy(_cotangent(10, 2, 3, n, 8)).to(dtype)
+    out, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, v, coeffs)
+    want = mlc.masked_linear_attention_coeffs_bwd_reference(qp, kp, v, coeffs, den, out, g)
+    gn, s = mlc.kerple_bwd_residuals(den, out, g)
+    dq = mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, kp, coeffs)
+    dk, dv = mlc.masked_linear_attention_coeffs_bwd_dkv(gn, s, v, qp, kp, coeffs)
+    windows = mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, qp, kp)
+    tile = mlc.BWD_TILE[dtype]
+    n_t = -(-n // tile)
+    assert windows.shape == (3, n_t, n_t, 2 * tile - 1)
+    dc = mlc.masked_linear_attention_coeffs_bwd_dc_reduce(windows, n)
+    for a, b in zip((dq, dk, dv), want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # dcoeffs: the same fp32 products summed in another order
+    torch.testing.assert_close(dc, want[3], rtol=1e-5, atol=1e-5)
+
+
+def test_dc_windows_follow_the_forward_window_convention():
+    """Window m of tile pair (iq, jk) is coefficient
+    (jk - iq) * tile + N - tile + m: a dT that is 1 on one element (i, j)
+    and 0 elsewhere puts its 1 at coefficient j - i + N - 1."""
+    n, tile = 70, mlc.BWD_TILE[torch.float32]
+    windows = torch.zeros(1, 3, 3, 2 * tile - 1)
+    i, j = 40, 5  # tile pair (1, 0), local (a, b) = (8, 5)
+    windows[0, 1, 0, 5 - 8 + tile - 1] = 1.0
+    dc = mlc.masked_linear_attention_coeffs_bwd_dc_reduce(windows, n)
+    assert dc.shape == (1, 2 * n - 1)
+    assert dc[0, j - i + n - 1] == 1.0 and dc.sum() == 1.0
+
+
+def _bwd_bad_inputs():
+    gn, s, v, kp, qp, coeffs = _bwd_good()
+    cases = {
+        "s_dtype": (gn, s.double(), v, kp, qp, coeffs),
+        "gn_shape": (gn[:, :, :-1], s, v, kp, qp, coeffs),
+        "q_shape": (gn, s, v, kp, qp[..., :-1], coeffs),
+        "coeffs_length": (gn, s, v, kp, qp, coeffs[:, :-1]),
+        "mixed_dtype": (gn.to(torch.bfloat16), s, v, kp, qp, coeffs),
+        "non_contiguous": (gn, s, v, kp.transpose(2, 3).contiguous().transpose(2, 3),
+                           qp, coeffs),
+        "meta_device": (gn.to("meta"), s.to("meta"), v.to("meta"), kp.to("meta"),
+                        qp.to("meta"), coeffs.to("meta")),
+    }
+    return cases
+
+
+def _bwd_good(dtype=torch.float32):
+    qp, kp, v, coeffs = (torch.from_numpy(a) for a in _inputs(11, 1, 2, 9, 8, 4))
+    qp, kp, v = qp.to(dtype), kp.to(dtype), v.to(dtype)
+    g = torch.from_numpy(_cotangent(12, 1, 2, 9, 4)).to(dtype)
+    out, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, v, coeffs)
+    gn, s = mlc.kerple_bwd_residuals(den, out, g)
+    return gn, s, v, kp, qp, coeffs
+
+
+@pytest.mark.parametrize("case", sorted(_bwd_bad_inputs()))
+def test_backward_wrappers_reject_bad_inputs(case):
+    """Each backward wrapper rejects every malformed input it takes."""
+    gn, s, v, kp, qp, coeffs = _bwd_bad_inputs()[case]
+    calls = {
+        "dq": lambda: mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, kp, coeffs),
+        "dkv": lambda: mlc.masked_linear_attention_coeffs_bwd_dkv(gn, s, v, qp, kp, coeffs),
+        "dc": lambda: mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, qp, kp),
+    }
+    takes = {"q_shape": ("dkv", "dc"), "coeffs_length": ("dq", "dkv")}
+    for name in takes.get(case, calls):
+        with pytest.raises((ValueError, TypeError)):
+            calls[name]()
+
+
+def test_dc_reduce_checks_its_windows():
+    reduce = mlc.masked_linear_attention_coeffs_bwd_dc_reduce
+    ok = torch.zeros(1, 3, 3, 63)  # three 32-row tiles cover n = 70
+    assert reduce(ok, 70).shape == (1, 139)
+    for bad in (torch.zeros(1, 3, 2, 63), torch.zeros(1, 3, 3, 62),
+                torch.zeros(1, 2, 2, 63), torch.zeros(3, 63), ok.double(),
+                torch.zeros(1, 3, 63, 3).transpose(2, 3)):
+        with pytest.raises(ValueError):
+            reduce(bad, 70)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_launch_counts_do_not_move_on_cpu(dtype):
+    fns = (mlc.masked_linear_attention_coeffs_bwd_dq,
+           mlc.masked_linear_attention_coeffs_bwd_dkv,
+           mlc.masked_linear_attention_coeffs_bwd_dc,
+           mlc.masked_linear_attention_coeffs_bwd_dc_reduce)
+    before = [f.launches for f in fns]
+    qp, kp, v, coeffs = _good(dtype)
+    out, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, v, coeffs)
+    dq, dk, dv, dc = mlc.masked_linear_attention_coeffs_bwd(
+        qp, kp, v, coeffs, den, out, torch.ones_like(out))
+    assert (dq.dtype, dk.dtype, dv.dtype, dc.dtype) == (dtype,) * 3 + (torch.float32,)
+    assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_matches_dense_arm(dtype):
+    """The differentiable op (the autograd Function over the kernel wrapper,
+    here on its plain version) and the dense arm's Function give the same
+    output and q', k', v gradients bit for bit, and the same bias gradient
+    up to summation order; the cotangent arrives non-contiguous, as it does
+    through the head merge."""
+    from efficient_rpe_vit_torch.ops import kerple_linear_attention
+
+    base = [torch.from_numpy(a) for a in _inputs(13, 2, 3, 40, 20, 8)]
+    g = torch.from_numpy(_cotangent(14, 2, 40, 3, 8)).to(dtype).transpose(1, 2)
+    results = {}
+    for method in ("pallas", "dense"):
+        qp, kp, v = (a.to(dtype).requires_grad_() for a in base[:3])
+        bias = torch.log(base[3]).requires_grad_()
+        out = kerple_linear_attention(qp, kp, v, torch.exp(bias), method=method)
+        assert out.grad_fn is not None and out.dtype == dtype
+        out.backward(g)
+        results[method] = [out.detach()] + [t.grad for t in (qp, kp, v, bias)]
+    assert "MaskedLinearCoeffs" in type(
+        mlc.masked_linear_attention_coeffs(
+            *(a.to(dtype).requires_grad_() for a in base[:3]), base[3]).grad_fn).__name__
+    for a, b in zip(results["pallas"][:4], results["dense"][:4]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # the bias gradient: the same fp32 dT summed along its diagonals
+    # (toeplitz_diag_sums) vs autograd's scatter-add of the T gather
+    torch.testing.assert_close(results["pallas"][4], results["dense"][4],
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_op_without_autograd_is_the_forward_alone():
+    """Under inference mode or no_grad the op records nothing and the
+    forward wrapper is all that runs (the serving path)."""
+    qp, kp, v, coeffs = (t.requires_grad_() if t.is_floating_point() else t
+                         for t in _good())
+    for ctx in (torch.inference_mode, torch.no_grad):
+        with ctx():
+            out = mlc.masked_linear_attention_coeffs(qp, kp, v, coeffs)
+        assert out.grad_fn is None and not out.requires_grad
+
+
+def test_backward_kernel_source_is_in_the_package():
+    from efficient_rpe_vit_torch.ops.kernels import _build
+
+    assert (_build.CSRC / f"{mlc._BWD_SOURCE}.cu").is_file()
+    path = _build.library_path(mlc._BWD_SOURCE)
+    assert path.parent == _build.BUILD_DIR and path != _build.library_path(mlc._SOURCE)
+    src = (_build.CSRC / f"{mlc._BWD_SOURCE}.cu").read_text()
+    assert "atomicAdd" not in src  # dcoeffs are reduced in a fixed order

@@ -222,9 +222,15 @@ def test_training_only_and_unported_options_raise():
     model = create_model("performer_favor_most_general", cfg, device="cpu",
                          attention_config={"feature_redraw_interval": 10})
     x = torch.zeros(1, 28, 28, 1)
+    omega = model.transformer_blocks[0].attention.omega.clone()
     model(x)  # eval mode: Omega stays as drawn
-    with pytest.raises(NotImplementedError):
+    torch.testing.assert_close(model.transformer_blocks[0].attention.omega,
+                               omega, rtol=0, atol=0)
+    # train mode draws dropout masks and features from an explicit generator
+    with pytest.raises(ValueError, match="generator"):
         model.train()(x)
+    model.train()(x, torch.Generator().manual_seed(0))
+    assert not torch.equal(model.transformer_blocks[0].attention.omega, omega)
     attn = model.transformer_blocks[0].attention
     with pytest.raises(NotImplementedError):
         attn(torch.zeros(1, 17, 64), return_attention=True)

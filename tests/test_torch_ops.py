@@ -24,6 +24,8 @@ from efficient_rpe_vit_torch.ops import (
     orthogonal_gaussian_features,
     phi_positive,
     phi_relu,
+    masked_linear_vjp_residual,
+    toeplitz_diag_sums,
     toeplitz_from_coeffs,
 )
 
@@ -169,3 +171,33 @@ def test_gaussian_features_shape_and_seed():
     b = gaussian_features(torch.Generator().manual_seed(5), 2, 8, 20)
     assert a.shape == (2, 8, 20)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 5, 17, 197])
+def test_toeplitz_diag_sums_matches_jax(n):
+    x = np.random.default_rng(n + 1).normal(size=(2, 3, n, n)).astype(np.float32)
+    got = toeplitz_diag_sums(torch.from_numpy(x))
+    want = jax_ft.toeplitz_diag_sums(jnp.asarray(x))
+    assert got.shape == (2, 3, 2 * n - 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_linear_vjp_residual_matches_jax(dtype):
+    """The explicit residual VJP, fed the same (den, out) residuals: the
+    input-dtype rounding of gn, dA and A*T happens at the same places."""
+    rng = np.random.default_rng(4)
+    qp, kp, v, coeffs = _kerple_inputs(rng, 2, 2, 33, 20, 8)
+    g = rng.normal(size=v.shape).astype(np.float32)
+    t = jax_ft.toeplitz_from_coeffs(jnp.asarray(coeffs), 33)
+    args_t, args_j = zip(*(_pair(a, dtype) for a in (qp, kp, v)))
+    j_out, j_den = jax_core._kerple_dense_core_fwd_impl(*args_j, t)
+    _, jg = _pair(g, dtype)
+    want = jax_core.masked_linear_vjp_residual(*args_j, t, j_den, j_out, jg)
+    t_out = torch.from_numpy(np.array(j_out.astype(jnp.float32))).to(DTYPES[dtype][0])
+    got = masked_linear_vjp_residual(
+        *args_t, torch.from_numpy(np.array(t)), torch.from_numpy(np.array(j_den)),
+        t_out, _pair(g, dtype)[0])
+    assert [x.dtype for x in got] == [DTYPES[dtype][0]] * 3 + [torch.float32]
+    for name, a, b in zip(("dq'", "dk'", "dv", "dT"), got, want):
+        np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **TOL[dtype])
