@@ -2,30 +2,48 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # what CI runs: build, check, serve, train
-    python3 chip_smoke.py --profile  # also trace one served batch and one train step
+    python3 chip_smoke.py --profile  # also trace one served batch and one train step of each model
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
   2. build: every CUDA source under efficient_rpe_vit_torch/csrc, with nvcc,
      all at once;
-  3. kernels: each kernel (KERPLE forward; backward dq, dkv, dc, dc_reduce)
-     against its plain PyTorch version on the card at the serving and
-     training shapes and at ragged shapes, in bf16 and fp32, timed (calls
-     replayed from a CUDA graph, so without the wrapper's host work) beside
-     its bound;
-  4. serve: ViT-B/16 performer_favor_most_general (bf16, random weights from
-     a seed) answers 4 requests of 32 images through `make_eval_step`; the
-     kernel launch counts of that run are checked, and the logits are held
-     against the same model on the plain (dense) KERPLE path;
-  5. train: the same model takes 5 steps of batch 64 through
+  3. KERPLE kernels (forward; 3b: backward dq, dkv, dc, dc_reduce) against
+     their plain PyTorch versions on the card at the serving and training
+     shapes and at ragged shapes, in bf16 and fp32, timed (calls replayed
+     from a CUDA graph, so without the wrapper's host work) beside their
+     bounds;
+  3c. flash kernels (softmax forward; backward fused, dq, dkv) against their
+     plain versions in bf16 and fp32 at the serving, training and ragged
+     shapes, with [B,1,N,N] and [B,H,N,N] masks and with dropout (whose
+     keep-mask must equal dropout_keep_dense bit for bit), the backward
+     fused and two-pass where the fused kernel fits, by its own choice
+     (two-pass) at D=128 and at N=4097;
+     timed beside their bounds and beside scaled_dot_product_attention;
+  4. serve KERPLE: ViT-B/16 performer_favor_most_general (bf16, random
+     weights from a seed) answers 4 requests of 32 images through
+     `make_eval_step`; launch counts, logits against the same model on the
+     plain (dense) KERPLE path, bitwise run to run, ms per batch;
+  5. train KERPLE: the same model takes 5 steps of batch 64 through
      `create_train_state` / `make_train_step`; launch counts per step,
      finite gradients for every parameter, step-1 gradients against the
      dense KERPLE path and bitwise across two runs, finite losses beside the
-     dense path's, and ms per step for both.
+     dense path's, and ms per step for both;
+  6. serve baseline: ViT-B/16 `baseline` (softmax attention) as phase 4 on
+     the flash forward (48 launches), against the dense softmax arm;
+  7. train baseline at N=197: as phase 5 at batch 64; per step 12 flash_fwd
+     and 12 flash_bwd_fused launches and no two-pass launch;
+  8. long-N train: `baseline` on 1024x1024 images (N=4097), batch 4,
+     attention and output dropout 0.1: step 1 twice (bitwise gradients), one
+     warm-up step, two timed; per step 12 flash_fwd, 12 flash_bwd_dq and 12
+     flash_bwd_dkv launches and no fused launch; finite gradients and
+     losses, ms per step and peak memory (no dense arm: it would hold 12
+     blocks of [4, 12, 4097, 4097] fp32; phase 3c checks this shape at the
+     op level).
 The line before the last lists every kernel as JSON, one row per kernel and
-main path (the forward runs on both); the last line is
-{"ok": true, "device": {...}}. Without a GPU, or without the rest of the
-repository beside it, the script fails before printing any result.
+main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
+without the rest of the repository beside it, the script fails before
+printing any result.
 """
 
 from __future__ import annotations
@@ -38,6 +56,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -56,7 +75,7 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # tensor core bf16, fp3
 OUT_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 DEN_RTOL = 1e-4
 
-# served logits, pallas vs dense path, both bf16: the two paths round
+# served logits, kernel vs dense path, both bf16: the two paths round
 # different fp32 sums to bf16 in each of 12 blocks; allow 5% of the logit
 # range, and require >= 99% top-1 agreement.
 LOGIT_REL_TOL = 5e-2
@@ -70,6 +89,16 @@ MIN_TOP1_AGREEMENT = 0.99
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DCOEFF_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
+# flash kernels vs their plain versions, max |kernel - plain| <= tol *
+# max |plain| for out, dq, dk, dv: fp32 differs in summation order (and the
+# online softmax's rescaling) only. bf16: the kernel rounds p = exp(s - m)
+# against the running row max of its 64-column tiles, the plain version
+# against the final max, so a probability may round one bf16 ulp the other
+# way before the value product; likewise dS. lse is fp32 from fp32 sums in
+# both: absolute tolerance.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_ATOL = 1e-4
+
 # train step-1 gradients, kernel path vs dense path (same weights, bf16):
 # ||g_kernel - g_dense|| / ||g_dense|| per parameter tensor.
 GRAD_REL_TOL = 5e-2
@@ -81,16 +110,34 @@ REQUESTS = 4
 TRAIN_BATCH = 64
 TRAIN_STEPS = 5
 TIMED_STEPS = 5
+# long-N training: 1024x1024 images at patch 16 (N = 64^2 + 1 = 4097), the
+# JAX package's reference-default dropout 0.1
+LONGN = dict(VITB, image_size=1024, dropout=0.1, batch_size=4)
+LONGN_N = (LONGN["image_size"] // LONGN["patch_size"]) ** 2 + 1
+LONGN_STEPS = 2   # step 1 (bitwise against a first run), then a warm-up step
+LONGN_TIMED = 2
 # (B, H, N, F, D): the ViT-B/16 training shape, ragged shapes, the JAX
 # package's kernel-test shape
 BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
               (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
 BWD_KERNELS = ("masked_linear_coeffs_bwd_dq", "masked_linear_coeffs_bwd_dkv",
                "masked_linear_coeffs_bwd_dc", "masked_linear_coeffs_bwd_dc_reduce")
+# flash cases (B, H, N, D, mask, dropout rate): the serving and training
+# shapes, ragged shapes, the JAX package's kernel-test shape, both mask
+# layouts, dropout alone and with a mask, the largest head dim
+FLASH_CASES = [(VITB["batch_size"], 12, 197, 64, None, 0.0),
+               (TRAIN_BATCH, 12, 197, 64, None, 0.0),
+               (4, 12, 17, 64, None, 0.0), (4, 12, 130, 64, None, 0.0),
+               (2, 2, 197, 16, None, 0.0),
+               (4, 12, 197, 64, "B1NN", 0.0), (4, 12, 197, 64, "BHNN", 0.0),
+               (4, 12, 197, 64, None, 0.1), (4, 12, 197, 64, "BHNN", 0.1),
+               (2, 2, 197, 128, None, 0.0)]
+FLASH_LONGN = (LONGN["batch_size"], 12, LONGN_N, 64, None, LONGN["dropout"])
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
     ("KERPLE kernels (this repo)", lambda k: "mlc_" in k),
+    ("flash attention kernels (this repo)", lambda k: "flash_fwd_kernel" in k or "flash_bwd_" in k),
     ("fp32 GEMMs (phi projection x@Omega, fwd and bwd)", lambda k: "f32f32" in k or "sgemm" in k),
     ("bf16 GEMMs (cuBLAS)", lambda k: "nvjet" in k or "gemm" in k),
     ("optimizer (multi-tensor apply)", lambda k: "multi_tensor" in k),
@@ -310,24 +357,246 @@ def check_kernels(mlc):
     return results
 
 
-def serve(mlc, card: str, profile: bool):
-    """Phase 4: ViT-B/16 answers REQUESTS batches through make_eval_step.
-    Returns the kernel's launch count in that run."""
+def flash_bound(B, H, N, D, dtype: str):
+    """(bound_ms, bound_by) for one flash forward: q, k, v read once, out
+    and lse written once; the two products S = q k^T and P v (the softmax's
+    exp, max and sums, and the dropout hash, are not counted)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * 4 * B * H * N * D + 4 * B * H * N
+    ops = 2 * 2 * B * H * N * N * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bwd_bounds(B, H, N, D, dtype: str):
+    """{kernel: (bound_ms, bound_by)} for the flash backward kernels: each
+    reads q, k, v, g in the input dtype and lse, delta in fp32 once and
+    writes its gradients once; products of 2 B H N^2 D operations each:
+    S, dP, dv, dk, dq for the fused pass, S, dP, dq for the dq pass, S,
+    dP, dv, dk for the dkv pass."""
+    elt = 2 if dtype == "bfloat16" else 4
+    bhnd, rows = B * H * N * D, 8 * B * H * N
+    product = 2 * B * H * N * N * D
+    out = {}
+    for name, n_out, n_products in (("flash_bwd_fused", 3, 5), ("flash_bwd_dq", 1, 3),
+                                    ("flash_bwd_dkv", 2, 4)):
+        t_bytes = (elt * bhnd * (4 + n_out) + rows) / HBM_BYTES_PER_S
+        t_ops = n_products * product / PEAK_OPS_PER_S[dtype]
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _flash_inputs(B, H, N, D, mask_kind, rate, dtype):
+    """q, k, v, cotangent, mask (diagonal kept) and seed for a flash case."""
+    g = torch.Generator(device="cuda").manual_seed(N * 100 + D + B)
+    q, k, v, cot = (torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
+                    for _ in range(4))
+    mask = None
+    if mask_kind is not None:
+        hm = 1 if mask_kind == "B1NN" else H
+        mask = torch.rand(B, hm, N, N, generator=g, device="cuda") > 0.3
+        mask |= torch.eye(N, dtype=torch.bool, device="cuda")  # every row keeps a cell
+    seed = torch.tensor([12345], dtype=torch.int32, device="cuda") if rate else None
+    return q, k, v, cot, mask, seed
+
+
+def _sdpa_ms(q, k, v, cot):
+    """(forward ms, backward ms) of scaled_dot_product_attention at these
+    inputs, from CUDA-graph replays; the backward is the replay of forward
+    and backward together less the forward's."""
+    fwd_ms = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        return torch.autograd.grad(out, (qg, kg, vg), cot)
+
+    return fwd_ms, kernel_ms(fwd_bwd) - fwd_ms
+
+
+def check_flash_keep_mask(fa):
+    """The dropout keep-mask the kernels use, read out of their results, is
+    dropout_keep_dense's bit for bit. With q = k = 0 every probability is
+    1/N, so out[:, :, i, j - c0] = P'[i, j] / l for one-hot values v_j =
+    e_(j - c0) over a window of D = 64 columns, and dv[:, :, j, i - c0] =
+    P'[i, j] for one-hot cotangents g_i = e_(i - c0) over 64 rows: nonzero
+    exactly where the cell is kept. Forward, fused and dkv passes."""
+    B, H, N, D, rate = 2, 3, 197, 64, 0.1
+    seed = torch.tensor([-7], dtype=torch.int32, device="cuda")
+    want = fa.dropout_keep_dense(seed, B, H, N, N, rate)
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        zeros = torch.zeros(B, H, N, D, dtype=dtype, device="cuda")
+        got = {"fwd": torch.zeros(B, H, N, N, dtype=torch.bool, device="cuda")}
+        got["fused"], got["dkv"] = torch.zeros_like(got["fwd"]), torch.zeros_like(got["fwd"])
+        out0, lse0 = fa.flash_attention_fwd(zeros, zeros, zeros, 1.0, None, rate, seed)
+        for c0 in range(0, N, D):
+            w = min(D, N - c0)
+            onehot = torch.zeros(N, D, dtype=dtype, device="cuda")
+            onehot[c0:c0 + w, :w] = torch.eye(w, dtype=dtype, device="cuda")
+            onehot = onehot.expand(B, H, N, D).contiguous()
+            out, _ = fa.flash_attention_fwd(zeros, zeros, onehot, 1.0, None, rate, seed)
+            got["fwd"][..., c0:c0 + w] = out[..., :w] != 0
+            # rows c0..c0+w of P' through dv = P'^T g
+            delta = fa.flash_delta(out0, onehot)
+            dv = fa.flash_attention_bwd_fused(zeros, zeros, zeros, onehot, lse0, delta, 1.0,
+                                              None, rate, seed)[2]
+            got["fused"][..., c0:c0 + w, :] = (dv[..., :w] != 0).transpose(-1, -2)
+            dv = fa.flash_attention_bwd_dkv(zeros, zeros, zeros, onehot, lse0, delta, 1.0,
+                                            None, rate, seed)[1]
+            got["dkv"][..., c0:c0 + w, :] = (dv[..., :w] != 0).transpose(-1, -2)
+        torch.cuda.synchronize()
+        for kernel, mask in got.items():
+            differ = int((mask != want).sum())
+            log("kernel", f"dropout keep-mask of {kernel} B{B} H{H} N{N} rate {rate} {name}: "
+                f"{differ} of {mask.numel()} cells differ from dropout_keep_dense "
+                f"(kept share {mask.float().mean().item():.4f})")
+            if differ:
+                raise AssertionError(f"{kernel} drops other cells than dropout_keep_dense")
+
+
+def check_flash_kernels(fa):
+    """Phase 3c: the four flash kernels against their plain versions on the
+    card. Returns {(kernel, path): row} for the main paths' shapes."""
+    check_flash_keep_mask(fa)
+    results = {}
+    cases = [(c, name, dtype) for c in FLASH_CASES for name, dtype in
+             (("bfloat16", torch.bfloat16), ("float32", torch.float32))]
+    cases.append((FLASH_LONGN, "bfloat16", torch.bfloat16))
+    wrappers = flash_wrappers(fa)
+    for (B, H, N, D, mask_kind, rate), name, dtype in cases:
+        q, k, v, cot, mask, seed = _flash_inputs(B, H, N, D, mask_kind, rate, dtype)
+        scale = D ** -0.5
+        shape = f"B{B} H{H} N{N} D{D} mask {mask_kind} dropout {rate} {name}"
+        tol = FLASH_TOL[name]
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, mask, rate, seed)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_softmax_attention_reference(q, k, v, scale, mask, rate, seed)
+        rel = _max_rel(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        finite = bool(torch.isfinite(out.float()).all())
+        log("kernel", f"flash_fwd {shape}: out max|err|/max|plain| {rel:.3e} (tol {tol}), "
+            f"lse max|err| {lse_err:.3e} (tol {LSE_ATOL}), finite {finite}")
+        if not (finite and rel <= tol and lse_err <= LSE_ATOL):
+            raise AssertionError(f"flash_fwd disagrees with its plain version at {shape}")
+        fwd_err = (out.float() - ref_out.float()).abs().max().item()
+
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, cot, scale, mask, rate, seed)
+        long_n = (B, H, N, D, mask_kind, rate) == FLASH_LONGN
+        # both strategies forced where the fused kernel fits, else its own choice
+        fits = fa.fused_fits(N, D, dtype)
+        bwd_errs = {}  # fused choice -> max|err| of (dq, dk, dv)
+        for fused in ((True, False) if fits else (None,)):
+            before = counts(wrappers)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, cot, scale, mask, rate, seed,
+                                         fused=fused)
+            torch.cuda.synchronize()
+            ran = {n: c - before[n] for n, c in counts(wrappers).items() if c != before[n]}
+            rels = [_max_rel(a, b) for a, b in zip(got, want)]
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            log("kernel", f"flash backward (fused={fused}, launched {ran}) {shape}: (dq, dk, dv) "
+                f"max|err|/max|plain| {', '.join(f'{r:.3e}' for r in rels)} (tol {tol}), "
+                f"finite {finite}")
+            if not (finite and max(rels) <= tol):
+                raise AssertionError(f"the flash backward disagrees with its plain version at {shape}")
+            bwd_errs[fused] = [(a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, want)]
+            if not fits and set(ran) != {"flash_bwd_dq", "flash_bwd_dkv"}:
+                raise AssertionError(f"at N={N} D={D} the backward should take the "
+                                     f"two-pass split, ran {ran}")
+        # timed at the main paths' shapes: serve (B=32) and train (B=64)
+        # without dropout, long-N training with dropout 0.1
+        path = {(VITB["batch_size"], 197): "baseline_serve",
+                (TRAIN_BATCH, 197): "baseline_train",
+                (FLASH_LONGN[0], LONGN_N): "baseline_longn_train"}.get((B, N))
+        if name != "bfloat16" or mask_kind is not None or path is None:
+            continue
+        plain_iters = 1 if long_n else 5
+        delta = fa.flash_delta(out, cot)
+        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, cot)
+        log("kernel", f"scaled_dot_product_attention {shape.replace(f'dropout {rate}', 'dropout 0.0')}: "
+            f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
+        bwd_bounds = flash_bwd_bounds(B, H, N, D, name)
+        bwd_args = (q, k, v, cot, lse, delta, scale, None, rate, seed)
+        timed = {"flash_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, scale, None, rate, seed),
+            lambda: fa.flash_softmax_attention_reference(q, k, v, scale, None, rate, seed),
+            flash_bound(B, H, N, D, name), lib_fwd, fwd_err)}
+        if path == "baseline_train":
+            timed["flash_bwd_fused"] = (
+                lambda: fa.flash_attention_bwd_fused(*bwd_args),
+                lambda: fa.flash_bwd_reference(*bwd_args),
+                bwd_bounds["flash_bwd_fused"], lib_bwd, max(bwd_errs[True]))
+        if path == "baseline_longn_train":
+            timed["flash_bwd_dq"] = (
+                lambda: fa.flash_attention_bwd_dq(*bwd_args),
+                lambda: fa.flash_bwd_reference(*bwd_args)[0],
+                bwd_bounds["flash_bwd_dq"], lib_bwd, bwd_errs[None][0])
+            timed["flash_bwd_dkv"] = (
+                lambda: fa.flash_attention_bwd_dkv(*bwd_args),
+                lambda: fa.flash_bwd_reference(*bwd_args)[1:],
+                bwd_bounds["flash_bwd_dkv"], lib_bwd, max(bwd_errs[None][1:]))
+            no_drop = kernel_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+            log("kernel", f"flash_fwd {shape.replace(f'dropout {rate}', 'dropout 0.0')}: kernel "
+                f"{no_drop:.4f} ms (the dropout hash's share is the difference)")
+        for kname, (kernel_fn, plain_fn, (bound_ms, bound_by), library_ms, err) in timed.items():
+            ms = kernel_ms(kernel_fn)
+            plain_ms = time_ms(plain_fn, iters=plain_iters, warmup=0 if long_n else 1)
+            log("kernel", f"{kname} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"kernel/bound {ms / bound_ms:.2f}x")
+            results[(kname, path)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by,
+                                          library_ms=library_ms)
+    return results
+
+
+# ─── the models' main paths ─────────────────────────────────────────────
+
+def kerple_wrappers(mlc):
+    return {"masked_linear_coeffs_fwd": mlc.masked_linear_attention_coeffs_fwd,
+            "masked_linear_coeffs_bwd_dq": mlc.masked_linear_attention_coeffs_bwd_dq,
+            "masked_linear_coeffs_bwd_dkv": mlc.masked_linear_attention_coeffs_bwd_dkv,
+            "masked_linear_coeffs_bwd_dc": mlc.masked_linear_attention_coeffs_bwd_dc,
+            "masked_linear_coeffs_bwd_dc_reduce":
+                mlc.masked_linear_attention_coeffs_bwd_dc_reduce}
+
+
+def flash_wrappers(fa):
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "flash_bwd_fused": fa.flash_attention_bwd_fused,
+            "flash_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+
+def counts(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def zero_counts(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def serve(phase: str, name: str, arms, wrappers, card: str, profile: bool):
+    """ViT-B/16 `name` answers REQUESTS batches through make_eval_step on
+    the kernel arm, checked against the dense arm from the same weights.
+    `arms` maps "kernel" and "dense" to create_model keyword arguments; the
+    first of `wrappers` is the forward kernel, launched once per block per
+    forward, and no other may launch. Returns the forward's launch count in
+    that run."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.train import make_eval_step
 
     cfg = mnist_config(**VITB)
     t0 = time.perf_counter()
-    model = create_model("performer_favor_most_general", cfg,
-                         rpe_config={"method": "pallas"}, device="cuda",
-                         generator=torch.Generator().manual_seed(0))
-    dense = create_model("performer_favor_most_general", cfg,
-                         rpe_config={"method": "dense"}, device="cuda",
-                         generator=torch.Generator().manual_seed(0))
+    model = create_model(name, cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0), **arms["kernel"])
+    dense = create_model(name, cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0), **arms["dense"])
     dense.load_state_dict(model.state_dict())
     n_params = sum(p.numel() for p in model.parameters())
-    log("serve", f"ViT-B/16 performer_favor_most_general bf16, {n_params} params, "
+    log(phase, f"ViT-B/16 {name} bf16, {n_params} params, "
         f"built in {time.perf_counter() - t0:.1f} s (set-up)")
     step = make_eval_step(model)
     step_dense = make_eval_step(dense)
@@ -341,21 +610,21 @@ def serve(mlc, card: str, profile: bool):
     ]
 
     # the main path: counts from 0, read right after
-    mlc.masked_linear_attention_coeffs_fwd.launches = 0
+    zero_counts(wrappers)
     answers = [step(x, y) for x, y in requests]
     torch.cuda.synchronize()
-    launches = mlc.masked_linear_attention_coeffs_fwd.launches
-    expected = VITB["depth"] * REQUESTS
-    log("serve", f"{REQUESTS} requests x {B} images answered; "
-        f"masked_linear_coeffs_fwd launches {launches} (expected {expected}: "
-        f"one per block per forward)")
+    launches = counts(wrappers)
+    fwd = next(iter(wrappers))
+    expected = {n: VITB["depth"] * REQUESTS if n == fwd else 0 for n in wrappers}
+    log(phase, f"{REQUESTS} requests x {B} images answered; kernel launches {launches} "
+        f"(expected {expected}: one forward per block per request)")
     if launches != expected:
-        raise AssertionError(f"kernel launched {launches} times, expected {expected}")
+        raise AssertionError(f"kernels launched {launches}, expected {expected}")
     for loss, correct, preds in answers:
         if not (torch.isfinite(loss) and preds.shape == (B,)):
             raise AssertionError("served a non-finite loss or malformed predictions")
 
-    # correctness: the same weights on the plain KERPLE path
+    # correctness: the same weights on the dense arm
     with torch.inference_mode():
         got = torch.cat([model(x) for x, _ in requests])
         want = torch.cat([dense(x) for x, _ in requests])
@@ -368,22 +637,22 @@ def serve(mlc, card: str, profile: bool):
     spread = got.std(dim=0).mean().item()
     top2 = want.topk(2, dim=-1).values
     gaps = top2[:, 0] - top2[:, 1]
-    log("serve", f"logits vs dense path: max|diff|/max|logit| {rel:.3e} "
+    log(phase, f"logits vs dense arm: max|diff|/max|logit| {rel:.3e} "
         f"(tol {LOGIT_REL_TOL}), top-1 agreement {agree:.4f} "
         f"(min {MIN_TOP1_AGREEMENT}), mean per-class std over images {spread:.3e}, "
         f"median top-2 gap {gaps.median().item():.3e}")
     for i in (served_preds != dense_preds).nonzero().flatten().tolist():
-        log("serve", f"image {i}: top-1 differs; dense top-2 gap {gaps[i].item():.3e}, "
+        log(phase, f"image {i}: top-1 differs; dense top-2 gap {gaps[i].item():.3e}, "
             f"max|diff| of its logits {(got[i] - want[i]).abs().max().item():.3e}")
     if rel > LOGIT_REL_TOL or agree < MIN_TOP1_AGREEMENT:
-        raise AssertionError("served logits disagree with the dense path")
+        raise AssertionError("served logits disagree with the dense arm")
     with torch.inference_mode():
         if not torch.equal(model(requests[0][0]), got[:B]):
             raise AssertionError("served logits changed between two runs")
-    log("serve", "served logits are bitwise identical run to run")
+    log(phase, "served logits are bitwise identical run to run")
 
     # throughput: host clock around synchronised steps, after warm-up
-    for label, fn in (("pallas", step), ("dense", step_dense)):
+    for label, fn in (("kernel", step), ("dense", step_dense)):
         for x, y in requests[:2]:
             fn(x, y)
         torch.cuda.synchronize()
@@ -394,57 +663,42 @@ def serve(mlc, card: str, profile: bool):
             fn(x, y)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        log("serve", f"{label} KERPLE path: forward {dt / iters * 1e3:.3f} ms/batch "
+        log(phase, f"{name} {label} arm: forward {dt / iters * 1e3:.3f} ms/batch "
             f"of {B}, {B * iters / dt:.1f} images/s on {card}")
 
     if profile:
-        profile_step("one served batch", lambda: step(*requests[0]), card)
-    return launches
+        profile_step(f"one served batch of {name}", lambda: step(*requests[0]), card)
+    return launches[fwd]
 
 
-def _counts(mlc):
-    return {"masked_linear_coeffs_fwd": mlc.masked_linear_attention_coeffs_fwd.launches,
-            "masked_linear_coeffs_bwd_dq": mlc.masked_linear_attention_coeffs_bwd_dq.launches,
-            "masked_linear_coeffs_bwd_dkv": mlc.masked_linear_attention_coeffs_bwd_dkv.launches,
-            "masked_linear_coeffs_bwd_dc": mlc.masked_linear_attention_coeffs_bwd_dc.launches,
-            "masked_linear_coeffs_bwd_dc_reduce":
-                mlc.masked_linear_attention_coeffs_bwd_dc_reduce.launches}
-
-
-def _zero_counts(mlc) -> None:
-    for fn in (mlc.masked_linear_attention_coeffs_fwd,
-               mlc.masked_linear_attention_coeffs_bwd_dq,
-               mlc.masked_linear_attention_coeffs_bwd_dkv,
-               mlc.masked_linear_attention_coeffs_bwd_dc,
-               mlc.masked_linear_attention_coeffs_bwd_dc_reduce):
-        fn.launches = 0
-
-
-def train(mlc, card: str, profile: bool):
-    """Phase 5: ViT-B/16 trains TRAIN_STEPS steps of batch TRAIN_BATCH through
-    create_train_state / make_train_step, on the kernel path and on the
-    dense path from the same weights. Returns the launch counts of the
-    kernel path's run."""
+def train(phase: str, name: str, cfg_fields, arms, wrappers, per_step, steps: int,
+          timed: int, card: str, profile: bool):
+    """ViT-B/16 `name` trains `steps` steps through create_train_state /
+    make_train_step on the kernel arm, and on the dense arm from the same
+    weights where `arms` has one. `per_step` is each wrapper's expected
+    launches in one step. Returns the launch counts of the kernel arm's
+    main-path run."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.train import create_train_state, make_train_step
 
-    cfg = mnist_config(**dict(VITB, batch_size=TRAIN_BATCH))
-    depth = VITB["depth"]
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mnist_config(**cfg_fields)
+    batch = cfg_fields["batch_size"]
     t0 = time.perf_counter()
-    models = {arm: create_model("performer_favor_most_general", cfg,
-                                rpe_config={"method": arm}, device="cuda",
-                                generator=torch.Generator().manual_seed(0))
-              for arm in ("pallas", "dense")}
-    initial = {k: v.clone() for k, v in models["pallas"].state_dict().items()}
-    steps = {arm: make_train_step(m) for arm, m in models.items()}
+    models = {arm: create_model(name, cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(0), **kw)
+              for arm, kw in arms.items()}
+    initial = {k: v.clone() for k, v in models["kernel"].state_dict().items()}
+    steps_of = {arm: make_train_step(m) for arm, m in models.items()}
     g = torch.Generator(device="cuda").manual_seed(2)
-    size = VITB["image_size"]
-    x = torch.randn(TRAIN_BATCH, size, size, VITB["in_channels"], generator=g, device="cuda")
-    y = torch.randint(0, VITB["num_classes"], (TRAIN_BATCH,), generator=g, device="cuda")
-    log("train", f"ViT-B/16 performer_favor_most_general bf16, batch {TRAIN_BATCH}, "
-        f"optimizer {cfg.train.optimizer} / {cfg.train.scheduler} lr "
-        f"{cfg.train.learning_rate}; two models built in "
+    size = cfg_fields["image_size"]
+    x = torch.randn(batch, size, size, cfg_fields["in_channels"], generator=g, device="cuda")
+    y = torch.randint(0, cfg_fields["num_classes"], (batch,), generator=g, device="cuda")
+    seq_len = (size // cfg_fields["patch_size"]) ** 2 + 1
+    log(phase, f"ViT-B/16 {name} bf16, {size}x{size} images (N={seq_len}), batch {batch}, dropout "
+        f"{cfg_fields['dropout']}, optimizer {cfg.train.optimizer} / {cfg.train.scheduler} lr "
+        f"{cfg.train.learning_rate}; {len(models)} model(s) built in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
 
     def fresh(arm):
@@ -453,91 +707,101 @@ def train(mlc, card: str, profile: bool):
         return create_train_state(models[arm], cfg, steps_per_epoch=100)
 
     def one_step(arm, state):
-        state, loss, _ = steps[arm](state, x, y, torch.Generator(device="cuda").manual_seed(3))
+        state, loss, _ = steps_of[arm](state, x, y, torch.Generator(device="cuda").manual_seed(3))
         return state, loss
 
     def grads(arm):
         missing = [n for n, p in models[arm].named_parameters() if p.grad is None]
         if missing:
-            raise AssertionError(f"{arm} path: no gradient reached {missing}")
+            raise AssertionError(f"{arm} arm: no gradient reached {missing}")
         return {n: p.grad.detach().clone() for n, p in models[arm].named_parameters()}
 
-    # step 1 on the kernel path: launch counts, finite gradients
-    _zero_counts(mlc)
-    one_step("pallas", fresh("pallas"))
+    # step 1 on the kernel arm: launch counts, finite gradients
+    zero_counts(wrappers)
+    one_step("kernel", fresh("kernel"))
     torch.cuda.synchronize()
-    counts = _counts(mlc)
-    log("train", f"kernel launches in one train step: {counts} (expected {depth} each)")
-    if any(n != depth for n in counts.values()):
-        raise AssertionError(f"expected {depth} launches of each kernel per step, got {counts}")
-    g1 = grads("pallas")
+    got = counts(wrappers)
+    log(phase, f"kernel launches in one train step: {got} (expected {per_step})")
+    if got != per_step:
+        raise AssertionError(f"expected {per_step} launches per step, got {got}")
+    g1 = grads("kernel")
     bad = [n for n, t in g1.items() if not bool(torch.isfinite(t).all())]
     if bad:
         raise AssertionError(f"non-finite gradients: {bad}")
-    log("train", f"all {len(g1)} parameter tensors have finite gradients")
+    log(phase, f"all {len(g1)} parameter tensors have finite gradients")
 
-    # the main path's run: TRAIN_STEPS steps from the same weights, whose
-    # first step must give bitwise the same gradients
-    _zero_counts(mlc)
-    state, loss = one_step("pallas", fresh("pallas"))
-    differ = [n for n, t in grads("pallas").items() if not torch.equal(t, g1[n])]
+    # the main path's run: `steps` steps from the same weights, whose first
+    # step must give bitwise the same gradients
+    zero_counts(wrappers)
+    state, loss = one_step("kernel", fresh("kernel"))
+    differ = [n for n, t in grads("kernel").items() if not torch.equal(t, g1[n])]
     if differ:
         raise AssertionError(f"step-1 gradients differ between two runs: {differ}")
-    log("train", "step-1 gradients are bitwise identical across two runs")
+    log(phase, "step-1 gradients are bitwise identical across two runs")
     losses = [loss]
-    for _ in range(TRAIN_STEPS - 1):
-        state, loss = one_step("pallas", state)
+    for _ in range(steps - 1):
+        state, loss = one_step("kernel", state)
         losses.append(loss)
     torch.cuda.synchronize()
-    launches = _counts(mlc)
-    expected = depth * TRAIN_STEPS
-    log("train", f"{TRAIN_STEPS} steps: kernel launches {launches} (expected {expected} each)")
-    if any(n != expected for n in launches.values()):
-        raise AssertionError(f"expected {expected} launches of each kernel, got {launches}")
+    launches = counts(wrappers)
+    expected = {n: c * steps for n, c in per_step.items()}
+    log(phase, f"{steps} steps: kernel launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"expected {expected} launches, got {launches}")
 
-    # the dense path from the same weights
-    state_d, loss_d = one_step("dense", fresh("dense"))
-    gd = grads("dense")
-    rel = {n: ((g1[n].float() - gd[n].float()).norm()
-               / gd[n].float().norm().clamp_min(1e-30)).item() for n in g1}
-    worst = max(rel, key=rel.get)
-    for n in sorted(rel):
-        if "rel_pos_bias" in n or "attention.qkv" in n:
-            log("train", f"  grad {n}: ||kernel - dense|| / ||dense|| {rel[n]:.3e}")
-    log("train", f"step-1 gradients vs dense path: worst tensor {worst} at "
-        f"{rel[worst]:.3e} (tol {GRAD_REL_TOL}); median "
-        f"{sorted(rel.values())[len(rel) // 2]:.3e}")
-    if rel[worst] > GRAD_REL_TOL:
-        raise AssertionError(f"gradient of {worst} disagrees with the dense path")
-    losses_d = [loss_d]
-    for _ in range(TRAIN_STEPS - 1):
-        state_d, loss_d = one_step("dense", state_d)
-        losses_d.append(loss_d)
-    for i, (a, b) in enumerate(zip(losses, losses_d)):
-        log("train", f"step {i + 1}: loss kernel path {a.item():.6f}, dense path {b.item():.6f}")
-    if not all(bool(torch.isfinite(v)) for v in losses + losses_d):
+    states = {"kernel": state}
+    if "dense" in models:
+        state_d, loss_d = one_step("dense", fresh("dense"))
+        gd = grads("dense")
+        rel = {n: ((g1[n].float() - gd[n].float()).norm()
+                   / gd[n].float().norm().clamp_min(1e-30)).item() for n in g1}
+        worst = max(rel, key=rel.get)
+        for n in sorted(rel):
+            if "rel_pos_bias" in n or "attention.qkv" in n:
+                log(phase, f"  grad {n}: ||kernel - dense|| / ||dense|| {rel[n]:.3e}")
+        log(phase, f"step-1 gradients vs dense arm: worst tensor {worst} at "
+            f"{rel[worst]:.3e} (tol {GRAD_REL_TOL}); median "
+            f"{sorted(rel.values())[len(rel) // 2]:.3e}")
+        if rel[worst] > GRAD_REL_TOL:
+            raise AssertionError(f"gradient of {worst} disagrees with the dense arm")
+        losses_d = [loss_d]
+        for _ in range(steps - 1):
+            state_d, loss_d = one_step("dense", state_d)
+            losses_d.append(loss_d)
+        states["dense"] = state_d
+        for i, (a, b) in enumerate(zip(losses, losses_d)):
+            log(phase, f"step {i + 1}: loss kernel arm {a.item():.6f}, dense arm {b.item():.6f}")
+        losses = losses + losses_d
+    else:
+        for i, a in enumerate(losses):
+            log(phase, f"step {i + 1}: loss {a.item():.6f}")
+    if not all(bool(torch.isfinite(v)) for v in losses):
         raise AssertionError("a training loss is not finite")
 
     # time per step: host clock around synchronised steps, after the warm-up above
-    for arm, st in (("pallas", state), ("dense", state_d)):
+    for arm in states:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
-            st, _ = one_step(arm, st)
+        for _ in range(timed):
+            states[arm], _ = one_step(arm, states[arm])
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / TIMED_STEPS
-        log("train", f"{arm} KERPLE path: {dt * 1e3:.3f} ms/step of {TRAIN_BATCH}, "
-            f"{TRAIN_BATCH / dt:.1f} images/s on {card}")
-    log("train", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        dt = (time.perf_counter() - t0) / timed
+        log(phase, f"{name} {arm} arm: {dt * 1e3:.3f} ms/step of {batch} (N={seq_len}), "
+            f"{batch / dt:.1f} images/s on {card}")
+    log(phase, f"peak device memory in this phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
-        profile_step("one train step", lambda: one_step("pallas", state), card)
+        profile_step(f"one train step of {name} (N={seq_len})",
+                     lambda: one_step("kernel", states["kernel"]), card)
+    del models, states
     return launches
 
 
 def profile_step(what: str, run, card: str) -> None:
     """Device time by kernel for one call of `run` (torch.profiler); only
     the device-side kernel events are summed, not the operators that
-    launched them."""
+    launched them nor user-annotated ranges (the optimizer's step), which
+    overlap the kernels inside them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,7 +814,7 @@ def profile_step(what: str, run, card: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
@@ -576,14 +840,15 @@ def profile_step(what: str, run, card: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace one served batch and one train step with "
-                             "torch.profiler")
+                        help="trace one served batch and one train step of each "
+                             "model with torch.profiler")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from efficient_rpe_vit_torch.ops.kernels import _build
+    from efficient_rpe_vit_torch.ops.kernels import flash_attention as fa
     from efficient_rpe_vit_torch.ops.kernels import masked_linear_coeffs as mlc
 
     # 1. environment
@@ -612,22 +877,61 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernel = check_kernels(mlc)
     kernel_bwd = check_bwd_kernels(mlc)
+    flash = check_flash_kernels(fa)
 
-    # 4. serve ViT-B/16; 5. train it
-    serve_launches = serve(mlc, card, args.profile)
-    train_launches = train(mlc, card, args.profile)
+    # 4. serve and 5. train ViT-B/16 with KERPLE
+    depth = VITB["depth"]
+    kerple = kerple_wrappers(mlc)
+    kerple_arms = {arm: {"rpe_config": {"method": method}}
+                   for arm, method in (("kernel", "pallas"), ("dense", "dense"))}
+    serve_launches = serve("serve", "performer_favor_most_general", kerple_arms, kerple,
+                           card, args.profile)
+    train_launches = train("train", "performer_favor_most_general",
+                           dict(VITB, batch_size=TRAIN_BATCH), kerple_arms, kerple,
+                           {n: depth for n in kerple}, TRAIN_STEPS, TIMED_STEPS, card,
+                           args.profile)
+
+    # 6. serve, 7. train and 8. train at long N the softmax baseline
+    flash_k = flash_wrappers(fa)
+    flash_arms = {arm: {"attention_config": {"method": method}}
+                  for arm, method in (("kernel", "flash"), ("dense", "dense"))}
+    base_serve = serve("serve-baseline", "baseline", flash_arms, flash_k, card, args.profile)
+    base_train = train("train-baseline", "baseline", dict(VITB, batch_size=TRAIN_BATCH),
+                       flash_arms, flash_k,
+                       {"flash_fwd": depth, "flash_bwd_fused": depth,
+                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+                       TRAIN_STEPS, TIMED_STEPS, card, args.profile)
+    base_longn = train("longn-baseline", "baseline", LONGN,
+                       {"kernel": flash_arms["kernel"]}, flash_k,
+                       {"flash_fwd": depth, "flash_bwd_fused": 0,
+                        "flash_bwd_dq": depth, "flash_bwd_dkv": depth},
+                       LONGN_STEPS, LONGN_TIMED, card, args.profile)
 
     # one row per kernel and main path: its launches in that path's run, its
-    # times at that path's shape (serve B=32, train B=64)
-    pallas = "efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py"
+    # times at that path's shape
+    pallas = "efficient_rpe_vit_tpu/ops/pallas"
     src = "efficient_rpe_vit_torch/csrc"
-    fwd = ("masked_linear_coeffs_fwd", f"{src}/masked_linear_coeffs_fwd.cu", f"{pallas}:140")
+    mlc_tpu = f"{pallas}/masked_linear_coeffs.py"
+    fwd = ("masked_linear_coeffs_fwd", f"{src}/masked_linear_coeffs_fwd.cu", f"{mlc_tpu}:140")
     rows = [(*fwd, "serve", kernel[("bfloat16", VITB["batch_size"])], serve_launches),
             (*fwd, "train", kernel[("bfloat16", TRAIN_BATCH)],
              train_launches["masked_linear_coeffs_fwd"])]
     for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
-        rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{pallas}:{line}",
+        rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
                      "train", kernel_bwd[name], train_launches[name]))
+    flash_fwd = ("flash_fwd", f"{src}/flash_attention_fwd.cu",
+                 f"{pallas}/attention_kernels.py:354")
+    rows += [(*flash_fwd, "baseline_serve", flash[("flash_fwd", "baseline_serve")], base_serve),
+             (*flash_fwd, "baseline_train", flash[("flash_fwd", "baseline_train")],
+              base_train["flash_fwd"]),
+             (*flash_fwd, "baseline_longn_train", flash[("flash_fwd", "baseline_longn_train")],
+              base_longn["flash_fwd"])]
+    for name, line, path, launches in (
+            ("flash_bwd_fused", 197, "baseline_train", base_train),
+            ("flash_bwd_dq", 71, "baseline_longn_train", base_longn),
+            ("flash_bwd_dkv", 129, "baseline_longn_train", base_longn)):
+        rows.append((name, f"{src}/flash_attention_bwd.cu", f"{pallas}/flash_bwd.py:{line}",
+                     path, flash[(name, path)], launches[name]))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -640,7 +944,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
-        "library_ms": None,
+        "library_ms": row.get("library_ms"),
     } for name, source, replaces, path, row, launches in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

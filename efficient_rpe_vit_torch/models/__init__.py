@@ -1,5 +1,6 @@
 from .rpe import KerpleRPE, RPE_REGISTRY
 from .attention import (
+    SoftmaxAttention,
     FavorPlusAttention,
     ReluAttention,
     ATTENTION_REGISTRY,
@@ -14,6 +15,7 @@ from .factory import (
 __all__ = [
     "KerpleRPE",
     "RPE_REGISTRY",
+    "SoftmaxAttention",
     "FavorPlusAttention",
     "ReluAttention",
     "ATTENTION_REGISTRY",

@@ -1,10 +1,14 @@
-"""Kernelised attention modules: FAVOR+ O(N) and ReLU O(N).
+"""Attention modules: softmax O(N^2), FAVOR+ O(N) and ReLU O(N).
 
 Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
   * fused QKV projection, optional bias,
+  * softmax: scale d^-1/2, mask and return_attention, KERPLE rejected,
+    attention-probability dropout in train mode from a seed drawn from the
+    caller's generator, the core arm from `method` ('auto' = the flash
+    kernels, 'dense' = the plain [B, H, N, N] formula),
   * linear-attention scale d^-1/4 on both q and k, except under KERPLE,
     which L2-normalises q and k instead (clamp inside the sqrt),
-  * raise on return_attention,
+  * linear attention raises on return_attention,
   * Omega in the non-trainable buffer `omega` [heads, head_dim, m],
   * optional feature redraw in train mode every `feature_redraw_interval`
     calls, counted in the buffer `redraw_counter` (the JAX package's
@@ -12,8 +16,6 @@ Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
   * phi recomputed in the backward (a checkpoint) once the fp32 phi of one
     of q, k would exceed PHI_CHECKPOINT_BYTES,
   * dropout on the output, masks from the caller's generator.
-
-The softmax module comes with the softmax slice.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops import (
     orthogonal_gaussian_features,
     phi_positive,
     phi_relu,
+    softmax_attention,
 )
 from ..ops.feature_maps import mxu_num_features
 from .dense import Dense, Dropout
@@ -59,6 +62,75 @@ def _safe_normalize(t: torch.Tensor) -> torch.Tensor:
     rows), in t's dtype."""
     sq = (t * t).sum(dim=-1, keepdim=True)
     return t / torch.sqrt(torch.clamp(sq, min=1e-24))
+
+
+_KERPLE_REJECTION = (
+    "KERPLE RPE is designed specifically for kernelized attention "
+    "(FAVOR+/ReLU Performer) and cannot be used with standard softmax "
+    "attention. KERPLE requires linear attention mechanisms to achieve "
+    "O(n log n) complexity. For softmax attention, use RoPE or "
+    "Circulant-STRING RPE instead."
+)
+
+
+class SoftmaxAttention(nn.Module):
+    """Standard multi-head softmax attention: fused `qkv` (optional bias),
+    scale head_dim^-1/2, `proj`, dropout on the probabilities (train mode)
+    and on the output."""
+
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0,
+                 qkv_bias: bool = False,
+                 compute_dtype: torch.dtype = torch.float32,
+                 method: str = "auto", seq_mesh=None):
+        super().__init__()
+        if seq_mesh is not None:
+            raise NotImplementedError(
+                "context-parallel softmax attention (seq_mesh) is not ported "
+                "yet; it comes with the parallelism slice")
+        self.dim = dim
+        self.heads = heads
+        self.dropout = dropout
+        self.method = method
+        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=compute_dtype)
+        self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.drop = Dropout(dropout)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rpe: Optional[nn.Module] = None, return_attention: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x [B, N, dim] -> [B, N, dim], and the [B, H, N, N] probabilities
+        if return_attention. In train mode with dropout > 0 the
+        probabilities' dropout seed (one int32 drawn on x's device, so the
+        host never waits) and the output's dropout mask come from
+        `generator`."""
+        if isinstance(rpe, KerpleRPE):
+            raise NotImplementedError(_KERPLE_REJECTION)
+        if rpe is not None:
+            raise NotImplementedError(
+                f"softmax attention with {type(rpe).__name__} is not ported "
+                "yet; RoPE and Circulant-STRING come with the rotation slice")
+        q, k, v = (_split_heads(t, self.heads)
+                   for t in self.qkv(x).chunk(3, dim=-1))
+        rate = float(self.dropout) if self.training and self.dropout > 0 else 0.0
+        seed = None
+        if rate > 0:
+            if generator is None:
+                raise ValueError("train-mode dropout needs a generator: pass "
+                                 "one to the model's forward")
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 generator=generator, device=x.device)
+        out = softmax_attention(q, k, v, self.head_dim ** -0.5, mask=mask,
+                                return_attention=return_attention,
+                                dropout_rate=rate, dropout_seed=seed,
+                                method=self.method)
+        if return_attention:
+            out, weights = out
+            return self.drop(self.proj(_merge_heads(out)), generator), weights
+        return self.drop(self.proj(_merge_heads(out)), generator)
 
 
 class _KernelAttention(nn.Module):
@@ -132,9 +204,11 @@ class _KernelAttention(nn.Module):
             self.omega.copy_(self.draw_omega(generator))
         self.redraw_counter += 1
 
-    def forward(self, x: torch.Tensor, rpe: Optional[nn.Module] = None,
-                return_attention: bool = False,
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rpe: Optional[nn.Module] = None, return_attention: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`mask` is taken and not applied, as in the JAX module: linear
+        attention has no [N, N] matrix to mask."""
         if return_attention:
             raise NotImplementedError(
                 "Linear attention doesn't compute explicit attention "
@@ -184,8 +258,10 @@ class ReluAttention(_KernelAttention):
     feature_kind = "relu"
 
 
-# name -> class, with aliases; softmax and favor_hyper join in their slices
+# name -> class, with aliases; favor_hyper joins in the rotation slice
 ATTENTION_REGISTRY = {
+    "softmax": SoftmaxAttention,
+    "baseline": SoftmaxAttention,
     "favor_plus": FavorPlusAttention,
     "favor+": FavorPlusAttention,
     "performer": FavorPlusAttention,

@@ -43,11 +43,8 @@ MODEL_VARIANTS: Dict[str, Tuple[str, Optional[str]]] = {
 
 # mechanisms of the JAX package that the port does not have yet -> the
 # slice that brings them
-_SOFTMAX_SLICE = "the softmax slice (flash attention kernels)"
 _ROTATION_SLICE = "the rotation slice (RoPE and circulant kernels)"
 NOT_PORTED: Dict[str, str] = {
-    "softmax": _SOFTMAX_SLICE,
-    "baseline": _SOFTMAX_SLICE,
     "favor_hyper": _ROTATION_SLICE,
     "circulant_string": _ROTATION_SLICE,
     "circulant": _ROTATION_SLICE,
@@ -56,8 +53,7 @@ NOT_PORTED: Dict[str, str] = {
     "rope_2d": _ROTATION_SLICE,
     "rope_axial": _ROTATION_SLICE,
 }
-_ATTENTION_NAMES = set(ATTENTION_REGISTRY) | {"softmax", "baseline",
-                                              "favor_hyper"}
+_ATTENTION_NAMES = set(ATTENTION_REGISTRY) | {"favor_hyper"}
 _RPE_NAMES = set(RPE_REGISTRY) | (set(NOT_PORTED) - _ATTENTION_NAMES)
 
 

@@ -66,7 +66,17 @@ class TransformerBlock(nn.Module):
         self.mlp = Mlp(dim, mlp_dim, dropout, compute_dtype)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """`generator` feeds dropout and feature redraw in train mode."""
-        x = x + self.attention(self.norm1(x), rpe=self.rpe, generator=generator)
-        return x + self.mlp(self.norm2(x), generator)
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None,
+                return_attention: bool = False):
+        """`generator` feeds dropout and feature redraw in train mode. With
+        return_attention, returns (x, the attention's probabilities)."""
+        out = self.attention(self.norm1(x), mask=mask, rpe=self.rpe,
+                             return_attention=return_attention,
+                             generator=generator)
+        weights = None
+        if return_attention:
+            out, weights = out
+        x = x + out
+        x = x + self.mlp(self.norm2(x), generator)
+        return (x, weights) if return_attention else x

@@ -107,12 +107,15 @@ class ViT(nn.Module):
         draw(nn.init.normal_, self.pos_embedding, 0.0, 0.02)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_attention: bool = False):
         """x: [B, H, W, C] float images -> [B, num_classes] fp32 logits.
 
         In train mode, dropout masks and redrawn random features come from
         `generator` (on x's device), which is then required where either is
-        live; eval mode never draws."""
+        live; eval mode never draws. With return_attention (softmax
+        attention only), returns (logits, [per-block [B, H, N, N]
+        probabilities])."""
         B = x.shape[0]
         if tuple(x.shape[1:]) != (self.image_size, self.image_size,
                                   self.in_channels):
@@ -124,6 +127,11 @@ class ViT(nn.Module):
         x = self.patch_embedding(patchify(x, self.patch_size).to(dt))
         cls = self.cls_token.to(dt).expand(B, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
+        attention_maps = []
         for block in self.transformer_blocks:
-            x = block(x, generator)
-        return self.mlp_head(x[:, 0].float())  # head in fp32
+            x = block(x, generator, return_attention=return_attention)
+            if return_attention:
+                x, weights = x
+                attention_maps.append(weights)
+        logits = self.mlp_head(x[:, 0].float())  # head in fp32
+        return (logits, attention_maps) if return_attention else logits

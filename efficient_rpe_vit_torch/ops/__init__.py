@@ -9,6 +9,7 @@ from .feature_maps import (
 )
 from .attention_core import (
     EPS,
+    softmax_attention,
     linear_attention,
     kerple_linear_attention,
     masked_linear_vjp_residual,
@@ -24,6 +25,7 @@ __all__ = [
     "phi_positive",
     "phi_relu",
     "EPS",
+    "softmax_attention",
     "linear_attention",
     "kerple_linear_attention",
     "masked_linear_vjp_residual",

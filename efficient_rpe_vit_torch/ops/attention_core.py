@@ -1,6 +1,7 @@
 """Attention compute cores — plain tensor functions on [B, H, N, D] tensors.
 
 Counterpart of `efficient_rpe_vit_tpu/ops/attention_core.py`:
+  * softmax O(N^2) softmax(scale * q k^T) v, on the flash kernels or dense,
   * linear  O(N)  two-einsum kernelised attention,
   * KERPLE        linear attention with a Toeplitz relative-position bias
                   inside the kernelised sum,
@@ -8,20 +9,31 @@ Counterpart of `efficient_rpe_vit_tpu/ops/attention_core.py`:
     num[i] = sum_j T[i,j] * (q' k'^T)[i,j] * v[j],
     den[i] = sum_j T[i,j] * (q' k'^T)[i,j],      T[i,j] = c[j - i + N - 1].
 
-KERPLE dispatch. The JAX package's dense-vs-kernel constants were measured
-on its own accelerator and are not inherited: here `method` picks the arm
-explicitly, and `"auto"` means the hand-written kernel until measurements
-on the GPU set a real dispatch. Both arms are differentiable with the
+Dispatch. The JAX package's dense-vs-kernel constants (`FLASH_MIN_N`,
+`SOFTMAX_DENSE_MEMORY_BUDGET`, the KERPLE budgets) were measured on its
+own accelerator and are not inherited: here `method` picks the arm
+explicitly, and `"auto"` means the hand-written kernels (for softmax, the
+dense arm when the probabilities are returned) until measurements on the
+GPU set a real dispatch. KERPLE's two arms are differentiable with the
 explicit residual VJP (`masked_linear_vjp_residual`): the kernel arm through
-the backward kernels, the dense arm as plain tensor code over T.
+the backward kernels, the dense arm as plain tensor code over T. Softmax's
+flash arm runs the flash backward kernels; its dense arm is differentiated
+by autograd, as the JAX package's dense path is by JAX.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from .fft_toeplitz import toeplitz_from_coeffs
+from .kernels.flash_attention import (
+    canonical_mask,
+    dropout_keep_dense,
+    flash_softmax_attention,
+)
 from .kernels.masked_linear_coeffs import (
     EPS,
     kerple_dense_forward,
@@ -29,8 +41,79 @@ from .kernels.masked_linear_coeffs import (
     masked_linear_vjp_residual,
 )
 
-__all__ = ["EPS", "linear_attention", "kerple_linear_attention",
-           "masked_linear_vjp_residual"]
+__all__ = ["EPS", "softmax_attention", "linear_attention",
+           "kerple_linear_attention", "masked_linear_vjp_residual"]
+
+
+def softmax_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, mask: Optional[torch.Tensor] = None,
+                  dropout_rate: float = 0.0, dropout_seed=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain [B, H, N, N] path, differentiated by autograd, as the JAX
+    package's dense `softmax_attention`: fp32 scores, masked cells -inf,
+    softmax, dropout on the probabilities, then the value product with the
+    probabilities rounded to v's dtype (fp32 accumulation). Dropout keeps
+    the cells of the kernels' counter hash (`dropout_keep_dense`), so both
+    arms drop the same cells from the same seed.
+
+    Returns:
+        (out [B, H, N, D] in v's dtype, the fp32 probabilities after dropout).
+    """
+    B, H, N, _ = q.shape
+    attn = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+    if mask is not None:
+        mask, _ = canonical_mask(mask, B, H)
+        attn = attn.masked_fill(mask == 0, float("-inf"))
+    attn = torch.softmax(attn, dim=-1)
+    if dropout_rate > 0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        keep = dropout_keep_dense(dropout_seed, B, H, N, N, dropout_rate,
+                                  device=q.device)
+        attn = torch.where(keep, attn / (1.0 - dropout_rate), 0.0)
+    out = torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype).float(), v.float())
+    return out.to(v.dtype), attn
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float, mask: Optional[torch.Tensor] = None,
+                      return_attention: bool = False,
+                      dropout_rate: float = 0.0, dropout_seed=None,
+                      method: str = "auto"):
+    """softmax(scale * q k^T) v.
+
+    Args:
+        q, k, v: [B, H, N, D].
+        scale: scalar (typically head_dim ** -0.5).
+        mask: optional [B, N, N] / [B, 1, N, N] / [B, H, N, N]; zeros are
+            masked out.
+        return_attention: also return the [B, H, N, N] probabilities (after
+            dropout); only the dense arm forms them.
+        dropout_rate: attention-probability drop rate; 0 disables.
+        dropout_seed: required when dropout_rate > 0: an int or a one-value
+            integer tensor (on q's device for the kernel arm); both arms
+            drop the cells of the counter hash of (seed, b, h, i, j).
+        method: 'flash' runs the hand-written flash kernels (their plain
+            versions for CPU tensors); 'dense' the plain [B, H, N, N]
+            formula on any device; 'auto' means 'flash', or 'dense' when
+            return_attention asks for the probabilities.
+    Returns:
+        [B, H, N, D] in v's dtype, and the probabilities if return_attention.
+    """
+    if method == "auto":
+        method = "dense" if return_attention else "flash"
+    if method == "flash":
+        if return_attention:
+            raise ValueError("the flash arm never forms the [B, H, N, N] "
+                             "probabilities: use method='dense' (or 'auto') "
+                             "with return_attention")
+        return flash_softmax_attention(q, k, v, scale, mask, dropout_rate,
+                                       dropout_seed)
+    if method == "dense":
+        out, attn = softmax_dense(q, k, v, scale, mask, dropout_rate,
+                                  dropout_seed)
+        return (out, attn) if return_attention else out
+    raise ValueError(f"unknown method {method!r}")
 
 
 def linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/efficient_rpe_vit_torch/<name>-<hash>.so` at the repository
-root, the hash covering the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built when a module is
-imported: `load` builds on first use, and `build` compiles several sources
-at once, one nvcc process each, all started together.
+root, the hash covering the source, the shared headers (`csrc/*.cuh`) and
+the flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported: `load` builds on first use,
+and `build` compiles several sources at once, one nvcc process each, all
+started together. `launch` calls a built launcher on the current stream.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
@@ -37,9 +40,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha1(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -86,3 +90,33 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of `csrc/<name>.cu`, building it if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for CPU tensors (a kernel wrapper then takes the plain version);
+    raises for devices other than CPU and CUDA."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def dtype_suffix(dtype: torch.dtype) -> str:
+    """The C launcher's suffix for an input dtype: bf16 or f32."""
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def launch(errors, name: str, fn, device: torch.device, *args) -> None:
+    """Call one C launcher with `args` and then the current stream of
+    `device`: tensors go as their data pointers, None as a null pointer,
+    numbers as they are (the launcher's argtypes convert them). Raises if
+    the launch was refused, naming the error `errors(code)` gives."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 stream)
+    if err != 0:
+        shape = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
+        raise RuntimeError(f"{name} launch refused at {shape}: CUDA error {err} "
+                           f"({errors(err).decode()})")

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
-from ._build import load
+from ._build import dtype_suffix, launch, load, on_cpu
 
 EPS = 1e-6  # denominator stabiliser, as in the JAX package
 
@@ -249,16 +249,6 @@ def _check_bwd_inputs(gn, s, v, k_prime, q_prime=None, coeffs=None) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    """True for CPU tensors (plain version); raises for devices other than
-    CPU and CUDA."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
-
-
 @functools.cache
 def _kernel_fns():
     lib = load(_SOURCE)
@@ -295,22 +285,6 @@ def _bwd_kernel_fns():
     return lib
 
 
-def _launch(lib, errors, name: str, fn, tensors, ints) -> None:
-    """Call one C launcher on the current stream of the tensors' device;
-    raise if the launch was refused."""
-    device = tensors[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch refused at {ints}: CUDA error "
-                           f"{err} ({errors(err).decode()})")
-
-
-def _suffix(dtype: torch.dtype) -> str:
-    return "bf16" if dtype == torch.bfloat16 else "f32"
-
-
 # ─── forward ────────────────────────────────────────────────────────────
 
 def masked_linear_attention_coeffs_fwd(
@@ -334,7 +308,7 @@ def masked_linear_attention_coeffs_fwd(
         kernel launch is refused.
     """
     _check_inputs(q_prime, k_prime, v, coeffs)
-    if _on_cpu(q_prime):
+    if on_cpu(q_prime):
         return masked_linear_attention_coeffs_reference(
             q_prime, k_prime, v, coeffs)
     B, H, N, F_ = q_prime.shape
@@ -342,9 +316,9 @@ def masked_linear_attention_coeffs_fwd(
     lib = _kernel_fns()
     out = torch.empty_like(v)
     den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
-    _launch(lib, lib.mlc_error_string, "masked_linear_coeffs_fwd",
-            getattr(lib, f"mlc_fwd_{_suffix(v.dtype)}"),
-            (q_prime, k_prime, v, coeffs, out, den), (B, H, N, F_, D))
+    launch(lib.mlc_error_string, "masked_linear_coeffs_fwd",
+           getattr(lib, f"mlc_fwd_{dtype_suffix(v.dtype)}"), v.device,
+           q_prime, k_prime, v, coeffs, out, den, B, H, N, F_, D)
     masked_linear_attention_coeffs_fwd.launches += 1
     return out, den
 
@@ -358,15 +332,15 @@ def masked_linear_attention_coeffs_bwd_dq(gn, s, v, k_prime, coeffs):
     """dq' = round(dW*T) k' ([B, H, N, F] in k's dtype) from gn, s
     (`kerple_bwd_residuals`), v, k' and coeffs. Replaces `_dq_kernel`."""
     _check_bwd_inputs(gn, s, v, k_prime, coeffs=coeffs)
-    if _on_cpu(v):
+    if on_cpu(v):
         return masked_linear_attention_coeffs_bwd_dq_reference(
             gn, s, v, k_prime, coeffs)
     B, H, N, F_ = k_prime.shape
     lib = _bwd_kernel_fns()
     dq = torch.empty_like(k_prime)
-    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dq",
-            getattr(lib, f"mlc_bwd_dq_{_suffix(v.dtype)}"),
-            (gn, s, v, k_prime, coeffs, dq), (B, H, N, F_, v.shape[-1]))
+    launch(lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dq",
+           getattr(lib, f"mlc_bwd_dq_{dtype_suffix(v.dtype)}"), v.device,
+           gn, s, v, k_prime, coeffs, dq, B, H, N, F_, v.shape[-1])
     masked_linear_attention_coeffs_bwd_dq.launches += 1
     return dq
 
@@ -375,17 +349,16 @@ def masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q_prime, k_prime, coeffs):
     """(dk' = round(dW*T)^T q', dv = round(A*T)^T gn) in the input dtype.
     Replaces `_dkv_kernel`."""
     _check_bwd_inputs(gn, s, v, k_prime, q_prime, coeffs)
-    if _on_cpu(v):
+    if on_cpu(v):
         return masked_linear_attention_coeffs_bwd_dkv_reference(
             gn, s, v, q_prime, k_prime, coeffs)
     B, H, N, F_ = k_prime.shape
     lib = _bwd_kernel_fns()
     dk = torch.empty_like(k_prime)
     dv = torch.empty_like(v)
-    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dkv",
-            getattr(lib, f"mlc_bwd_dkv_{_suffix(v.dtype)}"),
-            (gn, s, v, q_prime, k_prime, coeffs, dk, dv),
-            (B, H, N, F_, v.shape[-1]))
+    launch(lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dkv",
+           getattr(lib, f"mlc_bwd_dkv_{dtype_suffix(v.dtype)}"), v.device,
+           gn, s, v, q_prime, k_prime, coeffs, dk, dv, B, H, N, F_, v.shape[-1])
     masked_linear_attention_coeffs_bwd_dkv.launches += 1
     return dk, dv
 
@@ -395,7 +368,7 @@ def masked_linear_attention_coeffs_bwd_dc(gn, s, v, q_prime, k_prime):
     [H, n_t, n_t, 2*tile-1] fp32 (tile = BWD_TILE[dtype]). Replaces
     `_dc_kernel`."""
     _check_bwd_inputs(gn, s, v, k_prime, q_prime)
-    if _on_cpu(v):
+    if on_cpu(v):
         return masked_linear_attention_coeffs_bwd_dc_reference(
             gn, s, v, q_prime, k_prime)
     B, H, N, F_ = k_prime.shape
@@ -404,9 +377,9 @@ def masked_linear_attention_coeffs_bwd_dc(gn, s, v, q_prime, k_prime):
     lib = _bwd_kernel_fns()
     windows = torch.empty((H, n_t, n_t, 2 * tile - 1), dtype=torch.float32,
                           device=v.device)
-    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc",
-            getattr(lib, f"mlc_bwd_dc_{_suffix(v.dtype)}"),
-            (gn, s, v, q_prime, k_prime, windows), (B, H, N, F_, v.shape[-1]))
+    launch(lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc",
+           getattr(lib, f"mlc_bwd_dc_{dtype_suffix(v.dtype)}"), v.device,
+           gn, s, v, q_prime, k_prime, windows, B, H, N, F_, v.shape[-1])
     masked_linear_attention_coeffs_bwd_dc.launches += 1
     return windows
 
@@ -425,13 +398,13 @@ def masked_linear_attention_coeffs_bwd_dc_reduce(windows: torch.Tensor,
         raise ValueError(f"{n_t} tiles of {tile} rows do not cover n={n}")
     if windows.dtype != torch.float32 or not windows.is_contiguous():
         raise ValueError("windows must be contiguous float32")
-    if _on_cpu(windows):
+    if on_cpu(windows):
         return masked_linear_attention_coeffs_bwd_dc_reduce_reference(windows, n)
     lib = _bwd_kernel_fns()
     dcoeffs = torch.empty((H, 2 * n - 1), dtype=torch.float32,
                           device=windows.device)
-    _launch(lib, lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc_reduce",
-            lib.mlc_bwd_dc_reduce, (windows, dcoeffs), (H, n, tile))
+    launch(lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc_reduce",
+           lib.mlc_bwd_dc_reduce, windows.device, windows, dcoeffs, H, n, tile)
     masked_linear_attention_coeffs_bwd_dc_reduce.launches += 1
     return dcoeffs
 
@@ -463,7 +436,7 @@ def masked_linear_attention_coeffs_bwd(q_prime, k_prime, v, coeffs, den, out, g)
                              f"of v's shape {tuple(v.shape)}")
     if den.shape != v.shape[:3] or den.dtype != torch.float32:
         raise ValueError("den must be [B, H, N] float32")
-    if _on_cpu(v):
+    if on_cpu(v):
         return masked_linear_attention_coeffs_bwd_reference(
             q_prime, k_prime, v, coeffs, den, out, g)
     gn, s = kerple_bwd_residuals(den, out, g)

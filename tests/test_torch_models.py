@@ -199,7 +199,7 @@ def test_entry_points_need_a_gpu_unless_told():
 
 
 @pytest.mark.parametrize("name", [
-    "baseline", "vit", "baseline_rope", "performer_favor_rope",
+    "baseline_circulant", "softmax_rope_2d", "baseline_rope", "performer_favor_rope",
     "performer_relu_circulant", "favor_hyper", "favor_plus_rope_2d",
     "baseline_most_general"])
 def test_variants_not_ported_yet_raise(name):
