@@ -1,6 +1,7 @@
-from .rpe import KerpleRPE, RPE_REGISTRY
+from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D, RPE_REGISTRY
 from .attention import (
     SoftmaxAttention,
+    FavorHyperAttention,
     FavorPlusAttention,
     ReluAttention,
     ATTENTION_REGISTRY,
@@ -13,9 +14,13 @@ from .factory import (
 )
 
 __all__ = [
+    "CirculantStringRPE",
     "KerpleRPE",
+    "RoPE",
+    "RoPE2D",
     "RPE_REGISTRY",
     "SoftmaxAttention",
+    "FavorHyperAttention",
     "FavorPlusAttention",
     "ReluAttention",
     "ATTENTION_REGISTRY",

@@ -3,11 +3,14 @@
 Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
   * fused QKV projection, optional bias,
   * softmax: scale d^-1/2, mask and return_attention, KERPLE rejected,
+    RoPE / RoPE2D / Circulant-STRING rotate q and k before the core,
     attention-probability dropout in train mode from a seed drawn from the
     caller's generator, the core arm from `method` ('auto' = the flash
     kernels, 'dense' = the plain [B, H, N, N] formula),
-  * linear-attention scale d^-1/4 on both q and k, except under KERPLE,
-    which L2-normalises q and k instead (clamp inside the sqrt),
+  * linear-attention scale d^-1/4 on both q and k (after the rotation
+    under RoPE / RoPE2D / Circulant-STRING), except under KERPLE, which
+    L2-normalises q and k instead (clamp inside the sqrt),
+  * FAVOR+, hyperbolic FAVOR+ (2m features) and ReLU feature maps,
   * linear attention raises on return_attention,
   * Omega in the non-trainable buffer `omega` [heads, head_dim, m],
   * optional feature redraw in train mode every `feature_redraw_interval`
@@ -31,13 +34,14 @@ from ..ops import (
     gaussian_features,
     linear_attention,
     orthogonal_gaussian_features,
+    phi_hyperbolic,
     phi_positive,
     phi_relu,
     softmax_attention,
 )
 from ..ops.feature_maps import mxu_num_features
 from .dense import Dense, Dropout
-from .rpe import KerpleRPE
+from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D
 
 # Byte size of one fp32 phi (4 * B * H * N * m) past which phi(q) and phi(k)
 # are recomputed in the backward instead of keeping their fp32
@@ -62,6 +66,18 @@ def _safe_normalize(t: torch.Tensor) -> torch.Tensor:
     rows), in t's dtype."""
     sq = (t * t).sum(dim=-1, keepdim=True)
     return t / torch.sqrt(torch.clamp(sq, min=1e-24))
+
+
+def _rotate(q: torch.Tensor, k: torch.Tensor, rpe: Optional[nn.Module]):
+    """q and k rotated by a RoPE, RoPE2D or Circulant-STRING rpe; unchanged
+    for None and KERPLE, which the caller handles; any other module raises."""
+    if isinstance(rpe, (RoPE, RoPE2D)):
+        return rpe.apply_rotary(q, k)
+    if isinstance(rpe, CirculantStringRPE):
+        return rpe.rotate(q, k)
+    if rpe is not None and not isinstance(rpe, KerpleRPE):
+        raise TypeError(f"unsupported RPE module {type(rpe).__name__}")
+    return q, k
 
 
 _KERPLE_REJECTION = (
@@ -109,12 +125,9 @@ class SoftmaxAttention(nn.Module):
         `generator`."""
         if isinstance(rpe, KerpleRPE):
             raise NotImplementedError(_KERPLE_REJECTION)
-        if rpe is not None:
-            raise NotImplementedError(
-                f"softmax attention with {type(rpe).__name__} is not ported "
-                "yet; RoPE and Circulant-STRING come with the rotation slice")
         q, k, v = (_split_heads(t, self.heads)
                    for t in self.qkv(x).chunk(3, dim=-1))
+        q, k = _rotate(q, k, rpe)
         rate = float(self.dropout) if self.training and self.dropout > 0 else 0.0
         seed = None
         if rate > 0:
@@ -134,7 +147,8 @@ class SoftmaxAttention(nn.Module):
 
 
 class _KernelAttention(nn.Module):
-    """Shared machinery for FAVOR+ and ReLU linear attention."""
+    """Shared machinery for FAVOR+, hyperbolic FAVOR+ and ReLU linear
+    attention."""
 
     feature_kind: str = "favor_plus"  # overridden by subclasses
 
@@ -185,6 +199,8 @@ class _KernelAttention(nn.Module):
     def _phi(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         if self.feature_kind == "favor_plus":
             return phi_positive(x, omega)
+        if self.feature_kind == "favor_hyper":
+            return phi_hyperbolic(x, omega)
         return phi_relu(x, omega)
 
     def _phi_pair(self, q: torch.Tensor, k: torch.Tensor,
@@ -220,6 +236,7 @@ class _KernelAttention(nn.Module):
         q, k, v = (_split_heads(t, self.heads)
                    for t in self.qkv(x).chunk(3, dim=-1))
 
+        q, k = _rotate(q, k, rpe)
         use_kerple = isinstance(rpe, KerpleRPE)
         if use_kerple:
             # L2 normalisation for stability (Luo et al. 2021 §3.3, Thm 3);
@@ -258,7 +275,14 @@ class ReluAttention(_KernelAttention):
     feature_kind = "relu"
 
 
-# name -> class, with aliases; favor_hyper joins in the rotation slice
+class FavorHyperAttention(_KernelAttention):
+    """Positive hyperbolic random features (Performer paper, Lemma 1):
+    antithetic +/- projection pairs, 2m features."""
+
+    feature_kind = "favor_hyper"
+
+
+# name -> class, with aliases (the JAX package's registry)
 ATTENTION_REGISTRY = {
     "softmax": SoftmaxAttention,
     "baseline": SoftmaxAttention,
@@ -266,4 +290,5 @@ ATTENTION_REGISTRY = {
     "favor+": FavorPlusAttention,
     "performer": FavorPlusAttention,
     "relu": ReluAttention,
+    "favor_hyper": FavorHyperAttention,
 }

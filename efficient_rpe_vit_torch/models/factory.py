@@ -2,9 +2,9 @@
 
 Counterpart of `efficient_rpe_vit_tpu/models/factory.py`: the same variant
 names, the same custom "<attention>_<rpe>" parsing and the same
-per-mechanism `attention_params` / `rpe_params` merging. A variant whose
-modules are not ported yet raises NotImplementedError naming the slice of
-the port that brings it.
+per-mechanism `attention_params` / `rpe_params` merging: the 11 reference
+variants, the aliases and the custom names (`favor_plus_rope_2d`,
+`favor_hyper_circulant`, ...) all build; softmax with KERPLE raises.
 """
 
 from __future__ import annotations
@@ -41,21 +41,6 @@ MODEL_VARIANTS: Dict[str, Tuple[str, Optional[str]]] = {
     "vit": ("softmax", None),
 }
 
-# mechanisms of the JAX package that the port does not have yet -> the
-# slice that brings them
-_ROTATION_SLICE = "the rotation slice (RoPE and circulant kernels)"
-NOT_PORTED: Dict[str, str] = {
-    "favor_hyper": _ROTATION_SLICE,
-    "circulant_string": _ROTATION_SLICE,
-    "circulant": _ROTATION_SLICE,
-    "rope": _ROTATION_SLICE,
-    "rotary": _ROTATION_SLICE,
-    "rope_2d": _ROTATION_SLICE,
-    "rope_axial": _ROTATION_SLICE,
-}
-_ATTENTION_NAMES = set(ATTENTION_REGISTRY) | {"favor_hyper"}
-_RPE_NAMES = set(RPE_REGISTRY) | (set(NOT_PORTED) - _ATTENTION_NAMES)
-
 
 def _resolve_variant(model_name: str) -> Tuple[str, Optional[str]]:
     if model_name in MODEL_VARIANTS:
@@ -65,12 +50,12 @@ def _resolve_variant(model_name: str) -> Tuple[str, Optional[str]]:
     parts = model_name.split("_")
     for i in range(len(parts), 0, -1):
         attention_type = "_".join(parts[:i])
-        if attention_type in _ATTENTION_NAMES:
+        if attention_type in ATTENTION_REGISTRY:
             rpe_type = "_".join(parts[i:]) or None
-            if rpe_type is not None and rpe_type not in _RPE_NAMES:
+            if rpe_type is not None and rpe_type not in RPE_REGISTRY:
                 raise ValueError(
                     f"Unknown RPE type: {rpe_type}. "
-                    f"Available types: {sorted(_RPE_NAMES)}"
+                    f"Available types: {list(RPE_REGISTRY)}"
                 )
             return attention_type, rpe_type
     raise ValueError(
@@ -97,7 +82,9 @@ def create_model(
         config: ExperimentConfig or the flat dict from `.to_dict()`.
         attention_config / rpe_config: per-call mechanism overrides, merged
             over the config's `attention_params` / `rpe_params` defaults
-            (e.g. rpe_config={"method": "dense"}).
+            (e.g. rpe_config={"method": "dense"} for KERPLE, {"method":
+            "chain"} for Circulant-STRING, {"block_size": 16,
+            "enable_block_circulant": True} for block-circulant).
         device: where the model lives; None means the GPU, and raises when
             there is none. Pass "cpu" to run on the CPU.
         generator: CPU generator the weights are drawn from; None seeds
@@ -105,8 +92,7 @@ def create_model(
         **overrides: architecture field overrides (dim, depth, dropout, ...).
 
     Raises:
-        NotImplementedError: for the rejected softmax+KERPLE combination and
-            for variants whose modules are not ported yet.
+        NotImplementedError: for the rejected softmax+KERPLE combination.
     """
     device = resolve_device(device)
     attention_type, rpe_type = _resolve_variant(model_name)
@@ -118,12 +104,6 @@ def create_model(
             "attention. For softmax attention, use RoPE or Circulant-STRING "
             "RPE instead."
         )
-    for part in (attention_type, rpe_type):
-        if part in NOT_PORTED:
-            raise NotImplementedError(
-                f"{model_name}: {part!r} is not ported to PyTorch yet; it "
-                f"comes with {NOT_PORTED[part]}")
-
     cfg = config.to_dict() if isinstance(config, ExperimentConfig) else dict(config)
     cfg.update(overrides)
 

@@ -8,8 +8,9 @@ output in fp32. Images come in NHWC, as in the JAX package.
 
 Init (`reset_parameters`, from an explicit generator): Xavier-uniform
 linear weights / zero biases, unit LayerNorms, N(0, 0.02) for
-pos_embedding, cls_token and KERPLE biases, Omega drawn per block (and
-the feature-redraw counters zeroed).
+pos_embedding, cls_token and KERPLE biases, N(0, 0.01) for circulant
+coefficients, Omega drawn per block (and the feature-redraw counters
+zeroed).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from torch import nn
 from .attention import _KernelAttention
 from .dense import Dense, LayerNorm, torch_dtype
 from .layers import TransformerBlock
-from .rpe import KerpleRPE
+from .rpe import CirculantStringRPE, KerpleRPE
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -99,6 +100,8 @@ class ViT(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, KerpleRPE):
                 draw(nn.init.normal_, m.rel_pos_bias, 0.0, 0.02)
+            elif isinstance(m, CirculantStringRPE):
+                draw(nn.init.normal_, m.circulant_coeffs, 0.0, 0.01)
             elif isinstance(m, _KernelAttention):
                 m.omega.copy_(m.draw_omega(generator))
                 if m.feature_redraw_interval is not None:

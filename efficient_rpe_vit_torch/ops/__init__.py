@@ -4,8 +4,20 @@ from .feature_maps import (
     gaussian_features,
     mxu_num_features,
     orthogonal_gaussian_features,
+    phi_hyperbolic,
     phi_positive,
     phi_relu,
+)
+from .rotations import (
+    apply_block_circulant_rotation,
+    apply_circulant_rotation,
+    apply_circulant_string,
+    apply_rope,
+    apply_rope_2d,
+    circulant_eigenvalues,
+    grid_positions_2d,
+    rope_2d_tables,
+    rope_tables,
 )
 from .attention_core import (
     EPS,
@@ -22,8 +34,18 @@ __all__ = [
     "gaussian_features",
     "mxu_num_features",
     "orthogonal_gaussian_features",
+    "phi_hyperbolic",
     "phi_positive",
     "phi_relu",
+    "apply_block_circulant_rotation",
+    "apply_circulant_rotation",
+    "apply_circulant_string",
+    "apply_rope",
+    "apply_rope_2d",
+    "circulant_eigenvalues",
+    "grid_positions_2d",
+    "rope_2d_tables",
+    "rope_tables",
     "EPS",
     "softmax_attention",
     "linear_attention",

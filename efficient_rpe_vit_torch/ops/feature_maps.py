@@ -2,6 +2,7 @@
 
 Counterpart of `efficient_rpe_vit_tpu/ops/feature_maps.py`:
   * positive random features phi+(x) = exp(x@Omega - max - ||x||^2/2)/sqrt(m),
+  * positive hyperbolic features (2m of them, `favor_hyper`),
   * ReLU features phi(x) = relu(x@Omega)/sqrt(m),
   * per-head orthogonal Omega via blockwise QR, scaled by sqrt(head_dim).
 
@@ -82,6 +83,29 @@ def phi_positive(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     x_norm_sq_half = (x * x).sum(dim=-1, keepdim=True) / 2.0
     phi = torch.exp(proj - proj_max - x_norm_sq_half) / math.sqrt(m)
     return phi.to(x.dtype)
+
+
+def phi_hyperbolic(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
+    """Positive hyperbolic random features (Performer paper, Lemma 1):
+
+    phi_hyp(x) = exp(-||x||^2/2) / sqrt(2m) * [exp(x@Omega); exp(-x@Omega)]
+
+    Both signs of each projection (an antithetic pair), so 2m features; the
+    stabiliser is the detached per-row max of |x@Omega|.
+
+    Args:
+        x: [B, H, N, D].
+        omega: [H, D, M].
+    Returns:
+        [B, H, N, 2M] positive features in x's dtype.
+    """
+    m = omega.shape[-1]
+    proj = _project(x, omega)
+    stab = proj.abs().amax(dim=-1, keepdim=True).detach()
+    x_norm_sq_half = (x * x).sum(dim=-1, keepdim=True) / 2.0
+    pos = torch.exp(proj - stab - x_norm_sq_half)
+    neg = torch.exp(-proj - stab - x_norm_sq_half)
+    return (torch.cat([pos, neg], dim=-1) / math.sqrt(2 * m)).to(x.dtype)
 
 
 def phi_relu(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,13 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/`. CUDA sources live in
 `efficient_rpe_vit_torch/csrc/` and are built by `_build.py` on first use.
 """
 
+# the differentiable `circulant_rotate` stays in its module of the same name
+from .circulant_rotate import (
+    circulant_rotate_bwd,
+    circulant_rotate_bwd_reference,
+    circulant_rotate_fwd,
+    circulant_rotate_fwd_reference,
+)
 from .flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -20,6 +27,10 @@ from .masked_linear_coeffs import (
 )
 
 __all__ = [
+    "circulant_rotate_bwd",
+    "circulant_rotate_bwd_reference",
+    "circulant_rotate_fwd",
+    "circulant_rotate_fwd_reference",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",

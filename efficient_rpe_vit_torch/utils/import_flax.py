@@ -51,8 +51,9 @@ def flax_to_state_dict(params: Mapping[str, Any],
         dense(pre + "attention.proj", blk["attention"]["proj"])
         dense(pre + "mlp.0", blk["mlp"]["fc1"])
         dense(pre + "mlp.3", blk["mlp"]["fc2"])
-        if "rpe" in blk:
-            sd[pre + "rpe.rel_pos_bias"] = _tensor(blk["rpe"]["rel_pos_bias"])
+        for name in ("rel_pos_bias", "circulant_coeffs"):  # KERPLE, Circulant-STRING
+            if name in blk.get("rpe", {}):
+                sd[pre + "rpe." + name] = _tensor(blk["rpe"][name])
         if constants is not None and f"block_{i}" in constants:
             sd[pre + "attention.omega"] = _tensor(
                 constants[f"block_{i}"]["attention"]["omega"])

@@ -524,7 +524,7 @@ def test_softmax_attention_module_refusals():
     x = torch.zeros(1, 17, 32)
     with pytest.raises(NotImplementedError, match="KERPLE RPE is designed"):
         attn(x, rpe=KerpleRPE(num_patches=17, dim=32, heads=2))
-    with pytest.raises(NotImplementedError, match="rotation slice"):
+    with pytest.raises(TypeError, match="unsupported RPE module"):
         attn(x, rpe=torch.nn.Identity())
     with pytest.raises(NotImplementedError, match="parallelism slice"):
         SoftmaxAttention(dim=32, heads=2, seq_mesh=object())
