@@ -25,6 +25,11 @@ Phases, each printed as it runs; any failure exits non-zero:
      serving, training, long-N and the JAX tests' shapes and at D=128; CLS
      rows bit for bit, bitwise backward reruns, the head split's strided
      views; timed beside their bounds and the plain DFT chain arm;
+  3e. the fused-phi KERPLE forward (phi+ and phi_relu computed in the
+     kernel from raw q, k and Omega) against its plain version in bf16 and
+     fp32 at the serving, training, ragged and the JAX tests' shapes; timed
+     beside its bound and the unfused route it replaces (two phi_positive
+     calls and the KERPLE forward kernel);
   4. serve KERPLE: ViT-B/16 performer_favor_most_general (bf16, random
      weights from a seed) answers 4 requests of 32 images through
      `make_eval_step`; launch counts, logits against the same model on the
@@ -53,11 +58,19 @@ Phases, each printed as it runs; any failure exits non-zero:
  11. long-N train `baseline_circulant` as phase 8: per step 24 rotation
      forward and backward launches beside the flash two-pass launches;
  12. every other rotation and hyperbolic-feature variant (RoPE, RoPE2D,
-     FAVOR+/ReLU circulant, block-circulant, favor_hyper*) at ViT-B width,
-     depth 2: one served batch of 32 on the kernel arms against the
-     dense/chain arms and one train step with finite gradients; the KERPLE
-     kernels the card refuses at F=532 are reported, and a train step may
-     be refused only by one of them.
+     FAVOR+/ReLU circulant, block-circulant, favor_hyper*) and ReLU KERPLE
+     with fused phi at ViT-B width, depth 2: one served batch of 32 on the
+     kernel arms against the dense/chain arms and one train step with
+     finite gradients; before them every KERPLE kernel at favor_hyper's
+     F = 532 ([2, 12, 197, 532], both dtypes) against its plain version;
+ 13. serve fused phi: ViT-B/16 performer_favor_most_general with
+     attention_config={"fused_phi": True} as phase 4 (12 fused-phi launches
+     and no KERPLE forward launch per forward), logits against the unfused
+     kernel arm and the dense arm, ms per batch of all three;
+ 14. train fused phi: the same model as phase 5 (per step 12 fused-phi
+     launches and 12 of each backward kernel), step-1 gradients against
+     the unfused kernel arm and bitwise across two runs, ms per step of
+     both arms.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -138,6 +151,14 @@ ROT_ANGLE_TOL = 1e-4
 # train step-1 gradients, kernel path vs dense path (same weights, bf16):
 # ||g_kernel - g_dense|| / ||g_dense|| per parameter tensor.
 GRAD_REL_TOL = 5e-2
+# the fused-phi forward is held to OUT_TOL, and den to FUSED_DEN_RTOL: phi
+# is computed by the same rules on both sides, but from u = x Omega summed
+# in another order, so in bf16 a feature may round one ulp (up to 2^-7
+# relative) the other way before the score product. A q-side feature moves
+# all of its row's scores together: den_i by up to 2^-7 times that
+# feature's share of den_i (a few percent for phi+ at F=266; 2.6e-4
+# measured at B=32). fp32 rounds no feature: DEN_RTOL.
+FUSED_DEN_RTOL = {"float32": DEN_RTOL, "bfloat16": 2 ** -8}
 
 VITB = dict(image_size=224, patch_size=16, in_channels=3, num_classes=1000,
             dim=768, depth=12, heads=12, mlp_dim=3072, dropout=0.0,
@@ -158,6 +179,13 @@ BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
               (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
 BWD_KERNELS = ("masked_linear_coeffs_bwd_dq", "masked_linear_coeffs_bwd_dkv",
                "masked_linear_coeffs_bwd_dc", "masked_linear_coeffs_bwd_dc_reduce")
+KERPLE_FORWARDS = ("masked_linear_coeffs_fwd", "kerple_fused_phi_fwd")
+# fused-phi shapes (B, H, N, D, F): serving, training, ragged, the JAX
+# package's kernel-test shape
+FUSED_SHAPES = [(VITB["batch_size"], 12, 197, 64, 266), (TRAIN_BATCH, 12, 197, 64, 266),
+                (4, 12, 17, 64, 266), (4, 12, 130, 64, 266), (2, 2, 197, 16, 44)]
+# favor_hyper's KERPLE shape: F = 2 * 266
+F532 = (2, 12, 197, 532, 64)
 # flash cases (B, H, N, D, mask, dropout rate): the serving and training
 # shapes, ragged shapes, the JAX package's kernel-test shape, both mask
 # layouts, dropout alone and with a mask, the largest head dim
@@ -180,6 +208,8 @@ ROT_SHAPES = list(ROT_PATHS) + [(2, 3, 190, 16), (1, 2, 17, 16), (3, 1, 65, 64),
 # phase 12: (variant, rpe_config of the kernel arm, of the dense arm), at
 # ViT-B width and depth VARIANT_DEPTH
 BLOCK_CIRCULANT = {"block_size": 16, "enable_block_circulant": True}
+# marks a phase-12 kernel arm that takes attention_config={"fused_phi": True}
+FUSED_PHI = "fused_phi"
 OTHER_VARIANTS = [
     ("baseline_rope", None, None), ("performer_favor_rope", None, None),
     ("performer_relu_rope", None, None), ("softmax_rope_2d", None, None),
@@ -190,12 +220,13 @@ OTHER_VARIANTS = [
     ("favor_hyper", None, None),
     ("favor_hyper_circulant", {"method": "pallas"}, {"method": "chain"}),
     ("favor_hyper_most_general", {"method": "pallas"}, {"method": "dense"}),
+    ("performer_relu_most_general", FUSED_PHI, {"method": "dense"}),
 ]
 VARIANT_DEPTH = 2
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
-    ("KERPLE kernels (this repo)", lambda k: "mlc_" in k),
+    ("KERPLE kernels (this repo)", lambda k: "mlc_" in k or "kfp_" in k),
     ("flash attention kernels (this repo)", lambda k: "flash_fwd_kernel" in k or "flash_bwd_" in k),
     ("rotation kernels (this repo)",
      lambda k: "rot_fwd_kernel" in k or "rot_bwd_kernel" in k or "group_sum_kernel" in k),
@@ -415,6 +446,82 @@ def check_kernels(mlc):
                 results[(name, B)] = dict(max_abs_err=err.max().item(), ms=ms,
                                           plain_ms=plain_ms, bound_ms=bound_ms,
                                           bound_by=bound_by)
+    return results
+
+
+def fused_phi_bound(B, H, N, D, F, dtype: str):
+    """(bound_ms, bound_by) for one fused-phi forward (Dv = D): q, k, v
+    read once, out written once in the input dtype, den written and Omega
+    and the coefficients read once in fp32; phi of q and k once (2 B H N D F
+    operations each) and the S = q'k'^T and W v products."""
+    elt = 2 if dtype == "bfloat16" else 4
+    bhn = B * H * N
+    nbytes = elt * 4 * bhn * D + 4 * (bhn + H * D * F + H * (2 * N - 1))
+    ops = 2 * 2 * bhn * D * F + 2 * B * H * N * N * (F + D)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _fused_inputs(B, H, N, D, F, dtype):
+    """L2-normalised q, k, v, Gaussian Omega [H, D, F] and coefficients."""
+    g = torch.Generator(device="cuda").manual_seed(N * 1000 + F + B)
+    q, k = (_unit_rows(torch.randn(B, H, N, D, generator=g, device="cuda")).to(dtype)
+            for _ in range(2))
+    v = torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
+    omega = torch.randn(H, D, F, generator=g, device="cuda")
+    c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
+    return q, k, v, omega, c
+
+
+def _unit_rows(x):
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def check_fused_kernels(mlc):
+    """Phase 3e: the fused-phi forward against its plain version on the
+    card, both feature kinds and dtypes. Returns {(dtype, B): row} for the
+    serving and training shapes (phi+, the main path's kind)."""
+    from efficient_rpe_vit_torch.ops import phi_positive
+
+    results = {}
+    for B, H, N, D, F in FUSED_SHAPES:
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v, omega, c = _fused_inputs(B, H, N, D, F, dtype)
+            for kind in ("favor_plus", "relu"):
+                out, den = mlc.kerple_attention_fused_phi_fwd(q, k, v, omega, c, kind)
+                torch.cuda.synchronize()
+                ref_out, ref_den = mlc.kerple_attention_fused_phi_fwd_reference(
+                    q, k, v, omega, c, kind)
+                rtol, atol = OUT_TOL[name]
+                err = (out.float() - ref_out.float()).abs()
+                ok_out = bool((err <= atol + rtol * ref_out.float().abs()).all())
+                den_rel = ((den - ref_den).abs() / ref_den.abs().clamp_min(1e-30)).max().item()
+                finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(den).all())
+                shape = f"B{B} H{H} N{N} D{D} F{F} {kind} {name}"
+                log("kernel", f"kerple_fused_phi_fwd {shape}: max|out err| {err.max().item():.3e} "
+                    f"(rtol {rtol}, atol {atol}), max den rel err {den_rel:.3e} (rtol "
+                    f"{FUSED_DEN_RTOL[name]:.3e}), finite {finite}")
+                if not (ok_out and den_rel <= FUSED_DEN_RTOL[name] and finite):
+                    raise AssertionError(f"fused-phi kernel disagrees with its plain version "
+                                         f"at {shape}")
+                # timed at the serving and training shapes, bf16 phi+
+                if (B, H, N, D, F) not in FUSED_SHAPES[:2] or name != "bfloat16" \
+                        or kind != "favor_plus":
+                    continue
+                ms = kernel_ms(lambda: mlc.kerple_attention_fused_phi_fwd(q, k, v, omega, c))
+                plain_ms = time_ms(lambda: mlc.kerple_attention_fused_phi_fwd_reference(
+                    q, k, v, omega, c), iters=5, warmup=1)
+                unfused_ms = kernel_ms(lambda: mlc.masked_linear_attention_coeffs_fwd(
+                    phi_positive(q, omega), phi_positive(k, omega), v, c))
+                bound_ms, bound_by = fused_phi_bound(B, H, N, D, F, name)
+                log("kernel", f"kerple_fused_phi_fwd {shape}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, unfused route (2 x phi_positive + "
+                    f"masked_linear_coeffs_fwd) {unfused_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}), kernel/bound {ms / bound_ms:.2f}x")
+                results[(name, B)] = dict(max_abs_err=err.max().item(), ms=ms,
+                                          plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, library_ms=None,
+                                          unfused_ms=unfused_ms)
     return results
 
 
@@ -728,7 +835,8 @@ def kerple_wrappers(mlc):
             "masked_linear_coeffs_bwd_dkv": mlc.masked_linear_attention_coeffs_bwd_dkv,
             "masked_linear_coeffs_bwd_dc": mlc.masked_linear_attention_coeffs_bwd_dc,
             "masked_linear_coeffs_bwd_dc_reduce":
-                mlc.masked_linear_attention_coeffs_bwd_dc_reduce}
+                mlc.masked_linear_attention_coeffs_bwd_dc_reduce,
+            "kerple_fused_phi_fwd": mlc.kerple_attention_fused_phi_fwd}
 
 
 def flash_wrappers(fa):
@@ -750,10 +858,11 @@ def zero_counts(wrappers) -> None:
 def serve(phase: str, name: str, arms, wrappers, per_forward, card: str, profile: bool,
           arbiter: bool = False):
     """ViT-B/16 `name` answers REQUESTS batches through make_eval_step on
-    the kernel arm, checked against the dense arm from the same weights.
-    `arms` maps "kernel" and "dense" to create_model keyword arguments;
-    `per_forward` is each of `wrappers`' expected launches in one forward.
-    With `arbiter`, where the two bf16 arms' top-1 agreement falls below
+    the kernel arm, checked against the dense arm, and any further arm,
+    from the same weights. `arms` maps "kernel", "dense" and optional other
+    arm names to create_model keyword arguments; `per_forward` is each of
+    `wrappers`' expected launches in one forward. With `arbiter`, where the
+    kernel arm's top-1 agreement with a reference arm falls below
     MIN_TOP1_AGREEMENT, both are held against the dense arm in fp32 instead
     (module constants). Returns the launch counts of that run."""
     from efficient_rpe_vit_torch.configs import mnist_config
@@ -762,16 +871,16 @@ def serve(phase: str, name: str, arms, wrappers, per_forward, card: str, profile
 
     cfg = mnist_config(**VITB)
     t0 = time.perf_counter()
-    model = create_model(name, cfg, device="cuda",
-                         generator=torch.Generator().manual_seed(0), **arms["kernel"])
-    dense = create_model(name, cfg, device="cuda",
-                         generator=torch.Generator().manual_seed(0), **arms["dense"])
-    dense.load_state_dict(model.state_dict())
+    models = {arm: create_model(name, cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(0), **kw)
+              for arm, kw in arms.items()}
+    model = models["kernel"]
+    for arm, other in models.items():
+        other.load_state_dict(model.state_dict())
     n_params = sum(p.numel() for p in model.parameters())
-    log(phase, f"ViT-B/16 {name} bf16, {n_params} params, "
+    log(phase, f"ViT-B/16 {name} bf16, {n_params} params, {len(models)} arms "
         f"built in {time.perf_counter() - t0:.1f} s (set-up)")
-    step = make_eval_step(model)
-    step_dense = make_eval_step(dense)
+    steps = {arm: make_eval_step(m) for arm, m in models.items()}
 
     g = torch.Generator(device="cuda").manual_seed(1)
     B = VITB["batch_size"]
@@ -783,7 +892,7 @@ def serve(phase: str, name: str, arms, wrappers, per_forward, card: str, profile
 
     # the main path: counts from 0, read right after
     zero_counts(wrappers)
-    answers = [step(x, y) for x, y in requests]
+    answers = [steps["kernel"](x, y) for x, y in requests]
     torch.cuda.synchronize()
     launches = counts(wrappers)
     expected = {n: c * REQUESTS for n, c in per_forward.items()}
@@ -795,58 +904,65 @@ def serve(phase: str, name: str, arms, wrappers, per_forward, card: str, profile
         if not (torch.isfinite(loss) and preds.shape == (B,)):
             raise AssertionError("served a non-finite loss or malformed predictions")
 
-    # correctness: the same weights on the dense arm
+    # correctness: the same weights on the other arms
     with torch.inference_mode():
-        got = torch.cat([model(x) for x, _ in requests])
-        want = torch.cat([dense(x) for x, _ in requests])
-    dense_preds = torch.cat([step_dense(x, y)[2] for x, y in requests])
+        logits = {arm: torch.cat([m(x) for x, _ in requests]) for arm, m in models.items()}
+    got = logits["kernel"]
     served_preds = torch.cat([p for _, _, p in answers])
     if got.shape != (B * REQUESTS, VITB["num_classes"]) or not torch.isfinite(got).all():
         raise AssertionError(f"logits malformed or non-finite: {tuple(got.shape)}")
-    rel = ((got - want).abs().max() / want.abs().max()).item()
-    agree = (served_preds == dense_preds).float().mean().item()
-    spread = got.std(dim=0).mean().item()
-    top2 = want.topk(2, dim=-1).values
-    gaps = top2[:, 0] - top2[:, 1]
-    log(phase, f"logits vs dense arm: max|diff|/max|logit| {rel:.3e} "
-        f"(tol {LOGIT_REL_TOL}), top-1 agreement {agree:.4f} "
-        f"(min {MIN_TOP1_AGREEMENT}), mean per-class std over images {spread:.3e}, "
-        f"median top-2 gap {gaps.median().item():.3e}")
-    for i in (served_preds != dense_preds).nonzero().flatten().tolist():
-        log(phase, f"image {i}: top-1 differs; dense top-2 gap {gaps[i].item():.3e}, "
-            f"max|diff| of its logits {(got[i] - want[i]).abs().max().item():.3e}")
-    if rel > LOGIT_REL_TOL:
-        raise AssertionError("served logits disagree with the dense arm")
-    if agree < MIN_TOP1_AGREEMENT:
+    for arm in [a for a in models if a != "kernel"]:
+        want = logits[arm]
+        ref_preds = torch.cat([steps[arm](x, y)[2] for x, y in requests])
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (served_preds == ref_preds).float().mean().item()
+        spread = got.std(dim=0).mean().item()
+        top2 = want.topk(2, dim=-1).values
+        gaps = top2[:, 0] - top2[:, 1]
+        log(phase, f"logits vs {arm} arm: max|diff|/max|logit| {rel:.3e} "
+            f"(tol {LOGIT_REL_TOL}), top-1 agreement {agree:.4f} "
+            f"(min {MIN_TOP1_AGREEMENT}), mean per-class std over images {spread:.3e}, "
+            f"median top-2 gap {gaps.median().item():.3e}")
+        for i in (served_preds != ref_preds).nonzero().flatten().tolist():
+            log(phase, f"image {i}: top-1 differs from the {arm} arm; its top-2 gap "
+                f"{gaps[i].item():.3e}, max|diff| of its logits "
+                f"{(got[i] - want[i]).abs().max().item():.3e}")
+        if rel > LOGIT_REL_TOL:
+            raise AssertionError(f"served logits disagree with the {arm} arm")
+        if agree >= MIN_TOP1_AGREEMENT:
+            continue
         if not arbiter:
-            raise AssertionError("served top-1 predictions disagree with the dense arm")
-        fp32 = create_model(name, mnist_config(**dict(VITB, compute_dtype="float32")),
-                            device="cuda", generator=torch.Generator().manual_seed(0),
-                            **arms["dense"])
-        fp32.load_state_dict(model.state_dict())
-        with torch.inference_mode():
-            ref = torch.cat([fp32(x) for x, _ in requests])
-        del fp32
+            raise AssertionError(f"served top-1 predictions disagree with the {arm} arm")
+        if "fp32" not in logits:
+            fp32 = create_model(name, mnist_config(**dict(VITB, compute_dtype="float32")),
+                                device="cuda", generator=torch.Generator().manual_seed(0),
+                                **arms["dense"])
+            fp32.load_state_dict(model.state_dict())
+            with torch.inference_mode():
+                logits["fp32"] = torch.cat([fp32(x) for x, _ in requests])
+            del fp32
+        ref = logits["fp32"]
         top2 = ref.topk(2, dim=-1).values
         decided = (top2[:, 0] - top2[:, 1]) > 2 * (want - ref).abs().max()
         errs = {}
-        for arm, logits in (("kernel", got), ("dense", want)):
-            diff = (logits - ref).abs()
-            errs[arm] = (diff.max().item(), diff.mean().item())
-            same = logits.argmax(-1) == ref.argmax(-1)
-            log(phase, f"{arm} arm (bf16) vs the dense arm in fp32: max|diff| {errs[arm][0]:.3e}, "
-                f"mean|diff| {errs[arm][1]:.3e} (max|logit| {ref.abs().max().item():.3e}), top-1 "
-                f"agreement {same.float().mean().item():.4f}, on the {int(decided.sum())} images "
-                f"the dense bf16 arm's noise cannot flip {same[decided].float().mean().item():.4f}")
-            if arm == "kernel":
+        for label, arm_logits in (("kernel", got), (arm, want)):
+            diff = (arm_logits - ref).abs()
+            errs[label] = (diff.max().item(), diff.mean().item())
+            same = arm_logits.argmax(-1) == ref.argmax(-1)
+            log(phase, f"{label} arm (bf16) vs the dense arm in fp32: max|diff| "
+                f"{errs[label][0]:.3e}, mean|diff| {errs[label][1]:.3e} (max|logit| "
+                f"{ref.abs().max().item():.3e}), top-1 agreement {same.float().mean().item():.4f}, "
+                f"on the {int(decided.sum())} images the dense bf16 arm's noise cannot flip "
+                f"{same[decided].float().mean().item():.4f}")
+            if label == "kernel":
                 agree_decided = same[decided].float().mean().item()
-        if any(k > BF16_ERROR_FACTOR * d for k, d in zip(errs["kernel"], errs["dense"])) \
+        if any(k > BF16_ERROR_FACTOR * d for k, d in zip(errs["kernel"], errs[arm])) \
                 or agree_decided < MIN_TOP1_AGREEMENT:
-            raise AssertionError("the kernel arm is further from the fp32 model than the "
-                                 "dense bf16 arm allows")
-        log(phase, f"top-1 agreement {agree:.4f} between the bf16 arms is below "
-            f"{MIN_TOP1_AGREEMENT}; against the fp32 model the kernel arm's logit errors are "
-            f"within {BF16_ERROR_FACTOR}x of the dense bf16 arm's and it keeps "
+            raise AssertionError(f"the kernel arm is further from the fp32 model than the "
+                                 f"{arm} bf16 arm allows")
+        log(phase, f"top-1 agreement {agree:.4f} between the kernel and {arm} bf16 arms is "
+            f"below {MIN_TOP1_AGREEMENT}; against the fp32 model the kernel arm's logit errors "
+            f"are within {BF16_ERROR_FACTOR}x of the {arm} bf16 arm's and it keeps "
             f"{agree_decided:.4f} of the decided top-1 predictions")
     with torch.inference_mode():
         if not torch.equal(model(requests[0][0]), got[:B]):
@@ -854,7 +970,7 @@ def serve(phase: str, name: str, arms, wrappers, per_forward, card: str, profile
     log(phase, "served logits are bitwise identical run to run")
 
     # throughput: host clock around synchronised steps, after warm-up
-    for label, fn in (("kernel", step), ("dense", step_dense)):
+    for label, fn in steps.items():
         for x, y in requests[:2]:
             fn(x, y)
         torch.cuda.synchronize()
@@ -869,17 +985,18 @@ def serve(phase: str, name: str, arms, wrappers, per_forward, card: str, profile
             f"of {B}, {B * iters / dt:.1f} images/s on {card}")
 
     if profile:
-        profile_step(f"one served batch of {name}", lambda: step(*requests[0]), card)
+        profile_step(f"one served batch of {name}", lambda: steps["kernel"](*requests[0]), card)
+    del models, steps
     return launches
 
 
 def train(phase: str, name: str, cfg_fields, arms, wrappers, per_step, steps: int,
           timed: int, card: str, profile: bool):
     """ViT-B/16 `name` trains `steps` steps through create_train_state /
-    make_train_step on the kernel arm, and on the dense arm from the same
-    weights where `arms` has one. `per_step` is each wrapper's expected
-    launches in one step. Returns the launch counts of the kernel arm's
-    main-path run."""
+    make_train_step on the kernel arm, and on each other arm of `arms` from
+    the same weights, whose step-1 gradients the kernel arm's are held to.
+    `per_step` is each wrapper's expected launches in one step. Returns the
+    launch counts of the kernel arm's main-path run."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.train import create_train_state, make_train_step
@@ -952,32 +1069,33 @@ def train(phase: str, name: str, cfg_fields, arms, wrappers, per_step, steps: in
         raise AssertionError(f"expected {expected} launches, got {launches}")
 
     states = {"kernel": state}
-    if "dense" in models:
-        state_d, loss_d = one_step("dense", fresh("dense"))
-        gd = grads("dense")
+    all_losses = list(losses)
+    for arm in (a for a in models if a != "kernel"):
+        state_d, loss_d = one_step(arm, fresh(arm))
+        gd = grads(arm)
         rel = {n: ((g1[n].float() - gd[n].float()).norm()
                    / gd[n].float().norm().clamp_min(1e-30)).item() for n in g1}
         worst = max(rel, key=rel.get)
         for n in sorted(rel):
             if "rel_pos_bias" in n or "attention.qkv" in n:
-                log(phase, f"  grad {n}: ||kernel - dense|| / ||dense|| {rel[n]:.3e}")
-        log(phase, f"step-1 gradients vs dense arm: worst tensor {worst} at "
+                log(phase, f"  grad {n}: ||kernel - {arm}|| / ||{arm}|| {rel[n]:.3e}")
+        log(phase, f"step-1 gradients vs {arm} arm: worst tensor {worst} at "
             f"{rel[worst]:.3e} (tol {GRAD_REL_TOL}); median "
             f"{sorted(rel.values())[len(rel) // 2]:.3e}")
         if rel[worst] > GRAD_REL_TOL:
-            raise AssertionError(f"gradient of {worst} disagrees with the dense arm")
+            raise AssertionError(f"gradient of {worst} disagrees with the {arm} arm")
         losses_d = [loss_d]
         for _ in range(steps - 1):
-            state_d, loss_d = one_step("dense", state_d)
+            state_d, loss_d = one_step(arm, state_d)
             losses_d.append(loss_d)
-        states["dense"] = state_d
+        states[arm] = state_d
         for i, (a, b) in enumerate(zip(losses, losses_d)):
-            log(phase, f"step {i + 1}: loss kernel arm {a.item():.6f}, dense arm {b.item():.6f}")
-        losses = losses + losses_d
-    else:
+            log(phase, f"step {i + 1}: loss kernel arm {a.item():.6f}, {arm} arm {b.item():.6f}")
+        all_losses += losses_d
+    if len(models) == 1:
         for i, a in enumerate(losses):
             log(phase, f"step {i + 1}: loss {a.item():.6f}")
-    if not all(bool(torch.isfinite(v)) for v in losses):
+    if not all(bool(torch.isfinite(v)) for v in all_losses):
         raise AssertionError("a training loss is not finite")
 
     # time per step: host clock around synchronised steps, after the warm-up above
@@ -1039,53 +1157,72 @@ def profile_step(what: str, run, card: str) -> None:
         log("profile", f"group {group}: {dev:.1f} us ({100 * dev / total:.1f}%)")
 
 
-def kerple_f532_probe(mlc):
+def kerple_f532_check(mlc):
     """favor_hyper doubles the features: under KERPLE its kernels see
-    F = 2 * 266 = 532. Launch each KERPLE kernel once at [2, 12, 197, 532]
-    in both dtypes and report which ones the card refuses (their shared
-    memory exceeds a block's); a refusal raises in the wrapper, never falls
-    back. Returns {(kernel, dtype): "launched" or the refusal}."""
-    B, H, N, F, D = 2, 12, 197, 532, 64
-    report = {}
+    F = 2 * 266 = 532, where the F = 266 tile layouts of the fp32 forward
+    and of dq and dkv outgrow shared memory and smaller tiles take over.
+    Each KERPLE kernel launches at F532 in both dtypes and is held against
+    its plain version (phase 3 / 3b tolerances) and timed; a refused launch
+    raises."""
+    B, H, N, F, D = F532
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         g = torch.Generator(device="cuda").manual_seed(532)
         q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
         k = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
         v, cot = (torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype) for _ in range(2))
         c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
-        out, den = mlc.masked_linear_attention_coeffs_reference(q, k, v, c)
-        gn, s = mlc.kerple_bwd_residuals(den, out, cot)
-        for kname, fn in (
-                ("masked_linear_coeffs_fwd",
-                 lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)),
+        out, den = mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)
+        torch.cuda.synchronize()
+        ref_out, ref_den = mlc.masked_linear_attention_coeffs_reference(q, k, v, c)
+        gn, s = mlc.kerple_bwd_residuals(ref_den, ref_out, cot)
+        rtol, atol = OUT_TOL[name]
+        fwd_ok = bool(((out.float() - ref_out.float()).abs()
+                       <= atol + rtol * ref_out.float().abs()).all()) and \
+            ((den - ref_den).abs() / ref_den.abs()).max().item() <= DEN_RTOL
+        fwd_ms = kernel_ms(lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c))
+        log("variants", f"KERPLE at F={F}: masked_linear_coeffs_fwd B{B} H{H} N{N} D{D} {name}: "
+            f"launched, within (rtol {rtol}, atol {atol}) and den rtol {DEN_RTOL}: {fwd_ok}, "
+            f"kernel {fwd_ms:.4f} ms")
+        if not fwd_ok:
+            raise AssertionError(f"masked_linear_coeffs_fwd disagrees with its plain version "
+                                 f"at F={F} {name}")
+        for kname, kernel_fn, plain_fn, tol in (
                 ("masked_linear_coeffs_bwd_dq",
-                 lambda: mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, k, c)),
+                 lambda: mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, k, c),
+                 lambda: mlc.masked_linear_attention_coeffs_bwd_dq_reference(gn, s, v, k, c),
+                 BWD_TOL[name]),
                 ("masked_linear_coeffs_bwd_dkv",
-                 lambda: mlc.masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q, k, c)),
+                 lambda: mlc.masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q, k, c),
+                 lambda: mlc.masked_linear_attention_coeffs_bwd_dkv_reference(gn, s, v, q, k, c),
+                 BWD_TOL[name]),
                 ("masked_linear_coeffs_bwd_dc",
-                 lambda: mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k))):
-            try:
-                fn()
-                torch.cuda.synchronize()
-                report[(kname, name)] = "launched"
-            except RuntimeError as e:
-                if "launch refused" not in str(e):
-                    raise
-                report[(kname, name)] = f"refused: {e}"
-            log("variants", f"KERPLE at F={F}: {kname} B{B} H{H} N{N} D{D} {name}: "
-                f"{report[(kname, name)]}")
-    return report
+                 lambda: mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k),
+                 lambda: mlc.masked_linear_attention_coeffs_bwd_dc_reference(gn, s, v, q, k),
+                 DCOEFF_TOL[name])):
+            got = kernel_fn()
+            torch.cuda.synchronize()
+            want = plain_fn()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            rels = [_max_rel(a, b) for a, b in zip(got, want)]
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            log("variants", f"KERPLE at F={F}: {kname} B{B} H{H} N{N} D{D} {name}: launched, "
+                f"max|err|/max|plain| {', '.join(f'{r:.3e}' for r in rels)} (tol {tol}), "
+                f"finite {finite}, kernel {kernel_ms(kernel_fn):.4f} ms")
+            if not (finite and max(rels) <= tol):
+                raise AssertionError(f"{kname} disagrees with its plain version at F={F} {name}")
 
 
-def other_variants(wrappers, refusable, card: str):
+def other_variants(wrappers, card: str):
     """Phase 12: each of OTHER_VARIANTS at ViT-B width and VARIANT_DEPTH
     serves one batch of 32 on its kernel arms against its dense / chain
     arms, then takes one train step on the kernel arms with finite
     gradients for every parameter. A full circulant must launch the
     rotation forward twice per block and forward (q and k), and its
-    backward twice per block and step. A train step refused by a kernel in
-    `refusable` (those the F=532 probe saw refused in bf16) is reported and
-    the phase goes on; any other refusal fails. Returns the refusals."""
+    backward twice per block and step; a KERPLE variant its forward kernel
+    (the fused-phi one under FUSED_PHI, else masked_linear_coeffs_fwd) once
+    per block and forward, and each backward kernel once per block and
+    step."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.train import create_train_state, make_train_step
@@ -1095,18 +1232,25 @@ def other_variants(wrappers, refusable, card: str):
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(B, 224, 224, 3, generator=g, device="cuda")
     y = torch.randint(0, VITB["num_classes"], (B,), generator=g, device="cuda")
-    refusals = []
     for name, kernel_rpe, dense_rpe in OTHER_VARIANTS:
         softmax = name.startswith(("baseline", "softmax"))
-        label = name + (" (block-circulant)" if kernel_rpe == BLOCK_CIRCULANT else "")
+        fused = kernel_rpe == FUSED_PHI
+        label = name + (" (block-circulant)" if kernel_rpe == BLOCK_CIRCULANT
+                        else " (fused phi)" if fused else "")
         models = {}
         for arm, rpe, method in (("kernel", kernel_rpe, "flash"), ("dense", dense_rpe, "dense")):
+            attention = {"method": method} if softmax else None
+            if arm == "kernel" and fused:
+                rpe, attention = None, {"fused_phi": True}
             models[arm] = create_model(
                 name, cfg, device="cuda", generator=torch.Generator().manual_seed(0),
-                rpe_config=rpe, attention_config={"method": method} if softmax else None)
+                rpe_config=rpe, attention_config=attention)
         models["dense"].load_state_dict(models["kernel"].state_dict())
         rotating = kernel_rpe == {"method": "pallas"} and "circulant" in name
         per_forward = 2 * VARIANT_DEPTH if rotating else 0
+        kerple_fwd = None
+        if name.endswith("most_general"):
+            kerple_fwd = "kerple_fused_phi_fwd" if fused else "masked_linear_coeffs_fwd"
         zero_counts(wrappers)
         with torch.inference_mode():
             got = models["kernel"](x)
@@ -1122,19 +1266,16 @@ def other_variants(wrappers, refusable, card: str):
             raise AssertionError(f"{label}: served logits disagree with the dense arm")
         if (served["circulant_rotate_fwd"], served["circulant_rotate_bwd"]) != (per_forward, 0):
             raise AssertionError(f"{label}: expected {per_forward} rotation forward launches")
+        kerple_served = {n: c for n, c in served.items() if n in KERPLE_FORWARDS or n in BWD_KERNELS}
+        if kerple_served != {n: VARIANT_DEPTH if n == kerple_fwd else 0 for n in kerple_served}:
+            raise AssertionError(f"{label}: expected {VARIANT_DEPTH} {kerple_fwd} launches "
+                                 f"and no other KERPLE launch, got {kerple_served}")
         model = models["kernel"]
         step = make_train_step(model)
         state = create_train_state(model, cfg, steps_per_epoch=100)
         zero_counts(wrappers)
-        try:
-            _, loss, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(5))
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            if str(e).split(" launch refused")[0] not in refusable:
-                raise
-            log("variants", f"{label}: the train step was refused on the card: {e}")
-            refusals.append((label, str(e)))
-            continue
+        _, loss, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
         trained = counts(wrappers)
         bad = [n for n, p in model.named_parameters()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -1144,10 +1285,12 @@ def other_variants(wrappers, refusable, card: str):
             raise AssertionError(f"{label}: missing or non-finite gradients {bad}")
         if rotating and trained["circulant_rotate_bwd"] != per_forward:
             raise AssertionError(f"{label}: expected {per_forward} rotation backward launches")
+        if kerple_fwd is not None and any(
+                trained[n] != VARIANT_DEPTH for n in (kerple_fwd, *BWD_KERNELS)):
+            raise AssertionError(f"{label}: expected {VARIANT_DEPTH} launches of {kerple_fwd} "
+                                 f"and of each backward kernel per step, got {trained}")
         del models, model, state, step
-    log("variants", f"{len(OTHER_VARIANTS)} variants on {card}; train steps refused: "
-        f"{[label for label, _ in refusals]}")
-    return refusals
+    log("variants", f"{len(OTHER_VARIANTS)} variants on {card}, each served and trained one step")
 
 
 def main() -> int:
@@ -1194,6 +1337,7 @@ def main() -> int:
     kernel_bwd = check_bwd_kernels(mlc)
     flash = check_flash_kernels(fa)
     rotation = check_rotation_kernels(cr)
+    fused = check_fused_kernels(mlc)
 
     # 4. serve and 5. train ViT-B/16 with KERPLE
     depth = VITB["depth"]
@@ -1205,8 +1349,8 @@ def main() -> int:
                            card, args.profile)
     train_launches = train("train", "performer_favor_most_general",
                            dict(VITB, batch_size=TRAIN_BATCH), kerple_arms, kerple,
-                           {n: depth for n in kerple}, TRAIN_STEPS, TIMED_STEPS, card,
-                           args.profile)
+                           {n: 0 if n == "kerple_fused_phi_fwd" else depth for n in kerple},
+                           TRAIN_STEPS, TIMED_STEPS, card, args.profile)
 
     # 6. serve, 7. train and 8. train at long N the softmax baseline
     flash_k = flash_wrappers(fa)
@@ -1248,10 +1392,20 @@ def main() -> int:
                        LONGN_STEPS, LONGN_TIMED, card, False)
 
     # 12. every other rotation and hyperbolic-feature variant, depth 2
-    probe = kerple_f532_probe(mlc)
-    other_variants({**kerple, **rot_k},
-                   {k for (k, dtype), r in probe.items() if dtype == "bfloat16" and r != "launched"},
-                   card)
+    kerple_f532_check(mlc)
+    other_variants({**kerple, **rot_k}, card)
+
+    # 13. serve and 14. train ViT-B/16 KERPLE with phi fused into the forward kernel
+    fused_arms = {"kernel": {"attention_config": {"fused_phi": True}},
+                  "dense": kerple_arms["dense"], "unfused": kerple_arms["kernel"]}
+    fused_serve = serve("serve-fused", "performer_favor_most_general", fused_arms, kerple,
+                        {n: depth if n == "kerple_fused_phi_fwd" else 0 for n in kerple},
+                        card, args.profile, arbiter=True)
+    fused_train = train("train-fused", "performer_favor_most_general",
+                        dict(VITB, batch_size=TRAIN_BATCH),
+                        {"kernel": fused_arms["kernel"], "unfused": kerple_arms["kernel"]},
+                        kerple, {n: 0 if n == "masked_linear_coeffs_fwd" else depth for n in kerple},
+                        TRAIN_STEPS, TIMED_STEPS, card, args.profile)
 
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
@@ -1289,6 +1443,11 @@ def main() -> int:
             ("circulant_rotate_bwd", 128, "circulant_longn_train", circ_longn)):
         rows.append((name, rot_src, f"{rot_tpu}:{line}", path, rotation[(name, path)],
                      launches[name]))
+    fused_fwd = ("kerple_fused_phi_fwd", f"{src}/kerple_fused_phi_fwd.cu", f"{mlc_tpu}:520")
+    rows += [(*fused_fwd, "fused_serve", fused[("bfloat16", VITB["batch_size"])],
+              fused_serve["kerple_fused_phi_fwd"]),
+             (*fused_fwd, "fused_train", fused[("bfloat16", TRAIN_BATCH)],
+              fused_train["kerple_fused_phi_fwd"])]
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

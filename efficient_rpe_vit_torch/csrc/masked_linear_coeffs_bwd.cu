@@ -38,35 +38,33 @@
 // inputs and fp32 FMA loops for fp32 inputs, fp32 accumulators in shared
 // memory. bf16 uses 64-row tiles; fp32 uses 32-row tiles so that the dkv
 // block (q', k', v, gn tiles plus [TILE, F] and [TILE, D] accumulators)
-// fits in the 227 KB a block may use. Loads do not overlap products, and
+// fits in the 227 KB a block may use at F = 266. At larger F (favor_hyper's
+// F = 532) the [TILE, F] tiles and accumulators outgrow that, so dq and dkv
+// halve their tile until the block fits (bf16 32 rows, fp32 dkv 16); dc
+// keeps its tile, since its windows' shape depends on it, and fits at
+// F = 532 in both dtypes. Loads do not overlap products, and
 // dc recomputes M and A instead of sharing them with dkv: double
 // buffering, wgmma, TMA and fusing the three passes are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cstddef>
-#include <cstdint>
-#include <type_traits>
+#include "kerple_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory one block may use on sm_90
+using namespace kerple;
 
-using bf16 = __nv_bfloat16;
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-// Per input dtype: tile rows, staged widths and row strides (elements).
+// Rows per tile of the dc kernel, whose windows are [H, n_t, n_t, 2 * tile - 1]
+// (n_t = ceil(N / tile)): 64 for bf16, 32 for fp32. dq and dkv start from the
+// same tile and halve it, down to 16 rows, until their block fits in shared
+// memory (at D = 64: bf16 dq and dkv take 32 rows at F = 532, fp32 dkv 16).
 template <typename T>
+__host__ __device__ constexpr int dc_tile() { return is_bf16<T>() ? 64 : 32; }
+constexpr int MIN_TILE = 16;
+
+// Per input dtype and tile: staged widths and row strides (elements).
+template <typename T, int TILE>
 struct Geometry {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int TILE = kBf16 ? 64 : 32;  // rows per q tile and per kv tile
-  static constexpr int WIN = 2 * TILE - 1;      // coefficient window of a tile pair
+  static constexpr bool kBf16 = is_bf16<T>();
+  static constexpr int WIN = 2 * TILE - 1;  // coefficient window of a tile pair
   int fp;    // feature columns staged per q'/k' row (bf16: zero-filled to 16)
   int dp;    // value columns staged per v/gn row (bf16: zero-filled to 16)
   int ldf;   // row stride of q'/k' tiles
@@ -100,41 +98,29 @@ struct Geometry {
   }
 };
 
-// Bump allocator over the dynamic shared memory, run identically on the
-// host (launch size) and the device (offsets).
-struct Arena {
-  size_t top = 0;
-  template <typename U>
-  __host__ __device__ size_t take(size_t count) {
-    const size_t at = top;
-    top = align128(top + sizeof(U) * count);
-    return at;
-  }
-};
-
-template <typename T>
+template <typename T, int TILE>
 struct DqLayout {
   size_t gn, v, k, sc, w, cw, s, acc, bytes;
-  __host__ __device__ DqLayout(const Geometry<T>& g) {
-    constexpr int TILE = Geometry<T>::TILE;
+  __host__ __device__ DqLayout(int F, int D) {
+    const Geometry<T, TILE> g(F, D);
     Arena a;
     gn = a.take<T>(TILE * g.ldd);
     v = a.take<T>(TILE * g.ldd);
     k = a.take<T>(TILE * g.ldf);
     sc = a.take<float>(TILE * g.lds);
     w = a.take<T>(TILE * g.ldw);
-    cw = a.take<float>(Geometry<T>::WIN);
+    cw = a.take<float>(Geometry<T, TILE>::WIN);
     s = a.take<float>(TILE);
     acc = a.take<float>(TILE * g.ldaf);
     bytes = a.top;
   }
 };
 
-template <typename T>
+template <typename T, int TILE>
 struct DkvLayout {
   size_t k, v, q, gn, sc, wk, wv, cw, s, acck, accv, bytes;
-  __host__ __device__ DkvLayout(const Geometry<T>& g) {
-    constexpr int TILE = Geometry<T>::TILE;
+  __host__ __device__ DkvLayout(int F, int D) {
+    const Geometry<T, TILE> g(F, D);
     Arena a;
     k = a.take<T>(TILE * g.ldf);
     v = a.take<T>(TILE * g.ldd);
@@ -143,7 +129,7 @@ struct DkvLayout {
     sc = a.take<float>(TILE * g.lds);
     wk = a.take<T>(TILE * g.ldw);
     wv = a.take<T>(TILE * g.ldw);
-    cw = a.take<float>(Geometry<T>::WIN);
+    cw = a.take<float>(Geometry<T, TILE>::WIN);
     s = a.take<float>(TILE);
     acck = a.take<float>(TILE * g.ldaf);
     accv = a.take<float>(TILE * g.ldad);
@@ -151,11 +137,11 @@ struct DkvLayout {
   }
 };
 
-template <typename T>
+template <typename T, int TILE>
 struct DcLayout {
   size_t q, k, gn, v, sa, sm, acc, s, bytes;
-  __host__ __device__ DcLayout(const Geometry<T>& g) {
-    constexpr int TILE = Geometry<T>::TILE;
+  __host__ __device__ DcLayout(int F, int D) {
+    const Geometry<T, TILE> g(F, D);
     Arena a;
     q = a.take<T>(TILE * g.ldf);
     k = a.take<T>(TILE * g.ldf);
@@ -169,229 +155,15 @@ struct DcLayout {
   }
 };
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-
-// 4-byte asynchronous global -> shared copy; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(gmem_src), "r"(src_bytes) : "memory");
-}
-
-// Wait for every cp.async this thread started.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// dst[r * ld + c] = src[r * cols + c] for r < rows_valid, c < cols; zero for
-// the rest of the [ROWS, cols_pad] tile (the forward kernel's staging).
-// Rows whose byte length and addresses are multiples of 4 move as
-// asynchronous 4-byte words, all in flight at once; the caller waits with
-// cp_async_wait_all. Other rows are copied element by element.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
-                                          const T* __restrict__ src,
-                                          int rows_valid, int cols) {
-  constexpr int E = sizeof(T);
-  const bool words = (cols * E) % 4 == 0 && (cols_pad * E) % 4 == 0 &&
-                     (ld * E) % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(dst) & 3) == 0;
-  if (words) {
-    const int w = cols * E / 4;          // words per source row
-    const int w_pad = cols_pad * E / 4;  // words per staged row
-    const char* s = reinterpret_cast<const char*>(src);
-    char* d = reinterpret_cast<char*>(dst);
-    int r = threadIdx.x / w_pad;
-    int c = threadIdx.x - r * w_pad;
-    const int dr = THREADS / w_pad;
-    const int dc = THREADS - dr * w_pad;
-    for (int idx = threadIdx.x; idx < ROWS * w_pad; idx += THREADS) {
-      const bool valid = r < rows_valid && c < w;
-      cp_async4(d + ((size_t)r * ld * E + 4 * c),
-                valid ? s + ((size_t)r * cols * E + 4 * c) : s, valid ? 4 : 0);
-      c += dc;
-      r += dr;
-      if (c >= w_pad) {
-        c -= w_pad;
-        ++r;
-      }
-    }
-  } else {
-    const T zero = from_float<T>(0.f);
-    for (int idx = threadIdx.x; idx < ROWS * cols_pad; idx += THREADS) {
-      const int r = idx / cols_pad;
-      const int c = idx - r * cols_pad;
-      dst[r * ld + c] = (r < rows_valid && c < cols) ? src[(size_t)r * cols + c] : zero;
-    }
-  }
-}
-
-// Coefficient window of the tile pair (i0, j0): w[t] = c[j0 - i0 + N - TILE + t],
-// zero outside [0, 2N - 1).
-template <int TILE>
-__device__ __forceinline__ void load_window(float* cw, const float* __restrict__ cb,
-                                            int i0, int j0, int N) {
-  const long long base = (long long)j0 - i0 + N - TILE;
-  for (int t = threadIdx.x; t < 2 * TILE - 1; t += THREADS) {
-    const long long m = base + t;
-    cw[t] = (m >= 0 && m < 2LL * N - 1) ? cb[m] : 0.f;
-  }
-}
-
-// C[TILE, TILE] (fp32, row stride ldc) = A[TILE, K] B[TILE, K]^T, A and B
-// row-major in shared memory. bf16: K is a multiple of 16 (zero-filled).
-template <typename T, int TILE>
-__device__ __forceinline__ void scores(float* C, int ldc, const T* A, int lda,
-                                       const T* B, int ldb, int K) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    constexpr int NF = TILE / 16;
-    static_assert((NF * NF) % WARPS == 0, "fragments must divide over the warps");
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < NF * NF / WARPS; ++i) {
-      const int f = warp + WARPS * i;
-      const int fm = f / NF;
-      const int fn = f % NF;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::load_matrix_sync(fa, A + (fm * 16) * lda + k0, lda);
-        wmma::load_matrix_sync(fb, B + (fn * 16) * ldb + k0, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(C + (fm * 16) * ldc + fn * 16, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    constexpr int R = TILE / 16;
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
-    float s[R][R];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < R; ++c) s[r][c] = 0.f;
-    for (int f = 0; f < K; ++f) {
-      float a[R], b[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = A[(ty + 16 * r) * lda + f];
-#pragma unroll
-      for (int c = 0; c < R; ++c) b[c] = B[(tx + 16 * c) * ldb + f];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < R; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < R; ++c) C[(ty + 16 * r) * ldc + tx + 16 * c] = s[r][c];
-  }
-}
-
-// C[TILE, ncols] (fp32, row stride ldc) += op(A) B with op(A) = A or A^T,
-// A a [TILE, TILE] tile (row stride lda) and B a row-major [TILE, ncols]
-// tile (row stride ldb), all in shared memory. bf16: ncols is a multiple of 16.
-template <typename T, int TILE, bool TRANS_A>
-__device__ __forceinline__ void accumulate(float* C, int ldc, const T* A, int lda,
-                                           const T* B, int ldb, int ncols) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    using LayoutA = typename std::conditional<TRANS_A, wmma::col_major, wmma::row_major>::type;
-    constexpr int NM = TILE / 16;
-    const int nn = ncols / 16;
-    const int warp = threadIdx.x / 32;
-    for (int f = warp; f < NM * nn; f += WARPS) {
-      const int fm = f / nn;
-      const int fn = f % nn;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* c = C + (fm * 16) * ldc + fn * 16;
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-#pragma unroll
-      for (int k0 = 0; k0 < TILE; k0 += 16) {
-        // A^T's (row, col) = A[col][row]: a col-major view of A.
-        const T* pa = TRANS_A ? A + k0 * lda + fm * 16 : A + (fm * 16) * lda + k0;
-        wmma::load_matrix_sync(fa, pa, lda);
-        wmma::load_matrix_sync(fb, B + k0 * ldb + fn * 16, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    constexpr int R = TILE / 16;
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
-    for (int c0 = 0; c0 < ncols; c0 += 64) {
-      float acc[R][4];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = c0 + tx + 16 * c;
-          acc[r][c] = col < ncols ? C[(ty + 16 * r) * ldc + col] : 0.f;
-        }
-      for (int kk = 0; kk < TILE; ++kk) {
-        float a[R], b[4];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = ty + 16 * r;
-          a[r] = TRANS_A ? A[kk * lda + row] : A[row * lda + kk];
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = c0 + tx + 16 * c;
-          b[c] = col < ncols ? B[kk * ldb + col] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = c0 + tx + 16 * c;
-          if (col < ncols) C[(ty + 16 * r) * ldc + col] = acc[r][c];
-        }
-    }
-  }
-}
-
-// dst[a, b] = round(w(a, b) * window[b - a + TILE - 1]) for a < rows, b < cols,
-// zero elsewhere; w(a, b) = src[a, b] - (sub ? sub[a] : 0).
-template <typename T, int TILE>
-__device__ __forceinline__ void weigh(T* dst, int ldw, const float* src, int lds,
-                                      const float* sub, const float* cw,
-                                      int rows, int cols) {
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
-    const int a = idx / TILE;
-    const int b = idx % TILE;
-    float w = 0.f;
-    if (a < rows && b < cols) {
-      const float x = sub ? src[a * lds + b] - sub[a] : src[a * lds + b];
-      w = x * cw[b - a + TILE - 1];
-    }
-    dst[a * ldw + b] = from_float<T>(w);
-  }
-}
-
 // dq' for one (q tile, head, batch): loop over kv tiles.
-template <typename T>
+template <typename T, int TILE>
 __global__ void __launch_bounds__(THREADS)
 mlc_bwd_dq_kernel(const T* __restrict__ gn, const float* __restrict__ s,
                   const T* __restrict__ v, const T* __restrict__ k,
                   const float* __restrict__ coeffs, T* __restrict__ dq,
                   int H, int N, int F, int D) {
-  constexpr int TILE = Geometry<T>::TILE;
-  const Geometry<T> g(F, D);
-  const DqLayout<T> L(g);
+  const Geometry<T, TILE> g(F, D);
+  const DqLayout<T, TILE> L(F, D);
   extern __shared__ __align__(128) unsigned char smem[];
   T* GNs = reinterpret_cast<T*>(smem + L.gn);
   T* Vs = reinterpret_cast<T*>(smem + L.v);
@@ -439,16 +211,15 @@ mlc_bwd_dq_kernel(const T* __restrict__ gn, const float* __restrict__ s,
 }
 
 // dk' and dv for one (kv tile, head, batch): loop over q tiles.
-template <typename T>
+template <typename T, int TILE>
 __global__ void __launch_bounds__(THREADS)
 mlc_bwd_dkv_kernel(const T* __restrict__ gn, const float* __restrict__ s,
                    const T* __restrict__ v, const T* __restrict__ q,
                    const T* __restrict__ k, const float* __restrict__ coeffs,
                    T* __restrict__ dk, T* __restrict__ dv,
                    int H, int N, int F, int D) {
-  constexpr int TILE = Geometry<T>::TILE;
-  const Geometry<T> g(F, D);
-  const DkvLayout<T> L(g);
+  const Geometry<T, TILE> g(F, D);
+  const DkvLayout<T, TILE> L(F, D);
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + L.k);
   T* Vs = reinterpret_cast<T*>(smem + L.v);
@@ -519,10 +290,10 @@ mlc_bwd_dc_kernel(const T* __restrict__ gn, const float* __restrict__ s,
                   const T* __restrict__ v, const T* __restrict__ q,
                   const T* __restrict__ k, float* __restrict__ windows,
                   int B, int H, int N, int F, int D) {
-  constexpr int TILE = Geometry<T>::TILE;
-  constexpr int WIN = Geometry<T>::WIN;
-  const Geometry<T> g(F, D);
-  const DcLayout<T> L(g);
+  constexpr int TILE = dc_tile<T>();
+  constexpr int WIN = Geometry<T, TILE>::WIN;
+  const Geometry<T, TILE> g(F, D);
+  const DcLayout<T, TILE> L(F, D);
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
@@ -610,34 +381,41 @@ bool bad_dims(int B, int H, int N, int F, int D) {
   return B <= 0 || H <= 0 || N <= 0 || F <= 0 || D <= 0;
 }
 
-template <typename T>
+// dq and dkv launch with the largest tile, from dc_tile<T>() down to
+// MIN_TILE, whose block fits in shared memory: the default tile wherever it
+// fits (F = 266), a smaller one only where it does not (large F).
+template <typename T, int TILE = dc_tile<T>()>
 int launch_dq(const void* gn, const void* s, const void* v, const void* k,
               const void* coeffs, void* dq, int B, int H, int N, int F, int D,
               void* stream) {
-  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
-  constexpr int TILE = Geometry<T>::TILE;
-  const DqLayout<T> L(Geometry<T>(F, D));
-  const int err = prepare(mlc_bwd_dq_kernel<T>, L.bytes);
+  const DqLayout<T, TILE> L(F, D);
+  if constexpr (TILE > MIN_TILE) {
+    if (L.bytes > (size_t)MAX_SMEM)
+      return launch_dq<T, TILE / 2>(gn, s, v, k, coeffs, dq, B, H, N, F, D, stream);
+  }
+  const int err = prepare(mlc_bwd_dq_kernel<T, TILE>, L.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TILE - 1) / TILE, H, B);
-  mlc_bwd_dq_kernel<T><<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  mlc_bwd_dq_kernel<T, TILE><<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gn), static_cast<const float*>(s), static_cast<const T*>(v),
       static_cast<const T*>(k), static_cast<const float*>(coeffs), static_cast<T*>(dq),
       H, N, F, D);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int TILE = dc_tile<T>()>
 int launch_dkv(const void* gn, const void* s, const void* v, const void* q,
                const void* k, const void* coeffs, void* dk, void* dv,
                int B, int H, int N, int F, int D, void* stream) {
-  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
-  constexpr int TILE = Geometry<T>::TILE;
-  const DkvLayout<T> L(Geometry<T>(F, D));
-  const int err = prepare(mlc_bwd_dkv_kernel<T>, L.bytes);
+  const DkvLayout<T, TILE> L(F, D);
+  if constexpr (TILE > MIN_TILE) {
+    if (L.bytes > (size_t)MAX_SMEM)
+      return launch_dkv<T, TILE / 2>(gn, s, v, q, k, coeffs, dk, dv, B, H, N, F, D, stream);
+  }
+  const int err = prepare(mlc_bwd_dkv_kernel<T, TILE>, L.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TILE - 1) / TILE, H, B);
-  mlc_bwd_dkv_kernel<T><<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  mlc_bwd_dkv_kernel<T, TILE><<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gn), static_cast<const float*>(s), static_cast<const T*>(v),
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const float*>(coeffs),
       static_cast<T*>(dk), static_cast<T*>(dv), H, N, F, D);
@@ -648,9 +426,8 @@ template <typename T>
 int launch_dc(const void* gn, const void* s, const void* v, const void* q,
               const void* k, void* windows, int B, int H, int N, int F, int D,
               void* stream) {
-  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
-  constexpr int TILE = Geometry<T>::TILE;
-  const DcLayout<T> L(Geometry<T>(F, D));
+  constexpr int TILE = dc_tile<T>();
+  const DcLayout<T, TILE> L(F, D);
   const int err = prepare(mlc_bwd_dc_kernel<T>, L.bytes);
   if (err != cudaSuccess) return err;
   const int n_t = (N + TILE - 1) / TILE;
@@ -666,25 +443,29 @@ int launch_dc(const void* gn, const void* s, const void* v, const void* q,
 
 extern "C" {
 
-// Rows per q / kv tile for bf16 (is_bf16 = 1) or fp32 (0) inputs: the
-// windows of mlc_bwd_dc_* are [H, n_t, n_t, 2 * tile - 1], n_t = ceil(N / tile).
+// Rows per q / kv tile of the dc kernel for bf16 (is_bf16 = 1) or fp32 (0)
+// inputs: the windows of mlc_bwd_dc_* are [H, n_t, n_t, 2 * tile - 1],
+// n_t = ceil(N / tile).
 int mlc_bwd_tile(int is_bf16) {
-  return is_bf16 ? Geometry<bf16>::TILE : Geometry<float>::TILE;
+  return is_bf16 ? dc_tile<bf16>() : dc_tile<float>();
 }
 
 // gn, v [B, H, N, D], k' and dq [B, H, N, F] in bf16; s [B, H, N] and coeffs
 // [H, 2N-1] in fp32; all contiguous. Every launch below runs on `stream`,
 // does not synchronise, allocates nothing, and returns the CUDA error code
-// (0 = launched; cudaErrorInvalidValue for tiles that exceed shared memory).
+// (0 = launched; cudaErrorInvalidValue for empty dims or tiles that exceed
+// shared memory even at MIN_TILE rows).
 int mlc_bwd_dq_bf16(const void* gn, const void* s, const void* v, const void* k,
                     const void* coeffs, void* dq, int B, int H, int N, int F, int D,
                     void* stream) {
+  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dq<bf16>(gn, s, v, k, coeffs, dq, B, H, N, F, D, stream);
 }
 
 int mlc_bwd_dq_f32(const void* gn, const void* s, const void* v, const void* k,
                    const void* coeffs, void* dq, int B, int H, int N, int F, int D,
                    void* stream) {
+  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dq<float>(gn, s, v, k, coeffs, dq, B, H, N, F, D, stream);
 }
 
@@ -692,12 +473,14 @@ int mlc_bwd_dq_f32(const void* gn, const void* s, const void* v, const void* k,
 int mlc_bwd_dkv_bf16(const void* gn, const void* s, const void* v, const void* q,
                      const void* k, const void* coeffs, void* dk, void* dv,
                      int B, int H, int N, int F, int D, void* stream) {
+  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dkv<bf16>(gn, s, v, q, k, coeffs, dk, dv, B, H, N, F, D, stream);
 }
 
 int mlc_bwd_dkv_f32(const void* gn, const void* s, const void* v, const void* q,
                     const void* k, const void* coeffs, void* dk, void* dv,
                     int B, int H, int N, int F, int D, void* stream) {
+  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dkv<float>(gn, s, v, q, k, coeffs, dk, dv, B, H, N, F, D, stream);
 }
 
@@ -705,12 +488,14 @@ int mlc_bwd_dkv_f32(const void* gn, const void* s, const void* v, const void* q,
 int mlc_bwd_dc_bf16(const void* gn, const void* s, const void* v, const void* q,
                     const void* k, void* windows, int B, int H, int N, int F, int D,
                     void* stream) {
+  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dc<bf16>(gn, s, v, q, k, windows, B, H, N, F, D, stream);
 }
 
 int mlc_bwd_dc_f32(const void* gn, const void* s, const void* v, const void* q,
                    const void* k, void* windows, int B, int H, int N, int F, int D,
                    void* stream) {
+  if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dc<float>(gn, s, v, q, k, windows, B, H, N, F, D, stream);
 }
 

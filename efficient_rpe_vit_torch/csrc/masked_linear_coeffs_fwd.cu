@@ -25,30 +25,25 @@
 // looping over 64-row kv tiles; each tile is staged in shared memory by
 // 4-byte cp.async copies, all in flight before one wait (rows of F=266
 // bf16 values are 4-byte but not 16-byte aligned); WMMA bf16 tensor-core
-// products for bf16 inputs, fp32 FMA products for fp32 inputs. Loads still
+// products for bf16 inputs, fp32 FMA products for fp32 inputs (with 32-row
+// tiles where the 64-row q' and k' tiles outgrow shared memory: favor_hyper's
+// F = 532 in fp32; F = 266 keeps the 64-row tiles). Loads still
 // do not overlap the products of the same block: double buffering, wgmma,
 // TMA and a persistent schedule are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cstddef>
-#include <cstdint>
-#include <type_traits>
+#include "kerple_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKV = 64;       // key/value rows per kv tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 128;    // head dims up to 128 (accumulators live in registers)
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory one block may use on sm_90
-constexpr float EPS = 1e-6f;
+using namespace kerple;
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+// Query and key/value rows per block: 64, and for fp32 at large F (where
+// the 64-row q' and k' tiles alone outgrow shared memory, F above ~380 at
+// D = 64) 32.
+constexpr int BIG = 64;
+constexpr int SMALL = 32;
+constexpr int MAX_D = 128;    // head dims up to 128 (accumulators live in registers)
+constexpr float EPS = 1e-6f;
 
 // Shared-memory layout, computed the same way on the host (for the launch
 // size) and on the device (for the offsets).
@@ -62,9 +57,9 @@ struct Layout {
   size_t q_off, k_off, v_off, s_off, w_off, c_off, den_off, bytes;
 };
 
-template <typename T>
+template <typename T, int BQ, int BKV>
 __host__ __device__ Layout make_layout(int F, int D) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kBf16 = is_bf16<T>();
   Layout L;
   L.dp = round_up(D, 16);
   if (kBf16) {
@@ -96,80 +91,18 @@ __host__ __device__ Layout make_layout(int F, int D) {
   return L;
 }
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 4-byte asynchronous global -> shared copy; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src,
-                                          int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(gmem_src), "r"(src_bytes) : "memory");
-}
-
-// Wait for every cp.async this thread started.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// dst[r * ld + c] = src[r * cols + c] for r < rows_valid, c < cols; zero for
-// the rest of the [ROWS, cols_pad] tile. src rows are contiguous, so
-// consecutive threads read consecutive addresses. Rows whose byte length
-// and addresses are multiples of 4 (fp32, and bf16 with even F: F = 266
-// rows are 4-byte but not 16-byte aligned) move as asynchronous 4-byte
-// words, all in flight at once; the caller waits with cp_async_wait_all.
-// Other rows are copied element by element.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
-                                          const T* __restrict__ src,
-                                          int rows_valid, int cols) {
-  constexpr int E = sizeof(T);
-  const bool words = (cols * E) % 4 == 0 && (cols_pad * E) % 4 == 0 &&
-                     (ld * E) % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(dst) & 3) == 0;
-  if (words) {
-    const int w = cols * E / 4;          // words per source row
-    const int w_pad = cols_pad * E / 4;  // words per staged row
-    const char* s = reinterpret_cast<const char*>(src);
-    char* d = reinterpret_cast<char*>(dst);
-    // walk idx = r * w_pad + c in steps of THREADS without a division per step
-    int r = threadIdx.x / w_pad;
-    int c = threadIdx.x - r * w_pad;
-    const int dr = THREADS / w_pad;
-    const int dc = THREADS - dr * w_pad;
-    for (int idx = threadIdx.x; idx < ROWS * w_pad; idx += THREADS) {
-      const bool valid = r < rows_valid && c < w;
-      cp_async4(d + ((size_t)r * ld * E + 4 * c),
-                valid ? s + ((size_t)r * cols * E + 4 * c) : s, valid ? 4 : 0);
-      c += dc;
-      r += dr;
-      if (c >= w_pad) {
-        c -= w_pad;
-        ++r;
-      }
-    }
-  } else {
-    const T zero = from_float<T>(0.f);
-    for (int idx = threadIdx.x; idx < ROWS * cols_pad; idx += THREADS) {
-      const int r = idx / cols_pad;
-      const int c = idx - r * cols_pad;
-      dst[r * ld + c] = (r < rows_valid && c < cols) ? src[(size_t)r * cols + c] : zero;
-    }
-  }
-}
-
-template <typename T>
+template <typename T, int BQ, int BKV>
 __global__ void __launch_bounds__(THREADS)
 mlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const float* __restrict__ coeffs,
                T* __restrict__ out, float* __restrict__ den,
                int H, int N, int F, int D) {
   using namespace nvcuda;
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  const Layout L = make_layout<T>(F, D);
+  constexpr bool kBf16 = is_bf16<T>();
+  static_assert(!kBf16 || (BQ == BIG && BKV == BIG), "bf16 products assume 64-row tiles");
+  constexpr int RQ = BQ / 16;   // fp32: rows per thread
+  constexpr int RK = BKV / 16;  // fp32: score columns per thread
+  const Layout L = make_layout<T, BQ, BKV>(F, D);
 
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L.q_off);
@@ -203,9 +136,9 @@ mlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
-  float acc32[4][MAX_D / 16];
+  float acc32[RQ][MAX_D / 16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < RQ; ++r)
 #pragma unroll
     for (int c = 0; c < MAX_D / 16; ++c) acc32[r][c] = 0.f;
   const int tx = tid % 16;
@@ -248,26 +181,26 @@ mlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       wmma::store_matrix_sync(Ss + (fm * 16) * L.lds + fn * 16, s0, L.lds, wmma::mem_row_major);
       wmma::store_matrix_sync(Ss + ((fm + 2) * 16) * L.lds + fn * 16, s1, L.lds, wmma::mem_row_major);
     } else {
-      float s[4][4];
+      float s[RQ][RK];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < RQ; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+        for (int c = 0; c < RK; ++c) s[r][c] = 0.f;
       for (int f = 0; f < F; ++f) {
-        float qa[4], kb4[4];
+        float qa[RQ], kb4[RK];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) qa[r] = Qs[(ty + 16 * r) * L.ldf + f];
+        for (int r = 0; r < RQ; ++r) qa[r] = Qs[(ty + 16 * r) * L.ldf + f];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) kb4[c] = Ks[(tx + 16 * c) * L.ldf + f];
+        for (int c = 0; c < RK; ++c) kb4[c] = Ks[(tx + 16 * c) * L.ldf + f];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < RQ; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qa[r], kb4[c], s[r][c]);
+          for (int c = 0; c < RK; ++c) s[r][c] = fmaf(qa[r], kb4[c], s[r][c]);
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < RQ; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) Ss[(ty + 16 * r) * L.lds + tx + 16 * c] = s[r][c];
+        for (int c = 0; c < RK; ++c) Ss[(ty + 16 * r) * L.lds + tx + 16 * c] = s[r][c];
     }
     __syncthreads();
 
@@ -314,15 +247,15 @@ mlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     } else {
       for (int kk = 0; kk < BKV; ++kk) {
-        float wr[4];
+        float wr[RQ];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) wr[r] = Ss[(ty + 16 * r) * L.lds + kk];
+        for (int r = 0; r < RQ; ++r) wr[r] = Ss[(ty + 16 * r) * L.lds + kk];
 #pragma unroll
         for (int c = 0; c < MAX_D / 16; ++c) {
           if (c < n_dfrag) {
             const float vv = Vs[kk * L.ldd + tx + 16 * c];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) acc32[r][c] = fmaf(wr[r], vv, acc32[r][c]);
+            for (int r = 0; r < RQ; ++r) acc32[r][c] = fmaf(wr[r], vv, acc32[r][c]);
           }
         }
       }
@@ -350,7 +283,7 @@ mlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   } else {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < RQ; ++r) {
       const int a = ty + 16 * r;
 #pragma unroll
       for (int c = 0; c < MAX_D / 16; ++c) {
@@ -363,23 +296,35 @@ mlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = tid; a < rows_q; a += THREADS) den[bh * N + i0 + a] = den_s[a];
 }
 
+template <typename T, int BQ, int BKV>
+int launch_tiles(const void* q, const void* k, const void* v, const void* coeffs,
+                 void* out, void* den, int B, int H, int N, int F, int D, void* stream) {
+  const Layout L = make_layout<T, BQ, BKV>(F, D);
+  if (L.bytes > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlc_fwd_kernel<T, BQ, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BQ - 1) / BQ, H, B);
+  mlc_fwd_kernel<T, BQ, BKV><<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(coeffs), static_cast<T*>(out), static_cast<float*>(den),
+      H, N, F, D);
+  return cudaGetLastError();
+}
+
+// 64-row tiles wherever they fit (always in bf16); fp32 takes 32-row tiles
+// only where the 64-row layout outgrows shared memory.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* coeffs,
            void* out, void* den, int B, int H, int N, int F, int D, void* stream) {
   (void)cudaGetLastError();  // start from a clean error state
   if (B <= 0 || H <= 0 || N <= 0 || F <= 0 || D <= 0 || D > MAX_D)
     return cudaErrorInvalidValue;
-  const Layout L = make_layout<T>(F, D);
-  if (L.bytes > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlc_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + BQ - 1) / BQ, H, B);
-  mlc_fwd_kernel<T><<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(coeffs), static_cast<T*>(out), static_cast<float*>(den),
-      H, N, F, D);
-  return cudaGetLastError();
+  if constexpr (!is_bf16<T>()) {
+    if (make_layout<T, BIG, BIG>(F, D).bytes > (size_t)MAX_SMEM)
+      return launch_tiles<T, SMALL, SMALL>(q, k, v, coeffs, out, den, B, H, N, F, D, stream);
+  }
+  return launch_tiles<T, BIG, BIG>(q, k, v, coeffs, out, den, B, H, N, F, D, stream);
 }
 
 }  // namespace
@@ -389,7 +334,8 @@ extern "C" {
 // q', k' [B, H, N, F], v and out [B, H, N, D] in bf16; coeffs [H, 2N-1] and
 // den [B, H, N] in fp32; all contiguous. Runs on `stream`, does not
 // synchronise, allocates nothing. Returns the CUDA error code (0 = launched;
-// cudaErrorInvalidValue for D > 128 or tiles that exceed shared memory).
+// cudaErrorInvalidValue for D > 128 or tiles that exceed shared memory: at
+// D = 64, F above ~740 in bf16 and ~840 in fp32).
 int mlc_fwd_bf16(const void* q, const void* k, const void* v, const void* coeffs,
                  void* out, void* den, int B, int H, int N, int F, int D, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, coeffs, out, den, B, H, N, F, D, stream);

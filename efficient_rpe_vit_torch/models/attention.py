@@ -10,6 +10,10 @@ Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
   * linear-attention scale d^-1/4 on both q and k (after the rotation
     under RoPE / RoPE2D / Circulant-STRING), except under KERPLE, which
     L2-normalises q and k instead (clamp inside the sqrt),
+  * `fused_phi=True` under KERPLE: phi computed inside the fused-phi KERPLE
+    kernel from the normalised q, k and Omega (FAVOR+ and ReLU; hyperbolic
+    features raise), the RPE's `method` not consulted; without KERPLE the
+    flag changes nothing,
   * FAVOR+, hyperbolic FAVOR+ (2m features) and ReLU feature maps,
   * linear attention raises on return_attention,
   * Omega in the non-trainable buffer `omega` [heads, head_dim, m],
@@ -32,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import (
     default_num_features,
     gaussian_features,
+    kerple_attention_fused_phi,
     linear_attention,
     orthogonal_gaussian_features,
     phi_hyperbolic,
@@ -160,12 +165,9 @@ class _KernelAttention(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  fused_phi: bool = False):
         super().__init__()
-        if fused_phi:
-            raise NotImplementedError(
-                "fused_phi (phi computed inside the KERPLE kernel) is not "
-                "ported yet; it follows the rotation slice")
         self.dim = dim
         self.heads = heads
+        self.fused_phi = fused_phi
         self.num_features = num_features
         self.use_orthogonal = use_orthogonal
         self.feature_redraw_interval = feature_redraw_interval
@@ -245,6 +247,15 @@ class _KernelAttention(nn.Module):
         else:
             scale = self.head_dim ** -0.25  # d^-1/4 on both q and k
             q, k = q * scale, k * scale
+
+        if self.fused_phi and use_kerple:
+            if self.feature_kind not in ("favor_plus", "relu"):
+                raise NotImplementedError(
+                    f"fused_phi supports favor_plus/relu, not {self.feature_kind}")
+            out = kerple_attention_fused_phi(q.contiguous(), k.contiguous(),
+                                             v.contiguous(), self.omega,
+                                             rpe.coeffs(), self.feature_kind)
+            return self.drop(self.proj(_merge_heads(out)), generator)
 
         B, H, N, _ = q.shape
         if torch.is_grad_enabled() and 4 * B * H * N * self.m > PHI_CHECKPOINT_BYTES:

@@ -26,6 +26,7 @@ from .attention_core import (
     kerple_linear_attention,
     masked_linear_vjp_residual,
 )
+from .kernels import kerple_attention_fused_phi
 
 __all__ = [
     "toeplitz_diag_sums",
@@ -51,4 +52,5 @@ __all__ = [
     "linear_attention",
     "kerple_linear_attention",
     "masked_linear_vjp_residual",
+    "kerple_attention_fused_phi",
 ]

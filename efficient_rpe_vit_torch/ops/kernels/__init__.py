@@ -19,6 +19,9 @@ from .flash_attention import (
     flash_softmax_attention_reference,
 )
 from .masked_linear_coeffs import (
+    kerple_attention_fused_phi,
+    kerple_attention_fused_phi_fwd,
+    kerple_attention_fused_phi_fwd_reference,
     masked_linear_attention_coeffs,
     masked_linear_attention_coeffs_bwd,
     masked_linear_attention_coeffs_bwd_reference,
@@ -36,6 +39,9 @@ __all__ = [
     "flash_attention_fwd",
     "flash_softmax_attention",
     "flash_softmax_attention_reference",
+    "kerple_attention_fused_phi",
+    "kerple_attention_fused_phi_fwd",
+    "kerple_attention_fused_phi_fwd_reference",
     "masked_linear_attention_coeffs",
     "masked_linear_attention_coeffs_bwd",
     "masked_linear_attention_coeffs_bwd_reference",

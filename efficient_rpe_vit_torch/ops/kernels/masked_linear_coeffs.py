@@ -1,5 +1,5 @@
 """Coeffs-native Toeplitz-masked linear attention (KERPLE), forward and
-backward.
+backward, and its forward with the feature map fused in.
 
     out_i = sum_j c[j-i+N-1] (q'_i.k'_j) v_j / (den_i + eps),
     den_i = sum_j c[j-i+N-1] (q'_i.k'_j)
@@ -8,16 +8,20 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`:
 the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
 `csrc/masked_linear_coeffs_fwd.cu`; the backward `_bwd_impl` (`_dq_kernel`,
 `_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
-kernels in `csrc/masked_linear_coeffs_bwd.cu`. Each builds its Toeplitz
-tiles from a window of the coefficient vector, so no [H, N, N] tensor
-exists on the kernel path.
+kernels in `csrc/masked_linear_coeffs_bwd.cu`; the fused-phi forward
+`_fused_phi_fwd_kernel` (q' = phi(q), k' = phi(k) computed per tile from
+the raw q, k and Omega) is `csrc/kerple_fused_phi_fwd.cu`. Each builds its
+Toeplitz tiles from a window of the coefficient vector, so no [H, N, N]
+tensor exists on the kernel path.
 
 Every kernel has a wrapper that checks its inputs, takes the plain version
 for CPU tensors and launches the kernel for CUDA tensors (never falling
 back), and counts its launches in `<wrapper>.launches`. The plain versions
-(`*_reference`) sit beside them. `masked_linear_attention_coeffs` is the
-differentiable op: a `torch.autograd.Function` over the forward wrapper
-whose backward is `masked_linear_attention_coeffs_bwd`.
+(`*_reference`) sit beside them. `masked_linear_attention_coeffs` and
+`kerple_attention_fused_phi` are the differentiable ops:
+`torch.autograd.Function`s over the forward wrappers whose backward is
+`masked_linear_attention_coeffs_bwd` (for the fused op, after phi is
+recomputed outside the kernel, and followed by phi's VJP).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..feature_maps import phi_positive, phi_relu
 from ..fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
 from ._build import dtype_suffix, launch, load, on_cpu
 
@@ -37,10 +42,14 @@ EPS = 1e-6  # denominator stabiliser, as in the JAX package
 
 _SOURCE = "masked_linear_coeffs_fwd"
 _BWD_SOURCE = "masked_linear_coeffs_bwd"
+_FUSED_SOURCE = "kerple_fused_phi_fwd"
 _DTYPES = (torch.bfloat16, torch.float32)
-# rows per q / kv tile of the backward kernels (64 for bf16; 32 for fp32 so
-# that the dkv block fits in shared memory); the dc windows are
-# [H, n_t, n_t, 2 * tile - 1] with n_t = ceil(N / tile)
+# feature maps the fused-phi kernel computes
+FUSED_FEATURE_KINDS = ("favor_plus", "relu")
+# rows per q / kv tile of the dc kernel (64 for bf16; 32 for fp32 so that
+# the F = 266 dkv block fits in shared memory), whose windows are
+# [H, n_t, n_t, 2 * tile - 1] with n_t = ceil(N / tile); dq and dkv use the
+# same tile wherever it fits and a smaller one at large F
 BWD_TILE: Dict[torch.dtype, int] = {torch.bfloat16: 64, torch.float32: 32}
 
 
@@ -180,6 +189,40 @@ def masked_linear_attention_coeffs_bwd_dc_reduce_reference(windows, n: int):
     return buf[:, start:start + 2 * n - 1]
 
 
+def fused_phi_reference(x: torch.Tensor, omega: torch.Tensor,
+                        feature_kind: str) -> torch.Tensor:
+    """phi(x) [B, H, N, F] in x's dtype by the fused kernel's rules (the JAX
+    `_phi_tile`), which differ from `phi_positive` / `phi_relu`: Omega is
+    rounded to x's dtype before u = x Omega (fp32 accumulation), ||x||^2/2
+    comes from fp32 x, the row max runs over the F real lanes, the scale is
+    1/sqrt(F), and phi is rounded to x's dtype."""
+    F_ = omega.shape[-1]
+    u = torch.matmul(x.float(), omega.to(x.dtype).float())
+    if feature_kind == "relu":
+        phi = torch.relu(u) * (1.0 / F_ ** 0.5)
+    else:
+        x32 = x.float()
+        norm_half = (x32 * x32).sum(dim=-1, keepdim=True) * 0.5
+        phi = torch.exp(u - u.amax(dim=-1, keepdim=True) - norm_half) * (1.0 / F_ ** 0.5)
+    return phi.to(x.dtype)
+
+
+def kerple_attention_fused_phi_fwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, omega: torch.Tensor,
+        coeffs: torch.Tensor, feature_kind: str = "favor_plus"
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused-phi forward kernel: `fused_phi_reference`
+    of q and k, then the unfused forward's rules (S = q'k'^T in fp32, W =
+    S*T, W rounded to v's dtype for the value product, den in fp32).
+
+    Returns:
+        (out [B, H, N, Dv] in v's dtype, den [B, H, N] fp32).
+    """
+    return masked_linear_attention_coeffs_reference(
+        fused_phi_reference(q, omega, feature_kind),
+        fused_phi_reference(k, omega, feature_kind), v, coeffs)
+
+
 # ─── input checks and launches ──────────────────────────────────────────
 
 def _check_inputs(q_prime, k_prime, v, coeffs) -> None:
@@ -249,6 +292,44 @@ def _check_bwd_inputs(gn, s, v, k_prime, q_prime=None, coeffs=None) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_fused_inputs(q, k, v, omega, coeffs, feature_kind) -> None:
+    """Inputs of the fused-phi forward: q, k [B, H, N, D] and v [B, H, N, Dv]
+    in one dtype, omega [H, D, F] and coeffs [H, 2N-1] in fp32, all
+    contiguous and on one device."""
+    if feature_kind not in FUSED_FEATURE_KINDS:
+        raise ValueError(f"feature_kind must be one of {FUSED_FEATURE_KINDS}, "
+                         f"got {feature_kind!r}")
+    tensors = {"q": q, "k": k, "v": v, "omega": omega, "coeffs": coeffs}
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {devices}")
+    if q.dim() != 4 or v.dim() != 4 or omega.dim() != 3:
+        raise ValueError("q, k and v must be [B, H, N, *], omega [H, D, F]")
+    B, H, N, D = q.shape
+    if k.shape != q.shape:
+        raise ValueError(f"k {tuple(k.shape)} != q {tuple(q.shape)}")
+    if v.shape[:3] != (B, H, N):
+        raise ValueError(f"v {tuple(v.shape)} does not match q {tuple(q.shape)} "
+                         "in [B, H, N]")
+    if omega.shape[:2] != (H, D):
+        raise ValueError(f"omega must be [H, D, F] with [H, D] = [{H}, {D}], "
+                         f"got {tuple(omega.shape)}")
+    if coeffs.shape != (H, 2 * N - 1):
+        raise ValueError(f"coeffs must be [H, 2N-1] = [{H}, {2 * N - 1}], "
+                         f"got {tuple(coeffs.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {q.dtype}: bfloat16 or float32")
+    for name, t in (("omega", omega), ("coeffs", coeffs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 @functools.cache
 def _kernel_fns():
     lib = load(_SOURCE)
@@ -285,6 +366,18 @@ def _bwd_kernel_fns():
     return lib
 
 
+@functools.cache
+def _fused_kernel_fns():
+    lib = load(_FUSED_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.kfp_fwd_bf16, lib.kfp_fwd_f32):
+        fn.argtypes = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, ptr]
+        fn.restype = i32
+    lib.kfp_error_string.argtypes = [i32]
+    lib.kfp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 # ─── forward ────────────────────────────────────────────────────────────
 
 def masked_linear_attention_coeffs_fwd(
@@ -299,8 +392,8 @@ def masked_linear_attention_coeffs_fwd(
         q_prime, k_prime and v share a dtype (bfloat16 or float32); all
         four are contiguous and on one device. On the GPU the kernel also
         needs D <= 128 and an F whose tiles fit in shared memory (at
-        D=64, F up to ~750 in bf16, ~380 in fp32); the launch is refused
-        otherwise.
+        D=64, F up to ~740 in bf16 and ~840 in fp32, which takes 32-row
+        tiles above F ~380); the launch is refused otherwise.
     Returns:
         (out [B, H, N, D] in v's dtype, den [B, H, N] fp32).
     Raises:
@@ -324,6 +417,49 @@ def masked_linear_attention_coeffs_fwd(
 
 
 masked_linear_attention_coeffs_fwd.launches = 0
+
+
+def kerple_attention_fused_phi_fwd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, omega: torch.Tensor,
+        coeffs: torch.Tensor, feature_kind: str = "favor_plus"
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KERPLE attention forward from the raw q and k: phi (FAVOR+ or ReLU
+    features, `fused_phi_reference`'s rules) is computed per tile inside the
+    kernel and never stored. Replaces `_fused_phi_fwd_kernel`.
+
+    Args:
+        q, k: [B, H, N, D], L2-normalised (the KERPLE contract).
+        v: [B, H, N, Dv]; q, k and v share a dtype (bfloat16 or float32).
+        omega: [H, D, F] fp32 random features.
+        coeffs: [H, 2N-1] fp32 positive Toeplitz coefficients.
+        feature_kind: 'favor_plus' or 'relu'.
+        All contiguous and on one device. On the GPU the kernel needs its
+        tiles, Omega included, to fit in shared memory (at F=266, D and Dv
+        up to 64); the launch is refused otherwise.
+    Returns:
+        (out [B, H, N, Dv] in v's dtype, den [B, H, N] fp32).
+    Raises:
+        ValueError / TypeError on malformed inputs, RuntimeError when the
+        kernel launch is refused.
+    """
+    _check_fused_inputs(q, k, v, omega, coeffs, feature_kind)
+    if on_cpu(q):
+        return kerple_attention_fused_phi_fwd_reference(q, k, v, omega, coeffs,
+                                                        feature_kind)
+    B, H, N, D = q.shape
+    F_ = omega.shape[-1]
+    lib = _fused_kernel_fns()
+    out = torch.empty_like(v)
+    den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
+    launch(lib.kfp_error_string, "kerple_fused_phi_fwd",
+           getattr(lib, f"kfp_fwd_{dtype_suffix(v.dtype)}"), v.device,
+           q, k, v, omega, coeffs, out, den, B, H, N, D, v.shape[-1], F_,
+           int(feature_kind == "relu"), 1.0 / F_ ** 0.5)
+    kerple_attention_fused_phi_fwd.launches += 1
+    return out, den
+
+
+kerple_attention_fused_phi_fwd.launches = 0
 
 
 # ─── backward kernels ───────────────────────────────────────────────────
@@ -478,3 +614,58 @@ def masked_linear_attention_coeffs(q_prime: torch.Tensor,
     this is one forward launch and keeps nothing.
     """
     return _MaskedLinearCoeffs.apply(q_prime, k_prime, v, coeffs)
+
+
+class _KerpleFusedPhi(torch.autograd.Function):
+    """Fused-phi forward kernel; backward as the JAX `_kafp_bwd`: phi of q
+    and k recomputed with the unfused feature maps, the backward kernels
+    from the forward's (den, out), then phi's VJP to q, k and Omega."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, omega, coeffs, feature_kind):
+        out, den = kerple_attention_fused_phi_fwd(q, k, v, omega, coeffs,
+                                                  feature_kind)
+        ctx.feature_kind = feature_kind
+        ctx.save_for_backward(q, k, v, omega, coeffs, den, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, omega, coeffs, den, out = ctx.saved_tensors
+        phi = phi_relu if ctx.feature_kind == "relu" else phi_positive
+        need_q, need_k, _, need_om = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            qd = q.detach().requires_grad_(need_q)
+            kd = k.detach().requires_grad_(need_k)
+            om = omega.detach().requires_grad_(need_om)
+            q_prime, k_prime = phi(qd, om), phi(kd, om)
+        # the cotangent arrives through the head merge's transpose
+        dqp, dkp, dv, dcoeffs = masked_linear_attention_coeffs_bwd(
+            q_prime.detach(), k_prime.detach(), v, coeffs, den, out, g.contiguous())
+        leaves = [t for t, need in ((qd, need_q), (kd, need_k), (om, need_om)) if need]
+        pulled = iter(())
+        if leaves:
+            outs = [(t, d) for t, d in ((q_prime, dqp), (k_prime, dkp)) if t.requires_grad]
+            pulled = iter(torch.autograd.grad([t for t, _ in outs], leaves,
+                                              [d for _, d in outs], allow_unused=True))
+        dq, dk, dom = (next(pulled) if need else None for need in (need_q, need_k, need_om))
+        return dq, dk, dv, dom, dcoeffs, None
+
+
+def kerple_attention_fused_phi(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, omega: torch.Tensor,
+                               coeffs: torch.Tensor,
+                               feature_kind: str = "favor_plus") -> torch.Tensor:
+    """Differentiable KERPLE attention with phi fused into the forward
+    kernel (`kerple_attention_fused_phi_fwd`), [B, H, N, Dv] in v's dtype.
+
+    The backward recomputes phi(q), phi(k) with `phi_positive` /
+    `phi_relu` (Omega in fp32, ||x||^2 in the input dtype, as the JAX
+    `_phi_xla`), runs `masked_linear_attention_coeffs_bwd` from the fused
+    forward's den and out, and pulls dq', dk' back through phi to q, k and
+    Omega (dOmega only when Omega requires a gradient). Nothing of phi is
+    saved. Without autograd (inference mode, no_grad, or no input that
+    needs a gradient) this is one forward launch and keeps nothing.
+    """
+    return _KerpleFusedPhi.apply(q, k, v, omega, coeffs, feature_kind)

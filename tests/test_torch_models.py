@@ -217,9 +217,15 @@ def test_unknown_variant_raises():
 
 def test_training_only_and_unported_options_raise():
     cfg = mnist_config(**SMALL)
-    with pytest.raises(NotImplementedError):
-        create_model("performer_favor", cfg, device="cpu",
-                     attention_config={"fused_phi": True})
+    # fused_phi acts under KERPLE only (tests/test_torch_fused_phi.py); as
+    # in the JAX package, without KERPLE the flag changes nothing
+    x0 = torch.from_numpy(_images(jax_mnist_config(**SMALL), 2))
+    plain, flagged = (create_model("performer_favor", cfg, device="cpu",
+                                   generator=torch.Generator().manual_seed(1),
+                                   attention_config=extra)
+                      for extra in (None, {"fused_phi": True}))
+    with torch.inference_mode():
+        torch.testing.assert_close(flagged(x0), plain(x0), rtol=0, atol=0)
     model = create_model("performer_favor_most_general", cfg, device="cpu",
                          attention_config={"feature_redraw_interval": 10})
     x = torch.zeros(1, 28, 28, 1)
