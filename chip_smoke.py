@@ -30,6 +30,14 @@ Phases, each printed as it runs; any failure exits non-zero:
      fp32 at the serving, training, ragged and the JAX tests' shapes; timed
      beside its bound and the unfused route it replaces (two phi_positive
      calls and the KERPLE forward kernel);
+  3f. the materialised-T KERPLE kernels (forward; backward dq, dkv, dT)
+     against their plain versions in bf16 and fp32 at the pallas_ab entry
+     point's three shapes, the ViT-B/16 training shape, a ragged shape and
+     the JAX tests' shape, and at N=4097 in bf16; the backward bitwise on a
+     rerun; at the training shape the same function as the coefficient
+     kernels (T = toeplitz_from_coeffs(c); dT's diagonal sums = dcoeffs);
+     timed beside their bounds, the coefficient route and the residual
+     backward in PyTorch;
   4. serve KERPLE: ViT-B/16 performer_favor_most_general (bf16, random
      weights from a seed) answers 4 requests of 32 images through
      `make_eval_step`; launch counts, logits against the same model on the
@@ -70,7 +78,18 @@ Phases, each printed as it runs; any failure exits non-zero:
  14. train fused phi: the same model as phase 5 (per step 12 fused-phi
      launches and 12 of each backward kernel), step-1 gradients against
      the unfused kernel arm and bitwise across two runs, ms per step of
-     both arms.
+     both arms;
+ 15. the port's pallas_ab entry point at its three shapes: every row's
+     time and output finite, the forward kernel launched in every *_pallas*
+     row and no other, dq and dkv in the grad_pallas_fused rows only, dT
+     only where T needs a gradient; the rows in ms;
+ 16. long-N KERPLE: the coefficient kernels at N=4097 against their plain
+     versions, timed; the fft arm against them (forward at [4, 12, 4097],
+     forward and gradients at [2, 12, 1025]); ViT-B/16
+     performer_favor_most_general on 1024x1024 images, batch 4, dropout 0,
+     trained as phase 8 (12 launches of the forward and of each backward
+     kernel per step, bitwise step-1 gradients, ms per step, peak memory)
+     and serving one batch on the kernels against the fft arm.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -173,6 +192,15 @@ LONGN = dict(VITB, image_size=1024, dropout=0.1, batch_size=4)
 LONGN_N = (LONGN["image_size"] // LONGN["patch_size"]) ** 2 + 1
 LONGN_STEPS = 2   # step 1 (bitwise against a first run), then a warm-up step
 LONGN_TIMED = 2
+DTYPES = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
+BF16_ONLY = DTYPES[:1]
+# KERPLE forward shapes (B, H, N, F, D): the ViT-B/16 serving shape, the
+# training shape, one ragged q/kv tile, three tiles the last ragged, the JAX
+# package's kernel-test shape
+FWD_SHAPES = [(32, 12, 197, 266, 64), (TRAIN_BATCH, 12, 197, 266, 64),
+              (4, 12, 17, 266, 64), (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
+# ViT-B/16 KERPLE at 1024x1024 (phase 16)
+KERPLE_LONGN = (LONGN["batch_size"], 12, LONGN_N, 266, 64)
 # (B, H, N, F, D): the ViT-B/16 training shape, ragged shapes, the JAX
 # package's kernel-test shape
 BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
@@ -184,6 +212,14 @@ KERPLE_FORWARDS = ("masked_linear_coeffs_fwd", "kerple_fused_phi_fwd")
 # package's kernel-test shape
 FUSED_SHAPES = [(VITB["batch_size"], 12, 197, 64, 266), (TRAIN_BATCH, 12, 197, 64, 266),
                 (4, 12, 17, 64, 266), (4, 12, 130, 64, 266), (2, 2, 197, 16, 44)]
+# phase 3f, the materialised-T kernels (#4, #5), beside the pallas_ab entry
+# point's own shapes (B, H, N, F, D): the ViT-B/16 training shape, a ragged
+# shape, the JAX package's kernel-test shape; long N in bf16 only
+ML_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (3, 2, 17, 44, 16), (2, 2, 197, 44, 16)]
+ML_KERNELS = ("masked_linear_fwd", "masked_linear_bwd_dq", "masked_linear_bwd_dkv",
+              "masked_linear_bwd_dt")
+# phase 16, the fft arm against the kernels with gradients: (B, H, N, F, D)
+FFT_GRAD_SHAPE = (2, 12, 1025, 266, 64)
 # favor_hyper's KERPLE shape: F = 2 * 266
 F532 = (2, 12, 197, 532, 64)
 # flash cases (B, H, N, D, mask, dropout rate): the serving and training
@@ -332,13 +368,13 @@ def _max_rel(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def check_bwd_kernels(mlc):
+def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]):
     """Phase 3b: the four backward kernels, one by one and through the
-    backward wrapper, against their plain versions on the card."""
+    backward wrapper, against their plain versions on the card; timed in
+    bf16 at the shape `timed` (phase 16 calls it at long N)."""
     results = {}
-    for B, H, N, F, D in BWD_SHAPES:
-        for name, dtype in (("bfloat16", torch.bfloat16),
-                            ("float32", torch.float32)):
+    for B, H, N, F, D in shapes:
+        for name, dtype in dtypes:
             g = torch.Generator(device="cuda").manual_seed(N * 1000 + F + 7)
             q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
             k = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
@@ -380,7 +416,7 @@ def check_bwd_kernels(mlc):
                     f"{', '.join(f'{r:.3e}' for r in rels)} (tol {tol}), finite {finite}")
                 if not (finite and max(rels) <= tol):
                     raise AssertionError(f"{kname} disagrees with its plain version at {shape}")
-                if (B, H, N, F, D) == BWD_SHAPES[0] and name == "bfloat16":
+                if (B, H, N, F, D) == timed and name == "bfloat16":
                     ms = kernel_ms(kernel_fn)
                     plain_ms = time_ms(plain_fn, iters=5, warmup=1)
                     bound_ms, bound_by = kerple_bwd_bounds(
@@ -402,20 +438,13 @@ def check_bwd_kernels(mlc):
     return results
 
 
-def check_kernels(mlc):
-    """Phase 3: the KERPLE forward kernel against its plain version on the card."""
-    shapes = [
-        # (B, H, N, F, D): the ViT-B/16 serving shape first
-        (32, 12, 197, 266, 64),
-        (TRAIN_BATCH, 12, 197, 266, 64),  # the training shape
-        (4, 12, 17, 266, 64),    # one ragged q/kv tile
-        (4, 12, 130, 266, 64),   # three tiles, the last ragged
-        (2, 2, 197, 44, 16),     # the JAX package's kernel-test shape
-    ]
+def check_kernels(mlc, shapes=FWD_SHAPES, dtypes=DTYPES, timed=FWD_SHAPES[:2]):
+    """Phase 3: the KERPLE forward kernel against its plain version on the
+    card; timed at the shapes `timed` (bf16, and fp32 below the training
+    batch). Returns {(dtype, B): row} of the timed shapes."""
     results = {}
     for B, H, N, F, D in shapes:
-        for name, dtype in (("bfloat16", torch.bfloat16),
-                            ("float32", torch.float32)):
+        for name, dtype in dtypes:
             g = torch.Generator(device="cuda").manual_seed(N * 1000 + F)
             q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
             k = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
@@ -436,7 +465,7 @@ def check_kernels(mlc):
             if not (ok_out and den_rel <= DEN_RTOL and finite):
                 raise AssertionError(f"kernel disagrees with its plain version at {shape}")
             # timed at the serving shape (both dtypes) and the training shape (bf16)
-            if (B, H, N, F, D) in shapes[:2] and (name == "bfloat16" or B != TRAIN_BATCH):
+            if (B, H, N, F, D) in timed and (name == "bfloat16" or B != TRAIN_BATCH):
                 ms = kernel_ms(lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c))
                 plain_ms = time_ms(lambda: mlc.masked_linear_attention_coeffs_reference(q, k, v, c))
                 bound_ms, bound_by = kerple_bound(B, H, N, F, D, name)
@@ -825,6 +854,202 @@ def check_rotation_kernels(cr):
                                               bound_ms=bound_ms, bound_by=bound_by,
                                               library_ms=None)
     return results
+
+
+def masked_linear_bounds(B, H, N, F, D, dtype: str):
+    """{kernel: (bound_ms, bound_by)} for #4 and #5: q', k', v, gn in the
+    input dtype and s in fp32 read once, T [H, N, N] fp32 read once (dT
+    written once), the other outputs written once; the products at the
+    input type's peak, 2 B H N^2 (F + D) operations per pair: S and W v
+    (forward), M and dA k' (dq), A, M, dA^T q' and W^T gn (dkv), A and M (dT)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    bhn, t_bytes = B * H * N, 4 * H * N * N
+    pair = 2 * B * H * N * N * (F + D)
+    work = {"masked_linear_fwd": (elt * bhn * (2 * F + 2 * D) + 4 * bhn + t_bytes, pair),
+            "masked_linear_bwd_dq": (elt * bhn * (2 * D + 2 * F) + 4 * bhn + t_bytes, pair),
+            "masked_linear_bwd_dkv": (elt * bhn * (3 * D + 3 * F) + 4 * bhn + t_bytes,
+                                      2 * pair),
+            "masked_linear_bwd_dt": (elt * bhn * (2 * D + 2 * F) + 4 * bhn + t_bytes, pair)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+        out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def check_masked_linear_kernels(ml, mlc, ab_shapes):
+    """Phase 3f: the materialised-T forward (#4) and backward (#5: dq, dkv,
+    dT) kernels against their plain versions on the card, at the pallas_ab
+    entry point's shapes `ab_shapes` and ML_SHAPES in both dtypes and at
+    KERPLE_LONGN in bf16; the backward bitwise on a rerun; at the ViT-B/16
+    training shape, #4 over T = toeplitz_from_coeffs(c) against #1 over c
+    and #5 against #2 (dT's diagonal sums against dcoeffs). Timed in bf16 at
+    `ab_shapes` and long N beside their bounds, the coefficient route (#1,
+    #2) and the residual backward in PyTorch. Returns {(kernel, shape): row}."""
+    from efficient_rpe_vit_torch.ops.fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
+
+    results = {}
+    cases = [(shape, name, dtype) for shape in list(ab_shapes) + ML_SHAPES
+             for name, dtype in DTYPES] + [(KERPLE_LONGN, "bfloat16", torch.bfloat16)]
+    for (B, H, N, F, D), name, dtype in cases:
+        g = torch.Generator(device="cuda").manual_seed(N * 1000 + F + 11)
+        q, k = ((torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
+                for _ in range(2))
+        v, cot = (torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype) for _ in range(2))
+        c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
+        t = toeplitz_from_coeffs(c, N)
+        shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
+        out, den = ml.masked_linear_fwd(q, k, v, t)
+        torch.cuda.synchronize()
+        ref_out, ref_den = ml.masked_linear_fwd_reference(q, k, v, t)
+        rtol, atol = OUT_TOL[name]
+        err = (out.float() - ref_out.float()).abs()
+        ok_out = bool((err <= atol + rtol * ref_out.float().abs()).all())
+        den_rel = ((den - ref_den).abs() / ref_den.abs().clamp_min(1e-30)).max().item()
+        finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(den).all())
+        log("kernel", f"masked_linear_fwd {shape}: max|out err| {err.max().item():.3e} "
+            f"(rtol {rtol}, atol {atol}), max den rel err {den_rel:.3e} (rtol {DEN_RTOL}), "
+            f"finite {finite}")
+        if not (ok_out and den_rel <= DEN_RTOL and finite):
+            raise AssertionError(f"masked_linear_fwd disagrees with its plain version at {shape}")
+        errs = {"masked_linear_fwd": err.max().item()}
+        del err, ref_out
+        del ref_den
+        gn, s = mlc.kerple_bwd_residuals(den, out, cot)
+        runs = {
+            "masked_linear_bwd_dq": (
+                lambda: ml.masked_linear_bwd_dq(gn, s, v, k, t),
+                lambda: mlc.kerple_dense_bwd_dq(gn, s, v, k, t), BWD_TOL[name]),
+            "masked_linear_bwd_dkv": (
+                lambda: ml.masked_linear_bwd_dkv(gn, s, v, q, k, t),
+                lambda: mlc.kerple_dense_bwd_dkv(gn, s, v, q, k, t), BWD_TOL[name]),
+            "masked_linear_bwd_dt": (
+                lambda: ml.masked_linear_bwd_dt(gn, s, v, q, k),
+                lambda: mlc.kerple_dense_bwd_dt(gn, s, v, q, k), DCOEFF_TOL[name]),
+        }
+        for kname, (kernel_fn, plain_fn, tol) in runs.items():
+            got = kernel_fn()
+            torch.cuda.synchronize()
+            want = plain_fn()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            rels = [_max_rel(a, b) for a, b in zip(got, want)]
+            errs[kname] = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            log("kernel", f"{kname} {shape}: max|err|/max|plain| "
+                f"{', '.join(f'{r:.3e}' for r in rels)} (tol {tol}), finite {finite}")
+            if not (finite and max(rels) <= tol):
+                raise AssertionError(f"{kname} disagrees with its plain version at {shape}")
+            del got, want
+        # the whole backward as autograd calls it: against the residual
+        # formula, and bitwise on a rerun (no atomics)
+        got = ml.masked_linear_bwd(q, k, v, t, den, out, cot)
+        again = ml.masked_linear_bwd(q, k, v, t, den, out, cot)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = ml.masked_linear_bwd_reference(q, k, v, t, den, out, cot)
+        tols = (BWD_TOL[name],) * 3 + (DCOEFF_TOL[name],)
+        rels = [_max_rel(a, b) for a, b in zip(got, want)]
+        del want
+        log("kernel", f"masked_linear_bwd {shape}: (dq', dk', dv, dT) max|err|/max|plain| "
+            f"{', '.join(f'{r:.3e}' for r in rels)}, bitwise on a rerun {bitwise}")
+        if any(r > tol for r, tol in zip(rels, tols)) or not bitwise:
+            raise AssertionError(f"masked_linear_bwd disagrees with its plain version or is "
+                                 f"not bitwise reproducible at {shape}")
+        if (B, H, N, F, D) == ML_SHAPES[0]:
+            # the same function as the coefficient kernels over c
+            c_out, c_den = mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)
+            c_grads = mlc.masked_linear_attention_coeffs_bwd(q, k, v, c, den, out, cot)
+            torch.cuda.synchronize()
+            vs = [_max_rel(out, c_out), ((den - c_den).abs() / c_den.abs()).max().item(),
+                  *(_max_rel(a, b) for a, b in zip(got[:3], c_grads[:3])),
+                  _max_rel(toeplitz_diag_sums(got[3]), c_grads[3])]
+            tols = (OUT_TOL[name][0], DEN_RTOL) + (BWD_TOL[name],) * 3 + (DCOEFF_TOL[name],)
+            log("kernel", f"#4/#5 over T against #1/#2 over c {shape}: (out, den, dq', dk', dv, "
+                f"diag sums of dT vs dcoeffs) max rel {', '.join(f'{r:.3e}' for r in vs)}")
+            if any(r > tol for r, tol in zip(vs, tols)):
+                raise AssertionError(f"#4/#5 over T disagree with #1/#2 over c at {shape}")
+            del c_grads
+        del got
+        long_n = (B, H, N, F, D) == KERPLE_LONGN
+        if name != "bfloat16" or not ((B, H, N, F, D) in ab_shapes or long_n):
+            continue
+        plain_iters = 1 if long_n else 5
+        jnp_ms = time_ms(lambda: ml.masked_linear_bwd_reference(q, k, v, t, den, out, cot),
+                         iters=plain_iters, warmup=1)
+        kernels_ms = kernel_ms(lambda: ml.masked_linear_bwd(q, k, v, t, den, out, cot,
+                                                            need_dt=False))
+        log("kernel", f"masked_linear_bwd {shape}: dq + dkv kernels and residuals "
+            f"{kernels_ms:.4f} ms, the residual backward in PyTorch (bwd_mode "
+            f"'jnp_residual') {jnp_ms:.4f} ms")
+        bounds = masked_linear_bounds(B, H, N, F, D, name)
+        timed = {
+            "masked_linear_fwd": (
+                lambda: ml.masked_linear_fwd(q, k, v, t),
+                lambda: ml.masked_linear_fwd_reference(q, k, v, t),
+                lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)),
+            "masked_linear_bwd_dq": (*runs["masked_linear_bwd_dq"][:2],
+                                     lambda: mlc.masked_linear_attention_coeffs_bwd_dq(
+                                         gn, s, v, k, c)),
+            "masked_linear_bwd_dkv": (*runs["masked_linear_bwd_dkv"][:2],
+                                      lambda: mlc.masked_linear_attention_coeffs_bwd_dkv(
+                                          gn, s, v, q, k, c)),
+            "masked_linear_bwd_dt": (*runs["masked_linear_bwd_dt"][:2],
+                                     lambda: mlc.masked_linear_attention_coeffs_bwd_dc_reduce(
+                                         mlc.masked_linear_attention_coeffs_bwd_dc(
+                                             gn, s, v, q, k), N)),
+        }
+        for kname, (kernel_fn, plain_fn, route_fn) in timed.items():
+            ms, route_ms = kernel_ms(kernel_fn), kernel_ms(route_fn)
+            plain_ms = time_ms(plain_fn, iters=plain_iters, warmup=1)
+            bound_ms, bound_by = bounds[kname]
+            log("kernel", f"{kname} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"coefficient route (#1/#2) {route_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), kernel/bound {ms / bound_ms:.2f}x")
+            results[(kname, (B, H, N, F, D))] = dict(
+                max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, coeffs_route_ms=route_ms,
+                **({} if kname == "masked_linear_fwd" else {"jnp_residual_bwd_ms": jnp_ms}))
+    return results
+
+
+def pallas_ab_phase(pallas_ab, card: str):
+    """Phase 15: the port's pallas_ab entry point at its shapes, counts set
+    to 0 before each shape and read after it. The forward kernel runs in
+    every *_pallas* row and no other, dq and dkv in the two grad_pallas_fused
+    rows only (none in grad_pallas_jnp), dT only where T needs a gradient
+    (grad_pallas_fused_t); every row's time and output is finite. Returns
+    {shape: launches of that shape's run}."""
+    per_shape = {}
+    for shape in pallas_ab.SHAPES:
+        zero_counts(pallas_ab.WRAPPERS)
+        ran = {}
+        rows = pallas_ab.bench_shape(*shape, device="cuda", launches=ran)
+        torch.cuda.synchronize()
+        per_shape[shape] = counts(pallas_ab.WRAPPERS)
+        B, H, N, F, D = shape
+        log("pallas_ab", f"B={B} H={H} N={N} F={F} D={D} on {card}: "
+            + "  ".join(f"{row}={sec * 1e3:.4f}ms" for row, sec in rows.items()))
+        log("pallas_ab", f"launches by row {ran}; in all {per_shape[shape]}")
+        for row, got in ran.items():
+            fused = row.startswith("grad_pallas_fused")
+            want = {"masked_linear_fwd": "pallas" in row, "masked_linear_bwd_dq": fused,
+                    "masked_linear_bwd_dkv": fused,
+                    "masked_linear_bwd_dt": row == "grad_pallas_fused_t"}
+            if {n: c > 0 for n, c in got.items()} != want:
+                raise AssertionError(f"pallas_ab row {row} at {shape} launched {got}; "
+                                     f"expected launches only of {[n for n, w in want.items() if w]}")
+        outputs = {row: pallas_ab.run_row(row, *pallas_ab.make_inputs(*shape, "cuda"))
+                   for row in rows}
+        bad = [row for row, sec in rows.items() if not (sec > 0 and sec == sec)] + [
+            row for row, out in outputs.items()
+            if not all(bool(torch.isfinite(x.float()).all())
+                       for x in (out if isinstance(out, tuple) else (out,)))]
+        if bad:
+            raise AssertionError(f"pallas_ab rows {bad} at {shape} are not finite")
+        del outputs
+    return per_shape
 
 
 # ─── the models' main paths ─────────────────────────────────────────────
@@ -1293,6 +1518,96 @@ def other_variants(wrappers, card: str):
     log("variants", f"{len(OTHER_VARIANTS)} variants on {card}, each served and trained one step")
 
 
+def fft_op_check(card: str):
+    """Phase 16, op level: KERPLE's fft arm (torch.fft, no kernel) against
+    the kernel arm, bf16: the forward at KERPLE_LONGN, forward and
+    gradients over (q', k', v, coeffs) at FFT_GRAD_SHAPE (with gradients
+    every block's spectra are kept, ~1.7 GB each there and ~3.4 GB at
+    KERPLE_LONGN). The two arms round at other places (fft: k'v and D1 to
+    bf16; kernels: W to bf16): outputs to LOGIT_REL_TOL of their maximum,
+    gradients to GRAD_REL_TOL in norm."""
+    from efficient_rpe_vit_torch.ops.attention_core import kerple_linear_attention
+
+    for (B, H, N, F, D), with_grads in ((KERPLE_LONGN, False), (FFT_GRAD_SHAPE, True)):
+        g = torch.Generator(device="cuda").manual_seed(N + F)
+        q, k = ((torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1)
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn(B, H, N, D, generator=g, device="cuda").to(torch.bfloat16)
+        c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
+        arms = {}
+        for method in ("fft", "pallas"):
+            leaves = [x.detach().clone().requires_grad_(with_grads) for x in (q, k, v, c)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = kerple_linear_attention(*leaves, method=method)
+            if with_grads:
+                (out.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            arms[method] = (out.detach(), [x.grad for x in leaves if with_grads],
+                            (time.perf_counter() - t0) * 1e3)
+            del out, leaves
+        (out_f, grads_f, ms_f), (out_k, grads_k, ms_k) = arms["fft"], arms["pallas"]
+        rel = _max_rel(out_f, out_k)
+        grad_rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for a, b in zip(grads_f, grads_k)]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in (out_f, *grads_f))
+        shape = f"B{B} H{H} N{N} F{F} D{D} bfloat16"
+        log("longn-kerple", f"fft arm vs kernel arm {shape}{' with gradients' if with_grads else ''}: "
+            f"out max|diff|/max|out| {rel:.3e} (tol {LOGIT_REL_TOL}), gradients (q', k', v, "
+            f"coeffs) ||diff||/||kernel|| {', '.join(f'{r:.3e}' for r in grad_rel)} (tol "
+            f"{GRAD_REL_TOL}), finite {finite}; one call (host clock) fft {ms_f:.1f} ms, "
+            f"kernels {ms_k:.1f} ms on {card}")
+        if not (finite and rel <= LOGIT_REL_TOL and all(r <= GRAD_REL_TOL for r in grad_rel)):
+            raise AssertionError(f"the fft arm disagrees with the kernel arm at {shape}")
+        del arms, out_f, grads_f, out_k, grads_k
+
+
+def longn_kerple_serve(wrappers, card: str):
+    """Phase 16, serving: ViT-B/16 performer_favor_most_general on 1024x1024
+    images (N=4097) answers one batch of 4 on the kernel arm (12 forward
+    launches), held against the same weights on the fft arm by the logit
+    rule (LOGIT_REL_TOL). Returns the kernel arm's launches."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+
+    cfg = mnist_config(**dict(LONGN, dropout=0.0))
+    models = {method: create_model("performer_favor_most_general", cfg, device="cuda",
+                                   generator=torch.Generator().manual_seed(0),
+                                   rpe_config={"method": method})
+              for method in ("pallas", "fft")}
+    models["fft"].load_state_dict(models["pallas"].state_dict())
+    B, size = LONGN["batch_size"], LONGN["image_size"]
+    x = torch.randn(B, size, size, 3, generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    logits, ms = {}, {}
+    with torch.inference_mode():
+        for method in ("pallas", "fft"):
+            if method == "pallas":
+                zero_counts(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[method] = models[method](x)
+            torch.cuda.synchronize()
+            ms[method] = (time.perf_counter() - t0) * 1e3
+            if method == "pallas":
+                launches = counts(wrappers)
+    got, want = logits["pallas"], logits["fft"]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    expected = {n: VITB["depth"] if n == "masked_linear_coeffs_fwd" else 0 for n in wrappers}
+    log("longn-kerple", f"served a batch of {B} at N={LONGN_N}: kernel launches {launches} "
+        f"(expected {expected}); logits vs the fft arm max|diff|/max|logit| {rel:.3e} (tol "
+        f"{LOGIT_REL_TOL}), top-1 agreement {agree:.2f}; one forward (host clock, first "
+        f"call) kernel arm {ms['pallas']:.1f} ms, fft arm {ms['fft']:.1f} ms on {card}")
+    if launches != expected:
+        raise AssertionError(f"expected {expected} launches, got {launches}")
+    if got.shape != (B, VITB["num_classes"]) or not torch.isfinite(got).all() \
+            or rel > LOGIT_REL_TOL:
+        raise AssertionError("long-N KERPLE logits are malformed or disagree with the fft arm")
+    del models, logits
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1304,9 +1619,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from efficient_rpe_vit_torch.experiments import pallas_ab
     from efficient_rpe_vit_torch.ops.kernels import _build
     from efficient_rpe_vit_torch.ops.kernels import circulant_rotate as cr
     from efficient_rpe_vit_torch.ops.kernels import flash_attention as fa
+    from efficient_rpe_vit_torch.ops.kernels import masked_linear as ml
     from efficient_rpe_vit_torch.ops.kernels import masked_linear_coeffs as mlc
 
     # 1. environment
@@ -1338,6 +1655,7 @@ def main() -> int:
     flash = check_flash_kernels(fa)
     rotation = check_rotation_kernels(cr)
     fused = check_fused_kernels(mlc)
+    materialised = check_masked_linear_kernels(ml, mlc, pallas_ab.SHAPES)
 
     # 4. serve and 5. train ViT-B/16 with KERPLE
     depth = VITB["depth"]
@@ -1407,6 +1725,20 @@ def main() -> int:
                         kerple, {n: 0 if n == "masked_linear_coeffs_fwd" else depth for n in kerple},
                         TRAIN_STEPS, TIMED_STEPS, card, args.profile)
 
+    # 15. the pallas_ab entry point on the materialised-T kernels, shape by shape
+    ab_launches = pallas_ab_phase(pallas_ab, card)
+
+    # 16. long-N KERPLE: #1 and #2 at N=4097 against their plain versions,
+    # the fft arm against them, then ViT-B/16 training and serving at 1024x1024
+    longn_fwd = check_kernels(mlc, [KERPLE_LONGN], BF16_ONLY, timed=[KERPLE_LONGN])
+    longn_bwd = check_bwd_kernels(mlc, [KERPLE_LONGN], BF16_ONLY, timed=KERPLE_LONGN)
+    fft_op_check(card)
+    kerple_longn = train("longn-kerple", "performer_favor_most_general",
+                         dict(LONGN, dropout=0.0), {"kernel": kerple_arms["kernel"]}, kerple,
+                         {n: 0 if n == "kerple_fused_phi_fwd" else depth for n in kerple},
+                         LONGN_STEPS, LONGN_TIMED, card, args.profile)
+    longn_kerple_serve(kerple, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -1448,6 +1780,21 @@ def main() -> int:
               fused_serve["kerple_fused_phi_fwd"]),
              (*fused_fwd, "fused_train", fused[("bfloat16", TRAIN_BATCH)],
               fused_train["kerple_fused_phi_fwd"])]
+    rows.append((*fwd, "kerple_longn_train", longn_fwd[("bfloat16", KERPLE_LONGN[0])],
+                 kerple_longn["masked_linear_coeffs_fwd"]))
+    for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+        rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
+                     "kerple_longn_train", longn_bwd[name], kerple_longn[name]))
+    # the materialised-T kernels on the pallas_ab path, one row per shape
+    for shape in pallas_ab.SHAPES:
+        for name, source, replaces in (
+                ("masked_linear_fwd", "masked_linear_fwd.cu", "attention_kernels.py:181"),
+                ("masked_linear_bwd_dq", "masked_linear_bwd.cu", "masked_linear_bwd.py:54"),
+                ("masked_linear_bwd_dkv", "masked_linear_bwd.cu", "masked_linear_bwd.py:82"),
+                ("masked_linear_bwd_dt", "masked_linear_bwd.cu", "masked_linear_bwd.py:123")):
+            rows.append((name, f"{src}/{source}", f"{pallas}/{replaces}", "pallas_ab",
+                         dict(materialised[(name, shape)], shape=list(shape)),
+                         ab_launches[shape][name]))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -1462,6 +1809,9 @@ def main() -> int:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row.get("library_ms"),
+        # the row's own further numbers (shape, the routes it was timed beside)
+        **{key: value for key, value in row.items() if key not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name, source, replaces, path, row, launches in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,18 @@
 // Shared pieces of the KERPLE kernels for Hopper (masked_linear_coeffs_fwd.cu,
-// masked_linear_coeffs_bwd.cu, kerple_fused_phi_fwd.cu): the shared-memory
-// arena, cp.async tile staging, the coefficient window of a tile pair, and
-// the tile products (WMMA bf16 on the tensor cores, fp32 FMA loops for fp32)
-// over square [TILE, TILE] tiles of 16, 32 or 64 rows.
+// masked_linear_coeffs_bwd.cu, kerple_fused_phi_fwd.cu, and the
+// materialised-T masked_linear_fwd.cu and masked_linear_bwd.cu): the
+// shared-memory arena, cp.async tile staging, the Toeplitz mask of a tile
+// pair (from a coefficient window or a staged tile of T), the tile products
+// (WMMA bf16 on the tensor cores, fp32 FMA loops for fp32) over square
+// [TILE, TILE] tiles of 16, 32 or 64 rows, and the batch sum of dW * A that
+// both dcoeffs and dT are made of.
 //
 // Toeplitz convention: with T[i, j] = c[h, j - i + N - 1], a block working on
 // the q tile starting at row i0 and the kv tile starting at row j0 reads the
 // 2 * TILE - 1 coefficients w[t] = c[j0 - i0 + N - TILE + t] and indexes its
-// tile as T[a, b] = w[b - a + TILE - 1]; T never reaches device memory.
+// tile as T[a, b] = w[b - a + TILE - 1]; T never reaches device memory. The
+// materialised-T kernels instead stage the [TILE, TILE] tile T[h, i0 + a,
+// j0 + b] of a given [H, N, N] fp32 T.
 
 #pragma once
 
@@ -63,20 +68,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// dst[r * ld + c] = src[r * cols + c] for r < rows_valid, c < cols; zero for
-// the rest of the [ROWS, cols_pad] tile. src rows are contiguous, so
-// consecutive threads read consecutive addresses. Rows whose byte length
-// and addresses are multiples of 4 (fp32, and bf16 with even F: F = 266
-// rows are 4-byte but not 16-byte aligned) move as asynchronous 4-byte
-// words, all in flight at once; the caller waits with cp_async_wait_all.
-// Other rows are copied element by element.
+// dst[r * ld + c] = src[r * src_ld + c] for r < rows_valid, c < cols; zero
+// for the rest of the [ROWS, cols_pad] tile. Consecutive threads read
+// consecutive addresses of a row. Rows whose byte length, stride and
+// addresses are multiples of 4 (fp32, and bf16 with even F: F = 266 rows
+// are 4-byte but not 16-byte aligned, nor are fp32 rows of T at odd N)
+// move as asynchronous 4-byte words, all in flight at once; the caller
+// waits with cp_async_wait_all. Other rows are copied element by element.
 template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
-                                          const T* __restrict__ src,
-                                          int rows_valid, int cols) {
+__device__ __forceinline__ void load_tile_strided(T* dst, int ld, int cols_pad,
+                                                  const T* __restrict__ src, int src_ld,
+                                                  int rows_valid, int cols) {
   constexpr int E = sizeof(T);
   const bool words = (cols * E) % 4 == 0 && (cols_pad * E) % 4 == 0 &&
-                     (ld * E) % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0 &&
+                     (ld * E) % 4 == 0 && (src_ld * E) % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(src) & 3) == 0 &&
                      (reinterpret_cast<uintptr_t>(dst) & 3) == 0;
   if (words) {
     const int w = cols * E / 4;          // words per source row
@@ -91,7 +97,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
     for (int idx = threadIdx.x; idx < ROWS * w_pad; idx += THREADS) {
       const bool valid = r < rows_valid && c < w;
       cp_async4(d + ((size_t)r * ld * E + 4 * c),
-                valid ? s + ((size_t)r * cols * E + 4 * c) : s, valid ? 4 : 0);
+                valid ? s + ((size_t)r * src_ld * E + 4 * c) : s, valid ? 4 : 0);
       c += dc;
       r += dr;
       if (c >= w_pad) {
@@ -104,9 +110,26 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
     for (int idx = threadIdx.x; idx < ROWS * cols_pad; idx += THREADS) {
       const int r = idx / cols_pad;
       const int c = idx - r * cols_pad;
-      dst[r * ld + c] = (r < rows_valid && c < cols) ? src[(size_t)r * cols + c] : zero;
+      dst[r * ld + c] = (r < rows_valid && c < cols) ? src[(size_t)r * src_ld + c] : zero;
     }
   }
+}
+
+// A tile of contiguous rows: load_tile_strided with src_ld = cols.
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
+                                          const T* __restrict__ src,
+                                          int rows_valid, int cols) {
+  load_tile_strided<T, ROWS>(dst, ld, cols_pad, src, cols, rows_valid, cols);
+}
+
+// The [TILE, TILE] tile of T[h] (tb, [N, N] fp32) at rows i0.., columns
+// j0.., zero past N in either direction; row stride ldt in shared memory.
+template <int TILE>
+__device__ __forceinline__ void load_t_tile(float* dst, int ldt, const float* __restrict__ tb,
+                                            int i0, int j0, int N) {
+  load_tile_strided<float, TILE>(dst, ldt, TILE, tb + (size_t)i0 * N + j0, N,
+                                 min(TILE, N - i0), min(TILE, N - j0));
 }
 
 // Coefficient window of the tile pair (i0, j0): w[t] = c[j0 - i0 + N - TILE + t],
@@ -254,22 +277,152 @@ __device__ __forceinline__ void accumulate(float* C, int ldc, const T* A, int ld
   }
 }
 
-// dst[a, b] = round(w(a, b) * window[b - a + TILE - 1]) for a < rows, b < cols,
-// zero elsewhere; w(a, b) = src[a, b] - (sub ? sub[a] : 0).
-template <typename T, int TILE>
-__device__ __forceinline__ void weigh(T* dst, int ldw, const float* src, int lds,
-                                      const float* sub, const float* cw,
-                                      int rows, int cols) {
+// The Toeplitz mask of a tile pair, T[a, b] for a q row a and a kv row b of
+// the tile: from its coefficient window (WindowMask: w[b - a + TILE - 1]) or
+// from a staged [TILE, TILE] fp32 tile of T (TileMask, row stride ld).
+template <int TILE>
+struct WindowMask {
+  const float* w;
+  __device__ __forceinline__ float operator()(int a, int b) const { return w[b - a + TILE - 1]; }
+};
+
+struct TileMask {
+  const float* t;
+  int ld;
+  __device__ __forceinline__ float operator()(int a, int b) const { return t[a * ld + b]; }
+};
+
+// dst[a, b] = round(w(a, b) * mask(a, b)) for a < rows, b < cols, zero
+// elsewhere; w(a, b) = src[a, b] - (sub ? sub[a] : 0).
+template <typename T, int TILE, typename Mask>
+__device__ __forceinline__ void weigh_by(T* dst, int ldw, const float* src, int lds,
+                                         const float* sub, Mask mask, int rows, int cols) {
   for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
     const int a = idx / TILE;
     const int b = idx % TILE;
     float w = 0.f;
     if (a < rows && b < cols) {
       const float x = sub ? src[a * lds + b] - sub[a] : src[a * lds + b];
-      w = x * cw[b - a + TILE - 1];
+      w = x * mask(a, b);
     }
     dst[a * ldw + b] = from_float<T>(w);
   }
+}
+
+// weigh_by with the mask of the coefficient window cw.
+template <typename T, int TILE>
+__device__ __forceinline__ void weigh(T* dst, int ldw, const float* src, int lds,
+                                      const float* sub, const float* cw,
+                                      int rows, int cols) {
+  weigh_by<T, TILE>(dst, ldw, src, lds, sub, WindowMask<TILE>{cw}, rows, cols);
+}
+
+// Per input dtype and tile: staged widths and row strides (elements) of the
+// backward kernels' tiles.
+template <typename T, int TILE>
+struct Geometry {
+  static constexpr bool kBf16 = is_bf16<T>();
+  static constexpr int WIN = 2 * TILE - 1;  // coefficient window of a tile pair
+  int fp;    // feature columns staged per q'/k' row (bf16: zero-filled to 16)
+  int dp;    // value columns staged per v/gn row (bf16: zero-filled to 16)
+  int ldf;   // row stride of q'/k' tiles
+  int ldd;   // row stride of v/gn tiles
+  int lds;   // row stride of fp32 [TILE, TILE] tiles
+  int ldw;   // row stride of rounded [TILE, TILE] weight tiles (T)
+  int ldaf;  // row stride of fp32 [TILE, fp] accumulators
+  int ldad;  // row stride of fp32 [TILE, dp] accumulators
+  __host__ __device__ Geometry(int F, int D) {
+    if (kBf16) {
+      // WMMA fragments are 16 wide; strides stay multiples of 8 elements (4
+      // for fp32) so every fragment starts 32-byte aligned, and the padding
+      // staggers rows across shared-memory banks.
+      fp = round_up(F, 16);
+      dp = round_up(D, 16);
+      ldf = fp + 8;
+      ldd = dp + 8;
+      ldw = TILE + 8;
+    } else {
+      // FMA loops read a column across 16 rows: odd strides spread them
+      // over distinct banks.
+      fp = F;
+      dp = D;
+      ldf = F | 1;
+      ldd = D | 1;
+      ldw = TILE + 1;
+    }
+    lds = TILE + 4;
+    ldaf = fp + 4;
+    ldad = dp + 4;
+  }
+};
+
+// Shared memory of a block that sums dW * A over the batch for one tile
+// pair (the dcoeffs and dT kernels).
+template <typename T, int TILE>
+struct BatchSumLayout {
+  size_t q, k, gn, v, sa, sm, acc, s, bytes;
+  __host__ __device__ BatchSumLayout(int F, int D) {
+    const Geometry<T, TILE> g(F, D);
+    Arena a;
+    q = a.take<T>(TILE * g.ldf);
+    k = a.take<T>(TILE * g.ldf);
+    gn = a.take<T>(TILE * g.ldd);
+    v = a.take<T>(TILE * g.ldd);
+    sa = a.take<float>(TILE * g.lds);
+    sm = a.take<float>(TILE * g.lds);
+    acc = a.take<float>(TILE * g.lds);
+    s = a.take<float>(TILE);
+    bytes = a.top;
+  }
+};
+
+// acc[a, c] (fp32, row stride g.lds, in the arena of L) = sum over b = 0..B-1
+// of (M - s)[a, c] * A[a, c] for the q tile at i0 and the kv tile at j0 of
+// head h, with M = gn v^T and A = q' k'^T; zero past the ragged edges. Each
+// thread owns the same elements for every b and adds the batches in order:
+// a fixed summation order, no atomics.
+template <typename T, int TILE>
+__device__ __forceinline__ float* batch_sum_dw_a(
+    unsigned char* smem, const T* __restrict__ gn, const float* __restrict__ s,
+    const T* __restrict__ v, const T* __restrict__ q, const T* __restrict__ k,
+    int B, int H, int N, int F, int D, int h, int i0, int j0) {
+  const Geometry<T, TILE> g(F, D);
+  const BatchSumLayout<T, TILE> L(F, D);
+  T* Qs = reinterpret_cast<T*>(smem + L.q);
+  T* Ks = reinterpret_cast<T*>(smem + L.k);
+  T* GNs = reinterpret_cast<T*>(smem + L.gn);
+  T* Vs = reinterpret_cast<T*>(smem + L.v);
+  float* Sa = reinterpret_cast<float*>(smem + L.sa);
+  float* Sm = reinterpret_cast<float*>(smem + L.sm);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  float* s_s = reinterpret_cast<float*>(smem + L.s);
+  const int rows_q = min(TILE, N - i0);
+  const int rows_kv = min(TILE, N - j0);
+
+  for (int idx = threadIdx.x; idx < TILE * g.lds; idx += THREADS) acc[idx] = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const size_t bh = (size_t)b * H + h;
+    __syncthreads();  // the previous batch's readers are done
+    load_tile<T, TILE>(Qs, g.ldf, g.fp, q + (bh * N + i0) * F, rows_q, F);
+    load_tile<T, TILE>(Ks, g.ldf, g.fp, k + (bh * N + j0) * F, rows_kv, F);
+    load_tile<T, TILE>(GNs, g.ldd, g.dp, gn + (bh * N + i0) * D, rows_q, D);
+    load_tile<T, TILE>(Vs, g.ldd, g.dp, v + (bh * N + j0) * D, rows_kv, D);
+    for (int a = threadIdx.x; a < TILE; a += THREADS)
+      s_s[a] = a < rows_q ? s[bh * N + i0 + a] : 0.f;
+    cp_async_wait_all();
+    __syncthreads();
+    scores<T, TILE>(Sa, g.lds, Qs, g.ldf, Ks, g.ldf, g.fp);    // A = q' k'^T
+    scores<T, TILE>(Sm, g.lds, GNs, g.ldd, Vs, g.ldd, g.dp);   // M = gn v^T
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
+      const int a = idx / TILE;
+      const int c = idx % TILE;
+      if (a < rows_q && c < rows_kv)
+        acc[a * g.lds + c] += (Sm[a * g.lds + c] - s_s[a]) * Sa[a * g.lds + c];
+    }
+  }
+  __syncthreads();
+  return acc;
 }
 
 }  // namespace kerple

@@ -60,44 +60,6 @@ template <typename T>
 __host__ __device__ constexpr int dc_tile() { return is_bf16<T>() ? 64 : 32; }
 constexpr int MIN_TILE = 16;
 
-// Per input dtype and tile: staged widths and row strides (elements).
-template <typename T, int TILE>
-struct Geometry {
-  static constexpr bool kBf16 = is_bf16<T>();
-  static constexpr int WIN = 2 * TILE - 1;  // coefficient window of a tile pair
-  int fp;    // feature columns staged per q'/k' row (bf16: zero-filled to 16)
-  int dp;    // value columns staged per v/gn row (bf16: zero-filled to 16)
-  int ldf;   // row stride of q'/k' tiles
-  int ldd;   // row stride of v/gn tiles
-  int lds;   // row stride of fp32 [TILE, TILE] tiles
-  int ldw;   // row stride of rounded [TILE, TILE] weight tiles (T)
-  int ldaf;  // row stride of fp32 [TILE, fp] accumulators
-  int ldad;  // row stride of fp32 [TILE, dp] accumulators
-  __host__ __device__ Geometry(int F, int D) {
-    if (kBf16) {
-      // WMMA fragments are 16 wide; strides stay multiples of 8 elements (4
-      // for fp32) so every fragment starts 32-byte aligned, and the padding
-      // staggers rows across shared-memory banks.
-      fp = round_up(F, 16);
-      dp = round_up(D, 16);
-      ldf = fp + 8;
-      ldd = dp + 8;
-      ldw = TILE + 8;
-    } else {
-      // FMA loops read a column across 16 rows: odd strides spread them
-      // over distinct banks.
-      fp = F;
-      dp = D;
-      ldf = F | 1;
-      ldd = D | 1;
-      ldw = TILE + 1;
-    }
-    lds = TILE + 4;
-    ldaf = fp + 4;
-    ldad = dp + 4;
-  }
-};
-
 template <typename T, int TILE>
 struct DqLayout {
   size_t gn, v, k, sc, w, cw, s, acc, bytes;
@@ -133,24 +95,6 @@ struct DkvLayout {
     s = a.take<float>(TILE);
     acck = a.take<float>(TILE * g.ldaf);
     accv = a.take<float>(TILE * g.ldad);
-    bytes = a.top;
-  }
-};
-
-template <typename T, int TILE>
-struct DcLayout {
-  size_t q, k, gn, v, sa, sm, acc, s, bytes;
-  __host__ __device__ DcLayout(int F, int D) {
-    const Geometry<T, TILE> g(F, D);
-    Arena a;
-    q = a.take<T>(TILE * g.ldf);
-    k = a.take<T>(TILE * g.ldf);
-    gn = a.take<T>(TILE * g.ldd);
-    v = a.take<T>(TILE * g.ldd);
-    sa = a.take<float>(TILE * g.lds);
-    sm = a.take<float>(TILE * g.lds);
-    acc = a.take<float>(TILE * g.lds);
-    s = a.take<float>(TILE);
     bytes = a.top;
   }
 };
@@ -293,50 +237,13 @@ mlc_bwd_dc_kernel(const T* __restrict__ gn, const float* __restrict__ s,
   constexpr int TILE = dc_tile<T>();
   constexpr int WIN = Geometry<T, TILE>::WIN;
   const Geometry<T, TILE> g(F, D);
-  const DcLayout<T, TILE> L(F, D);
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L.q);
-  T* Ks = reinterpret_cast<T*>(smem + L.k);
-  T* GNs = reinterpret_cast<T*>(smem + L.gn);
-  T* Vs = reinterpret_cast<T*>(smem + L.v);
-  float* Sa = reinterpret_cast<float*>(smem + L.sa);
-  float* Sm = reinterpret_cast<float*>(smem + L.sm);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  float* s_s = reinterpret_cast<float*>(smem + L.s);
-
   const int n_t = (N + TILE - 1) / TILE;
   const int iq = blockIdx.x / n_t;
   const int jk = blockIdx.x - iq * n_t;
   const int h = blockIdx.y;
-  const int i0 = iq * TILE;
-  const int j0 = jk * TILE;
-  const int rows_q = min(TILE, N - i0);
-  const int rows_kv = min(TILE, N - j0);
-
-  for (int idx = threadIdx.x; idx < TILE * g.lds; idx += THREADS) acc[idx] = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const size_t bh = (size_t)b * H + h;
-    __syncthreads();  // the previous batch's readers are done
-    load_tile<T, TILE>(Qs, g.ldf, g.fp, q + (bh * N + i0) * F, rows_q, F);
-    load_tile<T, TILE>(Ks, g.ldf, g.fp, k + (bh * N + j0) * F, rows_kv, F);
-    load_tile<T, TILE>(GNs, g.ldd, g.dp, gn + (bh * N + i0) * D, rows_q, D);
-    load_tile<T, TILE>(Vs, g.ldd, g.dp, v + (bh * N + j0) * D, rows_kv, D);
-    for (int a = threadIdx.x; a < TILE; a += THREADS)
-      s_s[a] = a < rows_q ? s[bh * N + i0 + a] : 0.f;
-    cp_async_wait_all();
-    __syncthreads();
-    scores<T, TILE>(Sa, g.lds, Qs, g.ldf, Ks, g.ldf, g.fp);    // A = q' k'^T
-    scores<T, TILE>(Sm, g.lds, GNs, g.ldd, Vs, g.ldd, g.dp);   // M = gn v^T
-    __syncthreads();
-    // each thread owns the same elements for every b: a fixed summation order
-    for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
-      const int a = idx / TILE;
-      const int c = idx % TILE;
-      if (a < rows_q && c < rows_kv)
-        acc[a * g.lds + c] += (Sm[a * g.lds + c] - s_s[a]) * Sa[a * g.lds + c];
-    }
-  }
-  __syncthreads();
+  const float* acc = batch_sum_dw_a<T, TILE>(smem, gn, s, v, q, k, B, H, N, F, D, h,
+                                             iq * TILE, jk * TILE);
   float* out = windows + (((size_t)h * n_t + iq) * n_t + jk) * WIN;
   for (int m = threadIdx.x; m < WIN; m += THREADS) {
     // column b = a + m - (TILE - 1); entries past the ragged edge stayed 0
@@ -427,7 +334,7 @@ int launch_dc(const void* gn, const void* s, const void* v, const void* q,
               const void* k, void* windows, int B, int H, int N, int F, int D,
               void* stream) {
   constexpr int TILE = dc_tile<T>();
-  const DcLayout<T, TILE> L(F, D);
+  const BatchSumLayout<T, TILE> L(F, D);
   const int err = prepare(mlc_bwd_dc_kernel<T>, L.bytes);
   if (err != cudaSuccess) return err;
   const int n_t = (N + TILE - 1) / TILE;

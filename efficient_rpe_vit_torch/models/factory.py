@@ -69,7 +69,9 @@ def create_model(
     config: Union[ExperimentConfig, Dict[str, Any]],
     attention_config: Optional[Dict[str, Any]] = None,
     rpe_config: Optional[Dict[str, Any]] = None,
+    mlp_config: Optional[Dict[str, Any]] = None,
     *,
+    remat: bool = False,
     device: Union[str, torch.device, None] = None,
     generator: Optional[torch.Generator] = None,
     **overrides,
@@ -85,6 +87,10 @@ def create_model(
             (e.g. rpe_config={"method": "dense"} for KERPLE, {"method":
             "chain"} for Circulant-STRING, {"block_size": 16,
             "enable_block_circulant": True} for block-circulant).
+        mlp_config: optional MLP override, as in the JAX factory; only
+            {"mlp_type": "dense"} (the default) is ported.
+        remat: per-block activation checkpointing, as in the JAX factory;
+            not ported, so only False is taken.
         device: where the model lives; None means the GPU, and raises when
             there is none. Pass "cpu" to run on the CPU.
         generator: CPU generator the weights are drawn from; None seeds
@@ -92,8 +98,16 @@ def create_model(
         **overrides: architecture field overrides (dim, depth, dropout, ...).
 
     Raises:
-        NotImplementedError: for the rejected softmax+KERPLE combination.
+        NotImplementedError: for the rejected softmax+KERPLE combination,
+            an `mlp_type` other than "dense" and `remat=True`: the MoE MLP
+            and per-block checkpointing are not ported yet, and dropping
+            them would build another model than the one asked for.
     """
+    mlp_type = (mlp_config or {}).get("mlp_type", "dense")
+    if mlp_type != "dense":
+        raise NotImplementedError(
+            f"mlp_type={mlp_type!r}: MoeMlp (the soft mixture-of-experts "
+            "MLP) is not ported yet; only the dense MLP is")
     device = resolve_device(device)
     attention_type, rpe_type = _resolve_variant(model_name)
     if attention_type in ("softmax", "baseline") and rpe_type in (
@@ -106,6 +120,10 @@ def create_model(
         )
     cfg = config.to_dict() if isinstance(config, ExperimentConfig) else dict(config)
     cfg.update(overrides)
+    if remat or cfg.get("remat"):
+        raise NotImplementedError(
+            "remat=True: per-block activation checkpointing is not ported "
+            "yet")
 
     attn_kwargs = dict((cfg.get("attention_params") or {}).get(attention_type, {}))
     if attention_config:

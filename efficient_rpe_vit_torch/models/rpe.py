@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops import kerple_linear_attention
+from ..ops.fft_toeplitz import toeplitz_matmul
 from ..ops.rotations import (
     _rotate_keep_cls,
     apply_block_circulant_rotation,
@@ -84,7 +85,7 @@ class KerpleRPE(nn.Module):
         self.num_patches = num_patches  # sequence length including CLS
         self.dim = dim
         self.heads = heads
-        self.method = method  # kerple compute path: auto | pallas | dense
+        self.method = method  # kerple compute path: auto | pallas | dense | fft
         self.rel_pos_bias = nn.Parameter(torch.empty(heads, 2 * num_patches - 1))
 
     @property
@@ -100,6 +101,22 @@ class KerpleRPE(nn.Module):
         """Full KERPLE linear attention (numerator/denominator fused)."""
         return kerple_linear_attention(q_prime, k_prime, v, self.coeffs(),
                                        method=self.method)
+
+    def apply_rpe_fft(self, k_prime: torch.Tensor,
+                      v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The reference's D1/D2 API, by FFT:
+
+        D1 (v given): [B, H, n, F, D] = T @ outer(phi(K), V);
+        D2 (v None):  [B, H, n, F]    = T @ phi(K).
+        For tests and diagnostics; `attention` never forms D1 whole.
+        """
+        c = self.coeffs()
+        if v is None:
+            return toeplitz_matmul(c, k_prime, method="fft")
+        B, H, N, F_ = k_prime.shape
+        D = v.shape[-1]
+        a1 = (k_prime[..., :, None] * v[..., None, :]).reshape(B, H, N, F_ * D)
+        return toeplitz_matmul(c, a1, method="fft").reshape(B, H, N, F_, D)
 
     def forward(self, x):
         raise NotImplementedError(

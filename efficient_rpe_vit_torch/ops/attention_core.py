@@ -4,7 +4,7 @@ Counterpart of `efficient_rpe_vit_tpu/ops/attention_core.py`:
   * softmax O(N^2) softmax(scale * q k^T) v, on the flash kernels or dense,
   * linear  O(N)  two-einsum kernelised attention,
   * KERPLE        linear attention with a Toeplitz relative-position bias
-                  inside the kernelised sum,
+                  inside the kernelised sum (kernel, dense or FFT),
 
     num[i] = sum_j T[i,j] * (q' k'^T)[i,j] * v[j],
     den[i] = sum_j T[i,j] * (q' k'^T)[i,j],      T[i,j] = c[j - i + N - 1].
@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from .fft_toeplitz import toeplitz_from_coeffs
+from .fft_toeplitz import toeplitz_from_coeffs, toeplitz_matmul_fft
 from .kernels.flash_attention import (
     canonical_mask,
     dropout_keep_dense,
@@ -42,7 +42,13 @@ from .kernels.masked_linear_coeffs import (
 )
 
 __all__ = ["EPS", "softmax_attention", "linear_attention",
-           "kerple_linear_attention", "masked_linear_vjp_residual"]
+           "kerple_linear_attention", "masked_linear_vjp_residual",
+           "KERPLE_FFT_BLOCK_BUDGET"]
+
+# Per-block byte cap of the `fft` arm's streamed [B, H, N, F * fft_block]
+# intermediate, the JAX package's: a memory rule, kept so that both
+# packages block the head dim alike.
+KERPLE_FFT_BLOCK_BUDGET = 1 * 1024**3
 
 
 def softmax_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,9 +168,38 @@ def kerple_dense(q_prime: torch.Tensor, k_prime: torch.Tensor,
     return _KerpleDenseCore.apply(q_prime, k_prime, v, t)
 
 
+def _kerple_fft(q_prime: torch.Tensor, k_prime: torch.Tensor, v: torch.Tensor,
+                coeffs: torch.Tensor, fft_block: int) -> torch.Tensor:
+    """O(N log N) path, as the JAX `_kerple_fft`: D2 = T @ phi(K) in one
+    FFT, D1 = T @ [phi(k_j) v_j^T]_j streamed over head_dim blocks of
+    `fft_block` columns in order, so the extra memory is one
+    [B, H, N, F, fft_block] block. The block shrinks to the largest divisor
+    of D whose block stays under KERPLE_FFT_BLOCK_BUDGET, and falls back to
+    D when it does not divide D. Under autograd every block's spectra are
+    kept for the backward (no checkpointing, as in the JAX package)."""
+    B, H, N, F_ = q_prime.shape
+    D = v.shape[-1]
+    max_block = max(1, KERPLE_FFT_BLOCK_BUDGET // max(1, B * H * N * F_ * 4))
+    if fft_block > max_block:
+        fft_block = max((d for d in range(1, max_block + 1) if D % d == 0), default=1)
+    if D % fft_block != 0:
+        fft_block = D
+    q32 = q_prime.float()
+    d2 = toeplitz_matmul_fft(coeffs, k_prime)  # [B, H, N, F]
+    den = torch.einsum("bhnf,bhnf->bhn", q32, d2.float())
+    nums = []
+    for start in range(0, D, fft_block):
+        v_blk = v[..., start:start + fft_block]
+        a1 = (k_prime[..., :, None] * v_blk[..., None, :]).reshape(B, H, N, F_ * fft_block)
+        d1 = toeplitz_matmul_fft(coeffs, a1).reshape(B, H, N, F_, fft_block)
+        nums.append(torch.einsum("bhnf,bhnfd->bhnd", q32, d1.float()))
+    num = torch.cat(nums, dim=-1)
+    return (num / (den[..., None] + EPS)).to(v.dtype)
+
+
 def kerple_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
                             v: torch.Tensor, coeffs: torch.Tensor,
-                            method: str = "auto") -> torch.Tensor:
+                            method: str = "auto", fft_block: int = 16) -> torch.Tensor:
     """KERPLE attention: out_i = sum_j c[j-i+N-1] (q'_i.k'_j) v_j
     / (sum_j c[j-i+N-1] (q'_i.k'_j) + eps).
 
@@ -174,7 +209,9 @@ def kerple_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
         coeffs: [H, 2N-1] positive Toeplitz coefficients c = exp(rel_pos_bias).
         method: 'pallas' runs the hand-written kernel (its plain version for
             CPU tensors); 'dense' the plain [B, H, N, N] formula on any
-            device; 'auto' means 'pallas'; 'fft' is not ported yet.
+            device; 'auto' means 'pallas'; 'fft' the O(N log N) FFT path
+            (`torch.fft`, any device).
+        fft_block: head_dim block of the 'fft' path's streamed numerator.
     Returns:
         [B, H, N, D] in v's dtype.
     """
@@ -185,9 +222,5 @@ def kerple_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
     if method == "dense":
         return kerple_dense(q_prime, k_prime, v, coeffs)
     if method == "fft":
-        raise NotImplementedError(
-            "KERPLE method='fft' (the streamed FFT path) is not ported yet; "
-            "it comes with the long-sequence slice of the port. Use "
-            "method='pallas' or 'dense'."
-        )
+        return _kerple_fft(q_prime, k_prime, v, coeffs, fft_block)
     raise ValueError(f"unknown method {method!r}")

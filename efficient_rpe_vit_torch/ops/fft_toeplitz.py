@@ -1,10 +1,13 @@
-"""Toeplitz helpers.
+"""Toeplitz helpers: materialisation, its VJP, and Toeplitz x matrix
+products by a dense matmul or by FFT.
 
 Counterpart of `efficient_rpe_vit_tpu/ops/fft_toeplitz.py`. Coefficients
 are ordered ``[c_{-(n-1)}, ..., c_0, ..., c_{n-1}]`` and the Toeplitz
-matrix is ``T[i, j] = c[(j - i) + (n - 1)]``. Only the materialisation the
-plain KERPLE path needs and its VJP (`toeplitz_diag_sums`) are ported so
-far; the FFT products come with the `method="fft"` arm.
+matrix is ``T[i, j] = c[(j - i) + (n - 1)]``. The FFT product uses the JAX
+package's circulant embedding of length 2n-1 through `torch.fft`. The JAX
+dense-vs-FFT window (`FFT_MIN_N`, `FFT_MAX_N`, `FFT_MAX_D`) was measured on
+its own accelerator and is not inherited: `toeplitz_matmul`'s "auto" means
+"dense" until measurements on the GPU set a window.
 """
 
 from __future__ import annotations
@@ -53,3 +56,77 @@ def toeplitz_diag_sums(x: torch.Tensor) -> torch.Tensor:
     padded = F.pad(x.flip(-2), (0, n))  # [..., n, 2n]
     skew = padded.reshape(*lead, 2 * n * n)[..., : n * (2 * n - 1)]
     return skew.reshape(*lead, n, 2 * n - 1).sum(dim=-2)
+
+
+def toeplitz_matmul_dense(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """T @ x with T materialised, in fp32.
+
+    Args:
+        c: [..., 2n-1] coefficients (leading dims broadcast against x's).
+        x: [..., n, d].
+    Returns:
+        [..., n, d] in x's dtype.
+    """
+    t = toeplitz_from_coeffs(c, x.shape[-2])
+    return torch.matmul(t.float(), x.float()).to(x.dtype)
+
+
+def toeplitz_matmul_fft(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """T @ x in O(n log n) by circulant embedding.
+
+    The (2n-1)-circulant whose first column is
+    ``[c_0, c_{-1}, ..., c_{-(n-1)}, c_{n-1}, ..., c_1]`` agrees with T on its
+    leading n x n block: multiply in the frequency domain (complex64; x is
+    upcast, since `torch.fft` takes no bf16), keep the first n rows, and
+    cast the real part to x's dtype.
+
+    Args:
+        c: [..., 2n-1] coefficients (leading dims broadcast against x's).
+        x: [..., n, d].
+    Returns:
+        [..., n, d] real, in x's dtype.
+    """
+    n = x.shape[-2]
+    if c.shape[-1] != 2 * n - 1:
+        raise ValueError(f"coefficient length {c.shape[-1]} != 2n-1 for n={n}")
+    col = torch.cat([c[..., n - 1:n],          # c_0
+                     c[..., :n - 1].flip(-1),  # c_{-1} .. c_{-(n-1)}
+                     c[..., n:].flip(-1)],     # c_{n-1} .. c_1
+                    dim=-1).float()
+    c_fft = torch.fft.fft(col, dim=-1)  # [..., 2n-1] complex64
+    x_fft = torch.fft.fft(F.pad(x.float(), (0, 0, 0, n - 1)), dim=-2)
+    y = torch.fft.ifft(c_fft[..., :, None] * x_fft, dim=-2)
+    return y[..., :n, :].real.to(x.dtype)
+
+
+def toeplitz_matmul(c: torch.Tensor, x: torch.Tensor,
+                    method: str = "auto") -> torch.Tensor:
+    """Toeplitz(c) @ x.
+
+    Args:
+        c: [..., 2n-1] coefficients.
+        x: [..., n, d] (also [..., n], treated as d = 1).
+        method: 'dense' | 'fft' | 'auto' (= 'dense').
+    """
+    squeeze = x.dim() == c.dim()  # vector input [..., n]
+    if squeeze:
+        x = x[..., None]
+    n = x.shape[-2]
+    if c.shape[-1] != 2 * n - 1:
+        raise ValueError(f"coefficient length {c.shape[-1]} != 2n-1={2 * n - 1} for n={n}")
+    if method in ("auto", "dense"):
+        y = toeplitz_matmul_dense(c, x)
+    elif method == "fft":
+        y = toeplitz_matmul_fft(c, x)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return y[..., 0] if squeeze else y
+
+
+def naive_toeplitz_matmul(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """O(n^2) oracle: toeplitz_from_coeffs(c) @ x in x's precision."""
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[:, None]
+    y = toeplitz_from_coeffs(c, x.shape[-2]) @ x
+    return y[..., 0] if squeeze else y

@@ -18,6 +18,13 @@ from .flash_attention import (
     flash_softmax_attention,
     flash_softmax_attention_reference,
 )
+from .masked_linear import (
+    fused_masked_linear_attention,
+    masked_linear_bwd,
+    masked_linear_bwd_reference,
+    masked_linear_fwd,
+    masked_linear_fwd_reference,
+)
 from .masked_linear_coeffs import (
     kerple_attention_fused_phi,
     kerple_attention_fused_phi_fwd,
@@ -39,6 +46,7 @@ __all__ = [
     "flash_attention_fwd",
     "flash_softmax_attention",
     "flash_softmax_attention_reference",
+    "fused_masked_linear_attention",
     "kerple_attention_fused_phi",
     "kerple_attention_fused_phi_fwd",
     "kerple_attention_fused_phi_fwd_reference",
@@ -47,4 +55,8 @@ __all__ = [
     "masked_linear_attention_coeffs_bwd_reference",
     "masked_linear_attention_coeffs_fwd",
     "masked_linear_attention_coeffs_reference",
+    "masked_linear_bwd",
+    "masked_linear_bwd_reference",
+    "masked_linear_fwd",
+    "masked_linear_fwd_reference",
 ]

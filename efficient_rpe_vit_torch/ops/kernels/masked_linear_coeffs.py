@@ -141,18 +141,14 @@ def _dw(gn, s, v):
     return torch.einsum("bhid,bhjd->bhij", gn.float(), v.float()) - s[..., None]
 
 
-def masked_linear_attention_coeffs_bwd_dq_reference(gn, s, v, k_prime, coeffs):
-    """Plain version of the dq kernel: dq' = round(dW*T) k'."""
-    t = toeplitz_from_coeffs(coeffs.float(), k_prime.shape[2])
+def kerple_dense_bwd_dq(gn, s, v, k_prime, t):
+    """dq' = round(dW*T) k' from a materialised T [H, N, N] (fp32)."""
     da = (_dw(gn, s, v) * t).to(k_prime.dtype).float()
     return torch.einsum("bhij,bhjf->bhif", da, k_prime.float()).to(k_prime.dtype)
 
 
-def masked_linear_attention_coeffs_bwd_dkv_reference(gn, s, v, q_prime,
-                                                     k_prime, coeffs):
-    """Plain version of the dkv kernel: dk' = round(dW*T)^T q',
-    dv = round(A*T)^T gn."""
-    t = toeplitz_from_coeffs(coeffs.float(), k_prime.shape[2])
+def kerple_dense_bwd_dkv(gn, s, v, q_prime, k_prime, t):
+    """dk' = round(dW*T)^T q', dv = round(A*T)^T gn from a materialised T."""
     da = (_dw(gn, s, v) * t).to(q_prime.dtype).float()
     dk = torch.einsum("bhij,bhif->bhjf", da, q_prime.float()).to(k_prime.dtype)
     a = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float())
@@ -161,13 +157,32 @@ def masked_linear_attention_coeffs_bwd_dkv_reference(gn, s, v, q_prime,
     return dk, dv
 
 
+def kerple_dense_bwd_dt(gn, s, v, q_prime, k_prime):
+    """dT = sum_b dW*A, [H, N, N] fp32 (not multiplied by T)."""
+    a = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float())
+    return (_dw(gn, s, v) * a).sum(dim=0)
+
+
+def masked_linear_attention_coeffs_bwd_dq_reference(gn, s, v, k_prime, coeffs):
+    """Plain version of the dq kernel: dq' = round(dW*T) k'."""
+    return kerple_dense_bwd_dq(gn, s, v, k_prime,
+                               toeplitz_from_coeffs(coeffs.float(), k_prime.shape[2]))
+
+
+def masked_linear_attention_coeffs_bwd_dkv_reference(gn, s, v, q_prime,
+                                                     k_prime, coeffs):
+    """Plain version of the dkv kernel: dk' = round(dW*T)^T q',
+    dv = round(A*T)^T gn."""
+    return kerple_dense_bwd_dkv(gn, s, v, q_prime, k_prime,
+                                toeplitz_from_coeffs(coeffs.float(), k_prime.shape[2]))
+
+
 def masked_linear_attention_coeffs_bwd_dc_reference(gn, s, v, q_prime, k_prime):
     """Plain version of the dc kernel: the diagonal sums of every
     [tile, tile] block of dT = sum_b dW*A, [H, n_t, n_t, 2*tile-1] fp32 with
     window index m = b - a + tile - 1."""
     tile = BWD_TILE[q_prime.dtype]
-    a = torch.einsum("bhif,bhjf->bhij", q_prime.float(), k_prime.float())
-    dt = (_dw(gn, s, v) * a).sum(dim=0)  # [H, N, N]
+    dt = kerple_dense_bwd_dt(gn, s, v, q_prime, k_prime)  # [H, N, N]
     H, n = dt.shape[0], dt.shape[-1]
     n_t = -(-n // tile)
     pad = n_t * tile - n
@@ -225,9 +240,12 @@ def kerple_attention_fused_phi_fwd_reference(
 
 # ─── input checks and launches ──────────────────────────────────────────
 
-def _check_inputs(q_prime, k_prime, v, coeffs) -> None:
+def _check_inputs(q_prime, k_prime, v, coeffs=None) -> None:
+    """Inputs of the forward: q' and k' [B, H, N, F] and v [B, H, N, D] in
+    one dtype and, when given, coeffs [H, 2N-1] in fp32, all contiguous and
+    on one device."""
     tensors = {"q_prime": q_prime, "k_prime": k_prime, "v": v,
-               "coeffs": coeffs}
+               **({} if coeffs is None else {"coeffs": coeffs})}
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: {devices}")
@@ -240,7 +258,7 @@ def _check_inputs(q_prime, k_prime, v, coeffs) -> None:
     if v.shape[:3] != (B, H, N):
         raise ValueError(f"v {tuple(v.shape)} does not match q_prime "
                          f"{tuple(q_prime.shape)} in [B, H, N]")
-    if coeffs.shape != (H, 2 * N - 1):
+    if coeffs is not None and coeffs.shape != (H, 2 * N - 1):
         raise ValueError(f"coeffs must be [H, 2N-1] = [{H}, {2 * N - 1}], "
                          f"got {tuple(coeffs.shape)}")
     if not (q_prime.dtype == k_prime.dtype == v.dtype):
@@ -249,7 +267,7 @@ def _check_inputs(q_prime, k_prime, v, coeffs) -> None:
     if q_prime.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {q_prime.dtype}: bfloat16 or "
                         "float32")
-    if coeffs.dtype != torch.float32:
+    if coeffs is not None and coeffs.dtype != torch.float32:
         raise TypeError(f"coeffs must be float32, got {coeffs.dtype}")
     for name, t in tensors.items():
         if not t.is_contiguous():

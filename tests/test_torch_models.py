@@ -245,6 +245,32 @@ def test_training_only_and_unported_options_raise():
         model.transformer_blocks[0].rpe(x)
 
 
+@pytest.mark.parametrize("kwargs", [
+    {"mlp_config": {"mlp_type": "moe", "num_experts": 4}},
+    {"remat": True},
+    {"config_remat": True},
+], ids=["moe", "remat", "remat_in_config"])
+def test_unported_mlp_and_remat_raise(kwargs):
+    """The MoE MLP and per-block checkpointing are not ported: asking for
+    either raises rather than building the dense, unchecked model."""
+    cfg = mnist_config(**SMALL)
+    if kwargs.pop("config_remat", False):
+        cfg = dict(cfg.to_dict(), remat=True)
+    with pytest.raises(NotImplementedError, match="MoeMlp|checkpointing"):
+        create_model("performer_favor", cfg, device="cpu", **kwargs)
+
+
+def test_dense_mlp_config_builds_the_default_model():
+    cfg = mnist_config(**SMALL)
+    a, b = (create_model("performer_favor_most_general", cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(4), **extra)
+            for extra in ({}, {"mlp_config": {"mlp_type": "dense"}, "remat": False}))
+    assert list(a.state_dict()) == list(b.state_dict())
+    assert "transformer_blocks.0.mlp.0.weight" in a.state_dict()
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
+        torch.testing.assert_close(va, vb, rtol=0, atol=0)
+
+
 def test_same_generator_seed_gives_same_model():
     cfg = mnist_config(**SMALL)
     a = create_model("performer_favor_most_general", cfg, device="cpu",

@@ -135,7 +135,8 @@ def test_kerple_dense_matches_jax(n, dtype):
 
 def test_kerple_methods_on_cpu():
     """On CPU tensors 'pallas' (and 'auto') take the kernel's plain version,
-    the same formula as 'dense'; 'fft' is not ported yet."""
+    the same formula as 'dense'; 'fft' computes it by FFT (fp32 FFT
+    roundoff, rtol 1e-5)."""
     rng = np.random.default_rng(3)
     qp, kp, v, coeffs = (torch.from_numpy(a) for a in
                          _kerple_inputs(rng, 1, 2, 17, 8, 4))
@@ -143,8 +144,8 @@ def test_kerple_methods_on_cpu():
     for method in ("pallas", "auto"):
         torch.testing.assert_close(
             kerple_linear_attention(qp, kp, v, coeffs, method=method), dense)
-    with pytest.raises(NotImplementedError):
-        kerple_linear_attention(qp, kp, v, coeffs, method="fft")
+    torch.testing.assert_close(kerple_linear_attention(qp, kp, v, coeffs, method="fft"),
+                               dense, rtol=1e-5, atol=1e-5 * dense.abs().max().item())
     with pytest.raises(ValueError):
         kerple_linear_attention(qp, kp, v, coeffs, method="nope")
 
