@@ -263,7 +263,7 @@ VARIANT_DEPTH = 2
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
     ("KERPLE kernels (this repo)", lambda k: "mlc_" in k or "kfp_" in k),
-    ("flash attention kernels (this repo)", lambda k: "flash_fwd_kernel" in k or "flash_bwd_" in k),
+    ("flash attention kernels (this repo)", lambda k: "flash_fwd" in k or "flash_bwd" in k),
     ("rotation kernels (this repo)",
      lambda k: "rot_fwd_kernel" in k or "rot_bwd_kernel" in k or "group_sum_kernel" in k),
     ("fp32 GEMMs (phi projection x@Omega, fwd and bwd)", lambda k: "f32f32" in k or "sgemm" in k),
@@ -611,6 +611,22 @@ def _sdpa_ms(q, k, v, cot):
     return fwd_ms, kernel_ms(fwd_bwd) - fwd_ms
 
 
+def flash_launch_info(fa):
+    """{(kernel, N): launch_info} of the bf16 flash kernels at the main
+    paths' N (D=64), logged: rows per block, threads, shared memory, blocks
+    per SM, registers and spilled bytes."""
+    out = {}
+    for n in (197, LONGN_N):
+        for kname in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
+            if kname == "flash_bwd_fused" and not fa.fused_fits(n, 64, torch.bfloat16):
+                continue
+            info = fa.launch_info(kname, n, 64, torch.bfloat16)
+            out[(kname, n)] = info
+            log("kernel", f"{kname} N={n} D=64 bfloat16: " + ", ".join(
+                f"{key} {value}" for key, value in info.items()))
+    return out
+
+
 def check_flash_keep_mask(fa):
     """The dropout keep-mask the kernels use, read out of their results, is
     dropout_keep_dense's bit for bit. With q = k = 0 every probability is
@@ -654,6 +670,7 @@ def check_flash_keep_mask(fa):
 def check_flash_kernels(fa):
     """Phase 3c: the four flash kernels against their plain versions on the
     card. Returns {(kernel, path): row} for the main paths' shapes."""
+    infos = flash_launch_info(fa)
     check_flash_keep_mask(fa)
     results = {}
     cases = [(c, name, dtype) for c in FLASH_CASES for name, dtype in
@@ -732,9 +749,28 @@ def check_flash_kernels(fa):
                 lambda: fa.flash_attention_bwd_dkv(*bwd_args),
                 lambda: fa.flash_bwd_reference(*bwd_args)[1:],
                 bwd_bounds["flash_bwd_dkv"], lib_bwd, max(bwd_errs[None][1:]))
-            no_drop = kernel_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
-            log("kernel", f"flash_fwd {shape.replace(f'dropout {rate}', 'dropout 0.0')}: kernel "
-                f"{no_drop:.4f} ms (the dropout hash's share is the difference)")
+        extra = {}  # kernel -> further keys of its row
+        if path == "baseline_train":
+            # the two-pass split at the shape where the dispatch picks the
+            # fused pass: whether the fused kernel still earns its place
+            split = {kname: kernel_ms(lambda fn=fn: fn(*bwd_args)) for kname, fn in (
+                ("flash_bwd_dq", fa.flash_attention_bwd_dq),
+                ("flash_bwd_dkv", fa.flash_attention_bwd_dkv))}
+            log("kernel", f"two-pass split {shape}: dq {split['flash_bwd_dq']:.4f} ms + dkv "
+                f"{split['flash_bwd_dkv']:.4f} ms = "
+                f"{split['flash_bwd_dq'] + split['flash_bwd_dkv']:.4f} ms (the fused pass runs here)")
+            extra["flash_bwd_fused"] = {"split_ms": split}
+        if path == "baseline_longn_train":
+            # like for like with SDPA, which is timed without dropout
+            no_drop_args = (q, k, v, cot, lse, delta, scale)
+            for kname, fn in (("flash_fwd", lambda: fa.flash_attention_fwd(q, k, v, scale)),
+                              ("flash_bwd_dq", lambda: fa.flash_attention_bwd_dq(*no_drop_args)),
+                              ("flash_bwd_dkv",
+                               lambda: fa.flash_attention_bwd_dkv(*no_drop_args))):
+                ms0 = kernel_ms(fn)
+                log("kernel", f"{kname} {shape.replace(f'dropout {rate}', 'dropout 0.0')}: "
+                    f"kernel {ms0:.4f} ms (the dropout hash's share is the difference)")
+                extra[kname] = {"ms_dropout0": ms0}
         for kname, (kernel_fn, plain_fn, (bound_ms, bound_by), library_ms, err) in timed.items():
             ms = kernel_ms(kernel_fn)
             plain_ms = time_ms(plain_fn, iters=plain_iters, warmup=0 if long_n else 1)
@@ -743,7 +779,9 @@ def check_flash_kernels(fa):
                 f"kernel/bound {ms / bound_ms:.2f}x")
             results[(kname, path)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                           bound_ms=bound_ms, bound_by=bound_by,
-                                          library_ms=library_ms)
+                                          library_ms=library_ms,
+                                          launch=infos[(kname, N)],
+                                          **extra.get(kname, {}))
     return results
 
 
@@ -1645,9 +1683,12 @@ def main() -> int:
     log("build", f"{len(logs)} CUDA source(s) compiled in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR.relative_to(ROOT)}")
     for name, text in logs.items():
+        entry = ""  # the kernel ptxas reports on, mangled
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log("build", f"{name}: {entry}: {line.strip()}")
 
     # 3. kernels against their plain versions
     kernel = check_kernels(mlc)
@@ -1707,7 +1748,7 @@ def main() -> int:
                        {"kernel": circ_arms["kernel"]}, rot_k,
                        {"flash_fwd": depth, "flash_bwd_fused": 0, "flash_bwd_dq": depth,
                         "flash_bwd_dkv": depth, **rot_step},
-                       LONGN_STEPS, LONGN_TIMED, card, False)
+                       LONGN_STEPS, LONGN_TIMED, card, args.profile)
 
     # 12. every other rotation and hyperbolic-feature variant, depth 2
     kerple_f532_check(mlc)

@@ -34,14 +34,30 @@
 // What bounds it on an H100: bytes at N=197 (fused, B=64, H=12, D=64, bf16:
 // ~137 MB of q, k, v, g, lse, delta in and dq, dk, dv out, against 12 GFLOP;
 // 41 us vs 12 us), operations at long N (B=4, H=12, N=4097: the dq pass
-// ~310 GFLOP, the dkv pass ~412 GFLOP). This first version is simple rather
-// than fast: tiles staged by cp.async, WMMA bf16 products for bf16 inputs,
-// fp32 FMA products for fp32 inputs, scores and accumulators in shared
-// memory, one warp per 8 rows for the elementwise pass; loads do not overlap
-// products. Double buffering, wgmma, TMA and register-resident accumulators
-// are later work.
+// ~310 GFLOP, the dkv pass ~412 GFLOP); under dropout the per-cell hash and
+// exp2 come near the products.
+//
+// bf16 dq and dkv (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel, the
+// long-N path): FlashAttention-2's register-resident scheme on mma.sync
+// (flash_attention_mma.cuh), without its atomic dq. Blocks of 64 rows (4
+// warps, 16 rows each) against 32-row streamed tiles, registers capped for
+// 3 (dkv) or 4 (dq) resident blocks per SM. dq keeps q, g (shared) and lse,
+// delta (registers) resident and streams K, V tiles; dkv keeps k, v
+// resident and streams q, g, lse, delta and the tile's row hashes (one
+// mix32 per row, not per cell), its per-warp products transposed (S^T =
+// k q^T, dP^T = v g^T). P = exp2(log2(e) (scale s - lse)) with log2(e)
+// folded into the scale. Scores, P', dS and dq / dk / dv stay in registers;
+// P' and dS are rounded to bf16 there as the A operands of the gradient
+// products. Bounds and mask tests run only on edge tiles. Tiles move
+// through a two-stage ring of 16-byte cp.async, tile t + 1 copied while
+// tile t is computed.
+//
+// The fused pass (either dtype) and the fp32 dq / dkv passes are the first,
+// simple version: tiles staged by cp.async, WMMA bf16 or fp32 FMA products,
+// scores and accumulators in shared memory, one warp per 8 rows for the
+// elementwise pass, loads not overlapping products.
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -300,30 +316,398 @@ flash_bwd_fused_kernel(const Operands o, const Params p) {
   store<T>(static_cast<T*>(o.dq) + bh * N * D, t.dq_row, g.lda, N, D, p.scale);
 }
 
+// ─── bf16 dq and dkv: register-resident tiles on mma.sync ───────────────
+
+// Geometry of flash_bwd_dq_mma_kernel: WARPS warps of 16 query rows (BM
+// per block), BN key/value rows per tile, at least MINB resident blocks per
+// SM asked of the register allocator. Shared memory (bf16 elements):
+// Q [BM, LD], g [BM, LD], then a ring of two stages, each K [BN, LD] and
+// V [BN, LD].
+template <int DP, int WARPS, int BN_, int MINB>
+struct DqMma {
+  static constexpr int BM = 16 * WARPS, BN = BN_, NT = 32 * WARPS, LD = DP + 8;
+  static constexpr int KS = DP / 16, NB_S = BN / 8, NB_O = DP / 8, R = 2;  // R: rows per thread
+  static constexpr size_t RING = (size_t)2 * BM * LD, STAGE = (size_t)2 * BN * LD;
+  static constexpr size_t BYTES = (RING + 2 * STAGE) * sizeof(bf16);
+};
+
+// dq for one (BM-row query tile, head, batch). Q, g (shared memory) and
+// lse, delta (registers) stay resident; K and V tiles arrive through the
+// two-stage cp.async ring. Per warp and tile, S = q k^T and dP = g v^T in
+// registers, dS rounded to bf16 in registers as the A operand of
+// dq += dS k; dq scaled once at the end.
+template <int DP, int WARPS, int BN_, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
+  using C = DqMma<DP, WARPS, BN_, MINB>;
+  using namespace mma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + C::BM * C::LD;
+  bf16* ring = Qs + C::RING;
+
+  const int N = p.N, D = p.D;
+  const int i0 = blockIdx.x * C::BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = i0 + warp * 16;  // the warp's first row
+  const bf16* kh = static_cast<const bf16*>(o.k) + bh * N * D;
+  const bf16* vh = static_cast<const bf16*>(o.v) + bh * N * D;
+  const uint8_t* mask = static_cast<const uint8_t*>(o.mask);
+  const auto stage_kv = [&](int jt) {
+    bf16* Kt = ring + (jt & 1) * C::STAGE;
+    const int rows = min(C::BN, N - jt * C::BN);
+    stage_rows<C::BN, C::NT>(Kt, C::LD, DP, kh + (size_t)jt * C::BN * D, rows, D);
+    stage_rows<C::BN, C::NT>(Kt + C::BN * C::LD, C::LD, DP, vh + (size_t)jt * C::BN * D,
+                             rows, D);
+  };
+  const int rows_q = min(C::BM, N - i0);
+  stage_rows<C::BM, C::NT>(Qs, C::LD, DP, static_cast<const bf16*>(o.q) + (bh * N + i0) * D,
+                           rows_q, D);
+  stage_rows<C::BM, C::NT>(Gs, C::LD, DP, static_cast<const bf16*>(o.g) + (bh * N + i0) * D,
+                           rows_q, D);
+  stage_kv(0);
+  cp_async_commit();
+
+  const uint32_t hb =
+      p.has_dropout ? head_hash((uint32_t)*static_cast<const int*>(o.seed), b, h) : 0u;
+  const float* lse = static_cast<const float*>(o.lse) + bh * N;
+  const float* delta = static_cast<const float*>(o.delta) + bh * N;
+  const float sl2 = p.scale * LOG2E;
+  // this thread's rows: lane / 4 and lane / 4 + 8 of its warp's 16
+  bool ok[C::R];
+  float lse2[C::R], dlt[C::R];
+  uint32_t rh[C::R];
+  const uint8_t* mrow[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    ok[r] = row < N;
+    lse2[r] = ok[r] ? lse[row] * LOG2E : 0.f;
+    dlt[r] = ok[r] ? delta[row] : 0.f;
+    rh[r] = p.has_dropout ? row_hash(hb, row) : 0u;
+    mrow[r] = ok[r] ? mask_row(mask, p, b, h, row) : nullptr;
+  }
+  float dq[C::NB_O][4];
+  zero_acc(dq);
+
+  const int n_kv = (N + C::BN - 1) / C::BN;
+  for (int jt = 0; jt < n_kv; ++jt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile jt staged by every thread; tile jt - 1's stage is free
+    if (jt + 1 < n_kv) {
+      stage_kv(jt + 1);
+      cp_async_commit();
+    }
+    const bf16* Kt = ring + (jt & 1) * C::STAGE;
+    const bf16* Vt = Kt + C::BN * C::LD;
+    const int j0 = jt * C::BN;
+
+    uint32_t af[C::KS][4];
+    float s[C::NB_S][4], dp[C::NB_S][4];
+    zero_acc(s);
+    zero_acc(dp);
+    load_a_rows(af, Qs, C::LD, row0 - i0);
+    mma_a_rows(s, af, Kt, C::LD);  // q k^T
+    load_a_rows(af, Gs, C::LD, row0 - i0);
+    mma_a_rows(dp, af, Vt, C::LD);  // g v^T
+    // dS per cell; the bounds and mask tests only on edge tiles
+    const auto cells = [&](auto edge) {
+#pragma unroll
+      for (int nb = 0; nb < C::NB_S; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int j = j0 + nb * 8 + 2 * (lane % 4) + (e & 1);
+          float ds = 0.f;
+          if (!decltype(edge)::value ||
+              (ok[r] && j < N && (mrow[r] == nullptr || mrow[r][j] != 0))) {
+            const float prob = ex2(fmaf(s[nb][e], sl2, -lse2[r]));
+            float dpv = dp[nb][e];
+            if (p.has_dropout)
+              dpv = keep_cell(rh[r], j, p.threshold) ? dpv * p.inv_keep : 0.f;
+            ds = prob * (dpv - dlt[r]);
+          }
+          s[nb][e] = ds;
+        }
+    };
+    if (mask != nullptr || j0 + C::BN > N || row0 + 16 > N) {
+      cells(std::true_type());
+    } else {
+      cells(std::false_type());
+    }
+    uint32_t dsf[C::NB_S / 2][4];
+    to_a(dsf, s);                    // dS rounded to bf16
+    mma_a_cols(dq, dsf, Kt, C::LD);  // dq += dS k
+  }
+  float factor[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) factor[r] = p.scale;
+  store_rows(static_cast<bf16*>(o.dq) + bh * N * D, D, N, row0, dq, factor);
+}
+
+// Geometry of flash_bwd_dkv_mma_kernel: WARPS warps of 16 key/value rows
+// (BM per block), BN query rows per tile, at least MINB resident blocks per
+// SM asked of the register allocator. Shared memory: K [BM, LD] and
+// V [BM, LD] bf16, then a ring of two stages, each Q [BN, LD] and g
+// [BN, LD] bf16 and lse, delta and the rows' dropout hashes [BN] (4 bytes
+// each).
+template <int DP, int WARPS, int BN_, int MINB>
+struct DkvMma {
+  static constexpr int BM = 16 * WARPS, BN = BN_, NT = 32 * WARPS, LD = DP + 8;
+  static constexpr int KS = DP / 16, NB_S = BN / 8, NB_O = DP / 8, R = 2;  // R: rows per thread
+  static constexpr size_t RING = (size_t)2 * BM * LD * sizeof(bf16);
+  static constexpr size_t STAGE = (size_t)2 * BN * LD * sizeof(bf16) + 3 * BN * sizeof(float);
+  static constexpr size_t BYTES = RING + 2 * STAGE;
+  static_assert(STAGE % 16 == 0, "stages start 16-byte aligned");
+};
+
+// dk, dv for one (BM-row key/value tile, head, batch). K and V stay
+// resident; query tiles (q, g, lse, delta, row hashes) arrive through the
+// two-stage cp.async ring. Per warp and tile, S^T = k q^T and dP^T = v g^T
+// in registers; P'^T and dS^T rounded to bf16 in registers as the A
+// operands of dv += P'^T g and dk += dS^T q; dk scaled once at the end.
+template <int DP, int WARPS, int BN_, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
+  using C = DkvMma<DP, WARPS, BN_, MINB>;
+  using namespace mma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + C::BM * C::LD;
+
+  const int N = p.N, D = p.D;
+  const int j0 = blockIdx.x * C::BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = j0 + warp * 16;  // the warp's first key/value row
+  const bf16* qh = static_cast<const bf16*>(o.q) + bh * N * D;
+  const bf16* gh = static_cast<const bf16*>(o.g) + bh * N * D;
+  const float* lse = static_cast<const float*>(o.lse) + bh * N;
+  const float* delta = static_cast<const float*>(o.delta) + bh * N;
+  const uint8_t* mask = static_cast<const uint8_t*>(o.mask);
+  const uint32_t hb =
+      p.has_dropout ? head_hash((uint32_t)*static_cast<const int*>(o.seed), b, h) : 0u;
+  // stage s of the ring: Q, g [BN, LD], then lse, delta, row hashes [BN]
+  const auto tile_q = [&](int it) {
+    return reinterpret_cast<bf16*>(smem + C::RING + (it & 1) * C::STAGE);
+  };
+  const auto stage_q = [&](int it) {
+    bf16* Qt = tile_q(it);
+    float* rows_f = reinterpret_cast<float*>(Qt + 2 * C::BN * C::LD);
+    uint32_t* rh = reinterpret_cast<uint32_t*>(rows_f + 2 * C::BN);
+    const int i0 = it * C::BN;
+    const int rows = min(C::BN, N - i0);
+    stage_rows<C::BN, C::NT>(Qt, C::LD, DP, qh + (size_t)i0 * D, rows, D);
+    stage_rows<C::BN, C::NT>(Qt + C::BN * C::LD, C::LD, DP, gh + (size_t)i0 * D, rows, D);
+    stage_floats<C::NT>(rows_f, lse + i0, C::BN, rows);
+    stage_floats<C::NT>(rows_f + C::BN, delta + i0, C::BN, rows);
+    for (int a = threadIdx.x; a < C::BN; a += C::NT)
+      rh[a] = p.has_dropout ? row_hash(hb, i0 + a) : 0u;  // one mix32 per row, not per cell
+  };
+  const int rows_kv = min(C::BM, N - j0);
+  stage_rows<C::BM, C::NT>(Ks, C::LD, DP, static_cast<const bf16*>(o.k) + (bh * N + j0) * D,
+                           rows_kv, D);
+  stage_rows<C::BM, C::NT>(Vs, C::LD, DP, static_cast<const bf16*>(o.v) + (bh * N + j0) * D,
+                           rows_kv, D);
+  stage_q(0);
+  cp_async_commit();
+
+  const float sl2 = p.scale * LOG2E;
+  int col[C::R];  // this thread's key/value rows: the columns of P
+  bool ok[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    col[r] = row0 + lane / 4 + 8 * r;
+    ok[r] = col[r] < N;
+  }
+  float dk[C::NB_O][4], dv[C::NB_O][4];
+  zero_acc(dk);
+  zero_acc(dv);
+
+  const int n_q = (N + C::BN - 1) / C::BN;
+  for (int it = 0; it < n_q; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it staged by every thread; tile it - 1's stage is free
+    if (it + 1 < n_q) {
+      stage_q(it + 1);
+      cp_async_commit();
+    }
+    const bf16* Qt = tile_q(it);
+    const bf16* Gt = Qt + C::BN * C::LD;
+    const float* lse_t = reinterpret_cast<const float*>(Gt + C::BN * C::LD);
+    const float* delta_t = lse_t + C::BN;
+    const uint32_t* rh_t = reinterpret_cast<const uint32_t*>(delta_t + C::BN);
+    const int i0 = it * C::BN;
+
+    uint32_t af[C::KS][4];
+    float s[C::NB_S][4], dp[C::NB_S][4];
+    zero_acc(s);
+    zero_acc(dp);
+    load_a_rows(af, Ks, C::LD, row0 - j0);
+    mma_a_rows(s, af, Qt, C::LD);  // k q^T
+    load_a_rows(af, Vs, C::LD, row0 - j0);
+    mma_a_rows(dp, af, Gt, C::LD);  // v g^T
+    // P'^T and dS^T per cell; the bounds and mask tests only on edge tiles
+    const auto cells = [&](auto edge) {
+#pragma unroll
+      for (int nb = 0; nb < C::NB_S; ++nb) {
+        const int c = nb * 8 + 2 * (lane % 4);
+        const float2 lse_c = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 delta_c = *reinterpret_cast<const float2*>(delta_t + c);
+        const uint2 rh_c = *reinterpret_cast<const uint2*>(rh_t + c);
+        const float nl2[2] = {-lse_c.x * LOG2E, -lse_c.y * LOG2E};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int i = i0 + c + (e & 1);
+          float pe = 0.f, ds = 0.f;
+          if (!decltype(edge)::value ||
+              (ok[r] && i < N &&
+               (mask == nullptr || mask_row(mask, p, b, h, i)[col[r]] != 0))) {
+            const float prob = ex2(fmaf(s[nb][e], sl2, nl2[e & 1]));
+            float dpv = dp[nb][e];
+            pe = prob;
+            if (p.has_dropout) {
+              const bool keep = keep_cell((e & 1) ? rh_c.y : rh_c.x, col[r], p.threshold);
+              pe = keep ? prob * p.inv_keep : 0.f;
+              dpv = keep ? dpv * p.inv_keep : 0.f;
+            }
+            ds = prob * (dpv - ((e & 1) ? delta_c.y : delta_c.x));
+          }
+          s[nb][e] = pe;
+          dp[nb][e] = ds;
+        }
+      }
+    };
+    if (mask != nullptr || i0 + C::BN > N || row0 + 16 > N) {
+      cells(std::true_type());
+    } else {
+      cells(std::false_type());
+    }
+    uint32_t at[C::NB_S / 2][4];
+    to_a(at, s);                    // P'^T rounded to bf16
+    mma_a_cols(dv, at, Gt, C::LD);  // dv += P'^T g
+    to_a(at, dp);                   // dS^T rounded to bf16
+    mma_a_cols(dk, at, Qt, C::LD);  // dk += dS^T q
+  }
+  float dk_factor[C::R], dv_factor[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    dk_factor[r] = p.scale;
+    dv_factor[r] = 1.f;
+  }
+  store_rows(static_cast<bf16*>(o.dk) + bh * N * D, D, N, row0, dk, dk_factor);
+  store_rows(static_cast<bf16*>(o.dv) + bh * N * D, D, N, row0, dv, dv_factor);
+}
+
+// A bf16 dq or dkv instantiation as a function pointer, its geometry and
+// its launcher: what launches and what flash_bwd_launch_info reports.
+struct BwdChoice {
+  const void* kernel;
+  int rows, threads;
+  size_t bytes;
+  int (*launch)(const Operands&, const Params&, void*);
+};
+
+template <typename Kernel>
+int launch_grid(Kernel kernel, int rows, int threads, size_t bytes, const Operands& o,
+                const Params& p, void* stream) {
+  const int err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + rows - 1) / rows, p.H, p.B);
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(o, p);
+  return cudaGetLastError();
+}
+
+template <int DP, int WARPS, int BN, int MINB>
+int launch_dq_mma(const Operands& o, const Params& p, void* stream) {
+  using C = DqMma<DP, WARPS, BN, MINB>;
+  return launch_grid(flash_bwd_dq_mma_kernel<DP, WARPS, BN, MINB>, C::BM, C::NT, C::BYTES,
+                     o, p, stream);
+}
+
+template <int DP, int WARPS, int BN, int MINB>
+int launch_dkv_mma(const Operands& o, const Params& p, void* stream) {
+  using C = DkvMma<DP, WARPS, BN, MINB>;
+  return launch_grid(flash_bwd_dkv_mma_kernel<DP, WARPS, BN, MINB>, C::BM, C::NT, C::BYTES,
+                     o, p, stream);
+}
+
+template <int DP, int WARPS, int BN, int MINB>
+BwdChoice dq_choice() {
+  using C = DqMma<DP, WARPS, BN, MINB>;
+  return {reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel<DP, WARPS, BN, MINB>), C::BM,
+          C::NT, C::BYTES, launch_dq_mma<DP, WARPS, BN, MINB>};
+}
+
+template <int DP, int WARPS, int BN, int MINB>
+BwdChoice dkv_choice() {
+  using C = DkvMma<DP, WARPS, BN, MINB>;
+  return {reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel<DP, WARPS, BN, MINB>),
+          C::BM, C::NT, C::BYTES, launch_dkv_mma<DP, WARPS, BN, MINB>};
+}
+
+// Tiles chosen by timing on an H100, at every N: 64-row blocks of 4 warps
+// (16 rows a warp) against 32-row streamed tiles, registers capped for 4
+// (dq) or 3 (dkv, which holds dk and dv) resident blocks per SM; DP = 128
+// caps less, so that its wider accumulators stay in registers.
+template <int DP>
+BwdChoice dq_choice_n() {
+  return dq_choice<DP, 4, 32, DP <= 64 ? 4 : 2>();
+}
+
+template <int DP>
+BwdChoice dkv_choice_n() {
+  return dkv_choice<DP, 4, 32, DP <= 64 ? 3 : 1>();
+}
+
+template <int DP>
+BwdChoice bwd_choice_dp(int kind) {
+  return kind == 0 ? dq_choice_n<DP>() : dkv_choice_n<DP>();
+}
+
+// kind 0: dq, 1: dkv.
+BwdChoice bwd_choice_bf16(int kind, int D) {
+  switch (mma::staged_dim(D)) {
+    case 16: return bwd_choice_dp<16>(kind);
+    case 32: return bwd_choice_dp<32>(kind);
+    case 64: return bwd_choice_dp<64>(kind);
+    default: return bwd_choice_dp<128>(kind);
+  }
+}
+
 template <typename T>
 size_t fused_bytes(int N, int D) {
   return BwdLayout<T>(Geometry<T>(D), 2, N).bytes;
 }
 
-// kind 0: dq pass, 1: dkv pass, 2: fused.
+// kind 0: dq pass, 1: dkv pass, 2: fused. bf16 dq and dkv run the
+// mma.sync kernels; the fused pass and every fp32 pass the staged ones.
 template <typename T>
 int launch(int kind, const Operands& o, const Params& p, void* stream) {
   if (bad_params(p) || (p.has_dropout && o.seed == nullptr)) return cudaErrorInvalidValue;
   const BwdLayout<T> L(Geometry<T>(p.D), kind, p.N);
-  const int n_t = (p.N + TILE - 1) / TILE;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (kind == 0) {
-    if ((err = prepare(flash_bwd_dq_kernel<T>, L.bytes)) != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T><<<dim3(n_t, p.H, p.B), THREADS, L.bytes, s>>>(o, p);
-  } else if (kind == 1) {
-    if ((err = prepare(flash_bwd_dkv_kernel<T>, L.bytes)) != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T><<<dim3(n_t, p.H, p.B), THREADS, L.bytes, s>>>(o, p);
-  } else {
-    if ((err = prepare(flash_bwd_fused_kernel<T>, L.bytes)) != cudaSuccess) return err;
-    flash_bwd_fused_kernel<T><<<dim3(p.H, p.B), THREADS, L.bytes, s>>>(o, p);
+  if (kind == 2) {
+    const int err = prepare(flash_bwd_fused_kernel<T>, L.bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_fused_kernel<T><<<dim3(p.H, p.B), THREADS, L.bytes,
+                                static_cast<cudaStream_t>(stream)>>>(o, p);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if constexpr (is_bf16<T>()) {
+    return bwd_choice_bf16(kind, p.D).launch(o, p, stream);
+  } else if (kind == 0) {
+    return launch_grid(flash_bwd_dq_kernel<T>, TILE, THREADS, L.bytes, o, p, stream);
+  } else {
+    return launch_grid(flash_bwd_dkv_kernel<T>, TILE, THREADS, L.bytes, o, p, stream);
+  }
 }
 
 template <typename T>
@@ -375,6 +759,27 @@ FLASH_BWD_LAUNCHER(flash_bwd_fused_bf16, bf16, 2, true, true, true)
 FLASH_BWD_LAUNCHER(flash_bwd_fused_f32, float, 2, true, true, true)
 
 #undef FLASH_BWD_LAUNCHER
+
+// What a launch of kind 0 (dq), 1 (dkv) or 2 (fused) at (N, D) runs, in
+// info[0..5]: rows per block (the fused pass: 0, one block per head),
+// threads, dynamic shared memory bytes, resident blocks per SM, registers
+// per thread, local (spilled) bytes per thread. Returns the CUDA error code.
+int flash_bwd_launch_info(int kind, int N, int D, int is_bf16, int* info) {
+  if (N <= 0 || D <= 0 || D > MAX_D || kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  if (is_bf16 && kind != 2) {
+    const BwdChoice c = bwd_choice_bf16(kind, D);
+    return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, info);
+  }
+  const void* kernels[2][3] = {
+      {reinterpret_cast<const void*>(flash_bwd_dq_kernel<float>),
+       reinterpret_cast<const void*>(flash_bwd_dkv_kernel<float>),
+       reinterpret_cast<const void*>(flash_bwd_fused_kernel<float>)},
+      {nullptr, nullptr, reinterpret_cast<const void*>(flash_bwd_fused_kernel<bf16>)}};
+  const size_t bytes = is_bf16 ? BwdLayout<bf16>(Geometry<bf16>(D), kind, N).bytes
+                               : BwdLayout<float>(Geometry<float>(D), kind, N).bytes;
+  return mma::launch_info(kernels[is_bf16 ? 1 : 0][kind], kind == 2 ? 0 : TILE, THREADS, bytes,
+                          info);
+}
 
 const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

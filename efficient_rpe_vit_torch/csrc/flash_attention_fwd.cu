@@ -17,16 +17,30 @@
 //
 // What bounds it on an H100: bytes at N=197 (B=32, H=12, D=64, bf16: 39 MB
 // of q, k, v, out and lse against 2.4 GFLOP, 11.7 us vs 2.4 us), operations
-// at long N (B=4, H=12, N=4097: 206 GFLOP against 5 MB). The [N, N] scores
-// stay in shared memory. This first version is simple rather than fast: one
-// block per (64-row query tile, head, batch) looping over 64-row key/value
-// tiles staged by cp.async; WMMA bf16 products for bf16 inputs, fp32 FMA
-// products for fp32 inputs; scores and the output accumulator round-trip
-// through shared memory, one warp per 8 rows for the softmax. Loads do not
-// overlap products: double buffering, wgmma, TMA and register-resident
-// accumulators are later work.
+// at long N (B=4, H=12, N=4097: 206 GFLOP against 5 MB); under dropout the
+// per-cell hash (~10 integer ops a cell) and exp come near the products.
+// The [N, N] scores never leave the chip.
+//
+// bf16 (flash_fwd_mma_kernel, the served and trained path): FlashAttention-2's
+// register-resident scheme on mma.sync.m16n8k16 tensor-core fragments (see
+// flash_attention_mma.cuh). One block per (query tile, head, batch),
+// 16 query rows a warp, against 64-row key/value tiles: 64 rows (4 warps)
+// below N = 512, 128 rows (8 warps) from N = 512. Q is loaded once into
+// registers; S = q k^T, the online softmax (expf(scale s - m) in natural
+// units as the JAX kernel computes it, masks and the keep test per
+// fragment element from global (i, j), each row's hash once), P' rounded
+// to bf16 in registers as the A operand of P' v, and the output
+// accumulator rescaled in registers (skipped once the row maxima settle)
+// and written once. K and V tiles move through a two-stage ring of 16-byte
+// cp.async: tile j + 1 is copied while tile j is computed, one barrier per
+// tile.
+//
+// fp32 (flash_fwd_kernel, a parity path): one block per (64-row query tile,
+// head, batch) looping over 64-row key/value tiles staged by cp.async; FMA
+// products; scores and the output accumulator in shared memory, one warp
+// per 8 rows for the softmax; loads do not overlap products.
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -160,6 +174,237 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ─── bf16: register-resident tiles on mma.sync ──────────────────────────
+
+// Geometry of flash_fwd_mma_kernel: WARPS warps of 16 query rows (BM per
+// block), BN key/value rows per tile, staged head dim DP, at least MINB
+// resident blocks per SM asked of the register allocator.
+// Shared memory (bf16 elements): Q [BM, LD], then a ring of two stages,
+// each K [BN, LD] and V [BN, LD].
+template <int DP, int WARPS, int BN_, int MINB>
+struct FwdMma {
+  static constexpr int BM = 16 * WARPS, BN = BN_, NT = 32 * WARPS, LD = DP + 8;
+  static constexpr int KS = DP / 16;   // 16-wide steps over the head dim
+  static constexpr int NB_S = BN / 8;  // 8-column blocks of a score row
+  static constexpr int NB_O = DP / 8;  // 8-column blocks of an output row
+  static constexpr int R = 2;          // rows per thread: lane / 4 and lane / 4 + 8
+  static constexpr size_t RING = (size_t)BM * LD, STAGE = (size_t)2 * BN * LD;
+  static constexpr size_t BYTES = (RING + 2 * STAGE) * sizeof(bf16);
+};
+
+// One block per (BM-row query tile, head, batch); warp w owns rows
+// 16 w..16 w + 15. Q sits in registers as A fragments for the
+// whole sweep; K and V tiles arrive through the two-stage cp.async ring,
+// tile jt + 1 copied while tile jt is computed. S, P' and the output
+// accumulator stay in registers; row maxima and sums reduce over the four
+// threads of a quad.
+template <int DP, int WARPS, int BN_, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     const int* __restrict__ seed, bf16* __restrict__ out,
+                     float* __restrict__ lse, const Params p) {
+  using C = FwdMma<DP, WARPS, BN_, MINB>;
+  using namespace mma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + C::RING;  // stage s: K at ring + s STAGE, V BN LD further
+
+  const int N = p.N, D = p.D;
+  const int i0 = blockIdx.x * C::BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = i0 + warp * 16;  // the warp's first row
+  const bf16* kh = k + bh * N * D;
+  const bf16* vh = v + bh * N * D;
+  const auto stage_kv = [&](int jt) {
+    bf16* Kt = ring + (jt & 1) * C::STAGE;
+    const int rows = min(C::BN, N - jt * C::BN);
+    stage_rows<C::BN, C::NT>(Kt, C::LD, DP, kh + (size_t)jt * C::BN * D, rows, D);
+    stage_rows<C::BN, C::NT>(Kt + C::BN * C::LD, C::LD, DP, vh + (size_t)jt * C::BN * D,
+                             rows, D);
+  };
+  stage_rows<C::BM, C::NT>(Qs, C::LD, DP, q + (bh * N + i0) * D, min(C::BM, N - i0), D);
+  stage_kv(0);
+  cp_async_commit();
+
+  // this thread's rows
+  const uint32_t hb = p.has_dropout ? head_hash((uint32_t)*seed, b, h) : 0u;
+  const uint8_t* mrow[C::R];
+  uint32_t rh[C::R];
+  int row[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    row[r] = row0 + lane / 4 + 8 * r;
+    mrow[r] = row[r] < N ? mask_row(mask, p, b, h, row[r]) : nullptr;
+    rh[r] = p.has_dropout ? row_hash(hb, row[r]) : 0u;
+  }
+  // the JAX kernel's arithmetic: expf(scale s - m) in natural units
+  float o[C::NB_O][4];
+  zero_acc(o);
+  float m[C::R], l[C::R];  // l: this thread's share of the row sums
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  uint32_t qf[C::KS][4];
+
+  const int n_kv = (N + C::BN - 1) / C::BN;
+  for (int jt = 0; jt < n_kv; ++jt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile jt staged by every thread; tile jt - 1's stage is free
+    if (jt + 1 < n_kv) {
+      stage_kv(jt + 1);
+      cp_async_commit();
+    }
+    if (jt == 0) load_a_rows(qf, Qs, C::LD, row0 - i0);
+    const bf16* Kt = ring + (jt & 1) * C::STAGE;
+    const bf16* Vt = Kt + C::BN * C::LD;
+    const int j0 = jt * C::BN;
+
+    float s[C::NB_S][4];
+    zero_acc(s);
+    mma_a_rows(s, qf, Kt, C::LD);  // q k^T
+    float mx[C::R];
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) mx[r] = m[r];
+    const bool masked = mask != nullptr || j0 + C::BN > N;
+#pragma unroll
+    for (int nb = 0; nb < C::NB_S; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        // rounded where the JAX kernel rounds: scale s, then scale s - m
+        float x = __fmul_rn(s[nb][e], p.scale);
+        if (masked) {
+          const int j = j0 + nb * 8 + 2 * (lane % 4) + (e & 1);
+          if (j >= N || (mrow[r] != nullptr && mrow[r][j] == 0)) x = MASK_VALUE;
+        }
+        s[nb][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    float alpha[C::R];
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(__fsub_rn(m[r], mx[r]));
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    // once the row maxima settle, alpha is exactly 1: skip the rescale
+    bool moved = false;
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) moved |= alpha[r] != 1.f;
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int nb = 0; nb < C::NB_O; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e / 2];
+    }
+#pragma unroll
+    for (int nb = 0; nb < C::NB_S; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float x = expf(__fsub_rn(s[nb][e], m[r]));
+        l[r] += x;
+        // the normaliser sums undropped p; only the value side drops
+        if (p.has_dropout) {
+          const int j = j0 + nb * 8 + 2 * (lane % 4) + (e & 1);
+          x = keep_cell(rh[r], j, p.threshold) ? x * p.inv_keep : 0.f;
+        }
+        s[nb][e] = x;
+      }
+    uint32_t pf[C::NB_S / 2][4];
+    to_a(pf, s);                   // P' rounded to bf16
+    mma_a_cols(o, pf, Vt, C::LD);  // acc += P' v
+  }
+
+  float inv[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];
+  }
+  store_rows(out + bh * N * D, D, N, row0, o, inv);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) {
+      if (row[r] >= N) continue;
+      // m is MASK_VALUE exactly when every cell of the row is masked
+      lse[bh * N + row[r]] = l[r] == 0.f || m[r] == MASK_VALUE
+                                 ? MASK_VALUE
+                                 : m[r] + logf(fmaxf(l[r], 1e-37f));
+    }
+  }
+}
+
+// The bf16 kernel instantiation for (N, D) as a function pointer, its
+// geometry and its launcher: what launches and what flash_fwd_launch_info
+// reports.
+struct FwdChoice {
+  const void* kernel;
+  int rows, threads;
+  size_t bytes;
+  int (*launch)(const void*, const void*, const void*, const void*, const void*, void*, void*,
+                const Params&, void*);
+};
+
+template <int DP, int WARPS, int BN, int MINB>
+int launch_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
+                   const void* seed, void* out, void* lse, const Params& p, void* stream) {
+  using C = FwdMma<DP, WARPS, BN, MINB>;
+  const auto kernel = flash_fwd_mma_kernel<DP, WARPS, BN, MINB>;
+  const int err = prepare(kernel, C::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + C::BM - 1) / C::BM, p.H, p.B);
+  kernel<<<grid, C::NT, C::BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed),
+      static_cast<bf16*>(out), static_cast<float*>(lse), p);
+  return cudaGetLastError();
+}
+
+template <int DP, int WARPS, int BN, int MINB>
+FwdChoice fwd_choice() {
+  using C = FwdMma<DP, WARPS, BN, MINB>;
+  return {reinterpret_cast<const void*>(flash_fwd_mma_kernel<DP, WARPS, BN, MINB>), C::BM,
+          C::NT, C::BYTES, launch_fwd_mma<DP, WARPS, BN, MINB>};
+}
+
+// Tiles by sequence length, chosen by timing on an H100. Key/value tiles
+// stay 64 rows, as in the first version: the running row maxima, and with
+// them the values P' is rounded at, do not move. From N = 512, 128-row
+// blocks of 8 warps (half the blocks' K and V traffic of 64-row blocks),
+// registers capped for 2 resident blocks per SM; below, 64-row blocks of 4
+// warps (N = 197 wastes less of a ragged tile), capped for 4. DP = 128
+// caps less, so that its wider accumulators stay in registers.
+template <int DP>
+FwdChoice fwd_choice_n(int N) {
+  if constexpr (DP <= 64) {
+    if (N >= 512) return fwd_choice<DP, 8, 64, 2>();
+    return fwd_choice<DP, 4, 64, 4>();
+  } else {
+    if (N >= 512) return fwd_choice<DP, 4, 64, 1>();
+    return fwd_choice<DP, 4, 64, 2>();
+  }
+}
+
+FwdChoice fwd_choice_bf16(int N, int D) {
+  switch (mma::staged_dim(D)) {
+    case 16: return fwd_choice_n<16>(N);
+    case 32: return fwd_choice_n<32>(N);
+    case 64: return fwd_choice_n<64>(N);
+    default: return fwd_choice_n<128>(N);
+  }
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                const void* seed, void* out, void* lse, const Params& p, void* stream) {
@@ -189,7 +434,8 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* mask
                    int mask_heads, float scale, int has_dropout, unsigned threshold,
                    float inv_keep, void* stream) {
   const Params p{B, H, N, D, mask_heads, scale, has_dropout, threshold, inv_keep};
-  return launch_fwd<bf16>(q, k, v, mask, seed, out, lse, p, stream);
+  if (bad_params(p) || (has_dropout && seed == nullptr)) return cudaErrorInvalidValue;
+  return fwd_choice_bf16(N, D).launch(q, k, v, mask, seed, out, lse, p, stream);
 }
 
 int flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask,
@@ -198,6 +444,20 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask,
                   float inv_keep, void* stream) {
   const Params p{B, H, N, D, mask_heads, scale, has_dropout, threshold, inv_keep};
   return launch_fwd<float>(q, k, v, mask, seed, out, lse, p, stream);
+}
+
+// What a launch at (N, D) runs, in info[0..5]: rows per block, threads,
+// dynamic shared memory bytes, resident blocks per SM, registers per
+// thread, local (spilled) bytes per thread. Returns the CUDA error code.
+int flash_fwd_launch_info(int N, int D, int is_bf16, int* info) {
+  if (N <= 0 || D <= 0 || D > MAX_D) return cudaErrorInvalidValue;
+  if (is_bf16) {
+    const FwdChoice c = fwd_choice_bf16(N, D);
+    return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, info);
+  }
+  const FwdLayout<float> L{Geometry<float>(D)};
+  return mma::launch_info(reinterpret_cast<const void*>(flash_fwd_kernel<float>), TILE, THREADS,
+                          L.bytes, info);
 }
 
 const char* flash_fwd_error_string(int err) {

@@ -311,6 +311,8 @@ def _fwd_lib():
     for fn in (lib.flash_fwd_bf16, lib.flash_fwd_f32):
         fn.argtypes = [_PTR] * 7 + _SCALARS
         fn.restype = _I32
+    lib.flash_fwd_launch_info.argtypes = [_I32] * 3 + [_PTR]
+    lib.flash_fwd_launch_info.restype = _I32
     lib.flash_fwd_error_string.argtypes = [_I32]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -326,6 +328,8 @@ def _bwd_lib():
             fn.restype = _I32
     lib.flash_bwd_fused_fits.argtypes = [_I32] * 3
     lib.flash_bwd_fused_fits.restype = _I32
+    lib.flash_bwd_launch_info.argtypes = [_I32] * 4 + [_PTR]
+    lib.flash_bwd_launch_info.restype = _I32
     lib.flash_bwd_error_string.argtypes = [_I32]
     lib.flash_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -344,6 +348,39 @@ def fused_fits(n: int, d: int, dtype: torch.dtype) -> bool:
     plus its tiles) fits one block on this card; asked of the kernel source
     (`flash_bwd_fused_fits`), so it needs the built library."""
     return bool(_bwd_lib().flash_bwd_fused_fits(n, d, int(dtype == torch.bfloat16)))
+
+
+_BWD_KINDS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1, "flash_bwd_fused": 2}
+LAUNCH_INFO_KEYS = ("rows", "threads", "smem_bytes", "blocks_per_sm", "registers",
+                    "spill_bytes")
+
+
+def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
+    """What a launch of `kernel` ("flash_fwd", "flash_bwd_dq",
+    "flash_bwd_dkv" or "flash_bwd_fused") at sequence length n and head dim
+    d runs on this card, asked of the built library: rows per block (0 for
+    the fused pass, one block per head), threads, dynamic shared memory
+    bytes, resident blocks per SM, registers and local (spilled) bytes per
+    thread, under `LAUNCH_INFO_KEYS`. Needs a GPU."""
+    if kernel != "flash_fwd" and kernel not in _BWD_KINDS:
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
+    if n <= 0 or not 0 < d <= MAX_D:
+        raise ValueError(f"need n > 0 and 0 < d <= {MAX_D}, got n={n}, d={d}")
+    info = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    is_bf16 = int(dtype == torch.bfloat16)
+    if kernel == "flash_fwd":
+        lib = _fwd_lib()
+        err, errors = lib.flash_fwd_launch_info(n, d, is_bf16, info), lib.flash_fwd_error_string
+    else:
+        lib = _bwd_lib()
+        err = lib.flash_bwd_launch_info(_BWD_KINDS[kernel], n, d, is_bf16, info)
+        errors = lib.flash_bwd_error_string
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch info at n={n} d={d}: CUDA error {err} "
+                           f"({errors(err).decode()})")
+    return dict(zip(LAUNCH_INFO_KEYS, info))
 
 
 def flash_attention_fwd(q, k, v, scale: float, mask=None,

@@ -321,16 +321,41 @@ def test_launch_counts_do_not_move_on_cpu(dtype):
 
 
 def test_kernel_sources_are_in_the_package():
-    """Both CUDA sources and their shared header ship in the package; each
+    """Both CUDA sources and their shared headers ship in the package; each
     source builds into its own library, named by a hash that covers the
-    header too; the backward sums in a fixed order (no float atomics)."""
+    headers too; the backward sums in a fixed order (no float atomics); the
+    bf16 forward, dq and dkv are the mma.sync kernels of
+    flash_attention_mma.cuh, which both sources include."""
     for name in (fa._FWD_SOURCE, fa._BWD_SOURCE):
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).parent == _build.BUILD_DIR
-    assert (_build.CSRC / "flash_attention_common.cuh").is_file()
+    for header in ("flash_attention_common.cuh", "flash_attention_mma.cuh"):
+        assert (_build.CSRC / header).is_file()
     assert _build.library_path(fa._FWD_SOURCE) != _build.library_path(fa._BWD_SOURCE)
+    fwd = (_build.CSRC / f"{fa._FWD_SOURCE}.cu").read_text()
     bwd = (_build.CSRC / f"{fa._BWD_SOURCE}.cu").read_text()
     assert "atomicAdd" not in bwd and "flash_bwd_fused_fits" in bwd
+    assert '#include "flash_attention_mma.cuh"' in fwd and "flash_fwd_mma_kernel" in fwd
+    for kernel in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel"):
+        assert kernel in bwd
+    assert '#include "flash_attention_mma.cuh"' in bwd
+    assert "flash_fwd_launch_info" in fwd and "flash_bwd_launch_info" in bwd
+
+
+@pytest.mark.parametrize("args, error", [
+    (("flash_bwd", 197, 64, torch.bfloat16), ValueError),
+    (("flash_fwd", 197, 64, torch.float16), TypeError),
+    (("flash_bwd_dq", 0, 64, torch.bfloat16), ValueError),
+    (("flash_bwd_dkv", 197, fa.MAX_D + 1, torch.float32), ValueError),
+    (("flash_bwd_fused", 197, 0, torch.float32), ValueError),
+])
+def test_launch_info_refuses_bad_arguments(args, error):
+    """launch_info checks its arguments before it asks the library (which
+    needs a GPU), and names what it reports."""
+    with pytest.raises(error):
+        fa.launch_info(*args)
+    assert fa.LAUNCH_INFO_KEYS == ("rows", "threads", "smem_bytes", "blocks_per_sm",
+                                   "registers", "spill_bytes")
 
 
 # ─── the baseline model against the JAX package ─────────────────────────
