@@ -10,15 +10,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      all at once;
   3. KERPLE kernels (forward; 3b: backward dq, dkv, dc, dc_reduce) against
      their plain PyTorch versions on the card at the serving and training
-     shapes and at ragged shapes, in bf16 and fp32, timed (calls replayed
-     from a CUDA graph, so without the wrapper's host work) beside their
-     bounds;
+     shapes and at ragged shapes, in bf16 and fp32 (3b also in bf16 at the
+     edges of the dkv kernel's tiles), timed (calls replayed from a CUDA
+     graph, so without the wrapper's host work) beside their bounds; 3b
+     logs the backward kernels' launch_info (the dkv kernel must be the
+     mma.sync one at F=266);
   3c. flash kernels (softmax forward; backward fused, dq, dkv) against their
      plain versions in bf16 and fp32 at the serving, training and ragged
      shapes, with [B,1,N,N] and [B,H,N,N] masks and with dropout (whose
      keep-mask must equal dropout_keep_dense bit for bit), the backward
      fused and two-pass where the fused kernel fits, by its own choice
-     (two-pass) at D=128 and at N=4097;
+     (two-pass) at D=128 and at N=4097; in bf16 also at the edges of the
+     fused mma.sync kernel's tiles, checking through launch_info which fused
+     kernel runs;
      timed beside their bounds and beside scaled_dot_product_attention;
   3d. rotation kernels (Circulant-STRING forward and backward) against
      their plain versions in bf16 and fp32, keep_cls off and on, at the
@@ -205,6 +209,10 @@ KERPLE_LONGN = (LONGN["batch_size"], 12, LONGN_N, 266, 64)
 # package's kernel-test shape
 BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
               (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
+# bf16 shapes at the edges of the dkv kernel's tiles (64 key/value rows
+# against 32-row query tiles): one row short of, at and past each
+KERPLE_EDGE_SHAPES = [(2, 12, 31, 266, 64), (2, 12, 33, 266, 64), (2, 12, 63, 266, 64),
+                      (2, 12, 64, 266, 64), (2, 12, 65, 266, 64), (2, 3, 129, 266, 64)]
 BWD_KERNELS = ("masked_linear_coeffs_bwd_dq", "masked_linear_coeffs_bwd_dkv",
                "masked_linear_coeffs_bwd_dc", "masked_linear_coeffs_bwd_dc_reduce")
 KERPLE_FORWARDS = ("masked_linear_coeffs_fwd", "kerple_fused_phi_fwd")
@@ -233,6 +241,14 @@ FLASH_CASES = [(VITB["batch_size"], 12, 197, 64, None, 0.0),
                (4, 12, 197, 64, None, 0.1), (4, 12, 197, 64, "BHNN", 0.1),
                (2, 2, 197, 128, None, 0.0)]
 FLASH_LONGN = (LONGN["batch_size"], 12, LONGN_N, 64, None, LONGN["dropout"])
+# bf16 cases at the edges of the fused mma.sync kernel's tiles (32-row query
+# tiles, one block holding up to 208 key/value rows): one row short of, at
+# and past each, with a mask and dropout; N=209 takes the staged fused kernel
+FLASH_EDGE_CASES = [(2, 3, 31, 64, None, 0.0), (2, 3, 33, 64, None, 0.1),
+                    (2, 3, 207, 64, "BHNN", 0.0), (2, 3, 208, 64, "B1NN", 0.1),
+                    (2, 3, 209, 64, None, 0.0)]
+# the kernel the fused pass runs at each edge case's N (launch_info's "kernel")
+FUSED_MMA_MAX_N = 208
 # rotation shapes (B, H, N, D): serving, training and long-N (each a main
 # path), the JAX package's kernel-test shapes, a head dim whose column
 # groups leave threads idle (80, ViT-H's) and the largest head dim
@@ -368,11 +384,33 @@ def _max_rel(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+def kerple_launch_info(mlc, N, F, D):
+    """{kernel: launch_info} of the bf16 KERPLE backward kernels dq, dkv
+    and dc at (N, F, D), logged: rows per tile, threads, shared memory,
+    blocks per SM, registers, spilled bytes and which kernel runs. At even
+    F <= 272 and D <= 64 the dkv kernel must be the mma.sync one."""
+    out = {}
+    for kname in BWD_KERNELS[:3]:
+        info = mlc.launch_info(kname, N, F, D, torch.bfloat16)
+        out[kname] = info
+        log("kernel", f"{kname} N={N} F={F} D={D} bfloat16: " + ", ".join(
+            f"{key} {value}" for key, value in info.items()))
+    want = "mma.sync" if F <= 272 and F % 2 == 0 and D <= 64 else "staged"
+    if out["masked_linear_coeffs_bwd_dkv"]["kernel"] != want:
+        raise AssertionError(f"the dkv launch at F={F} D={D} runs the "
+                             f"{out['masked_linear_coeffs_bwd_dkv']['kernel']} kernel, "
+                             f"expected the {want} one")
+    return out
+
+
 def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]):
     """Phase 3b: the four backward kernels, one by one and through the
     backward wrapper, against their plain versions on the card; timed in
-    bf16 at the shape `timed` (phase 16 calls it at long N)."""
+    bf16 at the shape `timed` (phase 16 calls it at long N; None: no
+    timing), whose launch_info (else the first shape's) is logged and kept
+    in the timed rows."""
     results = {}
+    infos = kerple_launch_info(mlc, *(timed or shapes[0])[2:])
     for B, H, N, F, D in shapes:
         for name, dtype in dtypes:
             g = torch.Generator(device="cuda").manual_seed(N * 1000 + F + 7)
@@ -425,7 +463,8 @@ def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]
                         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                         f"kernel/bound {ms / bound_ms:.2f}x")
                     results[kname] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bound_ms, bound_by=bound_by)
+                                          bound_ms=bound_ms, bound_by=bound_by,
+                                          **({"launch": infos[kname]} if kname in infos else {}))
             # the whole backward, as autograd calls it, against the plain backward
             got = mlc.masked_linear_attention_coeffs_bwd(q, k, v, c, den, out, cot)
             want = mlc.masked_linear_attention_coeffs_bwd_reference(q, k, v, c, den, out, cot)
@@ -675,6 +714,7 @@ def check_flash_kernels(fa):
     results = {}
     cases = [(c, name, dtype) for c in FLASH_CASES for name, dtype in
              (("bfloat16", torch.bfloat16), ("float32", torch.float32))]
+    cases += [(c, "bfloat16", torch.bfloat16) for c in FLASH_EDGE_CASES]
     cases.append((FLASH_LONGN, "bfloat16", torch.bfloat16))
     wrappers = flash_wrappers(fa)
     for (B, H, N, D, mask_kind, rate), name, dtype in cases:
@@ -699,6 +739,13 @@ def check_flash_kernels(fa):
         # both strategies forced where the fused kernel fits, else its own choice
         fits = fa.fused_fits(N, D, dtype)
         bwd_errs = {}  # fused choice -> max|err| of (dq, dk, dv)
+        if fits and name == "bfloat16":
+            kind = fa.launch_info("flash_bwd_fused", N, D, dtype)["kernel"]
+            want_kind = "mma.sync" if N <= FUSED_MMA_MAX_N and 32 < D <= 64 else "staged"
+            log("kernel", f"flash_bwd_fused at N={N} D={D} bfloat16 runs the {kind} kernel")
+            if kind != want_kind:
+                raise AssertionError(f"the fused pass at N={N} D={D} runs the {kind} kernel, "
+                                     f"expected the {want_kind} one")
         for fused in ((True, False) if fits else (None,)):
             before = counts(wrappers)
             got = fa.flash_attention_bwd(q, k, v, out, lse, cot, scale, mask, rate, seed,
@@ -1693,6 +1740,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernel = check_kernels(mlc)
     kernel_bwd = check_bwd_kernels(mlc)
+    check_bwd_kernels(mlc, KERPLE_EDGE_SHAPES, BF16_ONLY, timed=None)
     flash = check_flash_kernels(fa)
     rotation = check_rotation_kernels(cr)
     fused = check_fused_kernels(mlc)

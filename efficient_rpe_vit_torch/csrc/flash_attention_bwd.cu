@@ -20,11 +20,14 @@
 // the end. The keep-mask is the forward's counter hash of (seed, b, h, i, j).
 // Query rows >= N contribute nothing (their P is 0).
 //
-//   flash_bwd_fused_*: one block per (head, batch) sweeps every (kv tile,
-//     q tile) pair, building S and dP once per pair for all three gradients;
-//     dk, dv accumulate per kv tile and dq for the whole row of the head in
-//     shared memory ([N rounded up to 64, D] fp32), written once at the end.
-//     It launches only where that row fits (flash_bwd_fused_fits).
+//   flash_bwd_fused_*: one block per (head, batch) builds S and dP once per
+//     (kv rows, q tile) pair for all three gradients (5 products, against
+//     the split's 7). bf16 with head dims staged to 64 and N <= 208 runs
+//     flash_bwd_fused_mma_kernel (below); the rest runs the staged
+//     flash_bwd_fused_kernel, whose dq for the whole head sits in shared
+//     memory ([N rounded up to 64, D] fp32, written once at the end). The
+//     fused pass launches only where that row fits (flash_bwd_fused_fits:
+//     bf16 D=64 up to N=384).
 //   flash_bwd_dq_*:  one block per (q tile, head, batch), looping over kv tiles.
 //   flash_bwd_dkv_*: one block per (kv tile, head, batch), looping over q tiles.
 //
@@ -52,9 +55,26 @@
 // through a two-stage ring of 16-byte cp.async, tile t + 1 copied while
 // tile t is computed.
 //
-// The fused pass (either dtype) and the fp32 dq / dkv passes are the first,
-// simple version: tiles staged by cp.async, WMMA bf16 or fp32 FMA products,
-// scores and accumulators in shared memory, one warp per 8 rows for the
+// The bf16 fused pass (flash_bwd_fused_mma_kernel, the N=197 training
+// path): the dkv kernel's scheme with the block holding every key/value row
+// of the head, 13 warps of 16 rows, K and V resident, q, g, lse, delta and
+// the row hashes streamed in 32-row tiles through the same two-stage ring,
+// dk and dv in registers. dq needs no atomics: with the whole head in the
+// block a tile's dq = dS k is complete there, so each warp also writes its
+// rounded dS^T into a shared [32, 208] bf16 tile and 8 warps each sum one
+// 16 x 16 unit of dq over the key/value rows in a fixed order, written once
+// per tile. That runs a tile behind the products (two dS buffers), so one
+// barrier per tile suffices. What held the first version back was one
+// block per SM on ~190 KB of shared fp32 score tiles and a dq row, five
+// barriers per tile pair and no overlap of copies with products; this one
+// takes 106,752 bytes and keeps scores in registers. 13 warps allocate as
+// 16, so registers are capped at 128 (112 bytes spill). Its time beside
+// the first version's, the split's and SDPA's is in PERF.md
+// (chip_smoke.py phase 3c).
+//
+// The staged fused pass and the fp32 dq / dkv passes are the first, simple
+// version: tiles staged by cp.async, WMMA bf16 or fp32 FMA products, scores
+// and accumulators in shared memory, one warp per 8 rows for the
 // elementwise pass, loads not overlapping products.
 
 #include "flash_attention_mma.cuh"
@@ -607,6 +627,254 @@ flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
   store_rows(static_cast<bf16*>(o.dv) + bh * N * D, D, N, row0, dv, dv_factor);
 }
 
+// Geometry of flash_bwd_fused_mma_kernel: one block per (head, batch) of
+// WARPS warps, warp w owning key/value rows 16 w .. 16 w + 15 of the head
+// (BM = 16 WARPS rows: the launch takes N <= BM), BN query rows per
+// streamed tile. Shared memory: K [BM, LD] and V [BM, LD] bf16 resident, a
+// ring of two stages as DkvMma's (Q, g [BN, LD] bf16, lse, delta, row
+// hashes [BN]), and two dS tiles [BN, LDS] bf16, query rows by key/value
+// columns. dq of a tile is DQ_UNITS units of 16 rows x 16 columns, one per
+// warp.
+template <int DP, int WARPS, int BN_>
+struct FusedMma {
+  static constexpr int BM = 16 * WARPS, BN = BN_, NT = 32 * WARPS, LD = DP + 8, LDS = BM + 8;
+  static constexpr int KS = DP / 16, NB_S = BN / 8, NB_O = DP / 8, R = 2;  // R: rows per thread
+  static constexpr int DQ_UNITS = (BN / 16) * (DP / 16);
+  static constexpr size_t KV = (size_t)2 * BM * LD * sizeof(bf16);
+  static constexpr size_t STAGE = (size_t)2 * BN * LD * sizeof(bf16) + 3 * BN * sizeof(float);
+  static constexpr size_t DS = (size_t)BN * LDS * sizeof(bf16);
+  static constexpr size_t BYTES = KV + 2 * STAGE + 2 * DS;
+  static_assert(DQ_UNITS <= WARPS, "one dq unit per warp");
+  static_assert(KV % 16 == 0 && STAGE % 16 == 0 && DS % 16 == 0, "regions start 16-byte aligned");
+};
+
+// dq, dk, dv for one (head, batch), N <= BM. K and V of the whole head stay
+// resident; query tiles (q, g, lse, delta, row hashes) arrive through the
+// two-stage cp.async ring. Per warp and tile, as flash_bwd_dkv_mma_kernel:
+// S^T = k q^T and dP^T = v g^T in registers, P'^T and dS^T rounded to bf16
+// there as the A operands of dv += P'^T g and dk += dS^T q, dk and dv held
+// in registers across the sweep. Each warp also writes its rounded dS^T
+// into the tile's shared dS [BN, BM]; since the block holds every key/value
+// row, the tile's dq = dS k is then complete within the block: DQ_UNITS
+// warps each sum one 16 x 16 unit over the key/value rows in a fixed order
+// and write it once. That runs one tile behind (tile t's dq beside tile
+// t + 1's products, after the barrier that opens tile t + 1), so one
+// barrier per tile suffices. dq and dk scaled once at the end.
+template <int DP, int WARPS, int BN_>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+flash_bwd_fused_mma_kernel(const Operands o, const Params p) {
+  using C = FusedMma<DP, WARPS, BN_>;
+  using namespace mma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + C::BM * C::LD;
+
+  const int N = p.N, D = p.D;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const size_t bh = (size_t)b * p.H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * 16;  // the warp's first key/value row
+  const bool active = row0 < N;
+  const bf16* qh = static_cast<const bf16*>(o.q) + bh * N * D;
+  const bf16* gh = static_cast<const bf16*>(o.g) + bh * N * D;
+  const float* lse = static_cast<const float*>(o.lse) + bh * N;
+  const float* delta = static_cast<const float*>(o.delta) + bh * N;
+  const uint8_t* mask = static_cast<const uint8_t*>(o.mask);
+  const uint32_t hb =
+      p.has_dropout ? head_hash((uint32_t)*static_cast<const int*>(o.seed), b, h) : 0u;
+  const auto tile_q = [&](int it) {
+    return reinterpret_cast<bf16*>(smem + C::KV + (it & 1) * C::STAGE);
+  };
+  const auto tile_ds = [&](int it) {
+    return reinterpret_cast<bf16*>(smem + C::KV + 2 * C::STAGE + (it & 1) * C::DS);
+  };
+  const auto stage_q = [&](int it) {
+    bf16* Qt = tile_q(it);
+    float* rows_f = reinterpret_cast<float*>(Qt + 2 * C::BN * C::LD);
+    uint32_t* rh = reinterpret_cast<uint32_t*>(rows_f + 2 * C::BN);
+    const int i0 = it * C::BN;
+    const int rows = min(C::BN, N - i0);
+    stage_rows<C::BN, C::NT>(Qt, C::LD, DP, qh + (size_t)i0 * D, rows, D);
+    stage_rows<C::BN, C::NT>(Qt + C::BN * C::LD, C::LD, DP, gh + (size_t)i0 * D, rows, D);
+    stage_floats<C::NT>(rows_f, lse + i0, C::BN, rows);
+    stage_floats<C::NT>(rows_f + C::BN, delta + i0, C::BN, rows);
+    for (int a = threadIdx.x; a < C::BN; a += C::NT)
+      rh[a] = p.has_dropout ? row_hash(hb, i0 + a) : 0u;  // one mix32 per row, not per cell
+  };
+  stage_rows<C::BM, C::NT>(Ks, C::LD, DP, static_cast<const bf16*>(o.k) + bh * N * D, N, D);
+  stage_rows<C::BM, C::NT>(Vs, C::LD, DP, static_cast<const bf16*>(o.v) + bh * N * D, N, D);
+  stage_q(0);
+  cp_async_commit();
+
+  // dq of the tile at `it`, unit `warp`: rows 16 mt.., columns 16 np.. of
+  // dS [BN, N] k [N, DP], over the key/value rows in order (two chains of
+  // alternate 16-row steps, added once at the end)
+  const int kv_steps = (N + 15) / 16;
+  bf16* dq_out = static_cast<bf16*>(o.dq) + bh * N * D;
+  const auto dq_unit = [&](int it) {
+    const bf16* dS = tile_ds(it);
+    const int mt = warp / (DP / 16);
+    const int np = warp % (DP / 16);
+    float acc[2][2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) zero_acc(acc[c]);
+    for (int kk = 0; kk < kv_steps; ++kk) {
+      uint32_t a[4], bf[4];
+      load_a(a, dS, C::LDS, mt * 16, kk * 16);
+      load_b_cols(bf, Ks, C::LD, kk * 16, np * 16);
+      mma_bf16(acc[kk & 1][0], a, bf[0], bf[1]);
+      mma_bf16(acc[kk & 1][1], a, bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = it * C::BN + mt * 16 + lane / 4 + 8 * half;
+      if (r >= N) continue;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const int c = np * 16 + nb * 8 + 2 * (lane % 4);
+        const float x0 = (acc[0][nb][2 * half] + acc[1][nb][2 * half]) * p.scale;
+        const float x1 = (acc[0][nb][2 * half + 1] + acc[1][nb][2 * half + 1]) * p.scale;
+        bf16* out = dq_out + (size_t)r * D + c;
+        if (D % 2 == 0 && c + 1 < D) {
+          *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (c < D) out[0] = __float2bfloat16(x0);
+          if (c + 1 < D) out[1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  };
+
+  const float sl2 = p.scale * LOG2E;
+  int col[C::R];  // this thread's key/value rows: the columns of P
+  bool ok[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    col[r] = row0 + lane / 4 + 8 * r;
+    ok[r] = col[r] < N;
+  }
+  float dk[C::NB_O][4], dv[C::NB_O][4];
+  zero_acc(dk);
+  zero_acc(dv);
+
+  const int n_q = (N + C::BN - 1) / C::BN;
+  for (int it = 0; it < n_q; ++it) {
+    cp_async_wait<0>();
+    // tile it staged by every thread; tile it - 1's stage and dS written;
+    // tile it - 2's dS read
+    __syncthreads();
+    if (it + 1 < n_q) {
+      stage_q(it + 1);
+      cp_async_commit();
+    }
+    if (it > 0 && warp < C::DQ_UNITS) dq_unit(it - 1);
+    if (!active) continue;
+    const bf16* Qt = tile_q(it);
+    const bf16* Gt = Qt + C::BN * C::LD;
+    const float* lse_t = reinterpret_cast<const float*>(Gt + C::BN * C::LD);
+    const float* delta_t = lse_t + C::BN;
+    const uint32_t* rh_t = reinterpret_cast<const uint32_t*>(delta_t + C::BN);
+    bf16* dS = tile_ds(it);
+    const int i0 = it * C::BN;
+
+    uint32_t af[C::KS][4];
+    float s[C::NB_S][4], dp[C::NB_S][4];
+    zero_acc(s);
+    zero_acc(dp);
+    load_a_rows(af, Ks, C::LD, row0);
+    mma_a_rows(s, af, Qt, C::LD);  // k q^T
+    load_a_rows(af, Vs, C::LD, row0);
+    mma_a_rows(dp, af, Gt, C::LD);  // v g^T
+    // P'^T and dS^T per cell; the bounds and mask tests only on edge tiles
+    const auto cells = [&](auto edge) {
+#pragma unroll
+      for (int nb = 0; nb < C::NB_S; ++nb) {
+        const int c = nb * 8 + 2 * (lane % 4);
+        const float2 lse_c = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 delta_c = *reinterpret_cast<const float2*>(delta_t + c);
+        const uint2 rh_c = *reinterpret_cast<const uint2*>(rh_t + c);
+        const float nl2[2] = {-lse_c.x * LOG2E, -lse_c.y * LOG2E};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int i = i0 + c + (e & 1);
+          float pe = 0.f, ds = 0.f;
+          if (!decltype(edge)::value ||
+              (ok[r] && i < N &&
+               (mask == nullptr || mask_row(mask, p, b, h, i)[col[r]] != 0))) {
+            const float prob = ex2(fmaf(s[nb][e], sl2, nl2[e & 1]));
+            float dpv = dp[nb][e];
+            pe = prob;
+            if (p.has_dropout) {
+              const bool keep = keep_cell((e & 1) ? rh_c.y : rh_c.x, col[r], p.threshold);
+              pe = keep ? prob * p.inv_keep : 0.f;
+              dpv = keep ? dpv * p.inv_keep : 0.f;
+            }
+            ds = prob * (dpv - ((e & 1) ? delta_c.y : delta_c.x));
+          }
+          s[nb][e] = pe;
+          dp[nb][e] = ds;
+        }
+      }
+    };
+    if (mask != nullptr || i0 + C::BN > N || row0 + 16 > N) {
+      cells(std::true_type());
+    } else {
+      cells(std::false_type());
+    }
+    uint32_t at[C::NB_S / 2][4];
+    to_a(at, s);                    // P'^T rounded to bf16
+    mma_a_cols(dv, at, Gt, C::LD);  // dv += P'^T g
+    to_a(at, dp);                   // dS^T rounded to bf16
+    mma_a_cols(dk, at, Qt, C::LD);  // dk += dS^T q
+    // the same rounded dS^T, transposed into dS [query row, key/value row]
+    const auto put = [&](uint32_t pair, int qr, int kv) {
+      const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(&pair);
+      dS[qr * C::LDS + kv] = v2.x;
+      dS[(qr + 1) * C::LDS + kv] = v2.y;
+    };
+#pragma unroll
+    for (int kk = 0; kk < C::NB_S / 2; ++kk) {
+      const int qr = 16 * kk + 2 * (lane % 4);
+      put(at[kk][0], qr, col[0]);
+      put(at[kk][1], qr, col[1]);
+      put(at[kk][2], qr + 8, col[0]);
+      put(at[kk][3], qr + 8, col[1]);
+    }
+  }
+  __syncthreads();  // the last tile's dS written
+  if (warp < C::DQ_UNITS) dq_unit(n_q - 1);
+  if (!active) return;
+  float dk_factor[C::R], dv_factor[C::R];
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    dk_factor[r] = p.scale;
+    dv_factor[r] = 1.f;
+  }
+  store_rows(static_cast<bf16*>(o.dk) + bh * N * D, D, N, row0, dk, dk_factor);
+  store_rows(static_cast<bf16*>(o.dv) + bh * N * D, D, N, row0, dv, dv_factor);
+}
+
+// The bf16 fused instantiation: 13 warps, so one block holds the key/value
+// rows of N <= 208 (the ViT-B/16 N = 197), against 32-row query tiles; one
+// block per SM. 16-row query tiles free registers but double the tiles,
+// and ran ~15% slower in the trial (experiments/tile_trial.py, PERF.md).
+using FusedChoice = FusedMma<64, 13, 32>;
+
+const void* fused_mma_kernel() {
+  return reinterpret_cast<const void*>(flash_bwd_fused_mma_kernel<64, 13, 32>);
+}
+
+// Whether the bf16 fused pass at (N, D) runs flash_bwd_fused_mma_kernel:
+// head dims staged to 64 and N within one block's key/value rows. The
+// staged flash_bwd_fused_kernel runs the rest of the range fused_fits
+// allows.
+bool fused_mma_takes(int N, int D) {
+  return mma::staged_dim(D) == 64 && N <= FusedChoice::BM;
+}
+
 // A bf16 dq or dkv instantiation as a function pointer, its geometry and
 // its launcher: what launches and what flash_bwd_launch_info reports.
 struct BwdChoice {
@@ -689,12 +957,23 @@ size_t fused_bytes(int N, int D) {
 }
 
 // kind 0: dq pass, 1: dkv pass, 2: fused. bf16 dq and dkv run the
-// mma.sync kernels; the fused pass and every fp32 pass the staged ones.
+// mma.sync kernels, and the bf16 fused pass where fused_mma_takes; the
+// other fused launches and every fp32 pass the staged kernels.
 template <typename T>
 int launch(int kind, const Operands& o, const Params& p, void* stream) {
   if (bad_params(p) || (p.has_dropout && o.seed == nullptr)) return cudaErrorInvalidValue;
   const BwdLayout<T> L(Geometry<T>(p.D), kind, p.N);
   if (kind == 2) {
+    if constexpr (is_bf16<T>()) {
+      if (fused_mma_takes(p.N, p.D)) {
+        const int err = prepare(flash_bwd_fused_mma_kernel<64, 13, 32>, FusedChoice::BYTES);
+        if (err != cudaSuccess) return err;
+        flash_bwd_fused_mma_kernel<64, 13, 32><<<dim3(p.H, p.B), FusedChoice::NT,
+                                                 FusedChoice::BYTES,
+                                                 static_cast<cudaStream_t>(stream)>>>(o, p);
+        return cudaGetLastError();
+      }
+    }
     const int err = prepare(flash_bwd_fused_kernel<T>, L.bytes);
     if (err != cudaSuccess) return err;
     flash_bwd_fused_kernel<T><<<dim3(p.H, p.B), THREADS, L.bytes,
@@ -761,15 +1040,19 @@ FLASH_BWD_LAUNCHER(flash_bwd_fused_f32, float, 2, true, true, true)
 #undef FLASH_BWD_LAUNCHER
 
 // What a launch of kind 0 (dq), 1 (dkv) or 2 (fused) at (N, D) runs, in
-// info[0..5]: rows per block (the fused pass: 0, one block per head),
+// info[0..6]: rows per block (the fused pass: 0, one block per head),
 // threads, dynamic shared memory bytes, resident blocks per SM, registers
-// per thread, local (spilled) bytes per thread. Returns the CUDA error code.
+// per thread, local (spilled) bytes per thread, and 1 for an mma.sync
+// kernel (0: a staged one). Returns the CUDA error code.
 int flash_bwd_launch_info(int kind, int N, int D, int is_bf16, int* info) {
   if (N <= 0 || D <= 0 || D > MAX_D || kind < 0 || kind > 2) return cudaErrorInvalidValue;
   if (is_bf16 && kind != 2) {
     const BwdChoice c = bwd_choice_bf16(kind, D);
-    return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, info);
+    return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, true, info);
   }
+  if (is_bf16 && fused_mma_takes(N, D))
+    return mma::launch_info(fused_mma_kernel(), 0, FusedChoice::NT, FusedChoice::BYTES, true,
+                            info);
   const void* kernels[2][3] = {
       {reinterpret_cast<const void*>(flash_bwd_dq_kernel<float>),
        reinterpret_cast<const void*>(flash_bwd_dkv_kernel<float>),
@@ -778,7 +1061,7 @@ int flash_bwd_launch_info(int kind, int N, int D, int is_bf16, int* info) {
   const size_t bytes = is_bf16 ? BwdLayout<bf16>(Geometry<bf16>(D), kind, N).bytes
                                : BwdLayout<float>(Geometry<float>(D), kind, N).bytes;
   return mma::launch_info(kernels[is_bf16 ? 1 : 0][kind], kind == 2 ? 0 : TILE, THREADS, bytes,
-                          info);
+                          false, info);
 }
 
 const char* flash_bwd_error_string(int err) {

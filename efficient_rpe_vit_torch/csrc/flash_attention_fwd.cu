@@ -446,18 +446,19 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask,
   return launch_fwd<float>(q, k, v, mask, seed, out, lse, p, stream);
 }
 
-// What a launch at (N, D) runs, in info[0..5]: rows per block, threads,
+// What a launch at (N, D) runs, in info[0..6]: rows per block, threads,
 // dynamic shared memory bytes, resident blocks per SM, registers per
-// thread, local (spilled) bytes per thread. Returns the CUDA error code.
+// thread, local (spilled) bytes per thread, 1 for the mma.sync kernel (0:
+// the staged fp32 one). Returns the CUDA error code.
 int flash_fwd_launch_info(int N, int D, int is_bf16, int* info) {
   if (N <= 0 || D <= 0 || D > MAX_D) return cudaErrorInvalidValue;
   if (is_bf16) {
     const FwdChoice c = fwd_choice_bf16(N, D);
-    return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, info);
+    return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, true, info);
   }
   const FwdLayout<float> L{Geometry<float>(D)};
   return mma::launch_info(reinterpret_cast<const void*>(flash_fwd_kernel<float>), TILE, THREADS,
-                          L.bytes, info);
+                          L.bytes, false, info);
 }
 
 const char* flash_fwd_error_string(int err) {

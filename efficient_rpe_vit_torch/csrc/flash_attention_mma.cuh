@@ -251,11 +251,13 @@ __host__ __device__ constexpr int staged_dim(int D) {
   return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
 }
 
-// info[0..5] of a kernel launched with `threads` threads and `bytes` of
+// info[0..6] of a kernel launched with `threads` threads and `bytes` of
 // dynamic shared memory, each block covering `rows` rows: rows, threads,
 // bytes, resident blocks per SM, registers per thread, local (spilled)
-// bytes per thread. Returns the CUDA error code.
-inline int launch_info(const void* kernel, int rows, int threads, size_t bytes, int* info) {
+// bytes per thread, and is_mma (1 for an mma.sync kernel, 0 for a staged
+// one). Returns the CUDA error code.
+inline int launch_info(const void* kernel, int rows, int threads, size_t bytes, bool is_mma,
+                       int* info) {
   int err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
   int blocks = 0;
@@ -270,6 +272,7 @@ inline int launch_info(const void* kernel, int rows, int threads, size_t bytes, 
   info[3] = blocks;
   info[4] = attr.numRegs;
   info[5] = static_cast<int>(attr.localSizeBytes);
+  info[6] = is_mma ? 1 : 0;
   return cudaSuccess;
 }
 

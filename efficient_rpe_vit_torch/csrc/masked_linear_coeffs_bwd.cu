@@ -28,24 +28,54 @@
 // all tile pairs into dcoeffs[h, :], one thread per coefficient, in a fixed
 // order. No float atomics: dcoeffs are bitwise the same run to run.
 //
-// What bounds it on an H100: bytes. At the ViT-B/16 training shape (B=64,
-// H=12, N=197, F=266, D=64, bf16) dq must move ~200 MB against ~19.7 GFLOP
+// What bounds it on an H100: bytes at the ViT-B/16 training shape (B=64,
+// H=12, N=197, F=266, D=64, bf16): dq must move ~200 MB against ~19.7 GFLOP
 // (60 us vs 20 us), dkv ~300 MB against ~39 GFLOP (89 us vs 40 us), dc
-// ~200 MB against ~19.7 GFLOP. This first version is simple rather than
-// fast: one block per (tile, head, batch) for dq and dkv and per (tile pair,
-// head) for dc, tiles staged by 4-byte cp.async copies (rows of F=266 bf16
-// values are 4-byte but not 16-byte aligned), WMMA bf16 products for bf16
-// inputs and fp32 FMA loops for fp32 inputs, fp32 accumulators in shared
-// memory. bf16 uses 64-row tiles; fp32 uses 32-row tiles so that the dkv
-// block (q', k', v, gn tiles plus [TILE, F] and [TILE, D] accumulators)
-// fits in the 227 KB a block may use at F = 266. At larger F (favor_hyper's
-// F = 532) the [TILE, F] tiles and accumulators outgrow that, so dq and dkv
-// halve their tile until the block fits (bf16 32 rows, fp32 dkv 16); dc
-// keeps its tile, since its windows' shape depends on it, and fits at
-// F = 532 in both dtypes. Loads do not overlap products, and
-// dc recomputes M and A instead of sharing them with dkv: double
-// buffering, wgmma, TMA and fusing the three passes are later work.
+// ~200 MB against ~19.7 GFLOP. Operations at long N (B=4, N=4097): dkv
+// ~1.06 TFLOP (1.08 ms), dq and dc ~0.53 TFLOP each.
+//
+// bf16 dkv (mlc_bwd_dkv_mma_kernel, even F <= 272, D <= 64: the main path)
+// is register-resident on mma.sync (flash_attention_mma.cuh's fragments):
+// 64 key/value rows per block, four warps per 16 of them, against 32-row
+// query tiles streamed through a two-stage cp.async ring. The obstacle is
+// the [16, 272] fp32 dk' accumulator of 16 key/value rows, 136 registers a
+// thread for one warp: the four warps of a row group split its output
+// columns (5 or 4 16-column blocks, 40 registers) and dv's, and split the
+// score products by query columns instead (8 each, over all of F and D),
+// then swap their rounded bf16 weights, which are exactly the registers of
+// the next product's A fragment, through 16 bytes a lane of shared memory
+// and a named barrier of the four. So nothing fp32 crosses warps, sums run
+// in one order, and the kernel holds 123 registers a thread. F = 266 is
+// padded to 272 inside the kernel (pad lanes zeroed as they are staged;
+// the store writes the real columns). Rows of 532 bytes are 4-byte but not
+// 16-byte aligned, so q' and k' move as 4-byte cp.async words, all in
+// flight, a warp to a row so that a lane's addresses advance by a
+// constant. The kernel is bound by issued instructions more than by the
+// tensor cores, and staging q' is the largest single item of them, so the
+// taller block, which stages it for 64 rows at once, wins at long N. The
+// Toeplitz window of each tile pair (95 coefficients) rides in the ring
+// beside q'. Times are in PERF.md (chip_smoke.py). What held the first
+// version back was one block per SM on ~210 KB of shared tiles and fp32
+// accumulators, two WMMA score passes through one shared score tile, two
+// shared-accumulator products and six barriers per tile, loads not
+// overlapped; this one takes 99,328 bytes and two barriers per tile (the
+// block's, and the row group's swap).
+//
+// The rest is the first version, simple rather than fast: one block per
+// (tile, head, batch) for dq and the fp32 / large-F dkv, and per (tile
+// pair, head) for dc, tiles staged by 4-byte cp.async copies, WMMA bf16
+// products for bf16 inputs and fp32 FMA loops for fp32 inputs, fp32
+// accumulators in shared memory. bf16 uses 64-row tiles; fp32 uses 32-row
+// tiles so that the staged dkv block (q', k', v, gn tiles plus [TILE, F]
+// and [TILE, D] accumulators) fits in the 227 KB a block may use at
+// F = 266. At larger F (favor_hyper's F = 532) the [TILE, F] tiles and
+// accumulators outgrow that, so dq and the staged dkv halve their tile
+// until the block fits (bf16 32 rows, fp32 dkv 16); dc keeps its tile,
+// since its windows' shape depends on it, and fits at F = 532 in both
+// dtypes. Loads do not overlap products there, and dc recomputes M and A
+// instead of sharing them with dkv.
 
+#include "flash_attention_mma.cuh"
 #include "kerple_common.cuh"
 
 namespace {
@@ -226,6 +256,322 @@ mlc_bwd_dkv_kernel(const T* __restrict__ gn, const float* __restrict__ s,
   }
 }
 
+// ─── bf16 dk' and dv: register-resident tiles on mma.sync ───────────────
+
+namespace fm = flash::mma;
+
+// out[r, c] = round(acc) for this thread's elements of a warp's 16 x 16 NP
+// accumulator at rows row0.. and columns col0.. of a [rows, ld] row-major
+// bf16 array; rows >= `rows`, columns >= `cols` and 16-column blocks from
+// np_valid on skipped. Column pairs move as 4-byte words where ld is even.
+template <int NP>
+__device__ __forceinline__ void store_block(bf16* out, int ld, int rows, int cols, int row0,
+                                            int col0, int np_valid, const float (&acc)[2 * NP][4]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + lane / 4 + 8 * half;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int nb = 0; nb < 2 * NP; ++nb) {
+      const int c = col0 + nb * 8 + 2 * (lane % 4);
+      if (nb / 2 >= np_valid || c >= cols) continue;
+      const float x0 = acc[nb][2 * half], x1 = acc[nb][2 * half + 1];
+      bf16* o = out + (size_t)r * ld + c;
+      if (ld % 2 == 0 && c + 1 < cols) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        o[0] = __float2bfloat16(x0);
+        if (c + 1 < cols) o[1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// Geometry of mlc_bwd_dkv_mma_kernel: blocks of BM key/value rows, four
+// warps per 16 of them (WARPS = BM / 4), against 32-row query tiles, each
+// warp owning 8 of the tile's query columns in the score products and a
+// quarter of the output columns after; features staged up to FMAX, values
+// to DP. Shared memory: k' [BM, LDF] and v [BM, LDD] bf16 resident; a ring
+// of two stages, each q' [BN, LDF] and gn [BN, LDD] bf16, s [BN] and the
+// tile pair's coefficient window [WINP] fp32; and per warp one 16-byte
+// word a lane of rounded weights, which the other three warps read.
+template <int FMAX, int DP, int BM_>
+struct DkvMma {
+  static constexpr int BM = BM_, BN = 32, WARPS = BM / 4, NT = 32 * WARPS;
+  static constexpr int LDF = FMAX + 8, LDD = DP + 8;
+  static constexpr int PAIRS = (FMAX / 16 + 3) / 4;  // most 16-column dk' blocks a warp holds
+  static constexpr int DV_PAIRS = DP / 64;           // 16-column dv blocks per warp
+  static constexpr int WINP = (BM + BN - 1 + 3) / 4 * 4;
+  static constexpr size_t KV = (size_t)BM * (LDF + LDD) * sizeof(bf16);
+  static constexpr size_t STAGE =
+      (size_t)BN * (LDF + LDD) * sizeof(bf16) + (size_t)(BN + WINP) * sizeof(float);
+  static constexpr size_t XCH = (size_t)WARPS * 32 * sizeof(uint4);
+  static constexpr size_t BYTES = KV + 2 * STAGE + XCH;
+  static_assert(FMAX % 16 == 0 && DP % 64 == 0 && BM % 16 == 0, "tile shapes");
+  static_assert(KV % 16 == 0 && STAGE % 16 == 0 && (BN * (LDF + LDD) * 2) % 16 == 0,
+                "regions start 16-byte aligned");
+};
+
+// Stage src rows [0, rows_valid) ([*, cols] row-major bf16, cols even and
+// src 4-byte aligned) into dst[ROWS][ld] columns [0, cols_pad), zero-filling
+// the rest, as 4-byte cp.async words (rows of F = 266 are 4-byte but not
+// 16-byte aligned), committed by the caller. Each of the NT / 32 warps
+// takes whole rows and its lanes consecutive words, so a lane's words of a
+// row sit 128 bytes apart and its addresses advance by a constant.
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_words4(bf16* dst, int ld, int cols_pad,
+                                             const bf16* __restrict__ src, int rows_valid,
+                                             int cols) {
+  const int w = cols / 2;          // words per source row
+  const int w_pad = cols_pad / 2;  // words per staged row
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const char* sp = reinterpret_cast<const char*>(src);
+  for (int r = warp; r < ROWS; r += NT / 32) {
+    const char* s_row = sp + (size_t)r * cols * 2;
+    char* d_row = reinterpret_cast<char*>(dst + (size_t)r * ld);
+    const int w_row = r < rows_valid ? w : 0;  // words of the row to copy, the rest zeros
+    for (int c = lane; c < w_pad; c += 32) {
+      const bool valid = c < w_row;
+      cp_async4(d_row + 4 * c, valid ? s_row + 4 * c : sp, valid ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// B fragments of one 8-column block of B = T^T for a row-major tile T: B's
+// columns are T's rows row0..row0+7, B's depth T's columns col0..col0+31 in
+// two 16-steps (b[0], b[1] the first, b[2], b[3] the second).
+__device__ __forceinline__ void load_b8_rows2(uint32_t (&b)[4], const bf16* tile, int ld,
+                                              int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  fm::ldsm_x4(b, fm::smem_addr(tile + (row0 + lane % 8) * ld + col0 + (lane / 8) * 8));
+}
+
+// The same over one 16-step of depth.
+__device__ __forceinline__ void load_b8_rows1(uint32_t (&b)[2], const bf16* tile, int ld,
+                                              int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x2(b, fm::smem_addr(tile + (row0 + lane % 8) * ld + col0 + ((lane / 8) % 2) * 8));
+}
+
+// dk' and dv for one (BM-row key/value tile, head, batch), bf16, F <= FMAX,
+// D <= DP. k' and v stay resident; query tiles (q', gn, s and the tile
+// pair's coefficient window w[t] = c[j0 - i0 + N - BN + t]) arrive through
+// the two-stage cp.async ring. Four warps own the same 16 key/value rows.
+// Per tile each computes, for its 8 query columns, A^T = k' q'^T over all
+// of F (even and odd 16-steps in two chains, added once) and M^T = v gn^T
+// over D in registers, then per cell, with T^T[j, i] = w[(j - j0) - (i -
+// i0) + BN - 1], Wk^T = round((M^T - s_i) T^T) and Wv^T = round(A^T T^T),
+// packed as bf16 pairs: exactly the four registers of an mma A fragment
+// that its 8 columns fill. The four warps swap these through shared memory
+// (a named barrier of the four), so each holds the rounded Wk^T and Wv^T
+// of all 32 columns as the A operands of dk' += Wk^T q' (a quarter of the
+// 16-column feature blocks each) and dv += Wv^T gn (a quarter of the value
+// columns each), accumulated in registers across the sweep. No float
+// atomics; every sum runs in a fixed order.
+template <int FMAX, int DP, int BM_>
+__global__ void __launch_bounds__(BM_ * 8, BM_ <= 32 ? 2 : 1)
+mlc_bwd_dkv_mma_kernel(const bf16* __restrict__ gn, const float* __restrict__ s,
+                        const bf16* __restrict__ v, const bf16* __restrict__ q,
+                        const bf16* __restrict__ k, const float* __restrict__ coeffs,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        int H, int N, int F, int D) {
+  using C = DkvMma<FMAX, DP, BM_>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + C::BM * C::LDF;
+  uint4* xch = reinterpret_cast<uint4*>(smem + C::KV + 2 * C::STAGE);
+
+  const int j0 = blockIdx.x * C::BM;
+  const int h = blockIdx.y;
+  const size_t bh = (size_t)blockIdx.z * H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int group = warp / 4;
+  const int quarter = warp % 4;
+  const int row0 = group * 16;  // the group's first key/value row in the tile
+  const int q8 = quarter * 8;   // this warp's query columns in the score products
+  const int fp = (F + 15) / 16 * 16;
+  const int kf = fp / 16;  // 16-column steps of the A^T sum and blocks of dk'
+  const int p_count = kf / 4 + (quarter < kf % 4 ? 1 : 0);
+  const int p_begin = quarter * (kf / 4) + min(quarter, kf % 4);
+  const bf16* qh = q + bh * N * F;
+  const bf16* gnh = gn + bh * N * D;
+  const float* sh = s + bh * N;
+  const float* cb = coeffs + (size_t)h * (2 * N - 1);
+
+  const auto tile_q = [&](int it) {
+    return reinterpret_cast<bf16*>(smem + C::KV + (it & 1) * C::STAGE);
+  };
+  const auto stage_q = [&](int it) {
+    bf16* Qt = tile_q(it);
+    bf16* Gt = Qt + C::BN * C::LDF;
+    float* s_t = reinterpret_cast<float*>(Gt + C::BN * C::LDD);
+    float* w_t = s_t + C::BN;
+    const int i0 = it * C::BN;
+    const int rows = min(C::BN, N - i0);
+    stage_words4<C::BN, C::NT>(Qt, C::LDF, fp, qh + (size_t)i0 * F, rows, F);
+    fm::stage_rows<C::BN, C::NT>(Gt, C::LDD, DP, gnh + (size_t)i0 * D, rows, D);
+    fm::stage_floats<C::NT>(s_t, sh + i0, C::BN, rows);
+    const long long base = (long long)j0 - i0 + N - C::BN;
+    for (int t = threadIdx.x; t < C::WINP; t += C::NT) {
+      const long long m = base + t;
+      const bool valid = m >= 0 && m < 2LL * N - 1;
+      cp_async4(w_t + t, valid ? cb + m : cb, valid ? 4 : 0);
+    }
+  };
+  const int rows_kv = min(C::BM, N - j0);
+  stage_words4<C::BM, C::NT>(Ks, C::LDF, fp, k + (bh * N + j0) * F, rows_kv, F);
+  fm::stage_rows<C::BM, C::NT>(Vs, C::LDD, DP, v + (bh * N + j0) * D, rows_kv, D);
+  stage_q(0);
+  fm::cp_async_commit();
+
+  float dka[2 * C::PAIRS][4], dva[2 * C::DV_PAIRS][4];
+  fm::zero_acc(dka);
+  fm::zero_acc(dva);
+  const int jr[2] = {j0 + row0 + lane / 4, j0 + row0 + lane / 4 + 8};  // this thread's rows
+  const int c = q8 + 2 * (lane % 4);  // this thread's query columns c, c + 1 of the tile
+
+  const int n_q = (N + C::BN - 1) / C::BN;
+  for (int it = 0; it < n_q; ++it) {
+    fm::cp_async_wait<0>();
+    __syncthreads();  // tile it staged by every thread; tile it - 1's stage and words free
+    if (it + 1 < n_q) {
+      stage_q(it + 1);
+      fm::cp_async_commit();
+    }
+    if (j0 + row0 >= N) continue;  // the four warps of a group skip together
+    const bf16* Qt = tile_q(it);
+    const bf16* Gt = Qt + C::BN * C::LDF;
+    const float* s_t = reinterpret_cast<const float*>(Gt + C::BN * C::LDD);
+    const float* w_t = s_t + C::BN;
+    const int i0 = it * C::BN;
+
+    // A^T and M^T for this warp's 8 query columns
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, a_odd[4] = {0.f, 0.f, 0.f, 0.f};
+    float m[4] = {0.f, 0.f, 0.f, 0.f};
+    int kk = 0;
+    for (; kk + 2 <= kf; kk += 2) {
+      uint32_t b[4], af[4], af2[4];
+      load_b8_rows2(b, Qt, C::LDF, q8, kk * 16);
+      fm::load_a(af, Ks, C::LDF, row0, kk * 16);
+      fm::load_a(af2, Ks, C::LDF, row0, kk * 16 + 16);
+      fm::mma_bf16(a, af, b[0], b[1]);
+      fm::mma_bf16(a_odd, af2, b[2], b[3]);
+    }
+    if (kk < kf) {
+      uint32_t b[2], af[4];
+      load_b8_rows1(b, Qt, C::LDF, q8, kk * 16);
+      fm::load_a(af, Ks, C::LDF, row0, kk * 16);
+      fm::mma_bf16(a, af, b[0], b[1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] += a_odd[e];
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; kd += 2) {
+      uint32_t b[4], af[4], af2[4];
+      load_b8_rows2(b, Gt, C::LDD, q8, kd * 16);
+      fm::load_a(af, Vs, C::LDD, row0, kd * 16);
+      fm::load_a(af2, Vs, C::LDD, row0, kd * 16 + 16);
+      fm::mma_bf16(m, af, b[0], b[1]);
+      fm::mma_bf16(m, af2, b[2], b[3]);
+    }
+    // per cell (key/value row j, query row i): rounded Wk^T and Wv^T
+    const float2 s_c = *reinterpret_cast<const float2*>(s_t + c);
+    float wk[4], wv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = jr[e / 2];
+      const int i = i0 + c + (e & 1);
+      wk[e] = wv[e] = 0.f;
+      if (j < N && i < N) {
+        const float t = w_t[(j - j0) - (c + (e & 1)) + C::BN - 1];
+        wv[e] = a[e] * t;
+        wk[e] = (m[e] - ((e & 1) ? s_c.y : s_c.x)) * t;
+      }
+    }
+    xch[warp * 32 + lane] = make_uint4(fm::pack_bf16(wk[0], wk[1]), fm::pack_bf16(wk[2], wk[3]),
+                                       fm::pack_bf16(wv[0], wv[1]), fm::pack_bf16(wv[2], wv[3]));
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+    // the A fragments over all 32 query columns: 16-step kk takes the words
+    // of the warps owning columns 16 kk.. (registers 0, 1) and 16 kk + 8..
+    // (registers 2, 3)
+    uint32_t atk[2][4], atv[2][4];
+#pragma unroll
+    for (int step = 0; step < 2; ++step)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint4 w4 = xch[(group * 4 + 2 * step + hh) * 32 + lane];
+        atk[step][2 * hh] = w4.x;
+        atk[step][2 * hh + 1] = w4.y;
+        atv[step][2 * hh] = w4.z;
+        atv[step][2 * hh + 1] = w4.w;
+      }
+#pragma unroll
+    for (int step = 0; step < 2; ++step)
+#pragma unroll
+      for (int lp = 0; lp < C::PAIRS; ++lp) {
+        if (lp >= p_count) continue;
+        uint32_t b[4];
+        fm::load_b_cols(b, Qt, C::LDF, step * 16, (p_begin + lp) * 16);
+        fm::mma_bf16(dka[2 * lp], atk[step], b[0], b[1]);
+        fm::mma_bf16(dka[2 * lp + 1], atk[step], b[2], b[3]);
+      }
+#pragma unroll
+    for (int step = 0; step < 2; ++step)
+#pragma unroll
+      for (int lp = 0; lp < C::DV_PAIRS; ++lp) {
+        uint32_t b[4];
+        fm::load_b_cols(b, Gt, C::LDD, step * 16, (quarter * C::DV_PAIRS + lp) * 16);
+        fm::mma_bf16(dva[2 * lp], atv[step], b[0], b[1]);
+        fm::mma_bf16(dva[2 * lp + 1], atv[step], b[2], b[3]);
+      }
+  }
+  store_block<C::PAIRS>(dk + bh * N * F, F, N, F, j0 + row0, p_begin * 16, p_count, dka);
+  store_block<C::DV_PAIRS>(dv + bh * N * D, D, N, D, j0 + row0, quarter * C::DV_PAIRS * 16,
+                           C::DV_PAIRS, dva);
+}
+
+// The bf16 instantiation: features up to 272 (F = 266), values up to 64,
+// 64 key/value rows (16 warps) per block, picked by trial on an H100
+// (experiments/tile_trial.py, numbers in PERF.md) over 32-row blocks of 8
+// warps, two per SM: about as fast at N = 197 and ~10% faster at N = 4097,
+// where each block streams all of q' and a taller block streams it half
+// as often.
+using DkvChoice = DkvMma<272, 64, 64>;
+
+auto dkv_mma_fn() { return mlc_bwd_dkv_mma_kernel<272, 64, 64>; }
+
+const void* dkv_mma_kernel() { return reinterpret_cast<const void*>(dkv_mma_fn()); }
+
+// Whether a bf16 dkv launch at (F, D) runs mlc_bwd_dkv_mma_kernel; the
+// staged kernel runs the rest (fp32, F > 272, D > 64).
+bool dkv_mma_takes(int F, int D) { return F <= 272 && F % 2 == 0 && D <= 64; }
+
+int launch_dkv_mma(const void* gn, const void* s, const void* v, const void* q, const void* k,
+                   const void* coeffs, void* dk, void* dv, int B, int H, int N, int F, int D,
+                   void* stream) {
+  using C = DkvChoice;
+  const auto kernel = dkv_mma_fn();
+  (void)cudaGetLastError();  // start from a clean error state
+  const int err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + C::BM - 1) / C::BM, H, B);
+  kernel<<<grid, C::NT, C::BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(gn), static_cast<const float*>(s), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const float*>(coeffs),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, F, D);
+  return cudaGetLastError();
+}
+
 // Diagonal windows of sum_b dW * A for one (q tile, kv tile) pair and head:
 // windows[h, iq, jk, m] = sum over a, b with b - a + TILE - 1 = m.
 template <typename T>
@@ -346,6 +692,41 @@ int launch_dc(const void* gn, const void* s, const void* v, const void* q,
   return cudaGetLastError();
 }
 
+// A staged kernel's instantiation, its tile rows and its shared memory:
+// what mlc_bwd_launch_info reports (the tiles launch_dq / launch_dkv pick).
+struct StagedChoice {
+  const void* kernel;
+  int rows;
+  size_t bytes;
+};
+
+template <typename T, int TILE = dc_tile<T>()>
+StagedChoice dq_staged(int F, int D) {
+  const DqLayout<T, TILE> L(F, D);
+  if constexpr (TILE > MIN_TILE) {
+    if (L.bytes > (size_t)MAX_SMEM) return dq_staged<T, TILE / 2>(F, D);
+  }
+  return {reinterpret_cast<const void*>(mlc_bwd_dq_kernel<T, TILE>), TILE, L.bytes};
+}
+
+template <typename T, int TILE = dc_tile<T>()>
+StagedChoice dkv_staged(int F, int D) {
+  const DkvLayout<T, TILE> L(F, D);
+  if constexpr (TILE > MIN_TILE) {
+    if (L.bytes > (size_t)MAX_SMEM) return dkv_staged<T, TILE / 2>(F, D);
+  }
+  return {reinterpret_cast<const void*>(mlc_bwd_dkv_kernel<T, TILE>), TILE, L.bytes};
+}
+
+// kind 0: dq, 1: dkv, 2: dc.
+template <typename T>
+StagedChoice staged_choice(int kind, int F, int D) {
+  if (kind == 0) return dq_staged<T>(F, D);
+  if (kind == 1) return dkv_staged<T>(F, D);
+  return {reinterpret_cast<const void*>(mlc_bwd_dc_kernel<T>), dc_tile<T>(),
+          BatchSumLayout<T, dc_tile<T>()>(F, D).bytes};
+}
+
 }  // namespace
 
 extern "C" {
@@ -381,6 +762,8 @@ int mlc_bwd_dkv_bf16(const void* gn, const void* s, const void* v, const void* q
                      const void* k, const void* coeffs, void* dk, void* dv,
                      int B, int H, int N, int F, int D, void* stream) {
   if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
+  if (dkv_mma_takes(F, D))
+    return launch_dkv_mma(gn, s, v, q, k, coeffs, dk, dv, B, H, N, F, D, stream);
   return launch_dkv<bf16>(gn, s, v, q, k, coeffs, dk, dv, B, H, N, F, D, stream);
 }
 
@@ -415,6 +798,22 @@ int mlc_bwd_dc_reduce(const void* windows, void* dcoeffs, int H, int N, int tile
   mlc_bwd_dc_reduce_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(windows), static_cast<float*>(dcoeffs), H, N, tile);
   return cudaGetLastError();
+}
+
+// What a bf16 (is_bf16 = 1) or fp32 launch of kind 0 (dq), 1 (dkv) or 2
+// (dc) at (N, F, D) runs, in info[0..6]: rows per tile, threads, dynamic
+// shared memory bytes, resident blocks per SM, registers per thread, local
+// (spilled) bytes per thread, and 1 for mlc_bwd_dkv_mma_kernel (0 for a
+// staged kernel). Returns the CUDA error code (cudaErrorInvalidValue for
+// bad arguments or a block that exceeds shared memory).
+int mlc_bwd_launch_info(int kind, int N, int F, int D, int is_bf16, int* info) {
+  if (bad_dims(1, 1, N, F, D) || kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  if (is_bf16 && kind == 1 && dkv_mma_takes(F, D))
+    return fm::launch_info(dkv_mma_kernel(), DkvChoice::BM, DkvChoice::NT, DkvChoice::BYTES,
+                           true, info);
+  const StagedChoice c = is_bf16 ? staged_choice<bf16>(kind, F, D)
+                                 : staged_choice<float>(kind, F, D);
+  return fm::launch_info(c.kernel, c.rows, THREADS, c.bytes, false, info);
 }
 
 const char* mlc_bwd_error_string(int err) {

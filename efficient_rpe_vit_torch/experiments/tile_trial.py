@@ -1,0 +1,179 @@
+"""Tile-shape trial of the register-resident backward kernels on the card.
+
+Each kernel's shipped instantiation (the tile shape its launcher takes) is
+timed against the alternatives below, each built from a copy of `csrc/`
+with the instantiation swapped, at the main paths' shapes:
+
+    flash_bwd_fused    (64, 12, 197, 64) bf16, dropout 0: 13 warps against
+                       32-row query tiles (shipped) or 16-row ones
+    mlc_bwd_dkv        (64, 12, 197, 266, 64) and (4, 12, 4097, 266, 64)
+                       bf16: 64 key/value rows per block (16 warps, shipped)
+                       or 32 (8 warps, two blocks per SM)
+
+Every variant is first held against the kernel's plain version (max
+|err| / max |plain|), then timed as chip_smoke.py times kernels: calls
+captured in one CUDA graph, replayed, in two rounds. Run it on the GPU as
+
+    python -m efficient_rpe_vit_torch.experiments.tile_trial
+
+The first line printed is the card's name and power limit; the build goes
+under build/tile_trial/ at the repository root.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from ..ops.kernels import _build
+from ..ops.kernels import flash_attention as fa
+from ..ops.kernels import masked_linear_coeffs as mlc
+from ..utils.timing import device_label
+
+TRIAL_DIR = _build.BUILD_DIR.parent / "tile_trial"
+
+# kernel -> (source, wrapper module, its library loader, {variant: [(shipped
+# text, variant text)]}); the first variant is the shipped one
+_FUSED = "flash_bwd_fused_mma_kernel<64, 13, 32>"
+_DKV = "mlc_bwd_dkv_mma_kernel<272, 64, 64>"
+VARIANTS = {
+    "flash_bwd_fused": ("flash_attention_bwd", fa, "_bwd_lib", {
+        "13 warps x 32-row q tiles": [],
+        "13 warps x 16-row q tiles": [
+            (_FUSED, _FUSED.replace("32>", "16>")),
+            ("FusedMma<64, 13, 32>", "FusedMma<64, 13, 16>")],
+    }),
+    "mlc_bwd_dkv": ("masked_linear_coeffs_bwd", mlc, "_bwd_kernel_fns", {
+        "64 kv rows, 16 warps": [],
+        "32 kv rows, 8 warps": [
+            (_DKV, _DKV.replace("64>", "32>")),
+            ("DkvMma<272, 64, 64>", "DkvMma<272, 64, 32>")],
+    }),
+}
+
+
+def kernel_ms(fn: Callable, iters: int = 20) -> float:
+    """Mean device time of one call from a CUDA-graph replay of `iters`
+    calls (chip_smoke.py's timing)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def build_variants() -> Dict[Tuple[str, str], str]:
+    """{(kernel, variant): library path}, every variant compiled at once."""
+    TRIAL_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for kernel, (source, _, _, variants) in VARIANTS.items():
+        for i, (variant, swaps) in enumerate(variants.items()):
+            tree = TRIAL_DIR / f"{kernel}_{i}"
+            shutil.rmtree(tree, ignore_errors=True)
+            shutil.copytree(_build.CSRC, tree)
+            path = tree / f"{source}.cu"
+            text = path.read_text()
+            for shipped, swapped in swaps:
+                if shipped not in text:
+                    raise RuntimeError(f"{source}.cu no longer has {shipped!r}")
+                text = text.replace(shipped, swapped)
+            path.write_text(text)
+            lib = tree / f"{source}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(path)]
+            running[(kernel, variant)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), str(lib))
+    libs = {}
+    for key, (proc, lib) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{key} failed to build:\n{log[-3000:]}")
+        libs[key] = lib
+    return libs
+
+
+def use_library(module, loader: str, path: str, originals: dict) -> None:
+    """Point the wrapper module's library loader at the library `path`."""
+    original = originals.setdefault((module.__name__, loader), getattr(module, loader))
+    saved = module.load
+    module.load = lambda name: ctypes.CDLL(path)
+    try:
+        lib = original.__wrapped__()
+    finally:
+        module.load = saved
+    setattr(module, loader, lambda: lib)
+
+
+def _max_rel(got, want) -> float:
+    return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
+    """kernel -> [(shape, kernel call, plain call)] on seeded inputs."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out: Dict[str, list] = {"flash_bwd_fused": [], "mlc_bwd_dkv": []}
+    q, k, v, cot = (torch.randn(64, 12, 197, 64, generator=g, device="cuda").bfloat16()
+                    for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+    args = (q, k, v, cot, lse, fa.flash_delta(o, cot), 0.125)
+    first = tuple(t[:1] for t in args[:6]) + (0.125,)
+    out["flash_bwd_fused"].append(("(64, 12, 197, 64)",
+                                   lambda: fa.flash_attention_bwd_fused(*args),
+                                   lambda first=first: fa.flash_bwd_reference(*first)))
+    for B, N in ((64, 197), (4, 4097)):
+        qp, kp = ((torch.randn(B, 12, N, 266, generator=g, device="cuda").abs() * 0.1)
+                  .bfloat16() for _ in range(2))
+        vv, ct = (torch.randn(B, 12, N, 64, generator=g, device="cuda").bfloat16()
+                  for _ in range(2))
+        c = torch.exp(torch.randn(12, 2 * N - 1, generator=g, device="cuda") * 0.02)
+        o, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, vv, c)
+        gn, s = mlc.kerple_bwd_residuals(den, o, ct)
+        a = (gn, s, vv, qp, kp, c)
+        # the plain version of the first batch element (long N fits that way)
+        first = tuple(t[:1] for t in a[:5]) + (c,)
+        out["mlc_bwd_dkv"].append((
+            f"({B}, 12, {N}, 266, 64)",
+            lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dkv(*a),
+            lambda first=first: mlc.masked_linear_attention_coeffs_bwd_dkv_reference(*first)))
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile trial needs a GPU")
+    print(device_label(torch.device("cuda")), flush=True)
+    libs = build_variants()
+    originals: dict = {}
+    trial = cases()
+    for rnd in range(2):
+        for (kernel, variant), path in libs.items():
+            _, module, loader, _ = VARIANTS[kernel]
+            use_library(module, loader, path, originals)
+            for shape, run, plain in trial[kernel]:
+                got = run()
+                rel = _max_rel(tuple(t[:1] for t in got), plain())
+                ms = kernel_ms(run, iters=20 if "4097" not in shape else 3)
+                print(f"round {rnd} {kernel} {variant} {shape}: {ms:.4f} ms, "
+                      f"max|err|/max|plain| {rel:.3e}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -107,6 +107,24 @@ def dtype_suffix(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
+# what a built library's *_launch_info entry point writes, in this order,
+# followed by 1 for a register-resident mma.sync kernel (0: a staged one)
+LAUNCH_INFO_KEYS = ("rows", "threads", "smem_bytes", "blocks_per_sm", "registers",
+                    "spill_bytes")
+
+
+def launch_info_buffer():
+    """The int array a *_launch_info entry point fills."""
+    return (ctypes.c_int * (len(LAUNCH_INFO_KEYS) + 1))()
+
+
+def launch_info_dict(info) -> dict:
+    """A filled buffer as {key: value} under LAUNCH_INFO_KEYS, plus
+    "kernel": "mma.sync" or "staged"."""
+    return {**dict(zip(LAUNCH_INFO_KEYS, info)),
+            "kernel": "mma.sync" if info[len(LAUNCH_INFO_KEYS)] else "staged"}
+
+
 def launch(errors, name: str, fn, device: torch.device, *args) -> None:
     """Call one C launcher with `args` and then the current stream of
     `device`: tensors go as their data pointers, None as a null pointer,

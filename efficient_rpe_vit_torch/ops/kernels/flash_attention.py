@@ -8,9 +8,11 @@ dropout hash, `canonical_mask`) and `.../pallas/flash_bwd.py`
 (`flash_attention_bwd`). The forward is hand-written CUDA C++ for sm_90a in
 `csrc/flash_attention_fwd.cu`: an online softmax that keeps the [N, N]
 scores on chip and saves the row log-sum-exp. The backward is three kernels
-in `csrc/flash_attention_bwd.cu`: a fused single pass that holds a head's
-whole dq row in shared memory where it fits, and the dq / dkv two-pass
-split elsewhere. Both take an optional keep-mask and apply
+in `csrc/flash_attention_bwd.cu`: a fused single pass per (batch, head)
+where it fits (bf16 at N <= 208 holds every key/value row of the head in
+one block and finishes each query tile's dq there; elsewhere a head's whole
+dq row sits in shared memory), and the dq / dkv two-pass split elsewhere.
+Both take an optional keep-mask and apply
 attention-probability dropout inside the kernel, from a counter hash of
 (seed, b, h, i, j) that is the JAX package's bit for bit.
 
@@ -31,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from ._build import dtype_suffix, launch, load, on_cpu
+from ._build import LAUNCH_INFO_KEYS  # noqa: F401 (re-exported: what launch_info reports)
+from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
 
 # the finite mask value of the forward (JAX: -0.7 * float32 max); the
 # backward masks with -inf
@@ -344,15 +347,15 @@ def _scalars(q, Hm, scale, rate):
 
 
 def fused_fits(n: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether the fused backward kernel's shared memory (a head's dq row
-    plus its tiles) fits one block on this card; asked of the kernel source
-    (`flash_bwd_fused_fits`), so it needs the built library."""
+    """Whether the fused backward pass runs at (n, d): where the staged
+    fused kernel's shared memory (a head's dq row plus its tiles) fits one
+    block on this card, which covers the bf16 mma.sync fused kernel's range
+    (N <= 208); asked of the kernel source (`flash_bwd_fused_fits`), so it
+    needs the built library."""
     return bool(_bwd_lib().flash_bwd_fused_fits(n, d, int(dtype == torch.bfloat16)))
 
 
 _BWD_KINDS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1, "flash_bwd_fused": 2}
-LAUNCH_INFO_KEYS = ("rows", "threads", "smem_bytes", "blocks_per_sm", "registers",
-                    "spill_bytes")
 
 
 def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
@@ -361,14 +364,15 @@ def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
     d runs on this card, asked of the built library: rows per block (0 for
     the fused pass, one block per head), threads, dynamic shared memory
     bytes, resident blocks per SM, registers and local (spilled) bytes per
-    thread, under `LAUNCH_INFO_KEYS`. Needs a GPU."""
+    thread, under `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs
+    ("mma.sync", the register-resident one, or "staged"). Needs a GPU."""
     if kernel != "flash_fwd" and kernel not in _BWD_KINDS:
         raise ValueError(f"unknown flash kernel {kernel!r}")
     if dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
     if n <= 0 or not 0 < d <= MAX_D:
         raise ValueError(f"need n > 0 and 0 < d <= {MAX_D}, got n={n}, d={d}")
-    info = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    info = launch_info_buffer()
     is_bf16 = int(dtype == torch.bfloat16)
     if kernel == "flash_fwd":
         lib = _fwd_lib()
@@ -380,7 +384,7 @@ def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
     if err != 0:
         raise RuntimeError(f"{kernel} launch info at n={n} d={d}: CUDA error {err} "
                            f"({errors(err).decode()})")
-    return dict(zip(LAUNCH_INFO_KEYS, info))
+    return launch_info_dict(info)
 
 
 def flash_attention_fwd(q, k, v, scale: float, mask=None,
@@ -431,8 +435,9 @@ def _bwd_launch(kind: str, q, k, v, g, lse, delta, scale, mask, dropout_rate,
 
 def flash_attention_bwd_fused(q, k, v, g, lse, delta, scale: float, mask=None,
                               dropout_rate: float = 0.0, dropout_seed=None):
-    """(dq, dk, dv) in one pass per (batch, head), dq held in shared memory:
-    the launch is refused where `fused_fits` is false. Replaces
+    """(dq, dk, dv) in one pass per (batch, head), dq finished on chip
+    without atomics: the launch is refused where `fused_fits` is false
+    (`launch_info` says which fused kernel runs). Replaces
     `_flash_bwd_fused_kernel`. Arguments as `flash_attention_fwd`, plus the
     cotangent g [B, H, N, D] and lse, delta [B, H, N] fp32."""
     _check(q, k, v, rest=[("g", g)], rows=[("lse", lse), ("delta", delta)])

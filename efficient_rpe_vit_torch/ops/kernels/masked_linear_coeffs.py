@@ -8,7 +8,9 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`:
 the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
 `csrc/masked_linear_coeffs_fwd.cu`; the backward `_bwd_impl` (`_dq_kernel`,
 `_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
-kernels in `csrc/masked_linear_coeffs_bwd.cu`; the fused-phi forward
+kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 dkv kernel
+register-resident on mma.sync; `launch_info` reports what a launch runs);
+the fused-phi forward
 `_fused_phi_fwd_kernel` (q' = phi(q), k' = phi(k) computed per tile from
 the raw q, k and Omega) is `csrc/kerple_fused_phi_fwd.cu`. Each builds its
 Toeplitz tiles from a window of the coefficient vector, so no [H, N, N]
@@ -36,7 +38,8 @@ from torch.autograd.function import once_differentiable
 
 from ..feature_maps import phi_positive, phi_relu
 from ..fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
-from ._build import dtype_suffix, launch, load, on_cpu
+from ._build import LAUNCH_INFO_KEYS  # noqa: F401 (re-exported: what launch_info reports)
+from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
 
 EPS = 1e-6  # denominator stabiliser, as in the JAX package
 
@@ -374,6 +377,8 @@ def _bwd_kernel_fns():
     lib.mlc_bwd_dc_reduce.restype = i32
     lib.mlc_bwd_tile.argtypes = [i32]
     lib.mlc_bwd_tile.restype = i32
+    lib.mlc_bwd_launch_info.argtypes = [i32] * 5 + [ptr]
+    lib.mlc_bwd_launch_info.restype = i32
     lib.mlc_bwd_error_string.argtypes = [i32]
     lib.mlc_bwd_error_string.restype = ctypes.c_char_p
     for dtype, tile in BWD_TILE.items():
@@ -382,6 +387,35 @@ def _bwd_kernel_fns():
             raise RuntimeError(f"{_BWD_SOURCE}.cu tiles {dtype} by {built} "
                                f"rows, the wrapper expects {tile}")
     return lib
+
+
+_BWD_KINDS = {"masked_linear_coeffs_bwd_dq": 0, "masked_linear_coeffs_bwd_dkv": 1,
+              "masked_linear_coeffs_bwd_dc": 2}
+
+
+def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict:
+    """What a launch of the backward kernel `kernel`
+    ("masked_linear_coeffs_bwd_dq", "..._dkv" or "..._dc") at sequence
+    length n, feature count f and value dim d runs on this card, asked of the
+    built library: rows per tile, threads, dynamic shared memory bytes,
+    resident blocks per SM, registers and local (spilled) bytes per thread
+    under `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs
+    ("mma.sync", the register-resident dkv kernel, or "staged"). Needs a
+    GPU."""
+    if kernel not in _BWD_KINDS:
+        raise ValueError(f"unknown KERPLE backward kernel {kernel!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
+    if n <= 0 or f <= 0 or d <= 0:
+        raise ValueError(f"need n, f, d > 0, got n={n}, f={f}, d={d}")
+    lib = _bwd_kernel_fns()
+    info = launch_info_buffer()
+    err = lib.mlc_bwd_launch_info(_BWD_KINDS[kernel], n, f, d,
+                                  int(dtype == torch.bfloat16), info)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch info at n={n} f={f} d={d}: CUDA error "
+                           f"{err} ({lib.mlc_bwd_error_string(err).decode()})")
+    return launch_info_dict(info)
 
 
 @functools.cache

@@ -350,3 +350,28 @@ def test_backward_kernel_source_is_in_the_package():
     assert path.parent == _build.BUILD_DIR and path != _build.library_path(mlc._SOURCE)
     src = (_build.CSRC / f"{mlc._BWD_SOURCE}.cu").read_text()
     assert "atomicAdd" not in src  # dcoeffs are reduced in a fixed order
+    # the bf16 dkv kernel is the register-resident one, on the flash kernels'
+    # mma.sync fragments; the staged kernels keep the shared KERPLE header
+    for header in ("kerple_common.cuh", "flash_attention_mma.cuh"):
+        assert (_build.CSRC / header).is_file()
+        assert f'#include "{header}"' in src
+    for kernel in ("mlc_bwd_dkv_mma_kernel", "mlc_bwd_dkv_kernel", "mlc_bwd_dq_kernel",
+                   "mlc_bwd_dc_kernel", "mlc_bwd_launch_info"):
+        assert kernel in src
+
+
+@pytest.mark.parametrize("args, error", [
+    (("masked_linear_coeffs_bwd", 197, 266, 64, torch.bfloat16), ValueError),
+    (("masked_linear_coeffs_fwd", 197, 266, 64, torch.bfloat16), ValueError),
+    (("masked_linear_coeffs_bwd_dkv", 197, 266, 64, torch.float16), TypeError),
+    (("masked_linear_coeffs_bwd_dq", 0, 266, 64, torch.bfloat16), ValueError),
+    (("masked_linear_coeffs_bwd_dkv", 197, 0, 64, torch.float32), ValueError),
+    (("masked_linear_coeffs_bwd_dc", 197, 266, -1, torch.bfloat16), ValueError),
+])
+def test_mlc_launch_info_refuses_bad_arguments(args, error):
+    """launch_info checks its arguments before it asks the library (which
+    needs a GPU), and names what it reports."""
+    with pytest.raises(error):
+        mlc.launch_info(*args)
+    assert mlc.LAUNCH_INFO_KEYS == ("rows", "threads", "smem_bytes", "blocks_per_sm",
+                                    "registers", "spill_bytes")

@@ -324,8 +324,10 @@ def test_kernel_sources_are_in_the_package():
     """Both CUDA sources and their shared headers ship in the package; each
     source builds into its own library, named by a hash that covers the
     headers too; the backward sums in a fixed order (no float atomics); the
-    bf16 forward, dq and dkv are the mma.sync kernels of
-    flash_attention_mma.cuh, which both sources include."""
+    bf16 forward, dq, dkv and fused pass are the mma.sync kernels of
+    flash_attention_mma.cuh, which both sources include (the staged fused
+    kernel beside them for fp32 and the shapes the mma.sync one does not
+    take)."""
     for name in (fa._FWD_SOURCE, fa._BWD_SOURCE):
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).parent == _build.BUILD_DIR
@@ -336,7 +338,8 @@ def test_kernel_sources_are_in_the_package():
     bwd = (_build.CSRC / f"{fa._BWD_SOURCE}.cu").read_text()
     assert "atomicAdd" not in bwd and "flash_bwd_fused_fits" in bwd
     assert '#include "flash_attention_mma.cuh"' in fwd and "flash_fwd_mma_kernel" in fwd
-    for kernel in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel"):
+    for kernel in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                   "flash_bwd_fused_mma_kernel", "flash_bwd_fused_kernel"):
         assert kernel in bwd
     assert '#include "flash_attention_mma.cuh"' in bwd
     assert "flash_fwd_launch_info" in fwd and "flash_bwd_launch_info" in bwd
