@@ -11,10 +11,12 @@ Phases, each printed as it runs; any failure exits non-zero:
   3. KERPLE kernels (forward; 3b: backward dq, dkv, dc, dc_reduce) against
      their plain PyTorch versions on the card at the serving and training
      shapes and at ragged shapes, in bf16 and fp32 (3b also in bf16 at the
-     edges of the dkv kernel's tiles), timed (calls replayed from a CUDA
-     graph, so without the wrapper's host work) beside their bounds; 3b
-     logs the backward kernels' launch_info (the dkv kernel must be the
-     mma.sync one at F=266);
+     edges of the dkv and dc kernels' tiles and at batches of 1 and 3),
+     timed (calls replayed from a CUDA graph, so without the wrapper's host
+     work) beside their bounds; 3b logs the backward kernels' launch_info
+     (the dkv and dc kernels must be the mma.sync ones at F=266, the fp32
+     dc the staged one) and calls dc twice at every shape (windows and
+     dcoeffs bit for bit);
   3c. flash kernels (softmax forward; backward fused, dq, dkv) against their
      plain versions in bf16 and fp32 at the serving, training and ragged
      shapes, with [B,1,N,N] and [B,H,N,N] masks and with dropout (whose
@@ -74,7 +76,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      with fused phi at ViT-B width, depth 2: one served batch of 32 on the
      kernel arms against the dense/chain arms and one train step with
      finite gradients; before them every KERPLE kernel at favor_hyper's
-     F = 532 ([2, 12, 197, 532], both dtypes) against its plain version;
+     F = 532 ([2, 12, 197, 532], both dtypes) against its plain version
+     (dkv and dc on their staged kernels, checked through launch_info);
  13. serve fused phi: ViT-B/16 performer_favor_most_general with
      attention_config={"fused_phi": True} as phase 4 (12 fused-phi launches
      and no KERPLE forward launch per forward), logits against the unfused
@@ -210,9 +213,14 @@ KERPLE_LONGN = (LONGN["batch_size"], 12, LONGN_N, 266, 64)
 BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
               (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
 # bf16 shapes at the edges of the dkv kernel's tiles (64 key/value rows
-# against 32-row query tiles): one row short of, at and past each
+# against 32-row query tiles) and the dc kernel's (128-row query blocks of
+# two 64-row window tiles, 64-row key/value stages): one row short of, at
+# and past each; and batches of 1 and 3, the ends of the dc kernel's
+# ordered batch sum
 KERPLE_EDGE_SHAPES = [(2, 12, 31, 266, 64), (2, 12, 33, 266, 64), (2, 12, 63, 266, 64),
-                      (2, 12, 64, 266, 64), (2, 12, 65, 266, 64), (2, 3, 129, 266, 64)]
+                      (2, 12, 64, 266, 64), (2, 12, 65, 266, 64), (2, 3, 127, 266, 64),
+                      (2, 3, 128, 266, 64), (2, 3, 129, 266, 64), (1, 12, 197, 266, 64),
+                      (3, 12, 129, 266, 64)]
 BWD_KERNELS = ("masked_linear_coeffs_bwd_dq", "masked_linear_coeffs_bwd_dkv",
                "masked_linear_coeffs_bwd_dc", "masked_linear_coeffs_bwd_dc_reduce")
 KERPLE_FORWARDS = ("masked_linear_coeffs_fwd", "kerple_fused_phi_fwd")
@@ -384,22 +392,40 @@ def _max_rel(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+def kerple_mma_rule(F, D, dtype) -> str:
+    """The kernel a dkv or dc launch runs by the source's shape rule: the
+    mma.sync one in bf16 at even F <= 272 and D <= 64, else the staged one."""
+    takes = dtype == torch.bfloat16 and F <= 272 and F % 2 == 0 and D <= 64
+    return "mma.sync" if takes else "staged"
+
+
+def check_kerple_rule(mlc, kname, N, F, D, dtype, phase="kernel"):
+    """launch_info of `kname` at (N, F, D) in `dtype`, logged; raises unless
+    it runs the kernel kerple_mma_rule names."""
+    info = mlc.launch_info(kname, N, F, D, dtype)
+    name = str(dtype).split(".")[-1]
+    log(phase, f"{kname} N={N} F={F} D={D} {name}: " + ", ".join(
+        f"{key} {value}" for key, value in info.items()))
+    want = kerple_mma_rule(F, D, dtype)
+    if info["kernel"] != want:
+        raise AssertionError(f"the {kname} launch at F={F} D={D} {name} runs the "
+                             f"{info['kernel']} kernel, expected the {want} one")
+    return info
+
+
 def kerple_launch_info(mlc, N, F, D):
     """{kernel: launch_info} of the bf16 KERPLE backward kernels dq, dkv
     and dc at (N, F, D), logged: rows per tile, threads, shared memory,
-    blocks per SM, registers, spilled bytes and which kernel runs. At even
-    F <= 272 and D <= 64 the dkv kernel must be the mma.sync one."""
-    out = {}
-    for kname in BWD_KERNELS[:3]:
-        info = mlc.launch_info(kname, N, F, D, torch.bfloat16)
-        out[kname] = info
-        log("kernel", f"{kname} N={N} F={F} D={D} bfloat16: " + ", ".join(
-            f"{key} {value}" for key, value in info.items()))
-    want = "mma.sync" if F <= 272 and F % 2 == 0 and D <= 64 else "staged"
-    if out["masked_linear_coeffs_bwd_dkv"]["kernel"] != want:
-        raise AssertionError(f"the dkv launch at F={F} D={D} runs the "
-                             f"{out['masked_linear_coeffs_bwd_dkv']['kernel']} kernel, "
-                             f"expected the {want} one")
+    blocks per SM, registers, spilled bytes and which kernel runs. dkv and
+    dc must run the kernel of kerple_mma_rule (the mma.sync ones at even
+    F <= 272 and D <= 64), and the fp32 dc the staged one."""
+    out = {"masked_linear_coeffs_bwd_dq": mlc.launch_info(
+        "masked_linear_coeffs_bwd_dq", N, F, D, torch.bfloat16)}
+    log("kernel", f"masked_linear_coeffs_bwd_dq N={N} F={F} D={D} bfloat16: " + ", ".join(
+        f"{key} {value}" for key, value in out["masked_linear_coeffs_bwd_dq"].items()))
+    for kname in BWD_KERNELS[1:3]:
+        out[kname] = check_kerple_rule(mlc, kname, N, F, D, torch.bfloat16)
+    check_kerple_rule(mlc, "masked_linear_coeffs_bwd_dc", N, F, D, torch.float32)
     return out
 
 
@@ -421,7 +447,18 @@ def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]
             cot = torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
             out, den = mlc.masked_linear_attention_coeffs_reference(q, k, v, c)
             gn, s = mlc.kerple_bwd_residuals(den, out, cot)
+            shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
             windows = mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k)
+            # dc twice: windows and dcoeffs bit for bit (sums in a fixed order)
+            again = mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k)
+            same = torch.equal(windows, again) and torch.equal(
+                mlc.masked_linear_attention_coeffs_bwd_dc_reduce(windows, N),
+                mlc.masked_linear_attention_coeffs_bwd_dc_reduce(again, N))
+            log("kernel", f"masked_linear_coeffs_bwd_dc {shape}: windows and dcoeffs bitwise "
+                f"on a rerun: {same}")
+            if not same:
+                raise AssertionError(f"dc is not bitwise the same on a rerun at {shape}")
+            del again
             runs = {
                 "masked_linear_coeffs_bwd_dq": (
                     lambda: mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, k, c),
@@ -441,7 +478,6 @@ def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]
                     lambda: mlc.masked_linear_attention_coeffs_bwd_dc_reduce_reference(windows, N),
                     DCOEFF_TOL[name]),
             }
-            shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
             for kname, (kernel_fn, plain_fn, tol) in runs.items():
                 got, want = kernel_fn(), plain_fn()
                 torch.cuda.synchronize()
@@ -1476,6 +1512,8 @@ def kerple_f532_check(mlc):
     raises."""
     B, H, N, F, D = F532
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for kname in BWD_KERNELS[1:3]:  # the staged dkv and dc kernels by their rule
+            check_kerple_rule(mlc, kname, N, F, D, dtype, phase="variants")
         g = torch.Generator(device="cuda").manual_seed(532)
         q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
         k = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)

@@ -20,13 +20,16 @@
 // 2 * TILE - 1 coefficients its tile pair needs and indexes them as
 // T[a, b] = w[b - a + TILE - 1], the forward's window convention.
 //
-// dcoeffs: the dc kernel sums dW * A over the batch for one (head, q tile,
-// kv tile) in shared memory (each thread owns fixed elements, adding batch
-// by batch in order), then folds the tile's diagonals into a window of
-// 2 * TILE - 1 values with index m = b - a + TILE - 1, one thread per
-// diagonal summing its rows in order. The reduce kernel adds the windows of
-// all tile pairs into dcoeffs[h, :], one thread per coefficient, in a fixed
-// order. No float atomics: dcoeffs are bitwise the same run to run.
+// dcoeffs: for every (head, q tile, kv tile) the dc kernels fold sum_b
+// dW * A into a window of 2 * TILE - 1 values, the sums of the tile's
+// diagonals, with index m = b - a + TILE - 1; the reduce kernel adds the
+// windows of all tile pairs into dcoeffs[h, :], one thread per coefficient,
+// in a fixed order. No float atomics: dcoeffs are bitwise the same run to
+// run. The fold is linear, fold(sum_b X_b) = sum_b fold(X_b), so the bf16
+// dc kernel (mlc_bwd_dc_mma_kernel, even F <= 272, D <= 64: the main path)
+// folds each batch element's tiles on its own, into a per-batch scratch of
+// windows that mlc_bwd_dc_batch_sum_kernel then sums over b in order; the
+// staged dc kernel sums the batch first, in shared memory, then folds.
 //
 // What bounds it on an H100: bytes at the ViT-B/16 training shape (B=64,
 // H=12, N=197, F=266, D=64, bf16): dq must move ~200 MB against ~19.7 GFLOP
@@ -61,11 +64,34 @@
 // overlapped; this one takes 99,328 bytes and two barriers per tile (the
 // block's, and the row group's swap).
 //
+// bf16 dc (mlc_bwd_dc_mma_kernel, the same shapes) folds before it sums the
+// batch: one block per (128 query rows, head, batch element), 8 warps of 16
+// rows, q', gn and s resident, k' and v through a two-stage cp.async ring
+// 64 rows a stage. Each warp computes A and M for its rows on mma.sync in
+// registers, forms (M - s) * A there, adds the fragment elements that share
+// a diagonal ((r, c) and (r + 8, c + 8)) and stores 8 rows of 72 pair
+// sums; one stage later one thread per (window tile, m) adds its diagonal
+// in row order. The per-batch windows go to a scratch [B, H, n_t, n_t,
+// 127] fp32 that the wrapper allocates and mlc_bwd_dc_batch_sum_kernel
+// sums over b in order. What held the first version back: one block per
+// (tile pair, head) looping over the batch (192 blocks at B = 64, N = 197),
+// q' and k' staged again for every tile pair and batch element, three
+// barriers per batch element around two WMMA passes through shared fp32
+// tiles, one 142.6 KB block per SM. This grid has 1536 blocks at that shape
+// and 1584 at B = 4, N = 4097; each block stages q' once and k' once per
+// 128 query rows, with one barrier per stage. Its 217,600 bytes of shared
+// memory leave one 8-warp block per SM: the tile trial (PERF.md) found
+// 128-row blocks, which stream k' half as often, faster than 64-row ones at
+// two blocks per SM, 64-row stages faster than 32-row ones, and 8 warps of
+// 16 rows faster than 4 of 32. Bound: bytes at B = 64, operations at long
+// N; it runs at ~4x and ~6x them, on latency within its one block per SM
+// rather than on the tensor cores or shared-memory bandwidth.
+//
 // The rest is the first version, simple rather than fast: one block per
 // (tile, head, batch) for dq and the fp32 / large-F dkv, and per (tile
-// pair, head) for dc, tiles staged by 4-byte cp.async copies, WMMA bf16
-// products for bf16 inputs and fp32 FMA loops for fp32 inputs, fp32
-// accumulators in shared memory. bf16 uses 64-row tiles; fp32 uses 32-row
+// pair, head) for the fp32 / large-F dc, tiles staged by 4-byte cp.async
+// copies, WMMA bf16 products for bf16 inputs and fp32 FMA loops for fp32
+// inputs, fp32 accumulators in shared memory. bf16 uses 64-row tiles; fp32 uses 32-row
 // tiles so that the staged dkv block (q', k', v, gn tiles plus [TILE, F]
 // and [TILE, D] accumulators) fits in the 227 KB a block may use at
 // F = 266. At larger F (favor_hyper's F = 532) the [TILE, F] tiles and
@@ -572,6 +598,259 @@ int launch_dkv_mma(const void* gn, const void* s, const void* v, const void* q, 
   return cudaGetLastError();
 }
 
+// ─── bf16 dcoeffs: q' resident, the fold before the batch sum ───────────
+
+// Geometry of mlc_bwd_dc_mma_kernel: blocks of BM query rows (BM / 64 of
+// the windows' 64-row tiles), one warp per 16 of them, against BN key/value
+// rows a stage (64 / BN stages per window tile); features staged up to
+// FMAX, values to DP. Shared memory: q' [BM, LDF] and gn [BM, LDD] bf16 and
+// s [BM] fp32 resident; a ring of two stages, each k' [BN, LDF] and v
+// [BN, LDD] bf16; and two buffers of a stage's diagonal pair sums, each
+// [BM / 2, LDP] fp32. The fold runs one thread per (window tile, value m):
+// 128 a tile, NT in all.
+template <int FMAX_, int DP_, int BM_, int BN_>
+struct DcMma {
+  static constexpr int FMAX = FMAX_, DP = DP_;
+  static constexpr int TILE = 64;  // the windows' tile: dc_tile<bf16>()
+  static constexpr int WIN = 2 * TILE - 1;
+  static constexpr int BM = BM_, BN = BN_, WARPS = BM / 16, NT = 32 * WARPS;
+  static constexpr int NB = BN / 8;  // 8-column blocks of a warp's score rows
+  static constexpr int LDF = FMAX + 8, LDD = DP + 8, LDP = BN + 8;
+  static constexpr size_t Q = (size_t)BM * LDF * sizeof(bf16);
+  static constexpr size_t G = (size_t)BM * LDD * sizeof(bf16);
+  static constexpr size_t S = (size_t)BM * sizeof(float);
+  static constexpr size_t STAGE = (size_t)BN * (LDF + LDD) * sizeof(bf16);
+  static constexpr int PAIR_FLOATS = (BM / 2) * LDP;
+  static constexpr size_t BYTES = Q + G + S + 2 * STAGE + 2 * PAIR_FLOATS * sizeof(float);
+  static_assert(FMAX % 16 == 0 && DP % 16 == 0 && BM % TILE == 0 && TILE % BN == 0 &&
+                    BN % 16 == 0, "tile shapes");
+  static_assert(NT == 128 * (BM / TILE), "one fold thread per window value and tile");
+  static_assert(LDP % 32 == 8, "pair-sum rows of four lanes' float2 stores on distinct banks");
+  static_assert(Q % 16 == 0 && G % 16 == 0 && S % 16 == 0 && STAGE % 16 == 0 &&
+                    (BN * LDF * sizeof(bf16)) % 16 == 0, "regions start 16-byte aligned");
+};
+
+// Per (BM-row query block, head, batch element), the diagonal windows of
+// this batch element's dW * A for every tile pair of the block's tiles:
+// scratch[b, h, iq, jk, m] = sum over the tile pair's (a, c) with
+// c - a + 63 = m of (M - s)[a, c] * A[a, c], M = gn v^T and A = q' k'^T
+// (bf16 products, fp32 accumulation; the difference and product fp32).
+// q', gn and s stay resident; k' and v arrive through the two-stage
+// cp.async ring, BN rows a stage. Per stage each warp computes A over all
+// of F and M over D for its 16 query rows in registers, forms P = (M - s) *
+// A, and adds each element to its partner 8 rows and 8 columns further on,
+// on the same diagonal ((r, c) + (r + 8, c + 8), the two halves of its
+// m16n8 fragments), so its 16 x BN tile leaves registers as 8 rows of
+// BN + 8 pair sums. One stage later one thread per (window tile, m) adds
+// the pair sums of its diagonal over the tile's rows in order, keeping the
+// sum in a register across the tile's stages, and writes the window after
+// the last; so the fold of stage js - 1 and the products of stage js share
+// one step and one barrier, and the pair sums alternate between two
+// buffers. Rows past N are zero-filled (their products are 0) and warps
+// wholly past N skip the products; the fold reads no warp's rows wholly
+// past N, and stages wholly past N are not staged. No float atomics: every
+// sum runs in one order.
+template <typename C>
+__global__ void __launch_bounds__(C::NT)
+mlc_bwd_dc_mma_kernel(const bf16* __restrict__ gn, const float* __restrict__ s,
+                      const bf16* __restrict__ v, const bf16* __restrict__ q,
+                      const bf16* __restrict__ k, float* __restrict__ scratch,
+                      int H, int N, int F, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + C::Q);
+  float* s_s = reinterpret_cast<float*>(smem + C::Q + C::G);
+  unsigned char* ring = smem + C::Q + C::G + C::S;
+  float* Ps = reinterpret_cast<float*>(ring + 2 * C::STAGE);
+
+  const int i0 = blockIdx.x * C::BM;
+  const int h = blockIdx.y;
+  const size_t bh = (size_t)blockIdx.z * H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * 16;  // the warp's first query row in the block
+  const int fp = (F + 15) / 16 * 16;
+  const int kf = fp / 16;  // 16-column steps of A's sum over F
+  const int n_t = (N + C::TILE - 1) / C::TILE;
+  const int rows_q = min(C::BM, N - i0);
+  const bf16* kh = k + bh * N * F;
+  const bf16* vh = v + bh * N * D;
+
+  const auto stage_kv = [&](int js) {
+    bf16* Kt = reinterpret_cast<bf16*>(ring + (js & 1) * C::STAGE);
+    bf16* Vt = Kt + C::BN * C::LDF;
+    const int j0 = js * C::BN;
+    const int rows = min(C::BN, N - j0);
+    stage_words4<C::BN, C::NT>(Kt, C::LDF, fp, kh + (size_t)j0 * F, rows, F);
+    fm::stage_rows<C::BN, C::NT>(Vt, C::LDD, C::DP, vh + (size_t)j0 * D, rows, D);
+  };
+  stage_words4<C::BM, C::NT>(Qs, C::LDF, fp, q + (bh * N + i0) * F, rows_q, F);
+  fm::stage_rows<C::BM, C::NT>(Gs, C::LDD, C::DP, gn + (bh * N + i0) * D, rows_q, D);
+  fm::stage_floats<C::NT>(s_s, s + bh * N + i0, C::BM, rows_q);
+  stage_kv(0);
+  fm::cp_async_commit();
+
+  const bool warp_live = row0 < rows_q;  // the warp holds a query row below N
+  const int r = lane / 4;                // this thread's fragment rows r, r + 8
+  const int qc = 2 * (lane % 4);         // and columns qc, qc + 1 of each 8-column block
+  // the fold: thread (t, m) owns value m of the windows of the block's tile
+  // t, over the tile's warps that hold a row below N
+  const int t = threadIdx.x / 128;
+  const int m = threadIdx.x % 128;
+  const int rows_t = rows_q - t * C::TILE;  // tile t's query rows below N
+  const bool folds = m < C::WIN && rows_t > 0;
+  const int fold_warps = min(C::TILE / 16, (rows_t + 15) / 16);
+  float* out = scratch + ((bh * n_t + i0 / C::TILE + t) * n_t) * C::WIN + m;
+  float wsum = 0.f;
+
+  constexpr int SPT = C::TILE / C::BN;  // stages per window tile
+  const int steps = n_t * SPT;
+  // step js: the fold of stage js - 1, then the products of stage js
+  for (int js = 0; js <= steps; ++js) {
+    fm::cp_async_wait<0>();
+    // stage js landed for every thread; stage js - 1's products, their pair
+    // sums and the fold of stage js - 2 are done
+    __syncthreads();
+    if (js + 1 < steps && (js + 1) * C::BN < N) stage_kv(js + 1);
+    fm::cp_async_commit();
+    if (js >= 1) {
+      const int jp = js - 1;
+      if (jp * C::BN < N && folds) {
+        // pair row (w, rr) of tile t sums the diagonal through query rows
+        // 16 w + rr and 16 w + rr + 8 at pair column m - 55 + 16 w + rr - jofs
+        const float* Pt = Ps + (jp & 1) * C::PAIR_FLOATS + t * (C::TILE / 2) * C::LDP;
+        const int c0 = m - (C::TILE - 1) + 8 - (jp * C::BN) % C::TILE;
+#pragma unroll
+        for (int w = 0; w < C::TILE / 16; ++w) {
+          if (w >= fold_warps) break;
+#pragma unroll
+          for (int rr = 0; rr < 8; ++rr) {
+            const int cc = c0 + 16 * w + rr;
+            if (cc >= 0 && cc < C::BN + 8) wsum += Pt[(w * 8 + rr) * C::LDP + cc];
+          }
+        }
+      }
+      if (jp % SPT == SPT - 1) {  // the window tile's last stage
+        if (folds) out[(size_t)(jp / SPT) * C::WIN] = wsum;
+        wsum = 0.f;
+      }
+    }
+    if (js < steps && js * C::BN < N && warp_live) {
+      const bf16* Kt = reinterpret_cast<const bf16*>(ring + (js & 1) * C::STAGE);
+      const bf16* Vt = Kt + C::BN * C::LDF;
+      float acc[C::NB][4];
+      fm::zero_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < C::FMAX / 16; ++kk) {  // A = q' k'^T
+        if (kk >= kf) break;
+        uint32_t af[4];
+        fm::load_a(af, Qs, C::LDF, row0, kk * 16);
+#pragma unroll
+        for (int np = 0; np < C::NB / 2; ++np) {
+          uint32_t b[4];
+          fm::load_b_rows(b, Kt, C::LDF, np * 16, kk * 16);
+          fm::mma_bf16(acc[2 * np], af, b[0], b[1]);
+          fm::mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
+        }
+      }
+      uint32_t gf[C::DP / 16][4];
+      fm::load_a_rows<C::DP / 16>(gf, Gs, C::LDD, row0);
+      const float s0 = s_s[row0 + r], s1 = s_s[row0 + r + 8];
+#pragma unroll
+      for (int np = 0; np < C::NB / 2; ++np) {  // M = gn v^T, 16 columns at a time
+        float mm[2][4];
+        fm::zero_acc(mm);
+#pragma unroll
+        for (int kd = 0; kd < C::DP / 16; ++kd) {
+          uint32_t b[4];
+          fm::load_b_rows(b, Vt, C::LDD, np * 16, kd * 16);
+          fm::mma_bf16(mm[0], gf[kd], b[0], b[1]);
+          fm::mma_bf16(mm[1], gf[kd], b[2], b[3]);
+        }
+#pragma unroll
+        for (int hb = 0; hb < 2; ++hb) {
+          float(&a)[4] = acc[2 * np + hb];
+          a[0] = (mm[hb][0] - s0) * a[0];
+          a[1] = (mm[hb][1] - s0) * a[1];
+          a[2] = (mm[hb][2] - s1) * a[2];
+          a[3] = (mm[hb][3] - s1) * a[3];
+        }
+      }
+      // pair sums: column block kb of the warp's 8 pair rows holds, at
+      // column 8 kb + qc + j (c = that - 8), P[r, c] + P[r + 8, c + 8], each
+      // term only where its column lies in this stage
+      float* prow = Ps + (js & 1) * C::PAIR_FLOATS + (warp * 8 + r) * C::LDP + qc;
+#pragma unroll
+      for (int kb = 0; kb <= C::NB; ++kb) {
+        float2 x = make_float2(0.f, 0.f);
+        if (kb >= 1) {
+          x.x += acc[kb - 1][0];
+          x.y += acc[kb - 1][1];
+        }
+        if (kb < C::NB) {
+          x.x += acc[kb][2];
+          x.y += acc[kb][3];
+        }
+        *reinterpret_cast<float2*>(prow + 8 * kb) = x;
+      }
+    }
+  }
+}
+
+// windows[i] = sum over b = 0..B-1 of scratch[b, i], in that order.
+__global__ void __launch_bounds__(THREADS)
+mlc_bwd_dc_batch_sum_kernel(const float* __restrict__ scratch, float* __restrict__ windows,
+                            int B, long long per_batch) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= per_batch) return;
+  float sum = 0.f;
+  for (int b = 0; b < B; ++b) sum += scratch[b * per_batch + i];
+  windows[i] = sum;
+}
+
+// The bf16 instantiation: features up to 272 (F = 266), values up to 64,
+// 128 query rows (8 warps) a block against 64-row key/value stages, picked
+// by trial on an H100 (experiments/tile_trial.py, numbers in PERF.md).
+using DcChoice = DcMma<272, 64, 128, 64>;
+
+const void* dc_mma_kernel() {
+  return reinterpret_cast<const void*>(mlc_bwd_dc_mma_kernel<DcChoice>);
+}
+
+// Whether a bf16 dc launch at (F, D) runs mlc_bwd_dc_mma_kernel; the staged
+// kernel runs the rest (fp32, F > 272, D > 64).
+bool dc_mma_takes(int F, int D) { return F <= 272 && F % 2 == 0 && D <= 64; }
+
+// fp32 values of the per-batch windows mlc_bwd_dc_mma_kernel writes.
+long long dc_scratch_floats(int B, int H, int N) {
+  const long long n_t = (N + DcChoice::TILE - 1) / DcChoice::TILE;
+  return (long long)B * H * n_t * n_t * DcChoice::WIN;
+}
+
+int launch_dc_mma(const void* gn, const void* s, const void* v, const void* q, const void* k,
+                  void* windows, void* scratch, int B, int H, int N, int F, int D,
+                  void* stream) {
+  using C = DcChoice;
+  const auto kernel = mlc_bwd_dc_mma_kernel<C>;
+  (void)cudaGetLastError();  // start from a clean error state
+  int err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)C::BYTES);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + C::BM - 1) / C::BM, H, B);
+  kernel<<<grid, C::NT, C::BYTES, st>>>(
+      static_cast<const bf16*>(gn), static_cast<const float*>(s), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<float*>(scratch),
+      H, N, F, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long per_batch = dc_scratch_floats(1, H, N);
+  mlc_bwd_dc_batch_sum_kernel<<<(unsigned)((per_batch + THREADS - 1) / THREADS), THREADS, 0,
+                                st>>>(static_cast<const float*>(scratch),
+                                      static_cast<float*>(windows), B, per_batch);
+  return cudaGetLastError();
+}
+
 // Diagonal windows of sum_b dW * A for one (q tile, kv tile) pair and head:
 // windows[h, iq, jk, m] = sum over a, b with b - a + TILE - 1 = m.
 template <typename T>
@@ -774,17 +1053,34 @@ int mlc_bwd_dkv_f32(const void* gn, const void* s, const void* v, const void* q,
   return launch_dkv<float>(gn, s, v, q, k, coeffs, dk, dv, B, H, N, F, D, stream);
 }
 
-// windows [H, n_t, n_t, 2 * tile - 1] fp32.
+// fp32 values of the scratch a dc launch at these dims needs: the per-batch
+// windows [B, H, n_t, n_t, 127] of mlc_bwd_dc_mma_kernel for a bf16 launch
+// it takes, else 0 (the staged kernel sums the batch in place); -1 for
+// empty dims.
+long long mlc_bwd_dc_scratch_floats(int B, int H, int N, int F, int D, int is_bf16) {
+  if (bad_dims(B, H, N, F, D)) return -1;
+  return is_bf16 && dc_mma_takes(F, D) ? dc_scratch_floats(B, H, N) : 0;
+}
+
+// windows [H, n_t, n_t, 2 * tile - 1] fp32; scratch holds
+// mlc_bwd_dc_scratch_floats(...) fp32 values (null where that is 0). The
+// bf16 launch at even F <= 272, D <= 64 runs mlc_bwd_dc_mma_kernel into the
+// scratch, then mlc_bwd_dc_batch_sum_kernel into the windows.
 int mlc_bwd_dc_bf16(const void* gn, const void* s, const void* v, const void* q,
-                    const void* k, void* windows, int B, int H, int N, int F, int D,
-                    void* stream) {
+                    const void* k, void* windows, void* scratch, int B, int H, int N,
+                    int F, int D, void* stream) {
   if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
+  if (dc_mma_takes(F, D)) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    return launch_dc_mma(gn, s, v, q, k, windows, scratch, B, H, N, F, D, stream);
+  }
   return launch_dc<bf16>(gn, s, v, q, k, windows, B, H, N, F, D, stream);
 }
 
 int mlc_bwd_dc_f32(const void* gn, const void* s, const void* v, const void* q,
-                   const void* k, void* windows, int B, int H, int N, int F, int D,
-                   void* stream) {
+                   const void* k, void* windows, void* scratch, int B, int H, int N,
+                   int F, int D, void* stream) {
+  (void)scratch;
   if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
   return launch_dc<float>(gn, s, v, q, k, windows, B, H, N, F, D, stream);
 }
@@ -801,16 +1097,20 @@ int mlc_bwd_dc_reduce(const void* windows, void* dcoeffs, int H, int N, int tile
 }
 
 // What a bf16 (is_bf16 = 1) or fp32 launch of kind 0 (dq), 1 (dkv) or 2
-// (dc) at (N, F, D) runs, in info[0..6]: rows per tile, threads, dynamic
-// shared memory bytes, resident blocks per SM, registers per thread, local
-// (spilled) bytes per thread, and 1 for mlc_bwd_dkv_mma_kernel (0 for a
-// staged kernel). Returns the CUDA error code (cudaErrorInvalidValue for
-// bad arguments or a block that exceeds shared memory).
+// (dc) at (N, F, D) runs, in info[0..6]: rows per tile (per block for the
+// mma.sync kernels), threads, dynamic shared memory bytes, resident blocks
+// per SM, registers per thread, local (spilled) bytes per thread, and 1 for
+// mlc_bwd_dkv_mma_kernel or mlc_bwd_dc_mma_kernel (0 for a staged kernel).
+// Returns the CUDA error code (cudaErrorInvalidValue for bad arguments or a
+// block that exceeds shared memory).
 int mlc_bwd_launch_info(int kind, int N, int F, int D, int is_bf16, int* info) {
   if (bad_dims(1, 1, N, F, D) || kind < 0 || kind > 2) return cudaErrorInvalidValue;
   if (is_bf16 && kind == 1 && dkv_mma_takes(F, D))
     return fm::launch_info(dkv_mma_kernel(), DkvChoice::BM, DkvChoice::NT, DkvChoice::BYTES,
                            true, info);
+  if (is_bf16 && kind == 2 && dc_mma_takes(F, D))
+    return fm::launch_info(dc_mma_kernel(), DcChoice::BM, DcChoice::NT, DcChoice::BYTES, true,
+                           info);
   const StagedChoice c = is_bf16 ? staged_choice<bf16>(kind, F, D)
                                  : staged_choice<float>(kind, F, D);
   return fm::launch_info(c.kernel, c.rows, THREADS, c.bytes, false, info);

@@ -9,6 +9,10 @@ with the instantiation swapped, at the main paths' shapes:
     mlc_bwd_dkv        (64, 12, 197, 266, 64) and (4, 12, 4097, 266, 64)
                        bf16: 64 key/value rows per block (16 warps, shipped)
                        or 32 (8 warps, two blocks per SM)
+    mlc_bwd_dc         the same two shapes: 128 query rows per block (8
+                       warps, shipped) or 64 (4 warps), against key/value
+                       stages of 64 rows (shipped) or 32 (two per window
+                       tile)
 
 Every variant is first held against the kernel's plain version (max
 |err| / max |plain|), then timed as chip_smoke.py times kernels: calls
@@ -40,6 +44,7 @@ TRIAL_DIR = _build.BUILD_DIR.parent / "tile_trial"
 # text, variant text)]}); the first variant is the shipped one
 _FUSED = "flash_bwd_fused_mma_kernel<64, 13, 32>"
 _DKV = "mlc_bwd_dkv_mma_kernel<272, 64, 64>"
+_DC = "DcMma<272, 64, 128, 64>"
 VARIANTS = {
     "flash_bwd_fused": ("flash_attention_bwd", fa, "_bwd_lib", {
         "13 warps x 32-row q tiles": [],
@@ -52,6 +57,12 @@ VARIANTS = {
         "32 kv rows, 8 warps": [
             (_DKV, _DKV.replace("64>", "32>")),
             ("DkvMma<272, 64, 64>", "DkvMma<272, 64, 32>")],
+    }),
+    "mlc_bwd_dc": ("masked_linear_coeffs_bwd", mlc, "_bwd_kernel_fns", {
+        "128 q rows (8 warps), 64-row kv stages": [],
+        "128 q rows (8 warps), 32-row kv stages": [(_DC, "DcMma<272, 64, 128, 32>")],
+        "64 q rows (4 warps), 64-row kv stages": [(_DC, "DcMma<272, 64, 64, 64>")],
+        "64 q rows (4 warps), 32-row kv stages": [(_DC, "DcMma<272, 64, 64, 32>")],
     }),
 }
 
@@ -122,22 +133,31 @@ def use_library(module, loader: str, path: str, originals: dict) -> None:
 
 
 def _max_rel(got, want) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
     return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip(got, want))
 
 
+def _first(got):
+    """The first batch element of each output."""
+    return tuple(t[:1] for t in got) if isinstance(got, tuple) else got[:1]
+
+
 def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
-    """kernel -> [(shape, kernel call, plain call)] on seeded inputs."""
+    """kernel -> [(shape, kernel call, check)] on seeded inputs; check(got)
+    is the kernel's output's max |err| / max |plain| against its plain
+    version."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    out: Dict[str, list] = {"flash_bwd_fused": [], "mlc_bwd_dkv": []}
+    out: Dict[str, list] = {kernel: [] for kernel in VARIANTS}
     q, k, v, cot = (torch.randn(64, 12, 197, 64, generator=g, device="cuda").bfloat16()
                     for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
     args = (q, k, v, cot, lse, fa.flash_delta(o, cot), 0.125)
     first = tuple(t[:1] for t in args[:6]) + (0.125,)
-    out["flash_bwd_fused"].append(("(64, 12, 197, 64)",
-                                   lambda: fa.flash_attention_bwd_fused(*args),
-                                   lambda first=first: fa.flash_bwd_reference(*first)))
+    out["flash_bwd_fused"].append((
+        "(64, 12, 197, 64)", lambda: fa.flash_attention_bwd_fused(*args),
+        lambda got, first=first: _max_rel(_first(got), fa.flash_bwd_reference(*first))))
     for B, N in ((64, 197), (4, 4097)):
         qp, kp = ((torch.randn(B, 12, N, 266, generator=g, device="cuda").abs() * 0.1)
                   .bfloat16() for _ in range(2))
@@ -147,12 +167,19 @@ def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
         o, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, vv, c)
         gn, s = mlc.kerple_bwd_residuals(den, o, ct)
         a = (gn, s, vv, qp, kp, c)
+        shape = f"({B}, 12, {N}, 266, 64)"
         # the plain version of the first batch element (long N fits that way)
         first = tuple(t[:1] for t in a[:5]) + (c,)
         out["mlc_bwd_dkv"].append((
-            f"({B}, 12, {N}, 266, 64)",
-            lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dkv(*a),
-            lambda first=first: mlc.masked_linear_attention_coeffs_bwd_dkv_reference(*first)))
+            shape, lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dkv(*a),
+            lambda got, first=first: _max_rel(
+                _first(got), mlc.masked_linear_attention_coeffs_bwd_dkv_reference(*first))))
+        # dc's windows sum over the batch: the plain version of all of it,
+        # computed once
+        want = mlc.masked_linear_attention_coeffs_bwd_dc_reference(*a[:5])
+        out["mlc_bwd_dc"].append((
+            shape, lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dc(*a[:5]),
+            lambda got, want=want: _max_rel(got, want)))
     return out
 
 
@@ -167,9 +194,8 @@ def main() -> None:
         for (kernel, variant), path in libs.items():
             _, module, loader, _ = VARIANTS[kernel]
             use_library(module, loader, path, originals)
-            for shape, run, plain in trial[kernel]:
-                got = run()
-                rel = _max_rel(tuple(t[:1] for t in got), plain())
+            for shape, run, check in trial[kernel]:
+                rel = check(run())
                 ms = kernel_ms(run, iters=20 if "4097" not in shape else 3)
                 print(f"round {rnd} {kernel} {variant} {shape}: {ms:.4f} ms, "
                       f"max|err|/max|plain| {rel:.3e}", flush=True)

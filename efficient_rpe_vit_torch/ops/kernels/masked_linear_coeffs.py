@@ -8,8 +8,9 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`:
 the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
 `csrc/masked_linear_coeffs_fwd.cu`; the backward `_bwd_impl` (`_dq_kernel`,
 `_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
-kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 dkv kernel
-register-resident on mma.sync; `launch_info` reports what a launch runs);
+kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 dkv and dc kernels
+register-resident on mma.sync, dc with a batch-sum kernel behind it;
+`launch_info` reports what a launch runs);
 the fused-phi forward
 `_fused_phi_fwd_kernel` (q' = phi(q), k' = phi(k) computed per tile from
 the raw q, k and Omega) is `csrc/kerple_fused_phi_fwd.cu`. Each builds its
@@ -370,11 +371,13 @@ def _bwd_kernel_fns():
     for suffix in ("bf16", "f32"):
         getattr(lib, f"mlc_bwd_dq_{suffix}").argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         getattr(lib, f"mlc_bwd_dkv_{suffix}").argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-        getattr(lib, f"mlc_bwd_dc_{suffix}").argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        getattr(lib, f"mlc_bwd_dc_{suffix}").argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         for kind in ("dq", "dkv", "dc"):
             getattr(lib, f"mlc_bwd_{kind}_{suffix}").restype = i32
     lib.mlc_bwd_dc_reduce.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.mlc_bwd_dc_reduce.restype = i32
+    lib.mlc_bwd_dc_scratch_floats.argtypes = [i32] * 6
+    lib.mlc_bwd_dc_scratch_floats.restype = ctypes.c_longlong
     lib.mlc_bwd_tile.argtypes = [i32]
     lib.mlc_bwd_tile.restype = i32
     lib.mlc_bwd_launch_info.argtypes = [i32] * 5 + [ptr]
@@ -400,8 +403,8 @@ def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict
     built library: rows per tile, threads, dynamic shared memory bytes,
     resident blocks per SM, registers and local (spilled) bytes per thread
     under `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs
-    ("mma.sync", the register-resident dkv kernel, or "staged"). Needs a
-    GPU."""
+    ("mma.sync", the register-resident dkv or dc kernel, or "staged").
+    Needs a GPU."""
     if kernel not in _BWD_KINDS:
         raise ValueError(f"unknown KERPLE backward kernel {kernel!r}")
     if dtype not in _DTYPES:
@@ -554,20 +557,27 @@ def masked_linear_attention_coeffs_bwd_dkv(gn, s, v, q_prime, k_prime, coeffs):
 def masked_linear_attention_coeffs_bwd_dc(gn, s, v, q_prime, k_prime):
     """Per tile pair, the diagonal sums of sum_b dW*A: windows
     [H, n_t, n_t, 2*tile-1] fp32 (tile = BWD_TILE[dtype]). Replaces
-    `_dc_kernel`."""
+    `_dc_kernel`. The bf16 kernel at even F <= 272, D <= 64 folds each batch
+    element's tile pairs into a scratch [B, H, n_t, n_t, 2*tile-1] fp32,
+    allocated here, which a second kernel sums over the batch in order."""
     _check_bwd_inputs(gn, s, v, k_prime, q_prime)
     if on_cpu(v):
         return masked_linear_attention_coeffs_bwd_dc_reference(
             gn, s, v, q_prime, k_prime)
     B, H, N, F_ = k_prime.shape
+    D = v.shape[-1]
     tile = BWD_TILE[v.dtype]
     n_t = -(-N // tile)
     lib = _bwd_kernel_fns()
     windows = torch.empty((H, n_t, n_t, 2 * tile - 1), dtype=torch.float32,
                           device=v.device)
+    floats = lib.mlc_bwd_dc_scratch_floats(B, H, N, F_, D,
+                                           int(v.dtype == torch.bfloat16))
+    scratch = torch.empty(floats, dtype=torch.float32, device=v.device) \
+        if floats > 0 else None
     launch(lib.mlc_bwd_error_string, "masked_linear_coeffs_bwd_dc",
            getattr(lib, f"mlc_bwd_dc_{dtype_suffix(v.dtype)}"), v.device,
-           gn, s, v, q_prime, k_prime, windows, B, H, N, F_, v.shape[-1])
+           gn, s, v, q_prime, k_prime, windows, scratch, B, H, N, F_, D)
     masked_linear_attention_coeffs_bwd_dc.launches += 1
     return windows
 

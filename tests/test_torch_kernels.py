@@ -222,6 +222,29 @@ def test_per_kernel_plain_versions_compose_to_the_backward(n, dtype):
     torch.testing.assert_close(dc, want[3], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [17, 130])
+def test_dc_windows_fold_each_batch_element_then_sum(n, dtype):
+    """The fold into diagonal windows is linear, so the windows of each
+    batch element on its own, summed over b in order (what the bf16 dc
+    kernel and its batch-sum kernel compute), are the full batch's windows
+    up to fp32 rounding; ragged last tiles included."""
+    qp, kp, v, coeffs = (torch.from_numpy(a) for a in _inputs(15, 3, 2, n, 20, 8))
+    qp, kp, v = qp.to(dtype), kp.to(dtype), v.to(dtype)
+    g = torch.from_numpy(_cotangent(16, 3, 2, n, 8)).to(dtype)
+    out, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, v, coeffs)
+    gn, s = mlc.kerple_bwd_residuals(den, out, g)
+    want = mlc.masked_linear_attention_coeffs_bwd_dc_reference(gn, s, v, qp, kp)
+    got = torch.zeros_like(want)
+    for b in range(v.shape[0]):
+        got += mlc.masked_linear_attention_coeffs_bwd_dc_reference(
+            *(t[b:b + 1] for t in (gn, s, v, qp, kp)))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    dc = mlc.masked_linear_attention_coeffs_bwd_dc_reduce(got, n)
+    torch.testing.assert_close(
+        dc, mlc.masked_linear_attention_coeffs_bwd_dc_reduce(want, n), rtol=1e-5, atol=1e-5)
+
+
 def test_dc_windows_follow_the_forward_window_convention():
     """Window m of tile pair (iq, jk) is coefficient
     (jk - iq) * tile + N - tile + m: a dT that is 1 on one element (i, j)
@@ -357,6 +380,11 @@ def test_backward_kernel_source_is_in_the_package():
         assert f'#include "{header}"' in src
     for kernel in ("mlc_bwd_dkv_mma_kernel", "mlc_bwd_dkv_kernel", "mlc_bwd_dq_kernel",
                    "mlc_bwd_dc_kernel", "mlc_bwd_launch_info"):
+        assert kernel in src
+    # the bf16 dc kernel folds each batch element into a scratch the wrapper
+    # allocates, and a second kernel sums it over the batch in order
+    for kernel in ("mlc_bwd_dc_mma_kernel", "mlc_bwd_dc_batch_sum_kernel",
+                   "mlc_bwd_dc_scratch_floats"):
         assert kernel in src
 
 
