@@ -11,12 +11,12 @@ Phases, each printed as it runs; any failure exits non-zero:
   3. KERPLE kernels (forward; 3b: backward dq, dkv, dc, dc_reduce) against
      their plain PyTorch versions on the card at the serving and training
      shapes and at ragged shapes, in bf16 and fp32 (3b also in bf16 at the
-     edges of the dkv and dc kernels' tiles and at batches of 1 and 3),
+     edges of the dq, dkv and dc kernels' tiles and at batches of 1 and 3),
      timed (calls replayed from a CUDA graph, so without the wrapper's host
      work) beside their bounds; 3b logs the backward kernels' launch_info
-     (the dkv and dc kernels must be the mma.sync ones at F=266, the fp32
-     dc the staged one) and calls dc twice at every shape (windows and
-     dcoeffs bit for bit);
+     (the dq, dkv and dc kernels must be the mma.sync ones at F=266, the
+     fp32 dq and dc the staged ones) and calls dq and dc twice at every
+     shape (dq', windows and dcoeffs bit for bit);
   3c. flash kernels (softmax forward; backward fused, dq, dkv) against their
      plain versions in bf16 and fp32 at the serving, training and ragged
      shapes, with [B,1,N,N] and [B,H,N,N] masks and with dropout (whose
@@ -77,7 +77,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      kernel arms against the dense/chain arms and one train step with
      finite gradients; before them every KERPLE kernel at favor_hyper's
      F = 532 ([2, 12, 197, 532], both dtypes) against its plain version
-     (dkv and dc on their staged kernels, checked through launch_info);
+     (dq, dkv and dc on their staged kernels, checked through launch_info);
  13. serve fused phi: ViT-B/16 performer_favor_most_general with
      attention_config={"fused_phi": True} as phase 4 (12 fused-phi launches
      and no KERPLE forward launch per forward), logits against the unfused
@@ -212,7 +212,8 @@ KERPLE_LONGN = (LONGN["batch_size"], 12, LONGN_N, 266, 64)
 # package's kernel-test shape
 BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
               (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
-# bf16 shapes at the edges of the dkv kernel's tiles (64 key/value rows
+# bf16 shapes at the edges of the dq kernel's tiles (128-row query blocks
+# against 64-row key/value stages), the dkv kernel's (64 key/value rows
 # against 32-row query tiles) and the dc kernel's (128-row query blocks of
 # two 64-row window tiles, 64-row key/value stages): one row short of, at
 # and past each; and batches of 1 and 3, the ends of the dc kernel's
@@ -393,8 +394,9 @@ def _max_rel(got, want) -> float:
 
 
 def kerple_mma_rule(F, D, dtype) -> str:
-    """The kernel a dkv or dc launch runs by the source's shape rule: the
-    mma.sync one in bf16 at even F <= 272 and D <= 64, else the staged one."""
+    """The kernel a dq, dkv or dc launch runs by the source's shape rule:
+    the mma.sync one in bf16 at even F <= 272 and D <= 64, else the staged
+    one."""
     takes = dtype == torch.bfloat16 and F <= 272 and F % 2 == 0 and D <= 64
     return "mma.sync" if takes else "staged"
 
@@ -416,16 +418,13 @@ def check_kerple_rule(mlc, kname, N, F, D, dtype, phase="kernel"):
 def kerple_launch_info(mlc, N, F, D):
     """{kernel: launch_info} of the bf16 KERPLE backward kernels dq, dkv
     and dc at (N, F, D), logged: rows per tile, threads, shared memory,
-    blocks per SM, registers, spilled bytes and which kernel runs. dkv and
-    dc must run the kernel of kerple_mma_rule (the mma.sync ones at even
-    F <= 272 and D <= 64), and the fp32 dc the staged one."""
-    out = {"masked_linear_coeffs_bwd_dq": mlc.launch_info(
-        "masked_linear_coeffs_bwd_dq", N, F, D, torch.bfloat16)}
-    log("kernel", f"masked_linear_coeffs_bwd_dq N={N} F={F} D={D} bfloat16: " + ", ".join(
-        f"{key} {value}" for key, value in out["masked_linear_coeffs_bwd_dq"].items()))
-    for kname in BWD_KERNELS[1:3]:
-        out[kname] = check_kerple_rule(mlc, kname, N, F, D, torch.bfloat16)
-    check_kerple_rule(mlc, "masked_linear_coeffs_bwd_dc", N, F, D, torch.float32)
+    blocks per SM, registers, spilled bytes and which kernel runs. Each
+    must run the kernel of kerple_mma_rule (the mma.sync ones at even
+    F <= 272 and D <= 64), and the fp32 dq and dc the staged ones."""
+    out = {kname: check_kerple_rule(mlc, kname, N, F, D, torch.bfloat16)
+           for kname in BWD_KERNELS[:3]}
+    for kname in (BWD_KERNELS[0], BWD_KERNELS[2]):
+        check_kerple_rule(mlc, kname, N, F, D, torch.float32)
     return out
 
 
@@ -448,6 +447,12 @@ def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]
             out, den = mlc.masked_linear_attention_coeffs_reference(q, k, v, c)
             gn, s = mlc.kerple_bwd_residuals(den, out, cot)
             shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
+            # dq twice: dq' bit for bit (each block sums its stages in order)
+            same = torch.equal(mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, k, c),
+                               mlc.masked_linear_attention_coeffs_bwd_dq(gn, s, v, k, c))
+            log("kernel", f"masked_linear_coeffs_bwd_dq {shape}: dq' bitwise on a rerun: {same}")
+            if not same:
+                raise AssertionError(f"dq is not bitwise the same on a rerun at {shape}")
             windows = mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k)
             # dc twice: windows and dcoeffs bit for bit (sums in a fixed order)
             again = mlc.masked_linear_attention_coeffs_bwd_dc(gn, s, v, q, k)
@@ -1512,7 +1517,7 @@ def kerple_f532_check(mlc):
     raises."""
     B, H, N, F, D = F532
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        for kname in BWD_KERNELS[1:3]:  # the staged dkv and dc kernels by their rule
+        for kname in BWD_KERNELS[:3]:  # the staged dq, dkv and dc kernels by their rule
             check_kerple_rule(mlc, kname, N, F, D, dtype, phase="variants")
         g = torch.Generator(device="cuda").manual_seed(532)
         q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)

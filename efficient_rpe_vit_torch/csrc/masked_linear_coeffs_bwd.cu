@@ -87,8 +87,31 @@
 // N; it runs at ~4x and ~6x them, on latency within its one block per SM
 // rather than on the tensor cores or shared-memory bandwidth.
 //
+// bf16 dq (mlc_bwd_dq_mma_kernel, the same shapes) is dkv's mirror image:
+// one block per (128 query rows, head, batch element), gn and s resident
+// (gn's A fragments over D in registers for the whole sweep), k', v and
+// each stage's coefficient window w[t] = c[j0 - i0 + N - BM + t] through a
+// two-stage cp.async ring of 64 key/value rows. It meets dkv's obstacle,
+// the [16, 272] fp32 dq' accumulator of 16 query rows, the same way: two
+// warps share 16 rows, each computes M = gn v^T for 32 of the stage's
+// columns, forms round((M - s) * T) per cell in registers and swaps it with
+// its partner as mma A fragments (8 bytes a lane and 8-column block, a
+// named barrier of the two), then accumulates dq' += dA k' over its half
+// of the 17 feature blocks (72 registers). One product over D, one
+// weighting and one product over F a stage; one block barrier a stage.
+// What held the first version back: one 8-warp block per SM on ~152 KB,
+// the [64, 276] fp32 accumulator in shared memory (loaded and stored by
+// every kv tile's WMMA pass), an fp32 score tile between the two products,
+// four barriers a tile and loads not overlapped. The tile trial (PERF.md)
+// found 128 query rows faster than 64 or 32 (each block streams all of k'
+// and a taller one streams it less often) and 64-row stages faster than
+// 32-row ones (half the barriers). It holds 128 registers a thread (8
+// bytes spilled), so one 16-warp block per SM (126,976 bytes of shared
+// memory); there it runs at ~5x and ~7x its bounds, on latency rather than
+// on the tensor cores.
+//
 // The rest is the first version, simple rather than fast: one block per
-// (tile, head, batch) for dq and the fp32 / large-F dkv, and per (tile
+// (tile, head, batch) for the fp32 / large-F dq and dkv, and per (tile
 // pair, head) for the fp32 / large-F dc, tiles staged by 4-byte cp.async
 // copies, WMMA bf16 products for bf16 inputs and fp32 FMA loops for fp32
 // inputs, fp32 accumulators in shared memory. bf16 uses 64-row tiles; fp32 uses 32-row
@@ -598,6 +621,211 @@ int launch_dkv_mma(const void* gn, const void* s, const void* v, const void* q, 
   return cudaGetLastError();
 }
 
+// ─── bf16 dq': gn resident, rounded weights swapped as A fragments ──────
+
+// Geometry of mlc_bwd_dq_mma_kernel: blocks of BM query rows, SPLIT warps
+// per 16 of them (WARPS = BM / 16 * SPLIT), against BN key/value rows a
+// stage; each warp owns BN / SPLIT of a stage's columns in the score
+// product and about 1 / SPLIT of dq''s 16-column feature blocks; features
+// staged up to FMAX, values to DP. Shared memory: gn [BM, LDD] bf16 and s
+// [BM] fp32 resident; a ring of two stages, each k' [BN, LDF] and v
+// [BN, LDD] bf16 and the tile pair's coefficient window [WINP] fp32; and
+// per warp and 8-column block of its score columns one 8-byte word a lane
+// of rounded weights, which the other warps of its row group read.
+template <int FMAX_, int DP_, int BM_, int SPLIT_, int BN_>
+struct DqMma {
+  static constexpr int FMAX = FMAX_, DP = DP_, BM = BM_, SPLIT = SPLIT_, BN = BN_;
+  static constexpr int WARPS = BM / 16 * SPLIT, NT = 32 * WARPS;
+  static constexpr int NBW = BN / (8 * SPLIT);  // 8-column blocks of M a warp computes
+  static constexpr int KS = BN / 16;            // 16-steps of the dq' product a stage
+  static constexpr int LDF = FMAX + 8, LDD = DP + 8;
+  static constexpr int PAIRS = (FMAX / 16 + SPLIT - 1) / SPLIT;  // most dq' blocks a warp holds
+  static constexpr int WINP = (BM + BN - 1 + 3) / 4 * 4;
+  static constexpr size_t G = (size_t)BM * LDD * sizeof(bf16);
+  static constexpr size_t S = (size_t)BM * sizeof(float);
+  static constexpr size_t STAGE =
+      (size_t)BN * (LDF + LDD) * sizeof(bf16) + (size_t)WINP * sizeof(float);
+  static constexpr size_t XCH = (size_t)WARPS * NBW * 32 * sizeof(uint2);
+  static constexpr size_t BYTES = G + S + 2 * STAGE + XCH;
+  static_assert(FMAX % 16 == 0 && DP % 16 == 0 && BM % 16 == 0 && BN % (16 * SPLIT) == 0,
+                "tile shapes: each warp's score columns load in 16-column pairs");
+  static_assert(BM / 16 <= 15, "one named barrier (1..15) per row group");
+  static_assert(G % 16 == 0 && S % 16 == 0 && STAGE % 16 == 0 &&
+                    (BN * LDF * sizeof(bf16)) % 16 == 0, "regions start 16-byte aligned");
+};
+
+// dq' for one (BM-row query block, head, batch), bf16, F <= FMAX, D <= DP.
+// gn and s stay resident, gn's A fragments over D in registers for the
+// whole sweep; key/value stages (k', v and the coefficient window w[t] =
+// c[j0 - i0 + N - BM + t] of the block and the stage) arrive through the
+// two-stage cp.async ring. The SPLIT warps of a row group own the same 16
+// query rows. Per stage each computes M = gn v^T for its BN / SPLIT
+// key/value columns in registers, then per cell, with T[i, j] = w[(j - j0)
+// - (i - i0) + BM - 1], dA = round((M - s_i) T), zero for cells past N in
+// either direction, packed as bf16 pairs: exactly the registers of an mma
+// A fragment that its 8-column blocks fill. The warps of the group swap
+// these through shared memory (a named barrier of the group), so each
+// holds the rounded dA of all BN columns as the A operands of dq' += dA k'
+// over its share of the feature blocks, accumulated in registers across
+// the sweep. Groups wholly past N skip together after the ring's barrier.
+// No float atomics; every sum runs in a fixed order.
+template <typename C>
+__global__ void __launch_bounds__(C::NT, C::NT <= 256 ? 2 : 1)
+mlc_bwd_dq_mma_kernel(const bf16* __restrict__ gn, const float* __restrict__ s,
+                      const bf16* __restrict__ v, const bf16* __restrict__ k,
+                      const float* __restrict__ coeffs, bf16* __restrict__ dq,
+                      int H, int N, int F, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Gs = reinterpret_cast<bf16*>(smem);
+  float* s_s = reinterpret_cast<float*>(smem + C::G);
+  unsigned char* ring = smem + C::G + C::S;
+  uint2* xch = reinterpret_cast<uint2*>(ring + 2 * C::STAGE);
+
+  const int i0 = blockIdx.x * C::BM;
+  const int h = blockIdx.y;
+  const size_t bh = (size_t)blockIdx.z * H + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int group = warp / C::SPLIT;
+  const int part = warp % C::SPLIT;
+  const int row0 = group * 16;            // the group's first query row in the block
+  const int c0 = part * C::NBW * 8;       // this warp's key/value columns in a stage
+  const int fp = (F + 15) / 16 * 16;
+  const int kf = fp / 16;  // 16-column blocks of dq'
+  const int p_count = kf / C::SPLIT + (part < kf % C::SPLIT ? 1 : 0);
+  const int p_begin = part * (kf / C::SPLIT) + min(part, kf % C::SPLIT);
+  const int rows_q = min(C::BM, N - i0);
+  const bf16* kh = k + bh * N * F;
+  const bf16* vh = v + bh * N * D;
+  const float* cb = coeffs + (size_t)h * (2 * N - 1);
+
+  const auto stage_of = [&](int js) {
+    return reinterpret_cast<bf16*>(ring + (js & 1) * C::STAGE);
+  };
+  const auto stage_kv = [&](int js) {
+    bf16* Kt = stage_of(js);
+    bf16* Vt = Kt + C::BN * C::LDF;
+    float* w_t = reinterpret_cast<float*>(Vt + C::BN * C::LDD);
+    const int j0 = js * C::BN;
+    const int rows = min(C::BN, N - j0);
+    stage_words4<C::BN, C::NT>(Kt, C::LDF, fp, kh + (size_t)j0 * F, rows, F);
+    fm::stage_rows<C::BN, C::NT>(Vt, C::LDD, C::DP, vh + (size_t)j0 * D, rows, D);
+    const long long base = (long long)j0 - i0 + N - C::BM;
+    for (int t = threadIdx.x; t < C::WINP; t += C::NT) {
+      const long long m = base + t;
+      const bool valid = m >= 0 && m < 2LL * N - 1;
+      cp_async4(w_t + t, valid ? cb + m : cb, valid ? 4 : 0);
+    }
+  };
+  fm::stage_rows<C::BM, C::NT>(Gs, C::LDD, C::DP, gn + (bh * N + i0) * D, rows_q, D);
+  fm::stage_floats<C::NT>(s_s, s + bh * N + i0, C::BM, rows_q);
+  stage_kv(0);
+  fm::cp_async_commit();
+
+  float acc[2 * C::PAIRS][4];
+  fm::zero_acc(acc);
+  uint32_t gf[C::DP / 16][4];  // gn's A fragments, loaded once stage 0 has landed
+  float s_r[2] = {0.f, 0.f};   // s of this thread's rows
+  const int r = lane / 4;             // this thread's fragment rows r, r + 8
+  const int qc = 2 * (lane % 4);      // and columns qc, qc + 1 of each 8-column block
+  const bool row_ok[2] = {i0 + row0 + r < N, i0 + row0 + r + 8 < N};
+
+  const int n_kv = (N + C::BN - 1) / C::BN;
+  for (int js = 0; js < n_kv; ++js) {
+    fm::cp_async_wait<0>();
+    __syncthreads();  // stage js staged by every thread; stage js - 1's ring slot and words free
+    if (js + 1 < n_kv) {
+      stage_kv(js + 1);
+      fm::cp_async_commit();
+    }
+    if (i0 + row0 >= N) continue;  // the warps of a group skip together
+    if (js == 0) {
+      fm::load_a_rows<C::DP / 16>(gf, Gs, C::LDD, row0);
+      s_r[0] = s_s[row0 + r];
+      s_r[1] = s_s[row0 + r + 8];
+    }
+    const bf16* Kt = stage_of(js);
+    const bf16* Vt = Kt + C::BN * C::LDF;
+    const float* w_t = reinterpret_cast<const float*>(Vt + C::BN * C::LDD);
+    const int j0 = js * C::BN;
+
+    // M = gn v^T for this warp's NBW 8-column blocks
+    float m[C::NBW][4];
+    fm::zero_acc(m);
+    fm::mma_a_rows<C::DP / 16, C::NBW>(m, gf, Vt + c0 * C::LDD, C::LDD);
+    // per cell (query row i, key/value row j): dA = round((M - s_i) T)
+#pragma unroll
+    for (int nb = 0; nb < C::NBW; ++nb) {
+      float wd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int a = row0 + r + 8 * (e / 2);      // query row in the block
+        const int c = c0 + nb * 8 + qc + (e & 1);  // key/value row in the stage
+        wd[e] = 0.f;
+        if (row_ok[e / 2] && j0 + c < N)
+          wd[e] = (m[nb][e] - s_r[e / 2]) * w_t[c - a + C::BM - 1];
+      }
+      xch[(warp * C::NBW + nb) * 32 + lane] =
+          make_uint2(fm::pack_bf16(wd[0], wd[1]), fm::pack_bf16(wd[2], wd[3]));
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(32 * C::SPLIT) : "memory");
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      // the A fragment of 16-step ks: 8-column blocks 2 ks (registers 0, 1)
+      // and 2 ks + 1 (registers 2, 3), each from the warp that computed it
+      uint32_t da[4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int blk = 2 * ks + hh;
+        const uint2 w2 = xch[((group * C::SPLIT + blk / C::NBW) * C::NBW + blk % C::NBW) * 32 +
+                             lane];
+        da[2 * hh] = w2.x;
+        da[2 * hh + 1] = w2.y;
+      }
+#pragma unroll
+      for (int lp = 0; lp < C::PAIRS; ++lp) {
+        if (lp >= p_count) continue;
+        uint32_t b[4];
+        fm::load_b_cols(b, Kt, C::LDF, ks * 16, (p_begin + lp) * 16);
+        fm::mma_bf16(acc[2 * lp], da, b[0], b[1]);
+        fm::mma_bf16(acc[2 * lp + 1], da, b[2], b[3]);
+      }
+    }
+  }
+  store_block<C::PAIRS>(dq + bh * N * F, F, N, F, i0 + row0, p_begin * 16, p_count, acc);
+}
+
+// The bf16 instantiation: features up to 272 (F = 266), values up to 64,
+// 128 query rows (16 warps, two per 16 rows) per block against 64-row
+// key/value stages, picked by trial on an H100 (experiments/tile_trial.py,
+// numbers in PERF.md).
+using DqChoice = DqMma<272, 64, 128, 2, 64>;
+
+const void* dq_mma_kernel() {
+  return reinterpret_cast<const void*>(mlc_bwd_dq_mma_kernel<DqChoice>);
+}
+
+// Whether a bf16 dq launch at (F, D) runs mlc_bwd_dq_mma_kernel; the staged
+// kernel runs the rest (fp32, F > 272, odd F, D > 64).
+bool dq_mma_takes(int F, int D) { return F <= 272 && F % 2 == 0 && D <= 64; }
+
+int launch_dq_mma(const void* gn, const void* s, const void* v, const void* k,
+                  const void* coeffs, void* dq, int B, int H, int N, int F, int D,
+                  void* stream) {
+  using C = DqChoice;
+  const auto kernel = mlc_bwd_dq_mma_kernel<C>;
+  (void)cudaGetLastError();  // start from a clean error state
+  const int err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + C::BM - 1) / C::BM, H, B);
+  kernel<<<grid, C::NT, C::BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(gn), static_cast<const float*>(s), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(k), static_cast<const float*>(coeffs), static_cast<bf16*>(dq),
+      H, N, F, D);
+  return cudaGetLastError();
+}
+
 // ─── bf16 dcoeffs: q' resident, the fold before the batch sum ───────────
 
 // Geometry of mlc_bwd_dc_mma_kernel: blocks of BM query rows (BM / 64 of
@@ -1021,11 +1249,13 @@ int mlc_bwd_tile(int is_bf16) {
 // [H, 2N-1] in fp32; all contiguous. Every launch below runs on `stream`,
 // does not synchronise, allocates nothing, and returns the CUDA error code
 // (0 = launched; cudaErrorInvalidValue for empty dims or tiles that exceed
-// shared memory even at MIN_TILE rows).
+// shared memory even at MIN_TILE rows). The bf16 dq launch at even F <= 272,
+// D <= 64 runs mlc_bwd_dq_mma_kernel.
 int mlc_bwd_dq_bf16(const void* gn, const void* s, const void* v, const void* k,
                     const void* coeffs, void* dq, int B, int H, int N, int F, int D,
                     void* stream) {
   if (bad_dims(B, H, N, F, D)) return cudaErrorInvalidValue;
+  if (dq_mma_takes(F, D)) return launch_dq_mma(gn, s, v, k, coeffs, dq, B, H, N, F, D, stream);
   return launch_dq<bf16>(gn, s, v, k, coeffs, dq, B, H, N, F, D, stream);
 }
 
@@ -1100,11 +1330,15 @@ int mlc_bwd_dc_reduce(const void* windows, void* dcoeffs, int H, int N, int tile
 // (dc) at (N, F, D) runs, in info[0..6]: rows per tile (per block for the
 // mma.sync kernels), threads, dynamic shared memory bytes, resident blocks
 // per SM, registers per thread, local (spilled) bytes per thread, and 1 for
-// mlc_bwd_dkv_mma_kernel or mlc_bwd_dc_mma_kernel (0 for a staged kernel).
+// mlc_bwd_dq_mma_kernel, mlc_bwd_dkv_mma_kernel or mlc_bwd_dc_mma_kernel (0
+// for a staged kernel).
 // Returns the CUDA error code (cudaErrorInvalidValue for bad arguments or a
 // block that exceeds shared memory).
 int mlc_bwd_launch_info(int kind, int N, int F, int D, int is_bf16, int* info) {
   if (bad_dims(1, 1, N, F, D) || kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  if (is_bf16 && kind == 0 && dq_mma_takes(F, D))
+    return fm::launch_info(dq_mma_kernel(), DqChoice::BM, DqChoice::NT, DqChoice::BYTES, true,
+                           info);
   if (is_bf16 && kind == 1 && dkv_mma_takes(F, D))
     return fm::launch_info(dkv_mma_kernel(), DkvChoice::BM, DkvChoice::NT, DkvChoice::BYTES,
                            true, info);

@@ -13,6 +13,11 @@ with the instantiation swapped, at the main paths' shapes:
                        warps, shipped) or 64 (4 warps), against key/value
                        stages of 64 rows (shipped) or 32 (two per window
                        tile)
+    mlc_bwd_dq         the same two shapes: 128 query rows per block (16
+                       warps, two per 16 rows) against key/value stages of
+                       64 rows (shipped) or 32; 64 query rows (16 warps,
+                       four per 16 rows) or 32 (8 warps, four per 16 rows,
+                       two blocks per SM) against 64-row stages
 
 Every variant is first held against the kernel's plain version (max
 |err| / max |plain|), then timed as chip_smoke.py times kernels: calls
@@ -45,6 +50,7 @@ TRIAL_DIR = _build.BUILD_DIR.parent / "tile_trial"
 _FUSED = "flash_bwd_fused_mma_kernel<64, 13, 32>"
 _DKV = "mlc_bwd_dkv_mma_kernel<272, 64, 64>"
 _DC = "DcMma<272, 64, 128, 64>"
+_DQ = "DqMma<272, 64, 128, 2, 64>"
 VARIANTS = {
     "flash_bwd_fused": ("flash_attention_bwd", fa, "_bwd_lib", {
         "13 warps x 32-row q tiles": [],
@@ -63,6 +69,15 @@ VARIANTS = {
         "128 q rows (8 warps), 32-row kv stages": [(_DC, "DcMma<272, 64, 128, 32>")],
         "64 q rows (4 warps), 64-row kv stages": [(_DC, "DcMma<272, 64, 64, 64>")],
         "64 q rows (4 warps), 32-row kv stages": [(_DC, "DcMma<272, 64, 64, 32>")],
+    }),
+    "mlc_bwd_dq": ("masked_linear_coeffs_bwd", mlc, "_bwd_kernel_fns", {
+        "128 q rows (16 warps, 2 per 16 rows), 64-row kv stages": [],
+        "128 q rows (16 warps, 2 per 16 rows), 32-row kv stages": [
+            (_DQ, "DqMma<272, 64, 128, 2, 32>")],
+        "64 q rows (16 warps, 4 per 16 rows), 64-row kv stages": [
+            (_DQ, "DqMma<272, 64, 64, 4, 64>")],
+        "32 q rows (8 warps, 4 per 16 rows), 64-row kv stages": [
+            (_DQ, "DqMma<272, 64, 32, 4, 64>")],
     }),
 }
 
@@ -174,6 +189,12 @@ def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
             shape, lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dkv(*a),
             lambda got, first=first: _max_rel(
                 _first(got), mlc.masked_linear_attention_coeffs_bwd_dkv_reference(*first))))
+        dq_args = (gn, s, vv, kp, c)
+        dq_first = tuple(t[:1] for t in dq_args[:4]) + (c,)
+        out["mlc_bwd_dq"].append((
+            shape, lambda a=dq_args: mlc.masked_linear_attention_coeffs_bwd_dq(*a),
+            lambda got, first=dq_first: _max_rel(
+                _first(got), mlc.masked_linear_attention_coeffs_bwd_dq_reference(*first))))
         # dc's windows sum over the batch: the plain version of all of it,
         # computed once
         want = mlc.masked_linear_attention_coeffs_bwd_dc_reference(*a[:5])

@@ -8,8 +8,8 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`:
 the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
 `csrc/masked_linear_coeffs_fwd.cu`; the backward `_bwd_impl` (`_dq_kernel`,
 `_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
-kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 dkv and dc kernels
-register-resident on mma.sync, dc with a batch-sum kernel behind it;
+kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 dq, dkv and dc
+kernels register-resident on mma.sync, dc with a batch-sum kernel behind it;
 `launch_info` reports what a launch runs);
 the fused-phi forward
 `_fused_phi_fwd_kernel` (q' = phi(q), k' = phi(k) computed per tile from
@@ -403,7 +403,7 @@ def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict
     built library: rows per tile, threads, dynamic shared memory bytes,
     resident blocks per SM, registers and local (spilled) bytes per thread
     under `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs
-    ("mma.sync", the register-resident dkv or dc kernel, or "staged").
+    ("mma.sync", the register-resident dq, dkv or dc kernel, or "staged").
     Needs a GPU."""
     if kernel not in _BWD_KINDS:
         raise ValueError(f"unknown KERPLE backward kernel {kernel!r}")

@@ -160,13 +160,15 @@ def _jax_grads(fn, qp, kp, v, coeffs, g):
                     argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (qp, kp, v, coeffs)))
 
 
-def test_plain_backward_matches_jax_pallas_backward():
-    shape = (2, 2, 197, 44, 16)
+@pytest.mark.parametrize("shape", [(2, 2, 197, 44, 16), (1, 2, 65, 266, 64)],
+                         ids=["jax_test_shape", "main_path_width"])
+def test_plain_backward_matches_jax_pallas_backward(shape):
+    B, H, N, F, D = shape
     qp, kp, v, coeffs = _inputs(3, *shape)
-    g = _cotangent(4, 2, 2, 197, 16)
+    g = _cotangent(4, B, H, N, D)
     got = _port_bwd(qp, kp, v, coeffs, g)
     want = _jax_grads(lambda *a: jax_mlc(*a, 128, 128, True), qp, kp, v, coeffs, g)
-    assert got[3].dtype == torch.float32 and got[3].shape == (2, 393)
+    assert got[3].dtype == torch.float32 and got[3].shape == (H, 2 * N - 1)
     for name, a, b in zip(("dq'", "dk'", "dv", "dcoeffs"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **FP32_TOL)
 
@@ -243,6 +245,64 @@ def test_dc_windows_fold_each_batch_element_then_sum(n, dtype):
     dc = mlc.masked_linear_attention_coeffs_bwd_dc_reduce(got, n)
     torch.testing.assert_close(
         dc, mlc.masked_linear_attention_coeffs_bwd_dc_reduce(want, n), rtol=1e-5, atol=1e-5)
+
+
+def _dq_blocked(gn, s, v, k_prime, coeffs, bm, bn):
+    """dq' as the bf16 dq kernel walks it: query blocks of bm rows, key/value
+    stages of bn rows, T read from the window w[t] = c[j0 - i0 + N - bm + t]
+    (zero outside [0, 2N - 1)) as T[i, j] = w[(j - j0) - (i - i0) + bm - 1],
+    each weight rounded to the input dtype, dq' accumulated in fp32 stage by
+    stage and rounded once at the end; rows and columns past N zero-filled."""
+    B, H, n, f = k_prime.shape
+    out = torch.zeros(B, H, n, f)
+    c = coeffs.float()
+    for i0 in range(0, n, bm):
+        rows = torch.arange(i0, i0 + bm)
+        acc = torch.zeros(B, H, bm, f)
+        gn_b = torch.zeros(B, H, bm, gn.shape[-1])
+        s_b = torch.zeros(B, H, bm)
+        gn_b[:, :, :min(bm, n - i0)] = gn[:, :, i0:i0 + bm].float()
+        s_b[:, :, :min(bm, n - i0)] = s[:, :, i0:i0 + bm]
+        for j0 in range(0, n, bn):
+            cols = torch.arange(j0, j0 + bn)
+            v_s = torch.zeros(B, H, bn, v.shape[-1])
+            k_s = torch.zeros(B, H, bn, f)
+            v_s[:, :, :min(bn, n - j0)] = v[:, :, j0:j0 + bn].float()
+            k_s[:, :, :min(bn, n - j0)] = k_prime[:, :, j0:j0 + bn].float()
+            m = torch.arange(bm + bn - 1) + j0 - i0 + n - bm
+            w = torch.where((m >= 0) & (m < 2 * n - 1), c[:, m.clamp(0, 2 * n - 2)],
+                            torch.zeros(()))  # [H, bm + bn - 1]
+            t_idx = (cols - j0)[None, :] - (rows - i0)[:, None] + bm - 1
+            tile = w[:, t_idx]  # [H, bm, bn]
+            dw = torch.einsum("bhid,bhjd->bhij", gn_b, v_s) - s_b[..., None]
+            valid = (rows[:, None] < n) & (cols[None, :] < n)
+            da = torch.where(valid, dw * tile, torch.zeros(())).to(k_prime.dtype).float()
+            acc += torch.einsum("bhij,bhjf->bhif", da, k_s)
+        out[:, :, i0:i0 + bm] = acc[:, :, :min(bm, n - i0)]
+    return out.to(k_prime.dtype)
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 32)], ids=["shipped", "64x32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [31, 33, 65, 130])
+def test_dq_blocked_by_the_kernel_window_matches_plain_dq(n, dtype, tile):
+    """The bf16 dq kernel's index arithmetic (query blocks of tile[0] rows,
+    key/value stages of tile[1] rows, the window's offset set by the query
+    block's extent, ragged last block and stage zero-filled), run on the
+    CPU, gives the plain dq. Coefficients spread over [0.1, 2] so that a
+    window off by one diagonal moves dq' by far more than the tolerance."""
+    B, H, D, F_ = 2, 3, 16, 40
+    qp, kp, v, _ = (torch.from_numpy(a) for a in _inputs(17, B, H, n, F_, D))
+    coeffs = torch.from_numpy(np.random.default_rng(18).uniform(
+        0.1, 2.0, size=(H, 2 * n - 1)).astype(np.float32))
+    qp, kp, v = qp.to(dtype), kp.to(dtype), v.to(dtype)
+    g = torch.from_numpy(_cotangent(19, B, H, n, D)).to(dtype)
+    out, den = mlc.masked_linear_attention_coeffs_fwd(qp, kp, v, coeffs)
+    gn, s = mlc.kerple_bwd_residuals(den, out, g)
+    want = mlc.masked_linear_attention_coeffs_bwd_dq_reference(gn, s, v, kp, coeffs)
+    got = _dq_blocked(gn, s, v, kp, coeffs, *tile)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **tol)
 
 
 def test_dc_windows_follow_the_forward_window_convention():
@@ -378,8 +438,8 @@ def test_backward_kernel_source_is_in_the_package():
     for header in ("kerple_common.cuh", "flash_attention_mma.cuh"):
         assert (_build.CSRC / header).is_file()
         assert f'#include "{header}"' in src
-    for kernel in ("mlc_bwd_dkv_mma_kernel", "mlc_bwd_dkv_kernel", "mlc_bwd_dq_kernel",
-                   "mlc_bwd_dc_kernel", "mlc_bwd_launch_info"):
+    for kernel in ("mlc_bwd_dq_mma_kernel", "mlc_bwd_dkv_mma_kernel", "mlc_bwd_dkv_kernel",
+                   "mlc_bwd_dq_kernel", "mlc_bwd_dc_kernel", "mlc_bwd_launch_info"):
         assert kernel in src
     # the bf16 dc kernel folds each batch element into a scratch the wrapper
     # allocates, and a second kernel sums it over the batch in order
