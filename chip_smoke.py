@@ -10,13 +10,14 @@ Phases, each printed as it runs; any failure exits non-zero:
      all at once;
   3. KERPLE kernels (forward; 3b: backward dq, dkv, dc, dc_reduce) against
      their plain PyTorch versions on the card at the serving and training
-     shapes and at ragged shapes, in bf16 and fp32 (3b also in bf16 at the
-     edges of the dq, dkv and dc kernels' tiles and at batches of 1 and 3),
-     timed (calls replayed from a CUDA graph, so without the wrapper's host
-     work) beside their bounds; 3b logs the backward kernels' launch_info
-     (the dq, dkv and dc kernels must be the mma.sync ones at F=266, the
-     fp32 dq and dc the staged ones) and calls dq and dc twice at every
-     shape (dq', windows and dcoeffs bit for bit);
+     shapes and at ragged shapes, in bf16 and fp32 (both also in bf16 at the
+     edges of the forward's, dq, dkv and dc kernels' tiles and at batches of
+     1 and 3), timed (calls replayed from a CUDA graph, so without the
+     wrapper's host work) beside their bounds; each logs its kernels'
+     launch_info (the bf16 forward, dq, dkv and dc kernels must be the
+     mma.sync ones at F=266, the fp32 forward, dq and dc the staged ones)
+     and calls the forward, dq and dc twice at every shape (out and den,
+     dq', windows and dcoeffs bit for bit);
   3c. flash kernels (softmax forward; backward fused, dq, dkv) against their
      plain versions in bf16 and fp32 at the serving, training and ragged
      shapes, with [B,1,N,N] and [B,H,N,N] masks and with dropout (whose
@@ -77,7 +78,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      kernel arms against the dense/chain arms and one train step with
      finite gradients; before them every KERPLE kernel at favor_hyper's
      F = 532 ([2, 12, 197, 532], both dtypes) against its plain version
-     (dq, dkv and dc on their staged kernels, checked through launch_info);
+     (the forward, dq, dkv and dc on their staged kernels, checked through
+     launch_info);
  13. serve fused phi: ViT-B/16 performer_favor_most_general with
      attention_config={"fused_phi": True} as phase 4 (12 fused-phi launches
      and no KERPLE forward launch per forward), logits against the unfused
@@ -212,12 +214,12 @@ KERPLE_LONGN = (LONGN["batch_size"], 12, LONGN_N, 266, 64)
 # package's kernel-test shape
 BWD_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (4, 12, 17, 266, 64),
               (4, 12, 130, 266, 64), (2, 2, 197, 44, 16)]
-# bf16 shapes at the edges of the dq kernel's tiles (128-row query blocks
-# against 64-row key/value stages), the dkv kernel's (64 key/value rows
-# against 32-row query tiles) and the dc kernel's (128-row query blocks of
-# two 64-row window tiles, 64-row key/value stages): one row short of, at
-# and past each; and batches of 1 and 3, the ends of the dc kernel's
-# ordered batch sum
+# bf16 shapes at the edges of the forward's and the dq kernel's tiles
+# (128-row query blocks against 64-row key/value stages), the dkv kernel's
+# (64 key/value rows against 32-row query tiles) and the dc kernel's
+# (128-row query blocks of two 64-row window tiles, 64-row key/value
+# stages): one row short of, at and past each; and batches of 1 and 3, the
+# ends of the dc kernel's ordered batch sum
 KERPLE_EDGE_SHAPES = [(2, 12, 31, 266, 64), (2, 12, 33, 266, 64), (2, 12, 63, 266, 64),
                       (2, 12, 64, 266, 64), (2, 12, 65, 266, 64), (2, 3, 127, 266, 64),
                       (2, 3, 128, 266, 64), (2, 3, 129, 266, 64), (1, 12, 197, 266, 64),
@@ -394,9 +396,9 @@ def _max_rel(got, want) -> float:
 
 
 def kerple_mma_rule(F, D, dtype) -> str:
-    """The kernel a dq, dkv or dc launch runs by the source's shape rule:
-    the mma.sync one in bf16 at even F <= 272 and D <= 64, else the staged
-    one."""
+    """The kernel a forward, dq, dkv or dc launch runs by the sources' shape
+    rule: the mma.sync one in bf16 at even F <= 272 and D <= 64, else the
+    staged one."""
     takes = dtype == torch.bfloat16 and F <= 272 and F % 2 == 0 and D <= 64
     return "mma.sync" if takes else "staged"
 
@@ -520,9 +522,15 @@ def check_bwd_kernels(mlc, shapes=BWD_SHAPES, dtypes=DTYPES, timed=BWD_SHAPES[0]
 
 def check_kernels(mlc, shapes=FWD_SHAPES, dtypes=DTYPES, timed=FWD_SHAPES[:2]):
     """Phase 3: the KERPLE forward kernel against its plain version on the
-    card; timed at the shapes `timed` (bf16, and fp32 below the training
-    batch). Returns {(dtype, B): row} of the timed shapes."""
+    card, out and den bitwise on a rerun at every shape; timed at the
+    shapes `timed` (bf16, and fp32 below the training batch). Logs the
+    launch_info of the first timed shape (else the first shape) in both
+    dtypes, checked against kerple_mma_rule. Returns {(dtype, B): row} of
+    the timed shapes."""
     results = {}
+    N0, F0, D0 = (timed[0] if timed else shapes[0])[2:]
+    infos = {name: check_kerple_rule(mlc, KERPLE_FORWARDS[0], N0, F0, D0, dtype)
+             for name, dtype in DTYPES}
     for B, H, N, F, D in shapes:
         for name, dtype in dtypes:
             g = torch.Generator(device="cuda").manual_seed(N * 1000 + F)
@@ -531,14 +539,22 @@ def check_kernels(mlc, shapes=FWD_SHAPES, dtypes=DTYPES, timed=FWD_SHAPES[:2]):
             v = torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
             c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
             out, den = mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)
+            # twice: out and den bit for bit (every sum in a fixed order)
+            again = mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)
             torch.cuda.synchronize()
+            shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
+            same = torch.equal(out, again[0]) and torch.equal(den, again[1])
+            log("kernel", f"masked_linear_coeffs_fwd {shape}: out and den bitwise on a rerun: "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"the forward is not bitwise the same on a rerun at {shape}")
+            del again
             ref_out, ref_den = mlc.masked_linear_attention_coeffs_reference(q, k, v, c)
             rtol, atol = OUT_TOL[name]
             err = (out.float() - ref_out.float()).abs()
             ok_out = bool((err <= atol + rtol * ref_out.float().abs()).all())
             den_rel = ((den - ref_den).abs() / ref_den.abs().clamp_min(1e-30)).max().item()
             finite = bool(torch.isfinite(out.float()).all())
-            shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
             log("kernel", f"masked_linear_coeffs_fwd {shape}: max|out err| "
                 f"{err.max().item():.3e} (rtol {rtol}, atol {atol}), max den "
                 f"rel err {den_rel:.3e} (rtol {DEN_RTOL}), finite {finite}")
@@ -554,7 +570,7 @@ def check_kernels(mlc, shapes=FWD_SHAPES, dtypes=DTYPES, timed=FWD_SHAPES[:2]):
                     f"kernel/bound {ms / bound_ms:.2f}x")
                 results[(name, B)] = dict(max_abs_err=err.max().item(), ms=ms,
                                           plain_ms=plain_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by)
+                                          bound_by=bound_by, launch=infos[name])
     return results
 
 
@@ -1517,7 +1533,8 @@ def kerple_f532_check(mlc):
     raises."""
     B, H, N, F, D = F532
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        for kname in BWD_KERNELS[:3]:  # the staged dq, dkv and dc kernels by their rule
+        # the staged forward, dq, dkv and dc kernels by their rule
+        for kname in (KERPLE_FORWARDS[0], *BWD_KERNELS[:3]):
             check_kerple_rule(mlc, kname, N, F, D, dtype, phase="variants")
         g = torch.Generator(device="cuda").manual_seed(532)
         q = (torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
@@ -1782,6 +1799,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     kernel = check_kernels(mlc)
+    check_kernels(mlc, KERPLE_EDGE_SHAPES, BF16_ONLY, timed=[])
     kernel_bwd = check_bwd_kernels(mlc)
     check_bwd_kernels(mlc, KERPLE_EDGE_SHAPES, BF16_ONLY, timed=None)
     flash = check_flash_kernels(fa)

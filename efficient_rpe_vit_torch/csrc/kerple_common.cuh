@@ -1,11 +1,12 @@
 // Shared pieces of the KERPLE kernels for Hopper (masked_linear_coeffs_fwd.cu,
 // masked_linear_coeffs_bwd.cu, kerple_fused_phi_fwd.cu, and the
 // materialised-T masked_linear_fwd.cu and masked_linear_bwd.cu): the
-// shared-memory arena, cp.async tile staging, the Toeplitz mask of a tile
-// pair (from a coefficient window or a staged tile of T), the tile products
-// (WMMA bf16 on the tensor cores, fp32 FMA loops for fp32) over square
-// [TILE, TILE] tiles of 16, 32 or 64 rows, and the batch sum of dW * A that
-// both dcoeffs and dT are made of.
+// shared-memory arena, cp.async tile staging (and, for the mma.sync
+// kernels, 4-byte-word row staging and the store of an accumulator
+// fragment), the Toeplitz mask of a tile pair (from a coefficient window or
+// a staged tile of T), the tile products (WMMA bf16 on the tensor cores,
+// fp32 FMA loops for fp32) over square [TILE, TILE] tiles of 16, 32 or 64
+// rows, and the batch sum of dW * A that both dcoeffs and dT are made of.
 //
 // Toeplitz convention: with T[i, j] = c[h, j - i + N - 1], a block working on
 // the q tile starting at row i0 and the kv tile starting at row j0 reads the
@@ -121,6 +122,32 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, int cols_pad,
                                           const T* __restrict__ src,
                                           int rows_valid, int cols) {
   load_tile_strided<T, ROWS>(dst, ld, cols_pad, src, cols, rows_valid, cols);
+}
+
+// Stage src rows [0, rows_valid) ([*, cols] row-major bf16, cols even and
+// src 4-byte aligned) into dst[ROWS][ld] columns [0, cols_pad), zero-filling
+// the rest, as 4-byte cp.async words (rows of F = 266 are 4-byte but not
+// 16-byte aligned), committed by the caller. Each of the NT / 32 warps
+// takes whole rows and its lanes consecutive words, so a lane's words of a
+// row sit 128 bytes apart and its addresses advance by a constant.
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_words4(bf16* dst, int ld, int cols_pad,
+                                             const bf16* __restrict__ src, int rows_valid,
+                                             int cols) {
+  const int w = cols / 2;          // words per source row
+  const int w_pad = cols_pad / 2;  // words per staged row
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const char* sp = reinterpret_cast<const char*>(src);
+  for (int r = warp; r < ROWS; r += NT / 32) {
+    const char* s_row = sp + (size_t)r * cols * 2;
+    char* d_row = reinterpret_cast<char*>(dst + (size_t)r * ld);
+    const int w_row = r < rows_valid ? w : 0;  // words of the row to copy, the rest zeros
+    for (int c = lane; c < w_pad; c += 32) {
+      const bool valid = c < w_row;
+      cp_async4(d_row + 4 * c, valid ? s_row + 4 * c : sp, valid ? 4 : 0);
+    }
+  }
 }
 
 // The [TILE, TILE] tile of T[h] (tb, [N, N] fp32) at rows i0.., columns
@@ -315,6 +342,34 @@ __device__ __forceinline__ void weigh(T* dst, int ldw, const float* src, int lds
                                       const float* sub, const float* cw,
                                       int rows, int cols) {
   weigh_by<T, TILE>(dst, ldw, src, lds, sub, WindowMask<TILE>{cw}, rows, cols);
+}
+
+// out[r, c] = round(acc) for this thread's elements of a warp's 16 x 16 NP
+// accumulator at rows row0.. and columns col0.. of a [rows, ld] row-major
+// bf16 array; rows >= `rows`, columns >= `cols` and 16-column blocks from
+// np_valid on skipped. Column pairs move as 4-byte words where ld is even.
+template <int NP>
+__device__ __forceinline__ void store_block(bf16* out, int ld, int rows, int cols, int row0,
+                                            int col0, int np_valid, const float (&acc)[2 * NP][4]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + lane / 4 + 8 * half;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int nb = 0; nb < 2 * NP; ++nb) {
+      const int c = col0 + nb * 8 + 2 * (lane % 4);
+      if (nb / 2 >= np_valid || c >= cols) continue;
+      const float x0 = acc[nb][2 * half], x1 = acc[nb][2 * half + 1];
+      bf16* o = out + (size_t)r * ld + c;
+      if (ld % 2 == 0 && c + 1 < cols) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        o[0] = __float2bfloat16(x0);
+        if (c + 1 < cols) o[1] = __float2bfloat16(x1);
+      }
+    }
+  }
 }
 
 // Per input dtype and tile: staged widths and row strides (elements) of the

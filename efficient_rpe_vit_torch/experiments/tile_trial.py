@@ -1,4 +1,4 @@
-"""Tile-shape trial of the register-resident backward kernels on the card.
+"""Tile-shape trial of the register-resident kernels on the card.
 
 Each kernel's shipped instantiation (the tile shape its launcher takes) is
 timed against the alternatives below, each built from a copy of `csrc/`
@@ -18,19 +18,29 @@ with the instantiation swapped, at the main paths' shapes:
                        64 rows (shipped) or 32; 64 query rows (16 warps,
                        four per 16 rows) or 32 (8 warps, four per 16 rows,
                        two blocks per SM) against 64-row stages
+    mlc_fwd            the same two shapes: 128 query rows per block (8
+                       warps, shipped) or 64 (4 warps), against key/value
+                       stages of 64 rows (shipped) or 32, with q' held as
+                       mma A fragments in registers (shipped) or read by
+                       ldmatrix from shared memory at every 16-step
 
 Every variant is first held against the kernel's plain version (max
 |err| / max |plain|), then timed as chip_smoke.py times kernels: calls
-captured in one CUDA graph, replayed, in two rounds. Run it on the GPU as
+captured in one CUDA graph, replayed, in two rounds. Where the wrapper
+module reports it (`launch_info`), each variant's rows per block, threads,
+shared memory, blocks per SM, registers and spilled bytes are printed
+first. Run it on the GPU as
 
-    python -m efficient_rpe_vit_torch.experiments.tile_trial
+    python -m efficient_rpe_vit_torch.experiments.tile_trial [--kernel K ...]
 
-The first line printed is the card's name and power limit; the build goes
-under build/tile_trial/ at the repository root.
+(every kernel above unless `--kernel` names some). The first line printed
+is the card's name and power limit; the build goes under build/tile_trial/
+at the repository root.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -51,6 +61,7 @@ _FUSED = "flash_bwd_fused_mma_kernel<64, 13, 32>"
 _DKV = "mlc_bwd_dkv_mma_kernel<272, 64, 64>"
 _DC = "DcMma<272, 64, 128, 64>"
 _DQ = "DqMma<272, 64, 128, 2, 64>"
+_FWD = "FwdMma<272, 64, 128, 64, true>"
 VARIANTS = {
     "flash_bwd_fused": ("flash_attention_bwd", fa, "_bwd_lib", {
         "13 warps x 32-row q tiles": [],
@@ -79,7 +90,25 @@ VARIANTS = {
         "32 q rows (8 warps, 4 per 16 rows), 64-row kv stages": [
             (_DQ, "DqMma<272, 64, 32, 4, 64>")],
     }),
+    "mlc_fwd": ("masked_linear_coeffs_fwd", mlc, "_kernel_fns", {
+        "128 q rows (8 warps), 64-row kv stages, q' in registers": [],
+        "64 q rows (4 warps), 64-row kv stages, q' in registers": [
+            (_FWD, "FwdMma<272, 64, 64, 64, true>")],
+        "128 q rows (8 warps), 32-row kv stages, q' in registers": [
+            (_FWD, "FwdMma<272, 64, 128, 32, true>")],
+        "64 q rows (4 warps), 32-row kv stages, q' in registers": [
+            (_FWD, "FwdMma<272, 64, 64, 32, true>")],
+        "128 q rows (8 warps), 64-row kv stages, q' by ldmatrix": [
+            (_FWD, "FwdMma<272, 64, 128, 64, false>")],
+        "64 q rows (4 warps), 64-row kv stages, q' by ldmatrix": [
+            (_FWD, "FwdMma<272, 64, 64, 64, false>")],
+    }),
 }
+# the launch_info name of each kernel the wrapper module reports on
+LAUNCH_INFO = {"mlc_bwd_dq": "masked_linear_coeffs_bwd_dq",
+               "mlc_bwd_dkv": "masked_linear_coeffs_bwd_dkv",
+               "mlc_bwd_dc": "masked_linear_coeffs_bwd_dc",
+               "mlc_fwd": "masked_linear_coeffs_fwd"}
 
 
 def kernel_ms(fn: Callable, iters: int = 20) -> float:
@@ -106,11 +135,13 @@ def kernel_ms(fn: Callable, iters: int = 20) -> float:
     return start.elapsed_time(end) / (5 * iters)
 
 
-def build_variants() -> Dict[Tuple[str, str], str]:
-    """{(kernel, variant): library path}, every variant compiled at once."""
+def build_variants(kernels: List[str]) -> Dict[Tuple[str, str], str]:
+    """{(kernel, variant): library path} of `kernels`, every variant
+    compiled at once."""
     TRIAL_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
-    for kernel, (source, _, _, variants) in VARIANTS.items():
+    for kernel in kernels:
+        source, _, _, variants = VARIANTS[kernel]
         for i, (variant, swaps) in enumerate(variants.items()):
             tree = TRIAL_DIR / f"{kernel}_{i}"
             shutil.rmtree(tree, ignore_errors=True)
@@ -201,16 +232,33 @@ def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
         out["mlc_bwd_dc"].append((
             shape, lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dc(*a[:5]),
             lambda got, want=want: _max_rel(got, want)))
+        fwd_args = (qp, kp, vv, c)
+        fwd_first = tuple(t[:1] for t in fwd_args[:3]) + (c,)
+        out["mlc_fwd"].append((
+            shape, lambda a=fwd_args: mlc.masked_linear_attention_coeffs_fwd(*a),
+            lambda got, first=fwd_first: _max_rel(
+                _first(got), mlc.masked_linear_attention_coeffs_reference(*first))))
     return out
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", action="append", choices=sorted(VARIANTS),
+                        help="trial only this kernel (repeatable; default: all)")
+    kernels = parser.parse_args().kernel or list(VARIANTS)
     if not torch.cuda.is_available():
         raise RuntimeError("the tile trial needs a GPU")
     print(device_label(torch.device("cuda")), flush=True)
-    libs = build_variants()
+    libs = build_variants(kernels)
     originals: dict = {}
     trial = cases()
+    for (kernel, variant), path in libs.items():
+        _, module, loader, _ = VARIANTS[kernel]
+        if kernel in LAUNCH_INFO:
+            use_library(module, loader, path, originals)
+            for n in (197, 4097):
+                info = module.launch_info(LAUNCH_INFO[kernel], n, 266, 64, torch.bfloat16)
+                print(f"{kernel} {variant} launch_info N={n}: {info}", flush=True)
     for rnd in range(2):
         for (kernel, variant), path in libs.items():
             _, module, loader, _ = VARIANTS[kernel]

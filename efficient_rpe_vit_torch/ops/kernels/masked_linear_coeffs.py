@@ -8,10 +8,10 @@ Counterpart of `efficient_rpe_vit_tpu/ops/pallas/masked_linear_coeffs.py`:
 the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
 `csrc/masked_linear_coeffs_fwd.cu`; the backward `_bwd_impl` (`_dq_kernel`,
 `_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
-kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 dq, dkv and dc
-kernels register-resident on mma.sync, dc with a batch-sum kernel behind it;
-`launch_info` reports what a launch runs);
-the fused-phi forward
+kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 forward, dq, dkv
+and dc kernels are register-resident on mma.sync, dc with a batch-sum
+kernel behind it; `launch_info` reports what a launch runs); the fused-phi
+forward
 `_fused_phi_fwd_kernel` (q' = phi(q), k' = phi(k) computed per tile from
 the raw q, k and Omega) is `csrc/kerple_fused_phi_fwd.cu`. Each builds its
 Toeplitz tiles from a window of the coefficient vector, so no [H, N, N]
@@ -359,6 +359,8 @@ def _kernel_fns():
     for fn in (lib.mlc_fwd_bf16, lib.mlc_fwd_f32):
         fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         fn.restype = i32
+    lib.mlc_fwd_launch_info.argtypes = [i32] * 4 + [ptr]
+    lib.mlc_fwd_launch_info.restype = i32
     lib.mlc_error_string.argtypes = [i32]
     lib.mlc_error_string.restype = ctypes.c_char_p
     return lib
@@ -397,27 +399,32 @@ _BWD_KINDS = {"masked_linear_coeffs_bwd_dq": 0, "masked_linear_coeffs_bwd_dkv": 
 
 
 def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict:
-    """What a launch of the backward kernel `kernel`
-    ("masked_linear_coeffs_bwd_dq", "..._dkv" or "..._dc") at sequence
-    length n, feature count f and value dim d runs on this card, asked of the
-    built library: rows per tile, threads, dynamic shared memory bytes,
-    resident blocks per SM, registers and local (spilled) bytes per thread
-    under `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs
-    ("mma.sync", the register-resident dq, dkv or dc kernel, or "staged").
-    Needs a GPU."""
-    if kernel not in _BWD_KINDS:
-        raise ValueError(f"unknown KERPLE backward kernel {kernel!r}")
+    """What a launch of the forward ("masked_linear_coeffs_fwd") or of the
+    backward kernel `kernel` ("masked_linear_coeffs_bwd_dq", "..._dkv" or
+    "..._dc") at sequence length n, feature count f and value dim d runs on
+    this card, asked of the built library: rows per block or tile, threads,
+    dynamic shared memory bytes, resident blocks per SM, registers and local
+    (spilled) bytes per thread under `LAUNCH_INFO_KEYS`, and under "kernel"
+    which kernel runs ("mma.sync", the register-resident forward, dq, dkv or
+    dc kernel, or "staged"). Needs a GPU."""
+    if kernel != _SOURCE and kernel not in _BWD_KINDS:
+        raise ValueError(f"unknown KERPLE kernel {kernel!r}")
     if dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
     if n <= 0 or f <= 0 or d <= 0:
         raise ValueError(f"need n, f, d > 0, got n={n}, f={f}, d={d}")
-    lib = _bwd_kernel_fns()
     info = launch_info_buffer()
-    err = lib.mlc_bwd_launch_info(_BWD_KINDS[kernel], n, f, d,
-                                  int(dtype == torch.bfloat16), info)
+    is_bf16 = int(dtype == torch.bfloat16)
+    if kernel == _SOURCE:
+        lib = _kernel_fns()
+        err, errors = lib.mlc_fwd_launch_info(n, f, d, is_bf16, info), lib.mlc_error_string
+    else:
+        lib = _bwd_kernel_fns()
+        err = lib.mlc_bwd_launch_info(_BWD_KINDS[kernel], n, f, d, is_bf16, info)
+        errors = lib.mlc_bwd_error_string
     if err != 0:
         raise RuntimeError(f"{kernel} launch info at n={n} f={f} d={d}: CUDA error "
-                           f"{err} ({lib.mlc_bwd_error_string(err).decode()})")
+                           f"{err} ({errors(err).decode()})")
     return launch_info_dict(info)
 
 

@@ -130,6 +130,19 @@ def test_kernel_source_is_in_the_package():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path(mlc._SOURCE)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    # the bf16 forward is the register-resident kernel on the flash kernels'
+    # mma.sync fragments; the staged kernel keeps fp32 and large F, and the
+    # 4-byte row staging and fragment store live once, in the shared header
+    src = (_build.CSRC / f"{mlc._SOURCE}.cu").read_text()
+    assert "atomicAdd" not in src  # den sums in a fixed order
+    for header in ("kerple_common.cuh", "flash_attention_mma.cuh"):
+        assert f'#include "{header}"' in src
+    for name in ("mlc_fwd_mma_kernel", "mlc_fwd_kernel", "mlc_fwd_launch_info"):
+        assert name in src
+    common = (_build.CSRC / "kerple_common.cuh").read_text()
+    bwd = (_build.CSRC / f"{mlc._BWD_SOURCE}.cu").read_text()
+    for helper in ("void stage_words4(", "void store_block("):
+        assert helper in common and helper not in src and helper not in bwd
 
 
 # ─── backward ───────────────────────────────────────────────────────────
@@ -305,6 +318,68 @@ def test_dq_blocked_by_the_kernel_window_matches_plain_dq(n, dtype, tile):
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **tol)
 
 
+def _fwd_blocked(q_prime, k_prime, v, coeffs, bm, bn):
+    """(out, den) as the bf16 forward kernel walks them: query blocks of bm
+    rows, key/value stages of bn rows, T read from the window w[t] =
+    c[j0 - i0 + N - bm + t] (zero outside [0, 2N - 1)) as T[a, b] =
+    w[b - a + bm - 1] for the block's row a and the stage's row b, W = S * T
+    zero past N, den summed from the fp32 W stage by stage, each weight
+    rounded to the input dtype before W v; rows past N zero-filled."""
+    B, H, n, f = q_prime.shape
+    d = v.shape[-1]
+    out = torch.zeros(B, H, n, d)
+    den = torch.zeros(B, H, n)
+    c = coeffs.float()
+    for i0 in range(0, n, bm):
+        rows = torch.arange(i0, i0 + bm)
+        q_b = torch.zeros(B, H, bm, f)
+        q_b[:, :, :min(bm, n - i0)] = q_prime[:, :, i0:i0 + bm].float()
+        acc = torch.zeros(B, H, bm, d)
+        den_b = torch.zeros(B, H, bm)
+        for j0 in range(0, n, bn):
+            cols = torch.arange(j0, j0 + bn)
+            k_s = torch.zeros(B, H, bn, f)
+            v_s = torch.zeros(B, H, bn, d)
+            k_s[:, :, :min(bn, n - j0)] = k_prime[:, :, j0:j0 + bn].float()
+            v_s[:, :, :min(bn, n - j0)] = v[:, :, j0:j0 + bn].float()
+            m = torch.arange(bm + bn - 1) + j0 - i0 + n - bm
+            w = torch.where((m >= 0) & (m < 2 * n - 1), c[:, m.clamp(0, 2 * n - 2)],
+                            torch.zeros(()))  # [H, bm + bn - 1]
+            tile = w[:, (cols - j0)[None, :] - (rows - i0)[:, None] + bm - 1]  # [H, bm, bn]
+            valid = (rows[:, None] < n) & (cols[None, :] < n)
+            wt = torch.where(valid, torch.einsum("bhif,bhjf->bhij", q_b, k_s) * tile,
+                             torch.zeros(()))
+            den_b += wt.sum(dim=-1)
+            acc += torch.einsum("bhij,bhjd->bhid", wt.to(v.dtype).float(), v_s)
+        rq = min(bm, n - i0)
+        out[:, :, i0:i0 + rq] = acc[:, :, :rq] / (den_b[:, :, :rq, None] + mlc.EPS)
+        den[:, :, i0:i0 + rq] = den_b[:, :, :rq]
+    return out.to(v.dtype), den
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 32)], ids=["shipped", "64x32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [31, 33, 65, 130, 197])
+def test_fwd_blocked_by_the_kernel_window_matches_plain_fwd(n, dtype, tile):
+    """The bf16 forward kernel's index arithmetic (query blocks of tile[0]
+    rows, key/value stages of tile[1] rows, the window's offset set by the
+    query block's extent, ragged last block and stage zero-filled), run on
+    the CPU, gives the plain forward's out and den. Coefficients spread over
+    [0.1, 2] so that a window off by one diagonal moves out and den by far
+    more than the tolerance."""
+    B, H, D, F_ = 2, 3, 16, 40
+    qp, kp, v, _ = (torch.from_numpy(a) for a in _inputs(21, B, H, n, F_, D))
+    coeffs = torch.from_numpy(np.random.default_rng(22).uniform(
+        0.1, 2.0, size=(H, 2 * n - 1)).astype(np.float32))
+    qp, kp, v = qp.to(dtype), kp.to(dtype), v.to(dtype)
+    want_out, want_den = mlc.masked_linear_attention_coeffs_reference(qp, kp, v, coeffs)
+    got_out, got_den = _fwd_blocked(qp, kp, v, coeffs, *tile)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got_out.float().numpy(), want_out.float().numpy(), **tol)
+    # den: fp32 sums of the same fp32 weights in both dtypes, in another order
+    np.testing.assert_allclose(got_den.numpy(), want_den.numpy(), **FP32_TOL)
+
+
 def test_dc_windows_follow_the_forward_window_convention():
     """Window m of tile pair (iq, jk) is coefficient
     (jk - iq) * tile + N - tile + m: a dT that is 1 on one element (i, j)
@@ -450,11 +525,16 @@ def test_backward_kernel_source_is_in_the_package():
 
 @pytest.mark.parametrize("args, error", [
     (("masked_linear_coeffs_bwd", 197, 266, 64, torch.bfloat16), ValueError),
-    (("masked_linear_coeffs_fwd", 197, 266, 64, torch.bfloat16), ValueError),
+    (("masked_linear_coeffs_fwd_dq", 197, 266, 64, torch.bfloat16), ValueError),
     (("masked_linear_coeffs_bwd_dkv", 197, 266, 64, torch.float16), TypeError),
     (("masked_linear_coeffs_bwd_dq", 0, 266, 64, torch.bfloat16), ValueError),
     (("masked_linear_coeffs_bwd_dkv", 197, 0, 64, torch.float32), ValueError),
     (("masked_linear_coeffs_bwd_dc", 197, 266, -1, torch.bfloat16), ValueError),
+    (("kerple_fused_phi_fwd", 197, 266, 64, torch.bfloat16), ValueError),
+    (("masked_linear_coeffs_fwd", 197, 266, 64, torch.float16), TypeError),
+    (("masked_linear_coeffs_fwd", 0, 266, 64, torch.bfloat16), ValueError),
+    (("masked_linear_coeffs_fwd", 197, -2, 64, torch.float32), ValueError),
+    (("masked_linear_coeffs_fwd", 197, 266, 0, torch.bfloat16), ValueError),
 ])
 def test_mlc_launch_info_refuses_bad_arguments(args, error):
     """launch_info checks its arguments before it asks the library (which
