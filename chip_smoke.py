@@ -34,9 +34,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      views; timed beside their bounds and the plain DFT chain arm;
   3e. the fused-phi KERPLE forward (phi+ and phi_relu computed in the
      kernel from raw q, k and Omega) against its plain version in bf16 and
-     fp32 at the serving, training, ragged and the JAX tests' shapes; timed
-     beside its bound and the unfused route it replaces (two phi_positive
-     calls and the KERPLE forward kernel);
+     fp32 at the serving, training, ragged and the JAX tests' shapes, and in
+     bf16 at the edges of its mma.sync kernel's tiles and at batches of 1
+     and 3; out and den bitwise on a rerun at every shape; its launch_info
+     logged and checked (bf16 on the mma.sync kernel with no spills, fp32 on
+     the staged one); timed beside its bound and the unfused route it
+     replaces (two phi_positive calls and the KERPLE forward kernel);
   3f. the materialised-T KERPLE kernels (forward; backward dq, dkv, dT)
      against their plain versions in bf16 and fp32 at the pallas_ab entry
      point's three shapes, the ViT-B/16 training shape, a ragged shape and
@@ -231,6 +234,13 @@ KERPLE_FORWARDS = ("masked_linear_coeffs_fwd", "kerple_fused_phi_fwd")
 # package's kernel-test shape
 FUSED_SHAPES = [(VITB["batch_size"], 12, 197, 64, 266), (TRAIN_BATCH, 12, 197, 64, 266),
                 (4, 12, 17, 64, 266), (4, 12, 130, 64, 266), (2, 2, 197, 16, 44)]
+# bf16 fused-phi shapes at the edges of the mma.sync kernel's tiles (128-row
+# query blocks against 64-row key/value stages): one row short of, at and
+# past each; and batches of 1 and 3
+FUSED_EDGE_SHAPES = [(2, 12, 31, 64, 266), (2, 12, 33, 64, 266), (2, 12, 63, 64, 266),
+                     (2, 12, 64, 64, 266), (2, 12, 65, 64, 266), (2, 3, 127, 64, 266),
+                     (2, 3, 128, 64, 266), (2, 3, 129, 64, 266), (1, 12, 197, 64, 266),
+                     (3, 12, 129, 64, 266)]
 # phase 3f, the materialised-T kernels (#4, #5), beside the pallas_ab entry
 # point's own shapes (B, H, N, F, D): the ViT-B/16 training shape, a ragged
 # shape, the JAX package's kernel-test shape; long N in bf16 only
@@ -395,11 +405,15 @@ def _max_rel(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def kerple_mma_rule(F, D, dtype) -> str:
-    """The kernel a forward, dq, dkv or dc launch runs by the sources' shape
-    rule: the mma.sync one in bf16 at even F <= 272 and D <= 64, else the
-    staged one."""
+def kerple_mma_rule(F, D, dtype, fused=False) -> str:
+    """The kernel a forward, dq, dkv, dc or fused-phi launch runs by the
+    sources' shape rule: the mma.sync one in bf16 at even F <= 272 and
+    D <= 64, else the staged one. The fused-phi forward (D the head dim of
+    q, k and v, Dv = D as launch_info asks) also needs D % 8 == 0: its raw
+    q and k rows move as 16-byte words."""
     takes = dtype == torch.bfloat16 and F <= 272 and F % 2 == 0 and D <= 64
+    if fused:
+        takes = takes and D % 8 == 0
     return "mma.sync" if takes else "staged"
 
 
@@ -410,7 +424,7 @@ def check_kerple_rule(mlc, kname, N, F, D, dtype, phase="kernel"):
     name = str(dtype).split(".")[-1]
     log(phase, f"{kname} N={N} F={F} D={D} {name}: " + ", ".join(
         f"{key} {value}" for key, value in info.items()))
-    want = kerple_mma_rule(F, D, dtype)
+    want = kerple_mma_rule(F, D, dtype, fused=kname == KERPLE_FORWARDS[1])
     if info["kernel"] != want:
         raise AssertionError(f"the {kname} launch at F={F} D={D} {name} runs the "
                              f"{info['kernel']} kernel, expected the {want} one")
@@ -604,17 +618,40 @@ def _unit_rows(x):
 
 def check_fused_kernels(mlc):
     """Phase 3e: the fused-phi forward against its plain version on the
-    card, both feature kinds and dtypes. Returns {(dtype, B): row} for the
-    serving and training shapes (phi+, the main path's kind)."""
+    card, both feature kinds, in both dtypes at FUSED_SHAPES and in bf16 at
+    FUSED_EDGE_SHAPES, out and den bitwise on a rerun at every shape. Logs
+    launch_info at the main path's (F, D) = (266, 64) and at the JAX tests'
+    (44, 16) in both dtypes, checked against kerple_mma_rule (bf16 on the
+    mma.sync kernel, with no spilled bytes at the main path's shape; fp32
+    on the staged one). Returns {(dtype, B): row} for the serving and
+    training shapes (phi+, the main path's kind), the row holding the
+    unfused route's time and the launch_info."""
     from efficient_rpe_vit_torch.ops import phi_positive
 
+    kname = KERPLE_FORWARDS[1]
+    infos = {(name, F): check_kerple_rule(mlc, kname, 197, F, D, dtype)
+             for F, D in ((266, 64), (44, 16)) for name, dtype in DTYPES}
+    if infos[("bfloat16", 266)]["spill_bytes"]:
+        raise AssertionError(f"the bf16 {kname} kernel spills "
+                             f"{infos[('bfloat16', 266)]['spill_bytes']} bytes at F=266 D=64")
     results = {}
-    for B, H, N, D, F in FUSED_SHAPES:
-        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+    cases = [(shape, DTYPES) for shape in FUSED_SHAPES] + \
+        [(shape, BF16_ONLY) for shape in FUSED_EDGE_SHAPES]
+    for (B, H, N, D, F), dtypes in cases:
+        for name, dtype in dtypes:
             q, k, v, omega, c = _fused_inputs(B, H, N, D, F, dtype)
             for kind in ("favor_plus", "relu"):
                 out, den = mlc.kerple_attention_fused_phi_fwd(q, k, v, omega, c, kind)
+                # twice: out and den bit for bit (every sum in a fixed order)
+                again = mlc.kerple_attention_fused_phi_fwd(q, k, v, omega, c, kind)
                 torch.cuda.synchronize()
+                shape = f"B{B} H{H} N{N} D{D} F{F} {kind} {name}"
+                same = torch.equal(out, again[0]) and torch.equal(den, again[1])
+                log("kernel", f"{kname} {shape}: out and den bitwise on a rerun: {same}")
+                if not same:
+                    raise AssertionError(f"the fused-phi forward is not bitwise the same on a "
+                                         f"rerun at {shape}")
+                del again
                 ref_out, ref_den = mlc.kerple_attention_fused_phi_fwd_reference(
                     q, k, v, omega, c, kind)
                 rtol, atol = OUT_TOL[name]
@@ -622,8 +659,7 @@ def check_fused_kernels(mlc):
                 ok_out = bool((err <= atol + rtol * ref_out.float().abs()).all())
                 den_rel = ((den - ref_den).abs() / ref_den.abs().clamp_min(1e-30)).max().item()
                 finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(den).all())
-                shape = f"B{B} H{H} N{N} D{D} F{F} {kind} {name}"
-                log("kernel", f"kerple_fused_phi_fwd {shape}: max|out err| {err.max().item():.3e} "
+                log("kernel", f"{kname} {shape}: max|out err| {err.max().item():.3e} "
                     f"(rtol {rtol}, atol {atol}), max den rel err {den_rel:.3e} (rtol "
                     f"{FUSED_DEN_RTOL[name]:.3e}), finite {finite}")
                 if not (ok_out and den_rel <= FUSED_DEN_RTOL[name] and finite):
@@ -639,14 +675,16 @@ def check_fused_kernels(mlc):
                 unfused_ms = kernel_ms(lambda: mlc.masked_linear_attention_coeffs_fwd(
                     phi_positive(q, omega), phi_positive(k, omega), v, c))
                 bound_ms, bound_by = fused_phi_bound(B, H, N, D, F, name)
-                log("kernel", f"kerple_fused_phi_fwd {shape}: kernel {ms:.4f} ms, plain "
+                log("kernel", f"{kname} {shape}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, unfused route (2 x phi_positive + "
                     f"masked_linear_coeffs_fwd) {unfused_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}), kernel/bound {ms / bound_ms:.2f}x")
+                    f"({bound_by}), kernel/bound {ms / bound_ms:.2f}x, unfused/kernel "
+                    f"{unfused_ms / ms:.2f}x")
                 results[(name, B)] = dict(max_abs_err=err.max().item(), ms=ms,
                                           plain_ms=plain_ms, bound_ms=bound_ms,
                                           bound_by=bound_by, library_ms=None,
-                                          unfused_ms=unfused_ms)
+                                          unfused_ms=unfused_ms,
+                                          launch=infos[(name, F)])
     return results
 
 

@@ -6,7 +6,10 @@
 // fragment), the Toeplitz mask of a tile pair (from a coefficient window or
 // a staged tile of T), the tile products (WMMA bf16 on the tensor cores,
 // fp32 FMA loops for fp32) over square [TILE, TILE] tiles of 16, 32 or 64
-// rows, and the batch sum of dW * A that both dcoeffs and dT are made of.
+// rows, the batch sum of dW * A that both dcoeffs and dT are made of, and
+// the register-resident key/value stage and epilogue of the bf16 forward
+// that the KERPLE forward (mlc_fwd_mma_kernel) and the fused-phi forward
+// (kfp_fwd_mma_kernel) share, on flash_attention_mma.cuh's fragments.
 //
 // Toeplitz convention: with T[i, j] = c[h, j - i + N - 1], a block working on
 // the q tile starting at row i0 and the kv tile starting at row j0 reads the
@@ -20,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include "flash_attention_mma.cuh"
 
 #include <cstddef>
 #include <cstdint>
@@ -478,6 +483,91 @@ __device__ __forceinline__ float* batch_sum_dw_a(
   }
   __syncthreads();
   return acc;
+}
+
+// ─── the bf16 forward's key/value stage on mma.sync ────────────────────
+
+constexpr float FWD_EPS = 1e-6f;  // denominator stabiliser of the forward
+
+// One key/value stage of the bf16 forward for a warp's 16 query rows row0..
+// of a BM-row block at i0 against the stage's 8 NB rows at j0: S = q' k'^T
+// over the kf 16-steps F needs (q' as A fragments qf, else QREG false: read
+// by ldmatrix from the row-major tile Qs at every 16-step; k' the stage's
+// row-major [8 NB, *] tile Kt, row stride ldf), then per fragment element,
+// with T[a, b] = w_t[b - a + BM - 1] for the block's row a and the stage's
+// row b, W = S * T (exactly 0 past N in either direction: row_ok holds this
+// thread's rows r, r + 8 below N), added to this thread's fp32 row sums rs
+// and rounded to bf16 as the A fragments of acc += round(W) v (v the
+// stage's row-major [8 NB, 8 DB] tile Vt, row stride ldd).
+template <int KF, int NB, int DB, int BM, bool QREG>
+__device__ __forceinline__ void fwd_mma_stage(float (&acc)[DB][4], float (&rs)[2],
+                                              uint32_t (&qf)[QREG ? KF : 1][4], const bf16* Qs,
+                                              int ldf, int kf, const bf16* Kt, const bf16* Vt,
+                                              int ldd, const float* w_t, int row0,
+                                              const bool (&row_ok)[2], int i0, int j0, int N) {
+  namespace fm = flash::mma;
+  const int lane = threadIdx.x % 32;
+  const int r = lane / 4;         // this thread's fragment rows r, r + 8
+  const int qc = 2 * (lane % 4);  // and columns qc, qc + 1 of each 8-column block
+  float s[NB][4];
+  fm::zero_acc(s);
+#pragma unroll
+  for (int kk = 0; kk < KF; ++kk) {
+    if (kk >= kf) break;
+    uint32_t(&a)[4] = qf[QREG ? kk : 0];
+    if constexpr (!QREG) fm::load_a(a, Qs, ldf, row0, kk * 16);
+#pragma unroll
+    for (int np = 0; np < NB / 2; ++np) {
+      uint32_t b[4];
+      fm::load_b_rows(b, Kt, ldf, np * 16, kk * 16);
+      fm::mma_bf16(s[2 * np], a, b[0], b[1]);
+      fm::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+  const bool ragged = j0 + 8 * NB > N || i0 + BM > N;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int a = row0 + r + 8 * (e / 2);
+      const int c = nb * 8 + qc + (e & 1);
+      float w = s[nb][e] * w_t[c - a + BM - 1];
+      if (ragged && !(row_ok[e / 2] && j0 + c < N)) w = 0.f;
+      rs[e / 2] += w;
+      s[nb][e] = w;
+    }
+  uint32_t wa[NB / 2][4];
+  fm::to_a(wa, s);                          // round(W) as A fragments
+  fm::mma_a_cols<NB / 2, DB>(acc, wa, Vt, ldd);  // acc += round(W) v
+}
+
+// The forward's epilogue for a warp's 16 rows at `row` of a (batch, head)'s
+// [N, D] output out_bh and [N] den_bh: den over the four lanes of a
+// fragment row in a fixed shuffle order, out = acc / (den + eps) rounded to
+// bf16, both written for the rows below N.
+template <int DB>
+__device__ __forceinline__ void fwd_mma_store(float (&acc)[DB][4], const float (&rs)[2],
+                                              const bool (&row_ok)[2], bf16* out_bh,
+                                              float* den_bh, int N, int D, int row) {
+  const int lane = threadIdx.x % 32;
+  float dn[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float x = rs[half];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    dn[half] = x;
+  }
+#pragma unroll
+  for (int nb = 0; nb < DB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = acc[nb][e] / (dn[e / 2] + FWD_EPS);
+  store_block<DB / 2>(out_bh, D, N, D, row, 0, DB / 2, acc);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      if (row_ok[half]) den_bh[row + lane / 4 + 8 * half] = dn[half];
+  }
 }
 
 }  // namespace kerple

@@ -417,7 +417,9 @@ struct FwdMma {
 // bf16 pairs, exactly the registers of the A fragments of acc += W v. Warps
 // wholly past N skip the products after the ring's barrier. The row sums
 // add over a fragment row's four lanes in a fixed shuffle order at the end;
-// no float atomics, every sum in one order.
+// no float atomics, every sum in one order. The stage's body and the
+// epilogue are kerple_common.cuh's fwd_mma_stage and fwd_mma_store, which
+// the fused-phi forward (kfp_fwd_mma_kernel) runs too.
 template <typename C>
 __global__ void __launch_bounds__(C::NT)
 mlc_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -465,7 +467,6 @@ mlc_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bool warp_live = row0 < rows_q;  // the warp holds a query row below N
   const int r = lane / 4;                // this thread's fragment rows r, r + 8
-  const int qc = 2 * (lane % 4);         // and columns qc, qc + 1 of each 8-column block
   const bool row_ok[2] = {row0 + r < rows_q, row0 + r + 8 < rows_q};
   // the A fragments of q': every 16-step's for the sweep (QREG), else one
   // 16-step's at a time
@@ -495,63 +496,11 @@ mlc_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* Kt = stage_of(js);
     const bf16* Vt = Kt + C::BN * C::LDF;
     const float* w_t = reinterpret_cast<const float*>(Vt + C::BN * C::LDD);
-    const int j0 = js * C::BN;
-
-    // S = q' k'^T over the 16-steps F needs
-    float s[C::NB][4];
-    fm::zero_acc(s);
-#pragma unroll
-    for (int kk = 0; kk < C::KF; ++kk) {
-      if (kk >= kf) break;
-      uint32_t(&a)[4] = qf[C::QREG ? kk : 0];
-      if constexpr (!C::QREG) fm::load_a(a, Qs, C::LDF, row0, kk * 16);
-#pragma unroll
-      for (int np = 0; np < C::NB / 2; ++np) {
-        uint32_t b[4];
-        fm::load_b_rows(b, Kt, C::LDF, np * 16, kk * 16);
-        fm::mma_bf16(s[2 * np], a, b[0], b[1]);
-        fm::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    // per cell (query row a of the block, key/value row c of the stage):
-    // W = S * T, exactly 0 past N; the row sums take W in fp32
-    const bool ragged = j0 + C::BN > N || i0 + C::BM > N;
-#pragma unroll
-    for (int nb = 0; nb < C::NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int a = row0 + r + 8 * (e / 2);
-        const int c = nb * 8 + qc + (e & 1);
-        float w = s[nb][e] * w_t[c - a + C::BM - 1];
-        if (ragged && !(row_ok[e / 2] && j0 + c < N)) w = 0.f;
-        rs[e / 2] += w;
-        s[nb][e] = w;
-      }
-    uint32_t wa[C::NB / 2][4];
-    fm::to_a(wa, s);  // round(W) as A fragments
-    fm::mma_a_cols<C::NB / 2, C::DP / 8>(acc, wa, Vt, C::LDD);  // acc += round(W) v
+    fwd_mma_stage<C::KF, C::NB, C::DP / 8, C::BM, C::QREG>(
+        acc, rs, qf, Qs, C::LDF, kf, Kt, Vt, C::LDD, w_t, row0, row_ok, i0, js * C::BN, N);
   }
   if (!warp_live) return;
-
-  // den over the four lanes of a fragment row; out = acc / (den + eps)
-  float dn[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float x = rs[half];
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
-    dn[half] = x;
-  }
-#pragma unroll
-  for (int nb = 0; nb < C::DP / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = acc[nb][e] / (dn[e / 2] + EPS);
-  store_block<C::DP / 16>(out + bh * N * D, D, N, D, i0 + row0, 0, C::DP / 16, acc);
-  if (lane % 4 == 0) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      if (row_ok[half]) den[bh * N + i0 + row0 + r + 8 * half] = dn[half];
-  }
+  fwd_mma_store<C::DP / 8>(acc, rs, row_ok, out + bh * N * D, den + bh * N, N, D, i0 + row0);
 }
 
 // The bf16 instantiation: features up to 272 (F = 266), values up to 64,

@@ -23,6 +23,16 @@ with the instantiation swapped, at the main paths' shapes:
                        stages of 64 rows (shipped) or 32, with q' held as
                        mma A fragments in registers (shipped) or read by
                        ldmatrix from shared memory at every 16-step
+    kfp_fwd            (32, 12, 197, 64, 266) and (64, 12, 197, 64, 266)
+                       bf16, phi+: 128 query rows per block (8 warps,
+                       shipped) or 64 (4 warps), against key/value stages
+                       of 64 rows (shipped) or 32; a head's query blocks in
+                       clusters of two that share each stage's phi_k
+                       (shipped) or each block building all of it; phi_k
+                       by all 8 warps (shipped, maxima exchanged between
+                       the warps of a tile) or by 4; u held in registers
+                       from the max pass to the phi pass (shipped) or
+                       projected again
 
 Every variant is first held against the kernel's plain version (max
 |err| / max |plain|), then timed as chip_smoke.py times kernels: calls
@@ -62,6 +72,7 @@ _DKV = "mlc_bwd_dkv_mma_kernel<272, 64, 64>"
 _DC = "DcMma<272, 64, 128, 64>"
 _DQ = "DqMma<272, 64, 128, 2, 64>"
 _FWD = "FwdMma<272, 64, 128, 64, true>"
+_KFP = "FusedMma<272, 64, 128, 64, 4, true, 2>"
 VARIANTS = {
     "flash_bwd_fused": ("flash_attention_bwd", fa, "_bwd_lib", {
         "13 warps x 32-row q tiles": [],
@@ -103,12 +114,32 @@ VARIANTS = {
         "64 q rows (4 warps), 64-row kv stages, q' by ldmatrix": [
             (_FWD, "FwdMma<272, 64, 64, 64, false>")],
     }),
+    "kfp_fwd": ("kerple_fused_phi_fwd", mlc, "_fused_kernel_fns", {
+        "128 q rows, 64-row kv stages, clusters of 2, phi_k by 8 warps, u held": [],
+        "128 q rows, 64-row kv stages, clusters of 2, phi_k by 4 warps, u held": [
+            (_KFP, "FusedMma<272, 64, 128, 64, 2, true, 2>")],
+        "128 q rows, 64-row kv stages, clusters of 2, phi_k by 8 warps, u projected again": [
+            (_KFP, "FusedMma<272, 64, 128, 64, 4, false, 2>")],
+        "128 q rows, 64-row kv stages, no cluster, phi_k by 8 warps, u held": [
+            (_KFP, "FusedMma<272, 64, 128, 64, 2, true, 1>")],
+        "128 q rows, 64-row kv stages, no cluster, phi_k by 4 warps": [
+            (_KFP, "FusedMma<272, 64, 128, 64, 1, false, 1>")],
+        "128 q rows, 32-row kv stages, clusters of 2, phi_k by 8 warps, u held": [
+            (_KFP, "FusedMma<272, 64, 128, 32, 8, true, 2>")],
+        "64 q rows, 32-row kv stages, clusters of 2, phi_k by 4 warps, u held": [
+            (_KFP, "FusedMma<272, 64, 64, 32, 4, true, 2>")],
+        "64 q rows, 64-row kv stages, no cluster, phi_k by 4 warps": [
+            (_KFP, "FusedMma<272, 64, 64, 64, 1, false, 1>")],
+    }),
 }
 # the launch_info name of each kernel the wrapper module reports on
 LAUNCH_INFO = {"mlc_bwd_dq": "masked_linear_coeffs_bwd_dq",
                "mlc_bwd_dkv": "masked_linear_coeffs_bwd_dkv",
                "mlc_bwd_dc": "masked_linear_coeffs_bwd_dc",
-               "mlc_fwd": "masked_linear_coeffs_fwd"}
+               "mlc_fwd": "masked_linear_coeffs_fwd",
+               "kfp_fwd": "kerple_fused_phi_fwd"}
+# the sequence lengths launch_info is asked at, per kernel (default 197 and 4097)
+LAUNCH_INFO_N = {"kfp_fwd": (197,)}
 
 
 def kernel_ms(fn: Callable, iters: int = 20) -> float:
@@ -190,21 +221,22 @@ def _first(got):
     return tuple(t[:1] for t in got) if isinstance(got, tuple) else got[:1]
 
 
-def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
-    """kernel -> [(shape, kernel call, check)] on seeded inputs; check(got)
-    is the kernel's output's max |err| / max |plain| against its plain
-    version."""
+def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]:
+    """kernel -> [(shape, kernel call, check)] on seeded inputs for
+    `kernels`; check(got) is the kernel's output's max |err| / max |plain|
+    against its plain version."""
     g = torch.Generator(device="cuda").manual_seed(0)
     out: Dict[str, list] = {kernel: [] for kernel in VARIANTS}
-    q, k, v, cot = (torch.randn(64, 12, 197, 64, generator=g, device="cuda").bfloat16()
-                    for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
-    args = (q, k, v, cot, lse, fa.flash_delta(o, cot), 0.125)
-    first = tuple(t[:1] for t in args[:6]) + (0.125,)
-    out["flash_bwd_fused"].append((
-        "(64, 12, 197, 64)", lambda: fa.flash_attention_bwd_fused(*args),
-        lambda got, first=first: _max_rel(_first(got), fa.flash_bwd_reference(*first))))
-    for B, N in ((64, 197), (4, 4097)):
+    if "flash_bwd_fused" in kernels:
+        q, k, v, cot = (torch.randn(64, 12, 197, 64, generator=g, device="cuda").bfloat16()
+                        for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+        args = (q, k, v, cot, lse, fa.flash_delta(o, cot), 0.125)
+        first = tuple(t[:1] for t in args[:6]) + (0.125,)
+        out["flash_bwd_fused"].append((
+            "(64, 12, 197, 64)", lambda: fa.flash_attention_bwd_fused(*args),
+            lambda got, first=first: _max_rel(_first(got), fa.flash_bwd_reference(*first))))
+    for B, N in ((64, 197), (4, 4097)) if any(k.startswith("mlc_") for k in kernels) else ():
         qp, kp = ((torch.randn(B, 12, N, 266, generator=g, device="cuda").abs() * 0.1)
                   .bfloat16() for _ in range(2))
         vv, ct = (torch.randn(B, 12, N, 64, generator=g, device="cuda").bfloat16()
@@ -238,6 +270,18 @@ def cases() -> Dict[str, List[Tuple[str, Callable, Callable]]]:
             shape, lambda a=fwd_args: mlc.masked_linear_attention_coeffs_fwd(*a),
             lambda got, first=fwd_first: _max_rel(
                 _first(got), mlc.masked_linear_attention_coeffs_reference(*first))))
+    for B in (32, 64) if "kfp_fwd" in kernels else ():
+        q, k = (torch.randn(B, 12, 197, 64, generator=g, device="cuda") for _ in range(2))
+        q, k = ((x / x.norm(dim=-1, keepdim=True)).bfloat16() for x in (q, k))
+        vv = torch.randn(B, 12, 197, 64, generator=g, device="cuda").bfloat16()
+        om = torch.randn(12, 64, 266, generator=g, device="cuda")
+        c = torch.exp(torch.randn(12, 2 * 197 - 1, generator=g, device="cuda") * 0.02)
+        a = (q, k, vv, om, c)
+        first = tuple(t[:1] for t in a[:3]) + (om, c)
+        out["kfp_fwd"].append((
+            f"({B}, 12, 197, 64, 266)", lambda a=a: mlc.kerple_attention_fused_phi_fwd(*a),
+            lambda got, first=first: _max_rel(
+                _first(got), mlc.kerple_attention_fused_phi_fwd_reference(*first))))
     return out
 
 
@@ -251,12 +295,12 @@ def main() -> None:
     print(device_label(torch.device("cuda")), flush=True)
     libs = build_variants(kernels)
     originals: dict = {}
-    trial = cases()
+    trial = cases(kernels)
     for (kernel, variant), path in libs.items():
         _, module, loader, _ = VARIANTS[kernel]
         if kernel in LAUNCH_INFO:
             use_library(module, loader, path, originals)
-            for n in (197, 4097):
+            for n in LAUNCH_INFO_N.get(kernel, (197, 4097)):
                 info = module.launch_info(LAUNCH_INFO[kernel], n, 266, 64, torch.bfloat16)
                 print(f"{kernel} {variant} launch_info N={n}: {info}", flush=True)
     for rnd in range(2):

@@ -10,10 +10,10 @@ the forward `_fwd_kernel` is hand-written CUDA C++ for sm_90a in
 `_dkv_kernel`, `_dc_kernel` and the `_scatter_windows` epilogue) is four
 kernels in `csrc/masked_linear_coeffs_bwd.cu` (the bf16 forward, dq, dkv
 and dc kernels are register-resident on mma.sync, dc with a batch-sum
-kernel behind it; `launch_info` reports what a launch runs); the fused-phi
-forward
-`_fused_phi_fwd_kernel` (q' = phi(q), k' = phi(k) computed per tile from
-the raw q, k and Omega) is `csrc/kerple_fused_phi_fwd.cu`. Each builds its
+kernel behind it); the fused-phi forward `_fused_phi_fwd_kernel` (q' =
+phi(q), k' = phi(k) computed per tile from the raw q, k and Omega) is
+`csrc/kerple_fused_phi_fwd.cu`, in bf16 register-resident on the unfused
+forward's stage. `launch_info` reports what a launch runs. Each builds its
 Toeplitz tiles from a window of the coefficient vector, so no [H, N, N]
 tensor exists on the kernel path.
 
@@ -399,15 +399,17 @@ _BWD_KINDS = {"masked_linear_coeffs_bwd_dq": 0, "masked_linear_coeffs_bwd_dkv": 
 
 
 def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict:
-    """What a launch of the forward ("masked_linear_coeffs_fwd") or of the
+    """What a launch of the forward ("masked_linear_coeffs_fwd"), of the
     backward kernel `kernel` ("masked_linear_coeffs_bwd_dq", "..._dkv" or
-    "..._dc") at sequence length n, feature count f and value dim d runs on
-    this card, asked of the built library: rows per block or tile, threads,
-    dynamic shared memory bytes, resident blocks per SM, registers and local
-    (spilled) bytes per thread under `LAUNCH_INFO_KEYS`, and under "kernel"
-    which kernel runs ("mma.sync", the register-resident forward, dq, dkv or
-    dc kernel, or "staged"). Needs a GPU."""
-    if kernel != _SOURCE and kernel not in _BWD_KINDS:
+    "..._dc") or of the fused-phi forward ("kerple_fused_phi_fwd"; d is then
+    the head dim of q, k and v) at sequence length n, feature count f and
+    value dim d runs on this card, asked of the built library:
+    rows per block or tile, threads, dynamic shared memory bytes, resident
+    blocks per SM, registers and local (spilled) bytes per thread under
+    `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs ("mma.sync",
+    the register-resident forward, dq, dkv, dc or fused-phi kernel, or
+    "staged"). Needs a GPU."""
+    if kernel not in (_SOURCE, _FUSED_SOURCE) and kernel not in _BWD_KINDS:
         raise ValueError(f"unknown KERPLE kernel {kernel!r}")
     if dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
@@ -418,6 +420,9 @@ def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict
     if kernel == _SOURCE:
         lib = _kernel_fns()
         err, errors = lib.mlc_fwd_launch_info(n, f, d, is_bf16, info), lib.mlc_error_string
+    elif kernel == _FUSED_SOURCE:
+        lib = _fused_kernel_fns()
+        err, errors = lib.kfp_fwd_launch_info(n, f, d, is_bf16, info), lib.kfp_error_string
     else:
         lib = _bwd_kernel_fns()
         err = lib.mlc_bwd_launch_info(_BWD_KINDS[kernel], n, f, d, is_bf16, info)
@@ -435,6 +440,8 @@ def _fused_kernel_fns():
     for fn in (lib.kfp_fwd_bf16, lib.kfp_fwd_f32):
         fn.argtypes = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, ptr]
         fn.restype = i32
+    lib.kfp_fwd_launch_info.argtypes = [i32] * 4 + [ptr]
+    lib.kfp_fwd_launch_info.restype = i32
     lib.kfp_error_string.argtypes = [i32]
     lib.kfp_error_string.restype = ctypes.c_char_p
     return lib

@@ -380,6 +380,102 @@ def test_fwd_blocked_by_the_kernel_window_matches_plain_fwd(n, dtype, tile):
     np.testing.assert_allclose(got_den.numpy(), want_den.numpy(), **FP32_TOL)
 
 
+def _fused_inputs(seed, B, H, N, D, F):
+    """L2-normalised q, k (the KERPLE contract), v and Omega [H, D, F]."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.normal(size=(B, H, N, D)).astype(np.float32) for _ in range(2))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    v = rng.normal(size=(B, H, N, D)).astype(np.float32)
+    omega = rng.normal(size=(H, D, F)).astype(np.float32)
+    return (torch.from_numpy(a) for a in (q, k, v, omega))
+
+
+def _phi_by_kernel_rules(x, omega, kind):
+    """phi of a block of raw rows x [B, H, rows, D] as the fused kernel builds
+    it: u = x round(Omega) in fp32, phi+ = exp((u - max over the F lanes) -
+    ||x||^2/2) / sqrt(F) or relu(u) / sqrt(F), rounded to x's dtype."""
+    f = omega.shape[-1]
+    u = torch.einsum("bhrd,hdf->bhrf", x.float(), omega.to(x.dtype).float())
+    if kind == "relu":
+        phi = torch.relu(u) * (1.0 / f ** 0.5)
+    else:
+        norm_half = (x.float() ** 2).sum(dim=-1, keepdim=True) * 0.5
+        phi = torch.exp((u - u.amax(dim=-1, keepdim=True)) - norm_half) * (1.0 / f ** 0.5)
+    return phi.to(x.dtype)
+
+
+def _fused_blocked(q, k, v, omega, coeffs, kind, bm, bn):
+    """(out, den) as the bf16 fused-phi kernel walks them: query blocks of bm
+    rows whose phi_q is built once, key/value stages of bn rows whose phi_k
+    is built from the stage's raw k rows (zero-filled past N) with its rows
+    past N set to exactly 0 after phi, T read from the window w[t] =
+    c[j0 - i0 + N - bm + t] (zero outside [0, 2N - 1)) as T[a, b] =
+    w[b - a + bm - 1]; W = S * T with no mask by index (cells past N vanish
+    through phi_k's zero rows), den summed from the fp32 W stage by stage,
+    each weight rounded to v's dtype before W v."""
+    B, H, n, d = q.shape
+    dv = v.shape[-1]
+    out = torch.zeros(B, H, n, dv)
+    den = torch.zeros(B, H, n)
+    c = coeffs.float()
+    for i0 in range(0, n, bm):
+        rows = torch.arange(i0, i0 + bm)
+        q_b = torch.zeros(B, H, bm, d, dtype=q.dtype)
+        q_b[:, :, :min(bm, n - i0)] = q[:, :, i0:i0 + bm]
+        phi_q = _phi_by_kernel_rules(q_b, omega, kind).float()
+        acc = torch.zeros(B, H, bm, dv)
+        den_b = torch.zeros(B, H, bm)
+        for j0 in range(0, n, bn):
+            cols = torch.arange(j0, j0 + bn)
+            k_s = torch.zeros(B, H, bn, d, dtype=k.dtype)
+            v_s = torch.zeros(B, H, bn, dv)
+            k_s[:, :, :min(bn, n - j0)] = k[:, :, j0:j0 + bn]
+            v_s[:, :, :min(bn, n - j0)] = v[:, :, j0:j0 + bn].float()
+            phi_k = _phi_by_kernel_rules(k_s, omega, kind).float()
+            phi_k[:, :, cols >= n] = 0.0
+            m = torch.arange(bm + bn - 1) + j0 - i0 + n - bm
+            w = torch.where((m >= 0) & (m < 2 * n - 1), c[:, m.clamp(0, 2 * n - 2)],
+                            torch.zeros(()))  # [H, bm + bn - 1]
+            tile = w[:, (cols - j0)[None, :] - (rows - i0)[:, None] + bm - 1]  # [H, bm, bn]
+            wt = torch.einsum("bhif,bhjf->bhij", phi_q, phi_k) * tile
+            den_b += wt.sum(dim=-1)
+            acc += torch.einsum("bhij,bhjd->bhid", wt.to(v.dtype).float(), v_s)
+        rq = min(bm, n - i0)
+        out[:, :, i0:i0 + rq] = acc[:, :, :rq] / (den_b[:, :, :rq, None] + mlc.EPS)
+        den[:, :, i0:i0 + rq] = den_b[:, :, :rq]
+    return out.to(v.dtype), den
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 32)], ids=["shipped", "64x32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [31, 65, 130, 197])
+@pytest.mark.parametrize("kind", ["favor_plus", "relu"])
+def test_fused_blocked_by_the_kernel_stages_matches_plain_fused(kind, n, dtype, tile):
+    """The bf16 fused-phi kernel's blocking (phi_q per query block of tile[0]
+    rows, phi_k per key/value stage of tile[1] rows with Omega rounded, the
+    max over the F real lanes and rows past N zeroed after phi, the window's
+    offset set by the query block's extent), run on the CPU, gives the plain
+    fused forward's out and den. Every n leaves a ragged last stage, so phi+
+    rows past N left unzeroed would add to den; coefficients spread over
+    [0.1, 2] so that a window off by one diagonal moves out and den by far
+    more than the tolerance."""
+    B, H, D, F_ = 2, 3, 16, 44
+    q, k, v, omega = _fused_inputs(23, B, H, n, D, F_)
+    coeffs = torch.from_numpy(np.random.default_rng(24).uniform(
+        0.1, 2.0, size=(H, 2 * n - 1)).astype(np.float32))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    want_out, want_den = mlc.kerple_attention_fused_phi_fwd_reference(q, k, v, omega, coeffs,
+                                                                      kind)
+    got_out, got_den = _fused_blocked(q, k, v, omega, coeffs, kind, *tile)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got_out.float().numpy(), want_out.float().numpy(), **tol)
+    # den: fp32 sums of fp32 weights; in bf16 a phi feature computed in
+    # another order may round one ulp the other way (2^-8 relative at most)
+    den_tol = FP32_TOL if dtype == torch.float32 else dict(rtol=2 ** -8, atol=0)
+    np.testing.assert_allclose(got_den.numpy(), want_den.numpy(), **den_tol)
+
+
 def test_dc_windows_follow_the_forward_window_convention():
     """Window m of tile pair (iq, jk) is coefficient
     (jk - iq) * tile + N - tile + m: a dT that is 1 on one element (i, j)
@@ -523,6 +619,26 @@ def test_backward_kernel_source_is_in_the_package():
         assert kernel in src
 
 
+def test_fused_kernel_source_shares_the_forwards_stage():
+    """The bf16 fused-phi kernel runs the unfused forward's register-resident
+    stage and epilogue from the shared header, and keeps the exact
+    exponential and fixed-order sums (no fast exp, no float atomics)."""
+    from efficient_rpe_vit_torch.ops.kernels import _build
+
+    fused = (_build.CSRC / f"{mlc._FUSED_SOURCE}.cu").read_text()
+    fwd = (_build.CSRC / f"{mlc._SOURCE}.cu").read_text()
+    common = (_build.CSRC / "kerple_common.cuh").read_text()
+    for name in ("kfp_fwd_mma_kernel", "kfp_mma_takes", "kfp_fwd_launch_info", "kfp_fwd_kernel"):
+        assert name in fused
+    assert '#include "flash_attention_mma.cuh"' in common
+    for name in ("fwd_mma_stage", "fwd_mma_store"):
+        assert f"void {name}(" in common
+        assert f"{name}<" in fused and f"{name}<" in fwd
+    assert "expf((u - mx) - nh)" in fused
+    for banned in ("atomicAdd", "__expf", "exp2", "ex2("):
+        assert banned not in fused
+
+
 @pytest.mark.parametrize("args, error", [
     (("masked_linear_coeffs_bwd", 197, 266, 64, torch.bfloat16), ValueError),
     (("masked_linear_coeffs_fwd_dq", 197, 266, 64, torch.bfloat16), ValueError),
@@ -530,7 +646,11 @@ def test_backward_kernel_source_is_in_the_package():
     (("masked_linear_coeffs_bwd_dq", 0, 266, 64, torch.bfloat16), ValueError),
     (("masked_linear_coeffs_bwd_dkv", 197, 0, 64, torch.float32), ValueError),
     (("masked_linear_coeffs_bwd_dc", 197, 266, -1, torch.bfloat16), ValueError),
-    (("kerple_fused_phi_fwd", 197, 266, 64, torch.bfloat16), ValueError),
+    (("kerple_fused_phi", 197, 266, 64, torch.bfloat16), ValueError),
+    (("kerple_fused_phi_fwd", 197, 266, 64, torch.float16), TypeError),
+    (("kerple_fused_phi_fwd", 0, 266, 64, torch.bfloat16), ValueError),
+    (("kerple_fused_phi_fwd", 197, -1, 64, torch.bfloat16), ValueError),
+    (("kerple_fused_phi_fwd", 197, 266, 0, torch.float32), ValueError),
     (("masked_linear_coeffs_fwd", 197, 266, 64, torch.float16), TypeError),
     (("masked_linear_coeffs_fwd", 0, 266, 64, torch.bfloat16), ValueError),
     (("masked_linear_coeffs_fwd", 197, -2, 64, torch.float32), ValueError),
