@@ -29,9 +29,15 @@ Phases, each printed as it runs; any failure exits non-zero:
      timed beside their bounds and beside scaled_dot_product_attention;
   3d. rotation kernels (Circulant-STRING forward and backward) against
      their plain versions in bf16 and fp32, keep_cls off and on, at the
-     serving, training, long-N and the JAX tests' shapes and at D=128; CLS
-     rows bit for bit, bitwise backward reruns, the head split's strided
-     views; timed beside their bounds and the plain DFT chain arm;
+     serving, training, long-N and the JAX tests' shapes, at D=80 and
+     D=128, and at the edges of the bf16 mma.sync kernels' 128-row tiles
+     (N = 15, 127, 129, 1000) and head dims (16, 32, 48); CLS rows bit for
+     bit, bitwise backward reruns, the head split's strided views, and a
+     bf16 view with rows of 68 elements (the staged kernels); each shape's
+     launch_info logged and checked (bf16 at D a multiple of 16 up to 64 on
+     the mma.sync kernels, no spills at the main paths' shapes; the rest
+     staged); timed beside their bounds, the plain DFT chain arm and the
+     torch.fft route (rfft, complex product, irfft: three calls);
   3e. the fused-phi KERPLE forward (phi+ and phi_relu computed in the
      kernel from raw q, k and Omega) against its plain version in bf16 and
      fp32 at the serving, training, ragged and the JAX tests' shapes, and in
@@ -278,6 +284,11 @@ ROT_PATHS = {(VITB["batch_size"], 12, 197, 64): "circulant_serve",
              (LONGN["batch_size"], 12, LONGN_N, 64): "circulant_longn_train"}
 ROT_SHAPES = list(ROT_PATHS) + [(2, 3, 190, 16), (1, 2, 17, 16), (3, 1, 65, 64),
                                 (2, 2, 130, 80), (2, 2, 197, 128)]
+# the bf16 mma.sync rotation kernels' edges: one row short of, at and past
+# the 16-row warp tiles and 128-row blocks, their other head dims, and
+# batch groups with a short last group
+ROT_SHAPES += [(2, 2, 15, 64), (2, 3, 127, 64), (3, 2, 129, 64), (1, 3, 128, 32),
+               (5, 2, 200, 48), (7, 12, 1000, 64)]
 # phase 12: (variant, rpe_config of the kernel arm, of the dense arm), at
 # ViT-B width and depth VARIANT_DEPTH
 BLOCK_CIRCULANT = {"block_size": 16, "enable_block_circulant": True}
@@ -302,7 +313,7 @@ PROFILE_GROUPS = [
     ("KERPLE kernels (this repo)", lambda k: "mlc_" in k or "kfp_" in k),
     ("flash attention kernels (this repo)", lambda k: "flash_fwd" in k or "flash_bwd" in k),
     ("rotation kernels (this repo)",
-     lambda k: "rot_fwd_kernel" in k or "rot_bwd_kernel" in k or "group_sum_kernel" in k),
+     lambda k: "rot_fwd_" in k or "rot_bwd_" in k or "group_sum_kernel" in k),
     ("fp32 GEMMs (phi projection x@Omega, fwd and bwd)", lambda k: "f32f32" in k or "sgemm" in k),
     ("bf16 GEMMs (cuBLAS)", lambda k: "nvjet" in k or "gemm" in k),
     ("optimizer (multi-tensor apply)", lambda k: "multi_tensor" in k),
@@ -930,21 +941,64 @@ def check_flash_kernels(fa):
 def rotation_bounds(B, H, N, D, dtype: str):
     """{kernel: (bound_ms, bound_by)} for the rotation kernels: x (and g)
     read once and out (dx) written once in the input dtype, ct and st read
-    once (and dct, dst written once) in fp32; the DFT products in fp32 FMA
-    (the kernels' function has fp32 spectra): 8 rows D K operations forward
-    (two products of 2K columns), 12 rows D K backward (the reverse rotation
-    and the recomputed spectrum), rows = B H N, K = D/2 + 1."""
+    once (and dct, dst written once) in fp32; the DFT products, 8 rows D K
+    operations forward (two products of 2K columns) and 12 rows D K
+    backward (the reverse rotation and the recomputed spectrum), rows =
+    B H N, K = D/2 + 1. In bf16 the products count on the tensor cores at
+    the bf16 peak, three times over: the split bf16 products (hi and lo
+    parts of the constants and of the rotated spectrum) that give them fp32
+    accuracy; the bytes then bound every main-path shape. In fp32 they
+    count at the fp32 FMA rate."""
     elt = 2 if dtype == "bfloat16" else 4
     rows, K = B * H * N, D // 2 + 1
     table = 4 * H * N * K
+    rate = PEAK_OPS_PER_S["bfloat16"] / 3 if dtype == "bfloat16" else PEAK_OPS_PER_S["float32"]
     out = {}
     for name, n_rows, n_tables, ops in (
             ("circulant_rotate_fwd", 2, 2, 8 * rows * D * K),
             ("circulant_rotate_bwd", 3, 4, 12 * rows * D * K)):
         t_bytes = (elt * rows * D * n_rows + table * n_tables) / HBM_BYTES_PER_S
-        t_ops = ops / PEAK_OPS_PER_S["float32"]
+        t_ops = ops / rate
         out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def rot_mma_rule(D, dtype, strides) -> str:
+    """The kernel a rotation launch runs by the source's rot_mma_takes rule:
+    the mma.sync one in bf16 at D a multiple of 16 up to 64 with element
+    strides that are multiples of 8, else the staged one."""
+    takes = (dtype == torch.bfloat16 and D % 16 == 0 and 16 <= D <= 64
+             and all(s % 8 == 0 for s in strides))
+    return "mma.sync" if takes else "staged"
+
+
+def check_rotation_launch_info(cr, N, D, dtype, strides, main_path=False):
+    """{kernel: launch_info} of the rotation forward and backward at (N, D)
+    in `dtype` with x's strides, logged; raises unless each runs the kernel
+    of rot_mma_rule, and at a main path's shape unless that is the mma.sync
+    kernel with no spilled bytes."""
+    name = str(dtype).split(".")[-1]
+    out = {}
+    for kname in ("circulant_rotate_fwd", "circulant_rotate_bwd"):
+        info = cr.launch_info(kname, N, D, dtype, strides)
+        log("kernel", f"{kname} N={N} D={D} {name} strides {tuple(strides)}: " + ", ".join(
+            f"{key} {value}" for key, value in info.items()))
+        want = rot_mma_rule(D, dtype, strides)
+        if info["kernel"] != want:
+            raise AssertionError(f"the {kname} launch at N={N} D={D} {name} runs the "
+                                 f"{info['kernel']} kernel, expected the {want} one")
+        if main_path and (want != "mma.sync" or info["spill_bytes"]):
+            raise AssertionError(f"the {kname} launch at a main path's shape is not the "
+                                 f"mma.sync kernel without spills: {info}")
+        out[kname] = info
+    return out
+
+
+def fft_rotation(x, ct, st):
+    """The rotation as torch.fft's three calls: irfft(rfft(x) (ct + i st)),
+    in x's dtype (a yardstick: the port never calls it)."""
+    spectrum = torch.fft.rfft(x.float()) * torch.complex(ct, st)
+    return torch.fft.irfft(spectrum, n=x.shape[-1]).to(x.dtype)
 
 
 def check_rotation_kernels(cr):
@@ -961,6 +1015,9 @@ def check_rotation_kernels(cr):
             theta = torch.randn(H, N, D // 2 + 1, generator=gen, device="cuda") * 0.3
             ct, st = theta.cos(), theta.sin()
             shape = f"B{B} H{H} N{N} D{D} {name}"
+            path = ROT_PATHS.get((B, H, N, D))
+            main_path = path is not None and dtype == torch.bfloat16
+            infos = check_rotation_launch_info(cr, N, D, dtype, x.stride()[:3], main_path)
             errs = {}
             for keep in (False, True):
                 out = cr.circulant_rotate_fwd(x, ct, st, keep)
@@ -986,7 +1043,6 @@ def check_rotation_kernels(cr):
             again = cr.circulant_rotate_bwd(cot, x, ct, st, True)
             if not all(torch.equal(a, b) for a, b in zip(again, grads)):
                 raise AssertionError(f"circulant_rotate_bwd is not bitwise reproducible at {shape}")
-            path = ROT_PATHS.get((B, H, N, D))
             if path == "circulant_serve":
                 # the head split's transposed views go in without a copy
                 xv, gv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, cot))
@@ -997,6 +1053,24 @@ def check_rotation_kernels(cr):
                     f"contiguous results bit for bit: {same}")
                 if not same:
                     raise AssertionError("strided inputs change the rotation's results")
+                if dtype == torch.bfloat16:
+                    # rows of 68 elements: strides the mma.sync kernels do not take
+                    xw, gw = (torch.zeros(B, H, N, D + 4, dtype=dtype, device="cuda")
+                              for _ in range(2))
+                    xw[..., :D], gw[..., :D] = x, cot
+                    xs, gs = xw[..., :D], gw[..., :D]
+                    check_rotation_launch_info(cr, N, D, dtype, xs.stride()[:3])
+                    got = (cr.circulant_rotate_fwd(xs, ct, st, True),
+                           *cr.circulant_rotate_bwd(gs, xs, ct, st, True))
+                    want = (cr.circulant_rotate_fwd_reference(x, ct, st, True),
+                            *cr.circulant_rotate_bwd_reference(cot, x, ct, st, True))
+                    rels = [_max_rel(a, b) for a, b in zip(got, want)]
+                    log("kernel", f"circulant_rotate {shape} rows of {D + 4} (staged): "
+                        f"max|err|/max|plain| {', '.join(f'{r:.3e}' for r in rels)}")
+                    if not all(r <= t for r, t in zip(rels, (ROT_TOL[name],) * 2
+                                                      + (ROT_ANGLE_TOL,) * 2)):
+                        raise AssertionError("the staged rotation kernels disagree with "
+                                             "their plain version")
             if path is None or name != "bfloat16":
                 continue
             # timed on the main paths' shapes, with keep_cls as the model runs them
@@ -1010,29 +1084,43 @@ def check_rotation_kernels(cr):
 
             chain_fwd = kernel_ms(lambda: rotations._dft_chain(x, ct[None], st[None], *mats))
             chain_bwd = kernel_ms(chain_fwd_bwd) - chain_fwd
+
+            def fft_fwd_bwd():
+                return torch.autograd.grad(fft_rotation(xg, ctg, stg), (xg, ctg, stg), cot)
+
+            fft_fwd = kernel_ms(lambda: fft_rotation(x, ct, st))
+            fft_bwd = kernel_ms(fft_fwd_bwd) - fft_fwd
+            # rows past CLS: the fft route does not keep it
+            fft_err = _max_rel(fft_rotation(x, ct, st)[:, :, 1:],
+                               cr.circulant_rotate_fwd_reference(x, ct, st)[:, :, 1:])
+            log("kernel", f"torch.fft route {shape}: forward {fft_fwd:.4f} ms, backward "
+                f"{fft_bwd:.4f} ms (three calls, not one library call), "
+                f"max|err|/max|plain| {fft_err:.3e}")
             plain_iters = 1 if path == "circulant_longn_train" else 5
             timed = {
                 "circulant_rotate_fwd": (
                     lambda: cr.circulant_rotate_fwd(x, ct, st, True),
                     lambda: cr.circulant_rotate_fwd_reference(x, ct, st, True),
-                    chain_fwd, errs[True][0]),
+                    chain_fwd, fft_fwd, errs[True][0]),
                 "circulant_rotate_bwd": (
                     lambda: cr.circulant_rotate_bwd(cot, x, ct, st, True),
                     lambda: cr.circulant_rotate_bwd_reference(cot, x, ct, st, True),
-                    chain_bwd, max(errs[True][1:])),
+                    chain_bwd, fft_bwd, max(errs[True][1:])),
             }
-            for kname, (kernel_fn, plain_fn, chain_ms, err) in timed.items():
+            for kname, (kernel_fn, plain_fn, chain_ms, fft_ms, err) in timed.items():
                 if path == "circulant_serve" and kname == "circulant_rotate_bwd":
                     continue  # serving runs no backward
                 ms = kernel_ms(kernel_fn)
                 plain_ms = time_ms(plain_fn, iters=plain_iters, warmup=1)
                 bound_ms, bound_by = bounds[kname]
                 log("kernel", f"{kname} {shape} keep_cls: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, DFT chain arm {chain_ms:.4f} ms, bound "
-                    f"{bound_ms:.4f} ms ({bound_by}), kernel/bound {ms / bound_ms:.2f}x")
+                    f"{plain_ms:.4f} ms, DFT chain arm {chain_ms:.4f} ms, torch.fft route "
+                    f"{fft_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), kernel/bound "
+                    f"{ms / bound_ms:.2f}x")
                 results[(kname, path)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                               bound_ms=bound_ms, bound_by=bound_by,
-                                              library_ms=None)
+                                              library_ms=None, chain_ms=chain_ms,
+                                              fft_route_ms=fft_ms, launch=infos[kname])
     return results
 
 

@@ -30,27 +30,67 @@
 // g [C_b ; -S_b]^T, and scales the rotated spectrum by D / w before bm for
 // [C_f | -S_f]^T: the same two matrices in the same orientation.
 //
+// Two kernels of each direction, a documented dispatch by dtype, head dim
+// and layout (circulant_rotate_launch_info reports which one a launch
+// runs); a launch that fails raises, it never falls back.
+//
+// bf16 at D a multiple of 16 up to 64, with element strides that are
+// multiples of 8 and 16-byte aligned rows (rot_mma_takes; the main paths'
+// D = 64 head-split views): rot_fwd_mma_kernel / rot_bwd_mma_kernel, on
+// mma.sync.m16n8k16 tensor-core products (csrc/flash_attention_mma.cuh).
+// A block owns one (head, 128-row tile) and walks its batch group; each of
+// its 8 warps owns 16 rows and runs on its own after one barrier:
+//   - the spectrum columns are interleaved, column 2k = re_k and 2k+1 =
+//     im_k, with the Nyquist re_h in column 1 (im_0 and im_h are zero: sin
+//     vanishes there), so D columns hold the K frequencies and a thread's
+//     m16n8 accumulator holds a frequency's re and im side by side: the
+//     rotation is register-local, and two n8 tiles are the k16 A fragment
+//     of the inverse product;
+//   - fp32 accuracy from bf16 tensor cores by split products: each
+//     constant is hi = bf16(c) plus lo = bf16(c - hi) (built in shared
+//     memory from the fp32 fm, bm at block start); x and g are bf16 and
+//     exact, so a spectrum is x fm_hi + x fm_lo; the rotated fp32 spectrum
+//     s is split the same way and the inverse is s_hi bm_hi + s_lo bm_hi +
+//     s_hi bm_lo (about 2^-16 relative, against 2^-9 for one bf16 pass);
+//   - ct and st of a thread's rows and frequencies stay in registers across
+//     the batch loop (the TPU grid's innermost-batch residency); the
+//     backward's angle gradients accumulate there too, in batch order;
+//   - rows move by 16-byte cp.async through a two-stage ring per warp (the
+//     next batch element's rows load while this one's products run), A
+//     fragments by ldmatrix, and the output goes back through the same
+//     slot as 16-byte coalesced stores. Under keep_cls row 0 is the staged
+//     input row, bit for bit; rows past N load as zeros and are not stored.
+// The backward runs the forward's spectrum on g and x together (sharing
+// the constants' fragments), and takes dx through the same inverse.
+//
+// Every other launch (fp32, D = 80, D = 4k, unaligned strides) runs the
+// staged kernels rot_fwd_kernel / rot_bwd_kernel, the first design: fp32
+// FMA block products from transposed fp32 tiles in shared memory, one
+// block per (tile of rows, head, batch group) looping over its batches,
+// each thread a block of 4 columns by 4 rows (forward at D <= 64) or 2 rows
+// (the backward, and D = 128) of each product, the two Nyquist columns as
+// plain dots; at D = 64 a tile is 64 rows forward, 32 backward.
+//
+// Both backward kernels sum the angle gradients over a batch group in
+// order in the block, and across batch groups in a second, fixed-order sum
+// kernel (group_sum_kernel): no float atomics, so the gradients are
+// bitwise reproducible.
+//
 // What bounds it on an H100: at ViT-B (D = 64, K = 33, bf16) a row is 128
-// bytes in and out against 8 D K = 16.9 kFLOP of fp32 products forward
-// (12 D K backward), so the fp32 FMA rate bounds it (B=32, H=12, N=197:
-// 1.28 GFLOP, 19 us, against 20 MB, 6 us). This version is simple rather
-// than fast: one block per (tile of rows, head, batch group) stages fm and
-// bm and the tile's ct/st rows in shared memory once and loops over its
-// batches. Tiles are kept transposed ([col][row]) in shared memory; each
-// thread computes a block of 4 columns by 4 rows (forward at D <= 64) or 2
-// rows (the backward, and D = 128) of each product from 16-byte shared
-// loads, and the two Nyquist columns as plain dots; at D = 64 a tile is 64
-// rows forward, 32 backward. The batch sum of the
-// angle gradients runs in a fixed order in the block, and across batch
-// groups in a second, fixed-order sum kernel: no float atomics, so the
-// gradients are bitwise reproducible. Tensor-core products (the DFTs are
-// [rows, 64] x [64, 66] GEMMs) and overlapping loads with products are
-// later work.
+// bytes in and 128 out (the backward 256 in) against a [64 x 66] transform
+// each way. On the tensor cores, even as the three split products, the
+// DFTs take less time than moving the bytes (B = 32, H = 12, N = 197:
+// 3.8 GFLOP, 3.9 us at 989 TFLOP/s, against 20.0 MB, 6.0 us at 3.35 TB/s),
+// so the bytes bound it at every main-path shape (chip_smoke.py's
+// rotation_bounds; times in PERF.md, NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -437,6 +477,503 @@ Params make_params(int B, int H, int N, int D, int rb, int keep_cls, long long x
   return Params{B, H, N, D, keep_cls, groups, (B + groups - 1) / groups, xb, xh, xn, gb, gh, gn};
 }
 
+// ─── the bf16 mma.sync kernels ──────────────────────────────────────────
+
+namespace fm = flash::mma;
+
+// Rows per block (warps of 16 rows), ring stages per warp, and the number
+// of blocks the batch groups aim at, per kernel: picked by trial on an H100
+// (experiments/tile_trial.py, numbers in PERF.md).
+constexpr int FWD_MMA_WARPS = 8;
+constexpr int FWD_MMA_STAGES = 2;
+constexpr int FWD_MMA_TARGET = 2 * 132;
+constexpr int BWD_MMA_WARPS = 8;
+constexpr int BWD_MMA_STAGES = 2;
+constexpr int BWD_MMA_TARGET = 2 * 132;
+constexpr int MMA_MAX_D = 64;
+
+// Whether a bf16 launch at head dim D with element strides (sb, sh, sn) of
+// x (and g) runs the mma.sync kernels: D a multiple of 16 up to 64 and
+// strides that are multiples of 8, so rows start 16-byte aligned from a
+// 16-byte aligned base (which the entry points check on the pointers).
+bool rot_mma_takes(int D, long long sb, long long sh, long long sn) {
+  return D % 16 == 0 && D >= 16 && D <= MMA_MAX_D && sb % 8 == 0 && sh % 8 == 0 &&
+         sn % 8 == 0;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Geometry of a block at head dim D: W warps of 16 rows, each with a ring of
+// S slots of NTENS [16, LD] bf16 tiles (x; the backward's g and x), after
+// the four [D, LD] constant matrices fm_hi, fm_lo, bm_hi, bm_lo.
+template <int D, int W, int S, int NTENS>
+struct MmaGeometry {
+  static constexpr int NT = 32 * W;     // threads
+  static constexpr int ROWS = 16 * W;   // rows per block
+  static constexpr int LD = D + 8;      // row stride (elements): 16-byte rows, and the eight
+                                        // row addresses of an ldmatrix on distinct banks
+  static constexpr int MAT = D * LD;    // elements of one constant matrix
+  static constexpr int TILE = 16 * LD;  // elements of one warp's 16-row tile
+  static constexpr size_t BYTES =
+      sizeof(bf16) * ((size_t)4 * MAT + (size_t)W * S * NTENS * TILE);
+};
+
+// Column p of the interleaved spectrum as a column of fm (a row of bm) in
+// their staged order: p = 0 re_0, p = 1 re_h (in im_0's slot), p = 2k re_k,
+// p = 2k + 1 im_k.
+__device__ __forceinline__ int staged_column(int D, int p) {
+  return p == 1 ? D : (p % 2 == 0 ? p / 2 : D / 2 + p / 2);
+}
+
+// The four constant matrices in shared memory, [D, D + 8] bf16 each: fm_hi,
+// fm_lo ([depth d][column p]) and bm_hi, bm_lo ([row p][column d]), from
+// the fp32 fm [D, D + 2] and bm [D + 2, D]; hi = bf16(c), lo = bf16(c - hi).
+template <int D, int NT>
+__device__ __forceinline__ void stage_split_constants(bf16* c, const float* __restrict__ fm,
+                                                      const float* __restrict__ bm) {
+  constexpr int LD = D + 8, MAT = D * LD;
+  for (int i = threadIdx.x; i < D * D; i += NT) {
+    const int r = i / D, col = i - r * D;
+    const float f = fm[r * (D + 2) + staged_column(D, col)];  // depth r, column col
+    const float b = bm[staged_column(D, r) * D + col];        // spectrum row r, column col
+    const bf16 fh = __float2bfloat16_rn(f), bh = __float2bfloat16_rn(b);
+    c[r * LD + col] = fh;
+    c[MAT + r * LD + col] = __float2bfloat16_rn(f - __bfloat162float(fh));
+    c[2 * MAT + r * LD + col] = bh;
+    c[3 * MAT + r * LD + col] = __float2bfloat16_rn(b - __bfloat162float(bh));
+  }
+}
+
+// Stage 16 rows of D bf16 (row stride rs elements, the first `valid` of
+// them real) into a warp's [16, D + 8] tile by 16-byte cp.async; rows past
+// `valid` are zero. Committed by the caller.
+template <int D>
+__device__ __forceinline__ void stage_warp_rows(bf16* tile, const bf16* __restrict__ src,
+                                                long long rs, int valid) {
+  constexpr int CH = D / 8;  // 16-byte words a row
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, w = c - r * CH;
+    const bool ok = r < valid;
+    flash::cp_async<16>(tile + r * (D + 8) + 8 * w, ok ? src + r * rs + 8 * w : src,
+                        ok ? 16 : 0);
+  }
+}
+
+// The first `valid` rows of a warp's [16, D + 8] tile to dst (row stride D)
+// as 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_warp_rows(bf16* __restrict__ dst, const bf16* tile,
+                                                int valid) {
+  constexpr int CH = D / 8;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, w = c - r * CH;
+    if (r < valid)
+      *reinterpret_cast<uint4*>(dst + (size_t)r * D + 8 * w) =
+          *reinterpret_cast<const uint4*>(tile + r * (D + 8) + 8 * w);
+  }
+}
+
+// acc[a] = the interleaved spectrum of the warp tile in[a] ([16, D + 8]
+// bf16): in[a] fm_lo + in[a] fm_hi, in fp32 accumulators of D / 8 n8
+// tiles. Each B fragment of the constants is loaded once for all NA tiles.
+// The forward (NA = 1: x) and the backward (NA = 2: g and x) share it.
+template <int D, int NA>
+__device__ __forceinline__ void split_spectra(float (&acc)[NA][D / 8][4],
+                                              const bf16* const (&in)[NA], const bf16* fh,
+                                              const bf16* fl) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) fm::zero_acc<D / 8>(acc[a]);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[NA][4];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fm::load_a(af[a], in[a], LD, 0, kk * 16);
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t bh[4], bl[4];
+      fm::load_b_cols(bh, fh, LD, kk * 16, np * 16);
+      fm::load_b_cols(bl, fl, LD, kk * 16, np * 16);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        fm::mma_bf16(acc[a][2 * np], af[a], bl[0], bl[1]);
+        fm::mma_bf16(acc[a][2 * np], af[a], bh[0], bh[1]);
+        fm::mma_bf16(acc[a][2 * np + 1], af[a], bl[2], bl[3]);
+        fm::mma_bf16(acc[a][2 * np + 1], af[a], bh[2], bh[3]);
+      }
+    }
+  }
+}
+
+// v0, v1 as bf16 pairs hi = bf16(v) and lo = bf16(v - hi), the lower column
+// in the low half.
+__device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - back.x, v1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// y = s bm as three bf16 products, s_lo bm_hi + s_hi bm_lo + s_hi bm_hi,
+// with s the warp's rotated fp32 spectrum in accumulator layout: two n8
+// tiles are one k16 A fragment (fm::to_a's packing), here split into hi
+// and lo.
+template <int D>
+__device__ __forceinline__ void split_inverse(float (&y)[D / 8][4], const float (&s)[D / 8][4],
+                                              const bf16* bh_m, const bf16* bl_m) {
+  constexpr int LD = D + 8;
+  fm::zero_acc<D / 8>(y);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_pack(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+    split_pack(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+    split_pack(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+    split_pack(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t bh[4], bl[4];
+      fm::load_b_cols(bh, bh_m, LD, kk * 16, np * 16);
+      fm::load_b_cols(bl, bl_m, LD, kk * 16, np * 16);
+      fm::mma_bf16(y[2 * np], lo, bh[0], bh[1]);
+      fm::mma_bf16(y[2 * np], hi, bl[0], bl[1]);
+      fm::mma_bf16(y[2 * np], hi, bh[0], bh[1]);
+      fm::mma_bf16(y[2 * np + 1], lo, bh[2], bh[3]);
+      fm::mma_bf16(y[2 * np + 1], hi, bl[2], bl[3]);
+      fm::mma_bf16(y[2 * np + 1], hi, bh[2], bh[3]);
+    }
+  }
+}
+
+// A thread's angle tables, held in registers across the batch loop: for n8
+// tile j and row half f (rows lane/4 and lane/4 + 8 of the warp's 16), the
+// frequency k = 4 j + lane % 4 whose (re, im) the accumulator's columns
+// (2 t, 2 t + 1) hold. The lanes with t = 0 hold (re_0, re_h) in tile 0:
+// there c, s are (ct_0, 0) and c1 is ct_h (elsewhere c1 is tile 0's c), so
+// one formula rotates every pair: (c re - s im, s re + c1 im). Rows past
+// `valid` get zeros.
+template <int D>
+struct AngleRegs {
+  float c[D / 8][2], s[D / 8][2], c1[2];
+
+  __device__ __forceinline__ void load(const float* __restrict__ ct,
+                                       const float* __restrict__ st, size_t row0, int valid) {
+    constexpr int K = D / 2 + 1;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int r = g + 8 * f;
+      const bool ok = r < valid;
+      const float* cr = ct + (row0 + r) * K;
+      const float* sr = st + (row0 + r) * K;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        c[j][f] = ok ? __ldg(cr + 4 * j + t) : 0.f;
+        s[j][f] = ok && (j > 0 || t > 0) ? __ldg(sr + 4 * j + t) : 0.f;
+      }
+      c1[f] = ok ? __ldg(cr + (t == 0 ? D / 2 : t)) : 0.f;
+    }
+  }
+
+  // The forward rotation, in place: (re, im) -> (c re - s im, s re + c1 im).
+  __device__ __forceinline__ void rotate(float (&a)[D / 8][4]) const {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const float re = a[j][2 * f], im = a[j][2 * f + 1];
+        const float cc = j == 0 ? c1[f] : c[j][f];
+        a[j][2 * f] = c[j][f] * re - s[j][f] * im;
+        a[j][2 * f + 1] = s[j][f] * re + cc * im;
+      }
+  }
+
+  // The reverse rotation of g's spectrum, in place: (re, im) -> (c re + s
+  // im, c1 im - s re). On the unscaled g fm (not g C_b^T) this is the
+  // spectrum whose product with bm is dx: C_f^T = diag(D / w) C_b undoes
+  // the w / D of C_b^T = C_f diag(w / D).
+  __device__ __forceinline__ void rotate_back(float (&a)[D / 8][4]) const {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const float re = a[j][2 * f], im = a[j][2 * f + 1];
+        const float cc = j == 0 ? c1[f] : c[j][f];
+        a[j][2 * f] = c[j][f] * re + s[j][f] * im;
+        a[j][2 * f + 1] = cc * im - s[j][f] * re;
+      }
+  }
+};
+
+// A warp's fp32 accumulators of 16 rows as bf16 pairs into its [16, D + 8]
+// tile, skipping row 0 when skip_row0 (the staged input row then stays:
+// keep_cls).
+template <int D>
+__device__ __forceinline__ void write_warp_rows(bf16* tile, const float (&y)[D / 8][4],
+                                                bool skip_row0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    if (f == 0 && skip_row0 && g == 0) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(tile + (g + 8 * f) * (D + 8) + 8 * j + 2 * t) =
+          fm::pack_bf16(y[j][2 * f], y[j][2 * f + 1]);
+  }
+}
+
+// The forward of one (row tile, head, batch group).
+template <int D, int W, int S>
+__global__ void __launch_bounds__(32 * W)
+rot_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ct,
+                   const float* __restrict__ st, const float* __restrict__ fm_g,
+                   const float* __restrict__ bm_g, bf16* __restrict__ out, const Params p) {
+  using G = MmaGeometry<D, W, S, 1>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* cst = reinterpret_cast<bf16*>(smem);
+  const int warp = threadIdx.x / 32;
+  bf16* ring = cst + 4 * G::MAT + (size_t)warp * S * G::TILE;
+  const int h = blockIdx.y;
+  const int n0 = blockIdx.x * G::ROWS + 16 * warp;  // the warp's first row
+  const int valid = min(16, p.N - n0);
+  const int b0 = blockIdx.z * p.per_group;
+  const int count = min(p.B - b0, p.per_group);
+  const bf16* xw = x + h * p.xh + (long long)n0 * p.xn + b0 * p.xb;
+
+  if (valid > 0) {
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (i < count) stage_warp_rows<D>(ring + i * G::TILE, xw + i * p.xb, p.xn, valid);
+      fm::cp_async_commit();
+    }
+  }
+  stage_split_constants<D, G::NT>(cst, fm_g, bm_g);
+  __syncthreads();  // the only block-wide barrier: from here each warp runs on its own
+  if (valid <= 0) return;
+  AngleRegs<D> ang;
+  ang.load(ct, st, (size_t)h * p.N + n0, valid);
+  const bool cls = p.keep_cls && n0 == 0;
+  for (int i = 0; i < count; ++i) {
+    if (i + S - 1 < count)
+      stage_warp_rows<D>(ring + (i + S - 1) % S * G::TILE, xw + (i + S - 1) * p.xb, p.xn,
+                         valid);
+    fm::cp_async_commit();
+    fm::cp_async_wait<S - 1>();
+    __syncwarp();
+    bf16* xs = ring + i % S * G::TILE;
+    float spec[1][D / 8][4];
+    const bf16* const in[1] = {xs};
+    split_spectra<D, 1>(spec, in, cst, cst + G::MAT);
+    ang.rotate(spec[0]);
+    float y[D / 8][4];
+    split_inverse<D>(y, spec[0], cst + 2 * G::MAT, cst + 3 * G::MAT);
+    __syncwarp();  // every lane's ldmatrix of the tile is done
+    write_warp_rows<D>(xs, y, cls);
+    __syncwarp();
+    store_warp_rows<D>(out + (((size_t)(b0 + i) * p.H + h) * p.N + n0) * D, xs, valid);
+    __syncwarp();  // the slot is free for a later load
+  }
+}
+
+// The backward of one (row tile, head, batch group): dx of each batch
+// element, and the group's sums of the angle gradients into dct / dst
+// [groups, H, N, K] (with one group, the final [H, N, K]).
+template <int D, int W, int S>
+__global__ void __launch_bounds__(32 * W)
+rot_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                   const float* __restrict__ ct, const float* __restrict__ st,
+                   const float* __restrict__ fm_g, const float* __restrict__ bm_g,
+                   bf16* __restrict__ dx, float* __restrict__ dct, float* __restrict__ dst,
+                   const Params p) {
+  using G = MmaGeometry<D, W, S, 2>;
+  constexpr int K = D / 2 + 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* cst = reinterpret_cast<bf16*>(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* ring = cst + 4 * G::MAT + (size_t)warp * S * 2 * G::TILE;  // a slot: g, then x
+  const int h = blockIdx.y;
+  const int n0 = blockIdx.x * G::ROWS + 16 * warp;
+  const int valid = min(16, p.N - n0);
+  const int b0 = blockIdx.z * p.per_group;
+  const int count = min(p.B - b0, p.per_group);
+  const bf16* gw = g + h * p.gh + (long long)n0 * p.gn + b0 * p.gb;
+  const bf16* xw = x + h * p.xh + (long long)n0 * p.xn + b0 * p.xb;
+
+  if (valid > 0) {
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (i < count) {
+        stage_warp_rows<D>(ring + 2 * i * G::TILE, gw + i * p.gb, p.gn, valid);
+        stage_warp_rows<D>(ring + (2 * i + 1) * G::TILE, xw + i * p.xb, p.xn, valid);
+      }
+      fm::cp_async_commit();
+    }
+  }
+  stage_split_constants<D, G::NT>(cst, fm_g, bm_g);
+  __syncthreads();  // the only block-wide barrier
+  if (valid <= 0) return;
+  AngleRegs<D> ang;
+  ang.load(ct, st, (size_t)h * p.N + n0, valid);
+  // the global row 0 under keep_cls: the forward passed it through, so no
+  // cotangent reaches its spectrum (and dx's row 0 is g's, bit for bit)
+  const bool cls = p.keep_cls && n0 == 0;
+  const bool cls_lane = cls && lane < 4;
+  const bool nyquist_lane = lane % 4 == 0;  // holds (re_0, re_h) in tile 0
+  float acc_c[D / 8][2], acc_s[D / 8][2];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc_c[j][0] = acc_c[j][1] = acc_s[j][0] = acc_s[j][1] = 0.f;
+
+  for (int i = 0; i < count; ++i) {
+    if (i + S - 1 < count) {
+      const int slot = (i + S - 1) % S;
+      stage_warp_rows<D>(ring + 2 * slot * G::TILE, gw + (i + S - 1) * p.gb, p.gn, valid);
+      stage_warp_rows<D>(ring + (2 * slot + 1) * G::TILE, xw + (i + S - 1) * p.xb, p.xn,
+                         valid);
+    }
+    fm::cp_async_commit();
+    fm::cp_async_wait<S - 1>();
+    __syncwarp();
+    bf16* gs = ring + 2 * (i % S) * G::TILE;
+    const bf16* xs = gs + G::TILE;
+    float spec[2][D / 8][4];  // g fm, x fm
+    const bf16* const in[2] = {gs, xs};
+    split_spectra<D, 2>(spec, in, cst, cst + G::MAT);
+    if (cls_lane) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) spec[0][j][0] = spec[0][j][1] = 0.f;
+    }
+    // the angle gradients before their scale w / D (taken once, at the
+    // end): dct += gre xre + gim xim, dst += gim xre - gre xim; the
+    // Nyquist lanes' tile-0 pair is (re_0, re_h) in both spectra, so their
+    // two sums there are dct_0 and dct_h (dst_0 = dst_h = 0)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const float gre = spec[0][j][2 * f], gim = spec[0][j][2 * f + 1];
+        const float xre = spec[1][j][2 * f], xim = spec[1][j][2 * f + 1];
+        const float pp = gre * xre, qq = gim * xim;
+        if (j == 0 && nyquist_lane) {
+          acc_c[j][f] += pp;
+          acc_s[j][f] += qq;
+        } else {
+          acc_c[j][f] += pp + qq;
+          acc_s[j][f] += gim * xre - gre * xim;
+        }
+      }
+    ang.rotate_back(spec[0]);
+    float y[D / 8][4];
+    split_inverse<D>(y, spec[0], cst + 2 * G::MAT, cst + 3 * G::MAT);
+    __syncwarp();
+    write_warp_rows<D>(gs, y, cls);
+    __syncwarp();
+    store_warp_rows<D>(dx + (((size_t)(b0 + i) * p.H + h) * p.N + n0) * D, gs, valid);
+    __syncwarp();
+  }
+  // the group's sums, scaled by w / D (w = 1 at k = 0 and k = h, else 2)
+  const int gq = lane / 4, t = lane % 4;
+  constexpr float inv_d = 1.f / D;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int r = gq + 8 * f;
+    if (r >= valid) continue;
+    const size_t o = (((size_t)blockIdx.z * p.H + h) * p.N + n0 + r) * K;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (j == 0 && nyquist_lane) {
+        dct[o] = acc_c[0][f] * inv_d;
+        dst[o] = 0.f;
+        dct[o + D / 2] = acc_s[0][f] * inv_d;
+        dst[o + D / 2] = 0.f;
+      } else {
+        dct[o + 4 * j + t] = acc_c[j][f] * (2.f * inv_d);
+        dst[o + 4 * j + t] = acc_s[j][f] * (2.f * inv_d);
+      }
+    }
+  }
+}
+
+int mma_groups_for(int B, int H, int N, int rows, int target) {
+  const int blocks = (N + rows - 1) / rows * H;
+  int groups = (target + blocks - 1) / blocks;
+  groups = groups < 1 ? 1 : (groups > B ? B : groups);
+  const int per = (B + groups - 1) / groups;
+  return (B + per - 1) / per;  // no empty group
+}
+
+int fwd_mma_groups(int B, int H, int N) {
+  return mma_groups_for(B, H, N, 16 * FWD_MMA_WARPS, FWD_MMA_TARGET);
+}
+int bwd_mma_groups(int B, int H, int N) {
+  return mma_groups_for(B, H, N, 16 * BWD_MMA_WARPS, BWD_MMA_TARGET);
+}
+
+// The mma.sync kernel of one direction at head dim D and its dynamic
+// shared memory; null for a D it is not built for.
+const void* mma_kernel(bool backward, int D, size_t* bytes) {
+  constexpr int FW = FWD_MMA_WARPS, FS = FWD_MMA_STAGES;
+  constexpr int BW = BWD_MMA_WARPS, BS = BWD_MMA_STAGES;
+#define ROT_MMA_CASE(DD)                                                                  \
+  case DD:                                                                                \
+    *bytes = backward ? MmaGeometry<DD, BW, BS, 2>::BYTES : MmaGeometry<DD, FW, FS, 1>::BYTES; \
+    return backward ? reinterpret_cast<const void*>(rot_bwd_mma_kernel<DD, BW, BS>)       \
+                    : reinterpret_cast<const void*>(rot_fwd_mma_kernel<DD, FW, FS>);
+  switch (D) {
+    ROT_MMA_CASE(16)
+    ROT_MMA_CASE(32)
+    ROT_MMA_CASE(48)
+    ROT_MMA_CASE(64)
+  }
+#undef ROT_MMA_CASE
+  return nullptr;
+}
+
+int launch_fwd_mma(const void* x, const void* ct, const void* st, const void* fmat,
+                   const void* bmat, void* out, const Params& p, void* stream) {
+  size_t bytes = 0;
+  const void* kernel = mma_kernel(false, p.D, &bytes);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const int err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int rows = 16 * FWD_MMA_WARPS;
+  const dim3 grid((p.N + rows - 1) / rows, p.H, p.groups);
+  Params q = p;
+  void* args[] = {&x, &ct, &st, &fmat, &bmat, &out, &q};
+  return cudaLaunchKernel(kernel, grid, dim3(32 * FWD_MMA_WARPS), args, bytes,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int launch_bwd_mma(const void* g, const void* x, const void* ct, const void* st,
+                   const void* fmat, const void* bmat, void* dx, void* dct, void* dst,
+                   void* work, const Params& p, void* stream) {
+  if (p.groups > 1 && work == nullptr) return cudaErrorInvalidValue;
+  size_t bytes = 0;
+  const void* kernel = mma_kernel(true, p.D, &bytes);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n = (size_t)p.H * p.N * (p.D / 2 + 1);
+  float* part_c = static_cast<float*>(p.groups > 1 ? work : dct);
+  float* part_s = p.groups > 1 ? static_cast<float*>(work) + (size_t)p.groups * n
+                               : static_cast<float*>(dst);
+  const int rows = 16 * BWD_MMA_WARPS;
+  const dim3 grid((p.N + rows - 1) / rows, p.H, p.groups);
+  Params q = p;
+  void* args[] = {&g, &x, &ct, &st, &fmat, &bmat, &dx, &part_c, &part_s, &q};
+  err = cudaLaunchKernel(kernel, grid, dim3(32 * BWD_MMA_WARPS), args, bytes, s);
+  if (err != cudaSuccess || p.groups == 1) return err;
+  const int blocks = (int)((n + THREADS - 1) / THREADS);
+  group_sum_kernel<<<blocks, THREADS, 0, s>>>(part_c, static_cast<float*>(dct), n, p.groups);
+  group_sum_kernel<<<blocks, THREADS, 0, s>>>(part_s, static_cast<float*>(dst), n, p.groups);
+  return cudaGetLastError();
+}
+
 template <typename T, int RB>
 int launch_fwd_rb(const void* x, const void* ct, const void* st, const void* fm, const void* bm,
                   void* out, const Params& p, void* stream) {
@@ -496,14 +1033,58 @@ int launch_bwd(const void* g, const void* x, const void* ct, const void* st, con
   return cudaGetLastError();
 }
 
+// The bf16 launches the mma.sync kernels take (rot_mma_takes, on the
+// strides of x and g and 16-byte aligned bases); the rest run the staged
+// kernels.
+template <typename T>
+bool takes_mma(int B, int H, int N, int D, const void* x, long long xb, long long xh,
+               long long xn) {
+  return std::is_same<T, bf16>::value && !bad_shape(B, H, N, D) &&
+         rot_mma_takes(D, xb, xh, xn) && aligned16(x);
+}
+
+template <typename T>
+int rotate_fwd(const void* x, const void* ct, const void* st, const void* fm, const void* bm,
+               void* out, int B, int H, int N, int D, int keep_cls, long long xb,
+               long long xh, long long xn, void* stream) {
+  if (takes_mma<T>(B, H, N, D, x, xb, xh, xn)) {
+    const int groups = fwd_mma_groups(B, H, N);
+    const Params p{B, H, N, D, keep_cls, groups, (B + groups - 1) / groups, xb, xh, xn, 0, 0, 0};
+    return launch_fwd_mma(x, ct, st, fm, bm, out, p, stream);
+  }
+  const Params p = make_params(B, H, N, D, fwd_rows_per_thread(D), keep_cls, xb, xh, xn,
+                               0, 0, 0);
+  return launch_fwd<T>(x, ct, st, fm, bm, out, p, stream);
+}
+
+template <typename T>
+int rotate_bwd(const void* g, const void* x, const void* ct, const void* st, const void* fm,
+               const void* bm, void* dx, void* dct, void* dst, void* work, int B, int H,
+               int N, int D, int keep_cls, long long gb, long long gh, long long gn,
+               long long xb, long long xh, long long xn, void* stream) {
+  if (takes_mma<T>(B, H, N, D, x, xb, xh, xn) && takes_mma<T>(B, H, N, D, g, gb, gh, gn)) {
+    const int groups = bwd_mma_groups(B, H, N);
+    const Params p{B, H, N, D, keep_cls, groups, (B + groups - 1) / groups, xb, xh, xn,
+                   gb, gh, gn};
+    return launch_bwd_mma(g, x, ct, st, fm, bm, dx, dct, dst, work, p, stream);
+  }
+  const Params p = make_params(B, H, N, D, BWD_ROWS_PER_THREAD, keep_cls, xb, xh, xn, gb,
+                               gh, gn);
+  return launch_bwd<T>(g, x, ct, st, fm, bm, dx, dct, dst, work, p, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Batch groups of a launch at [B, H, N, D]: the backward's workspace holds
-// 2 * groups * H * N * K floats when groups > 1.
+// Batch groups of a backward launch at [B, H, N, D], the most that either
+// backward kernel splits it into: the workspace holds 2 * groups * H * N * K
+// floats when groups > 1.
 int circulant_rotate_groups(int B, int H, int N, int D) {
-  return bad_shape(B, H, N, D) ? 1 : groups_for(B, H, N, D, BWD_ROWS_PER_THREAD);
+  if (bad_shape(B, H, N, D)) return 1;
+  const int staged = groups_for(B, H, N, D, BWD_ROWS_PER_THREAD);
+  const int mma = rot_mma_takes(D, 0, 0, 0) ? bwd_mma_groups(B, H, N) : 1;
+  return staged > mma ? staged : mma;
 }
 
 // x [B, H, N, D] (bf16 or fp32, D a multiple of 4 up to 128) with element
@@ -511,36 +1092,77 @@ int circulant_rotate_groups(int B, int H, int N, int D) {
 // K = D/2 + 1; fm [D, D + 2] and bm [D + 2, D] fp32 in the spectrum column
 // order above; out contiguous [B, H, N, D] like x. Runs on `stream`, does
 // not synchronise, allocates nothing; returns the CUDA error code (0 =
-// launched, cudaErrorInvalidValue for arguments it refuses).
-#define ROT_FWD(SUFFIX, T)                                                                   \
-  int circulant_rotate_fwd_##SUFFIX(const void* x, const void* ct, const void* st,          \
-                                    const void* fm, const void* bm, void* out, int B, int H, \
-                                    int N, int D, int keep_cls, long long xb, long long xh,  \
-                                    long long xn, void* stream) {                            \
-    const Params p = make_params(B, H, N, D, fwd_rows_per_thread(D), keep_cls, xb, xh, xn,  \
-                                 0, 0, 0);                                                   \
-    return launch_fwd<T>(x, ct, st, fm, bm, out, p, stream);                                 \
-  }
-ROT_FWD(bf16, bf16)
-ROT_FWD(f32, float)
+// launched, cudaErrorInvalidValue for arguments it refuses). A bf16 launch
+// that rot_mma_takes, from a 16-byte aligned x, runs rot_fwd_mma_kernel.
+int circulant_rotate_fwd_bf16(const void* x, const void* ct, const void* st, const void* fm,
+                              const void* bm, void* out, int B, int H, int N, int D,
+                              int keep_cls, long long xb, long long xh, long long xn,
+                              void* stream) {
+  return rotate_fwd<bf16>(x, ct, st, fm, bm, out, B, H, N, D, keep_cls, xb, xh, xn, stream);
+}
+
+int circulant_rotate_fwd_f32(const void* x, const void* ct, const void* st, const void* fm,
+                             const void* bm, void* out, int B, int H, int N, int D,
+                             int keep_cls, long long xb, long long xh, long long xn,
+                             void* stream) {
+  return rotate_fwd<float>(x, ct, st, fm, bm, out, B, H, N, D, keep_cls, xb, xh, xn, stream);
+}
 
 // The backward: g and x [B, H, N, D] strided as above; dx contiguous like x;
 // dct, dst [H, N, K] fp32; work as `circulant_rotate_groups` says (may be
-// null with one group). Launches the backward kernel and, with several
-// batch groups, two fixed-order sums over them.
-#define ROT_BWD(SUFFIX, T)                                                                     \
-  int circulant_rotate_bwd_##SUFFIX(const void* g, const void* x, const void* ct,             \
-                                    const void* st, const void* fm, const void* bm, void* dx, \
-                                    void* dct, void* dst, void* work, int B, int H, int N,    \
-                                    int D, int keep_cls, long long gb, long long gh,          \
-                                    long long gn, long long xb, long long xh, long long xn,   \
-                                    void* stream) {                                            \
-    const Params p = make_params(B, H, N, D, BWD_ROWS_PER_THREAD, keep_cls, xb, xh, xn, gb,   \
-                                 gh, gn);                                                      \
-    return launch_bwd<T>(g, x, ct, st, fm, bm, dx, dct, dst, work, p, stream);                 \
+// null with one group). Launches a backward kernel (rot_bwd_mma_kernel where
+// both g and x are taken as by the forward) and, with several batch groups,
+// two fixed-order sums over them.
+int circulant_rotate_bwd_bf16(const void* g, const void* x, const void* ct, const void* st,
+                              const void* fm, const void* bm, void* dx, void* dct, void* dst,
+                              void* work, int B, int H, int N, int D, int keep_cls,
+                              long long gb, long long gh, long long gn, long long xb,
+                              long long xh, long long xn, void* stream) {
+  return rotate_bwd<bf16>(g, x, ct, st, fm, bm, dx, dct, dst, work, B, H, N, D, keep_cls, gb,
+                          gh, gn, xb, xh, xn, stream);
+}
+
+int circulant_rotate_bwd_f32(const void* g, const void* x, const void* ct, const void* st,
+                             const void* fm, const void* bm, void* dx, void* dct, void* dst,
+                             void* work, int B, int H, int N, int D, int keep_cls,
+                             long long gb, long long gh, long long gn, long long xb,
+                             long long xh, long long xn, void* stream) {
+  return rotate_bwd<float>(g, x, ct, st, fm, bm, dx, dct, dst, work, B, H, N, D, keep_cls, gb,
+                           gh, gn, xb, xh, xn, stream);
+}
+
+// What a forward (kind 0) or backward (kind 1) launch at (N, D) in bf16
+// (is_bf16 = 1) or fp32, with x's (and g's) element strides (sb, sh, sn),
+// runs, in info[0..6]: rows per block, threads, dynamic shared memory
+// bytes, resident blocks per SM, registers per thread, local (spilled)
+// bytes per thread, and 1 for the mma.sync kernel (0 for the staged one).
+// Returns the CUDA error code (cudaErrorInvalidValue for bad arguments).
+int circulant_rotate_launch_info(int kind, int N, int D, int is_bf16, long long sb,
+                                 long long sh, long long sn, int* info) {
+  if (bad_shape(1, 1, N, D) || (kind != 0 && kind != 1)) return cudaErrorInvalidValue;
+  const bool backward = kind == 1;
+  if (is_bf16 && rot_mma_takes(D, sb, sh, sn)) {
+    size_t bytes = 0;
+    const void* kernel = mma_kernel(backward, D, &bytes);
+    const int warps = backward ? BWD_MMA_WARPS : FWD_MMA_WARPS;
+    return fm::launch_info(kernel, 16 * warps, 32 * warps, bytes, true, info);
   }
-ROT_BWD(bf16, bf16)
-ROT_BWD(f32, float)
+  const int rb = backward ? BWD_ROWS_PER_THREAD : fwd_rows_per_thread(D);
+  const Geometry q(D, rb);
+  const size_t bytes = Layout(q, backward).bytes;
+  const void* kernel;
+  if (backward) {
+    kernel = is_bf16 ? reinterpret_cast<const void*>(rot_bwd_kernel<bf16, BWD_ROWS_PER_THREAD>)
+                     : reinterpret_cast<const void*>(rot_bwd_kernel<float, BWD_ROWS_PER_THREAD>);
+  } else if (rb == 4) {
+    kernel = is_bf16 ? reinterpret_cast<const void*>(rot_fwd_kernel<bf16, 4>)
+                     : reinterpret_cast<const void*>(rot_fwd_kernel<float, 4>);
+  } else {
+    kernel = is_bf16 ? reinterpret_cast<const void*>(rot_fwd_kernel<bf16, 2>)
+                     : reinterpret_cast<const void*>(rot_fwd_kernel<float, 2>);
+  }
+  return fm::launch_info(kernel, q.rows, THREADS, bytes, false, info);
+}
 
 const char* circulant_rotate_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -33,6 +33,17 @@ with the instantiation swapped, at the main paths' shapes:
                        the warps of a tile) or by 4; u held in registers
                        from the max pass to the phi pass (shipped) or
                        projected again
+    rot_fwd            (32, 12, 197, 64), (64, 12, 197, 64) and (4, 12, 4097,
+                       64) bf16, keep_cls: 128 rows per block (8 warps,
+                       shipped) or 64 (4 warps); a two-stage ring of each
+                       warp's rows (shipped), one stage (no prefetch) or
+                       three; batch groups aiming at 2 x 132 blocks
+                       (shipped), 132 or 4 x 132
+    rot_bwd            (64, 12, 197, 64) and (4, 12, 4097, 64) bf16,
+                       keep_cls: the same, batch groups aiming at one
+                       block per (head, row tile) (no partial sums), and
+                       registers capped for more resident warps (64 rows
+                       at 3 blocks per SM, 128 rows at 2)
 
 Every variant is first held against the kernel's plain version (max
 |err| / max |plain|), then timed as chip_smoke.py times kernels: calls
@@ -59,6 +70,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from ..ops.kernels import _build
+from ..ops.kernels import circulant_rotate as cr
 from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import masked_linear_coeffs as mlc
 from ..utils.timing import device_label
@@ -132,12 +144,48 @@ VARIANTS = {
             (_KFP, "FusedMma<272, 64, 64, 64, 1, false, 1>")],
     }),
 }
+
+
+def _rot_variants(kind: str, backward: bool) -> dict:
+    """The rotation kernel `kind`'s ("FWD" or "BWD") variants: rows per
+    block, ring stages and the blocks its batch groups aim at; the
+    backward's also one batch group and capped registers."""
+    warps, stages, target = (f"constexpr int {kind}_MMA_{name} = {value};" for name, value in
+                             (("WARPS", 8), ("STAGES", 2), ("TARGET", "2 * 132")))
+    out = {
+        "128 rows (8 warps), 2 stages, groups for 2 x 132 blocks": [],
+        "64 rows (4 warps), 2 stages, groups for 2 x 132 blocks": [
+            (warps, warps.replace("8;", "4;"))],
+        "128 rows (8 warps), 1 stage, groups for 2 x 132 blocks": [
+            (stages, stages.replace("2;", "1;"))],
+        "128 rows (8 warps), 3 stages, groups for 2 x 132 blocks": [
+            (stages, stages.replace("2;", "3;"))],
+        "128 rows (8 warps), 2 stages, groups for 132 blocks": [
+            (target, target.replace("2 * 132", "132"))],
+        "128 rows (8 warps), 2 stages, groups for 4 x 132 blocks": [
+            (target, target.replace("2 * 132", "4 * 132"))],
+    }
+    if backward:
+        bounds = "__global__ void __launch_bounds__(32 * W)\nrot_bwd_mma_kernel("
+        out["128 rows (8 warps), 2 stages, one group (no partial sums)"] = [
+            (target, target.replace("2 * 132", "1"))]
+        out["64 rows (4 warps), 2 stages, 3 blocks per SM (at most 170 registers)"] = [
+            (warps, warps.replace("8;", "4;")), (bounds, bounds.replace("W)", "W, 3)"))]
+        out["128 rows (8 warps), 2 stages, 2 blocks per SM (at most 128 registers)"] = [
+            (bounds, bounds.replace("W)", "W, 2)"))]
+    return out
+
+
+VARIANTS["rot_fwd"] = ("circulant_rotate", cr, "_lib", _rot_variants("FWD", False))
+VARIANTS["rot_bwd"] = ("circulant_rotate", cr, "_lib", _rot_variants("BWD", True))
+
 # the launch_info name of each kernel the wrapper module reports on
 LAUNCH_INFO = {"mlc_bwd_dq": "masked_linear_coeffs_bwd_dq",
                "mlc_bwd_dkv": "masked_linear_coeffs_bwd_dkv",
                "mlc_bwd_dc": "masked_linear_coeffs_bwd_dc",
                "mlc_fwd": "masked_linear_coeffs_fwd",
-               "kfp_fwd": "kerple_fused_phi_fwd"}
+               "kfp_fwd": "kerple_fused_phi_fwd",
+               "rot_fwd": "circulant_rotate_fwd", "rot_bwd": "circulant_rotate_bwd"}
 # the sequence lengths launch_info is asked at, per kernel (default 197 and 4097)
 LAUNCH_INFO_N = {"kfp_fwd": (197,)}
 
@@ -282,6 +330,23 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
             f"({B}, 12, 197, 64, 266)", lambda a=a: mlc.kerple_attention_fused_phi_fwd(*a),
             lambda got, first=first: _max_rel(
                 _first(got), mlc.kerple_attention_fused_phi_fwd_reference(*first))))
+    for B, N in ((32, 197), (64, 197), (4, 4097)) if any(
+            k.startswith("rot_") for k in kernels) else ():
+        x, cot = (torch.randn(B, 12, N, 64, generator=g, device="cuda").bfloat16()
+                  for _ in range(2))
+        theta = torch.randn(12, N, 33, generator=g, device="cuda") * 0.3
+        ct, st = theta.cos(), theta.sin()
+        shape = f"({B}, 12, {N}, 64)"
+        want = cr.circulant_rotate_fwd_reference(x, ct, st, True)
+        out["rot_fwd"].append((
+            shape, lambda a=(x, ct, st): cr.circulant_rotate_fwd(*a, True),
+            lambda got, want=want: _max_rel(got, want)))
+        if B == 32:
+            continue  # serving runs no backward
+        want_bwd = cr.circulant_rotate_bwd_reference(cot, x, ct, st, True)
+        out["rot_bwd"].append((
+            shape, lambda a=(cot, x, ct, st): cr.circulant_rotate_bwd(*a, True),
+            lambda got, want=want_bwd: _max_rel(got, want)))
     return out
 
 
@@ -301,7 +366,10 @@ def main() -> None:
         if kernel in LAUNCH_INFO:
             use_library(module, loader, path, originals)
             for n in LAUNCH_INFO_N.get(kernel, (197, 4097)):
-                info = module.launch_info(LAUNCH_INFO[kernel], n, 266, 64, torch.bfloat16)
+                name = LAUNCH_INFO[kernel]
+                info = (module.launch_info(name, n, 64, torch.bfloat16, (12 * n * 64, n * 64, 64))
+                        if module is cr else
+                        module.launch_info(name, n, 266, 64, torch.bfloat16))
                 print(f"{kernel} {variant} launch_info N={n}: {info}", flush=True)
     for rnd in range(2):
         for (kernel, variant), path in libs.items():

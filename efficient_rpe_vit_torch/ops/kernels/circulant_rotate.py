@@ -5,12 +5,16 @@
 Counterpart of `efficient_rpe_vit_tpu/ops/pallas/rotation_kernels.py`
 (`_rot_kernel`, `_bwd_kernel`, `circulant_rotate`). Both kernels are
 hand-written CUDA C++ for sm_90a in `csrc/circulant_rotate.cu`: the real
-DFT as fp32 products against the constants of `rdft_matrices` (the JAX
+DFT as products against the constants of `rdft_matrices` (the JAX
 package's `_rdft_matrices` formula), the rotation per frequency, the
 inverse DFT, all on chip; the backward rotates the cotangent back and sums
 the angle gradients over the batch in a fixed order (no float atomics).
 With `keep_cls`, row 0 passes through bit for bit and gets no angle
-gradient.
+gradient. bf16 at head dims that are multiples of 16 up to 64, with
+strides that are multiples of 8 (the main paths' head-split views), runs
+on `mma.sync` tensor-core products whose split bf16 constants keep fp32
+accuracy (`rot_fwd_mma_kernel`, `rot_bwd_mma_kernel`); every other launch
+on the staged fp32 FMA kernels. `launch_info` says which a launch runs.
 
 The angle tables ct = cos(theta), st = sin(theta) stay outside the kernels,
 so autograd owns the chain from the circulant coefficients to them, as in
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ._build import dtype_suffix, launch, load, on_cpu
+from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
 
 MAX_D = 128  # largest head dim the kernels take (a multiple of 4)
 
@@ -181,16 +185,49 @@ def _lib():
         bwd.restype = _I32
     lib.circulant_rotate_groups.argtypes = [_I32] * 4
     lib.circulant_rotate_groups.restype = _I32
+    lib.circulant_rotate_launch_info.argtypes = [_I32] * 4 + [_I64] * 3 + [_PTR]
+    lib.circulant_rotate_launch_info.restype = _I32
     lib.circulant_rotate_error_string.argtypes = [_I32]
     lib.circulant_rotate_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def batch_groups(B: int, H: int, N: int, D: int) -> int:
-    """How many batch groups the kernels split a [B, H, N, D] launch into
-    (asked of the kernel source, so it needs the built library); the
+    """How many batch groups the backward's workspace must hold at
+    [B, H, N, D]: the most that either backward kernel splits the launch
+    into (asked of the kernel source, so it needs the built library); the
     backward then sums the angle gradients over them in a second pass."""
     return int(_lib().circulant_rotate_groups(B, H, N, D))
+
+
+_KINDS = {"circulant_rotate_fwd": 0, "circulant_rotate_bwd": 1}
+
+
+def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype,
+                strides: Tuple[int, int, int]) -> dict:
+    """What a launch of the forward ("circulant_rotate_fwd") or backward
+    ("circulant_rotate_bwd") kernel at sequence length n and head dim d in
+    `dtype`, with x's (and g's) element strides (b, h, n), runs on this
+    card, asked of the built library: rows per block, threads, dynamic
+    shared memory bytes, resident blocks per SM, registers and local
+    (spilled) bytes per thread under `_build.LAUNCH_INFO_KEYS`, and under "kernel"
+    which kernel runs ("mma.sync" where bf16 meets the `rot_mma_takes` rule
+    of the source, else "staged"). Needs a GPU."""
+    if kernel not in _KINDS:
+        raise ValueError(f"unknown rotation kernel {kernel!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
+    if n <= 0 or d <= 0 or len(strides) != 3:
+        raise ValueError(f"need n, d > 0 and three strides, got n={n}, d={d}, "
+                         f"strides={strides}")
+    lib = _lib()
+    info = launch_info_buffer()
+    err = lib.circulant_rotate_launch_info(_KINDS[kernel], n, d, int(dtype == torch.bfloat16),
+                                           *strides, info)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch info at n={n} d={d}: CUDA error {err} "
+                           f"({lib.circulant_rotate_error_string(err).decode()})")
+    return launch_info_dict(info)
 
 
 def circulant_rotate_fwd(x, ct, st, keep_cls: bool = False) -> torch.Tensor:

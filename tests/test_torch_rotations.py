@@ -177,13 +177,35 @@ def test_launch_counts_do_not_move_on_cpu(dtype):
 
 
 def test_kernel_source_is_in_the_package():
-    """One CUDA source builds into its own library; the backward sums over
-    the batch in a fixed order (no float atomics)."""
+    """One CUDA source builds into its own library, with the staged kernels
+    and the bf16 mma.sync kernels (on the shared fragment helpers) behind
+    one rule that launch_info reports; the backward sums over the batch in
+    a fixed order (no float atomics)."""
     src = _build.CSRC / f"{cr._SOURCE}.cu"
     assert src.is_file() and _build.library_path(cr._SOURCE).parent == _build.BUILD_DIR
     text = src.read_text()
     assert "atomicAdd" not in text and "circulant_rotate_groups" in text
+    for name in ("rot_fwd_kernel", "rot_bwd_kernel", "rot_fwd_mma_kernel", "rot_bwd_mma_kernel",
+                 "group_sum_kernel", "rot_mma_takes", "circulant_rotate_launch_info",
+                 '#include "flash_attention_mma.cuh"'):
+        assert name in text, name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("case", ["kernel", "dtype", "n", "strides"])
+def test_launch_info_rejects_bad_arguments_before_the_library(case, monkeypatch):
+    """launch_info checks its arguments before it asks the built library
+    (which needs a GPU)."""
+    def no_library():
+        raise AssertionError("the library was asked")
+
+    monkeypatch.setattr(cr, "_lib", no_library)
+    args = {"kernel": "circulant_rotate_fwd", "n": 197, "d": 64, "dtype": torch.bfloat16,
+            "strides": (12 * 197 * 64, 197 * 64, 64)}
+    args.update({"kernel": {"kernel": "circulant_rotate"}, "dtype": {"dtype": torch.float16},
+                 "n": {"n": 0}, "strides": {"strides": (64,)}}[case])
+    with pytest.raises((ValueError, TypeError)):
+        cr.launch_info(**args)
 
 
 # ─── tables, positions, DFT constants ───────────────────────────────────
