@@ -46,14 +46,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      logged and checked (bf16 on the mma.sync kernel with no spills, fp32 on
      the staged one); timed beside its bound and the unfused route it
      replaces (two phi_positive calls and the KERPLE forward kernel);
-  3f. the materialised-T KERPLE kernels (forward; backward dq, dkv, dT)
-     against their plain versions in bf16 and fp32 at the pallas_ab entry
-     point's three shapes, the ViT-B/16 training shape, a ragged shape and
-     the JAX tests' shape, and at N=4097 in bf16; the backward bitwise on a
-     rerun; at the training shape the same function as the coefficient
-     kernels (T = toeplitz_from_coeffs(c); dT's diagonal sums = dcoeffs);
-     timed beside their bounds, the coefficient route and the residual
-     backward in PyTorch;
+  3f. the materialised-T KERPLE kernels (forward; backward dq, dkv, dT),
+     each first logging its launch_info (bf16 at the pallas_ab shapes and
+     N=4097 on the mma.sync kernels, fp32 on the staged ones; dT's batch
+     groups, the wrapper's mirror of them equal to the library's), against
+     their plain versions in bf16 and fp32 at the pallas_ab entry point's
+     three shapes, the ViT-B/16 training shape, a ragged shape and the JAX
+     tests' shape, and at N=4097 in bf16; over a T that is not Toeplitz at
+     a pallas_ab shape and a ragged one (both dtypes), at N=4097, at the
+     mma.sync kernels' tile edges (N = 31, 33, 63, 64, 65, 127, 128, 129),
+     batches of 1 and 3 and a batch dT's groups do not divide (bf16); the
+     backward bitwise on a rerun; at the training shape the same function
+     as the coefficient kernels (T = toeplitz_from_coeffs(c); dT's diagonal
+     sums = dcoeffs); timed beside their bounds, the coefficient route and
+     the residual backward in PyTorch;
   4. serve KERPLE: ViT-B/16 performer_favor_most_general (bf16, random
      weights from a seed) answers 4 requests of 32 images through
      `make_eval_step`; launch counts, logits against the same model on the
@@ -251,6 +257,18 @@ FUSED_EDGE_SHAPES = [(2, 12, 31, 64, 266), (2, 12, 33, 64, 266), (2, 12, 63, 64,
 # point's own shapes (B, H, N, F, D): the ViT-B/16 training shape, a ragged
 # shape, the JAX package's kernel-test shape; long N in bf16 only
 ML_SHAPES = [(TRAIN_BATCH, 12, 197, 266, 64), (3, 2, 17, 44, 16), (2, 2, 197, 44, 16)]
+# a T that is not Toeplitz (uniform in [0.5, 1.5) per element) at a
+# pallas_ab shape and a ragged shape in both dtypes, and at long N in bf16
+ML_RANDOM_T = [(256, 2, 197, 44, 16), (3, 2, 17, 44, 16)]
+# bf16, T not Toeplitz, at the edges of the mma.sync kernels' tiles (128-row
+# query blocks against 64-row key/value stages for the forward, dq and dT;
+# 64 key/value rows against 32-row query tiles for dkv): one row short of,
+# at and past each, in the wide (F = 266) and narrow (F = 44, D = 16)
+# instantiations; batches of 1 and 3; and a batch that dT's groups do not
+# divide (B = 20 at N = 300: 7 groups of 3, the last of 2)
+ML_EDGE_SHAPES = [(2, 3, n, 266, 64) for n in (31, 33, 63, 64, 65, 127, 128, 129)] + [
+    (2, 3, n, 44, 16) for n in (63, 65, 129)] + [
+    (1, 12, 197, 266, 64), (3, 12, 129, 266, 64), (3, 2, 300, 128, 64), (20, 2, 300, 44, 16)]
 ML_KERNELS = ("masked_linear_fwd", "masked_linear_bwd_dq", "masked_linear_bwd_dkv",
               "masked_linear_bwd_dt")
 # phase 16, the fft arm against the kernels with gradients: (B, H, N, F, D)
@@ -1145,28 +1163,76 @@ def masked_linear_bounds(B, H, N, F, D, dtype: str):
     return out
 
 
+def masked_linear_launch_info(ml, ab_shapes):
+    """{kernel: {shape: launch_info}} of #4 and #5 at the bf16 `ab_shapes`
+    and KERPLE_LONGN, logged first: each must run the mma.sync kernel (the
+    sources' rule, `ml.mma_takes`), and in fp32 the staged one; with dT's
+    batch groups, whose Python mirror (`ml.dt_batch_groups`,
+    `ml.dt_scratch_floats`) must equal the built library's count."""
+    infos = {kname: {} for kname in ML_KERNELS}
+    for B, H, N, F, D in list(ab_shapes) + [KERPLE_LONGN]:
+        for kname in ML_KERNELS:
+            for dtype in (torch.bfloat16, torch.float32):
+                info = ml.launch_info(kname, N, F, D, dtype)
+                want = "mma.sync" if ml.mma_takes(F, D, dtype) else "staged"
+                name = str(dtype).split(".")[-1]
+                log("kernel", f"{kname} N={N} F={F} D={D} {name}: " + ", ".join(
+                    f"{key} {value}" for key, value in info.items()))
+                if info["kernel"] != want or (dtype == torch.bfloat16) != (want == "mma.sync"):
+                    raise AssertionError(f"the {kname} launch at N={N} F={F} D={D} {name} runs "
+                                         f"the {info['kernel']} kernel, expected the mma.sync "
+                                         f"one in bf16 and the staged one in fp32")
+                if dtype == torch.bfloat16:
+                    infos[kname][(B, H, N, F, D)] = info
+    lib = ml._bwd_fns()
+    for B, H, N, F, D in list(ab_shapes) + [KERPLE_LONGN] + ML_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            is_bf16 = int(dtype == torch.bfloat16)
+            built = (lib.mlt_bwd_dt_groups(B, H, N, F, D, is_bf16),
+                     lib.mlt_bwd_dt_scratch_floats(B, H, N, F, D, is_bf16))
+            mirror = (ml.dt_batch_groups(B, H, N, F, D, dtype),
+                      ml.dt_scratch_floats(B, H, N, F, D, dtype))
+            if built != mirror:
+                raise AssertionError(f"dT's batch groups and scratch at {(B, H, N, F, D)} "
+                                     f"{dtype}: the library counts {built}, the wrapper's "
+                                     f"mirror {mirror}")
+    log("kernel", "dT batch groups (pallas_ab shapes, long N): " + ", ".join(
+        f"{shape} {ml.dt_batch_groups(*shape, torch.bfloat16)}"
+        for shape in list(ab_shapes) + [KERPLE_LONGN]) + "; the wrapper's mirror equals the "
+        "library at every phase-3f shape")
+    return infos
+
+
 def check_masked_linear_kernels(ml, mlc, ab_shapes):
     """Phase 3f: the materialised-T forward (#4) and backward (#5: dq, dkv,
     dT) kernels against their plain versions on the card, at the pallas_ab
     entry point's shapes `ab_shapes` and ML_SHAPES in both dtypes and at
-    KERPLE_LONGN in bf16; the backward bitwise on a rerun; at the ViT-B/16
-    training shape, #4 over T = toeplitz_from_coeffs(c) against #1 over c
-    and #5 against #2 (dT's diagonal sums against dcoeffs). Timed in bf16 at
-    `ab_shapes` and long N beside their bounds, the coefficient route (#1,
-    #2) and the residual backward in PyTorch. Returns {(kernel, shape): row}."""
+    KERPLE_LONGN in bf16, over a Toeplitz T; over a T that is not Toeplitz
+    at ML_RANDOM_T (both dtypes), long N and ML_EDGE_SHAPES (bf16); the
+    backward bitwise on a rerun; at the ViT-B/16 training shape, #4 over
+    T = toeplitz_from_coeffs(c) against #1 over c and #5 against #2 (dT's
+    diagonal sums against dcoeffs). First each kernel's launch_info
+    (masked_linear_launch_info). Timed in bf16 at `ab_shapes` and long N
+    (Toeplitz T) beside their bounds, the coefficient route (#1, #2) and the
+    residual backward in PyTorch. Returns {(kernel, shape): row}."""
     from efficient_rpe_vit_torch.ops.fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
 
+    infos = masked_linear_launch_info(ml, ab_shapes)
     results = {}
-    cases = [(shape, name, dtype) for shape in list(ab_shapes) + ML_SHAPES
-             for name, dtype in DTYPES] + [(KERPLE_LONGN, "bfloat16", torch.bfloat16)]
-    for (B, H, N, F, D), name, dtype in cases:
+    cases = [(shape, name, dtype, True) for shape in list(ab_shapes) + ML_SHAPES
+             for name, dtype in DTYPES] + [(KERPLE_LONGN, "bfloat16", torch.bfloat16, True)]
+    cases += [(shape, name, dtype, False) for shape in ML_RANDOM_T for name, dtype in DTYPES]
+    cases += [(shape, "bfloat16", torch.bfloat16, False)
+              for shape in [KERPLE_LONGN] + ML_EDGE_SHAPES]
+    for (B, H, N, F, D), name, dtype, toeplitz in cases:
         g = torch.Generator(device="cuda").manual_seed(N * 1000 + F + 11)
         q, k = ((torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).to(dtype)
                 for _ in range(2))
         v, cot = (torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype) for _ in range(2))
         c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
-        t = toeplitz_from_coeffs(c, N)
-        shape = f"B{B} H{H} N{N} F{F} D{D} {name}"
+        t = (toeplitz_from_coeffs(c, N) if toeplitz
+             else torch.rand(H, N, N, generator=g, device="cuda") + 0.5)
+        shape = f"B{B} H{H} N{N} F{F} D{D} {name}{'' if toeplitz else ', T not Toeplitz'}"
         out, den = ml.masked_linear_fwd(q, k, v, t)
         torch.cuda.synchronize()
         ref_out, ref_den = ml.masked_linear_fwd_reference(q, k, v, t)
@@ -1225,7 +1291,7 @@ def check_masked_linear_kernels(ml, mlc, ab_shapes):
         if any(r > tol for r, tol in zip(rels, tols)) or not bitwise:
             raise AssertionError(f"masked_linear_bwd disagrees with its plain version or is "
                                  f"not bitwise reproducible at {shape}")
-        if (B, H, N, F, D) == ML_SHAPES[0]:
+        if (B, H, N, F, D) == ML_SHAPES[0] and toeplitz:
             # the same function as the coefficient kernels over c
             c_out, c_den = mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)
             c_grads = mlc.masked_linear_attention_coeffs_bwd(q, k, v, c, den, out, cot)
@@ -1241,7 +1307,7 @@ def check_masked_linear_kernels(ml, mlc, ab_shapes):
             del c_grads
         del got
         long_n = (B, H, N, F, D) == KERPLE_LONGN
-        if name != "bfloat16" or not ((B, H, N, F, D) in ab_shapes or long_n):
+        if name != "bfloat16" or not toeplitz or not ((B, H, N, F, D) in ab_shapes or long_n):
             continue
         plain_iters = 1 if long_n else 5
         jnp_ms = time_ms(lambda: ml.masked_linear_bwd_reference(q, k, v, t, den, out, cot),
@@ -1278,7 +1344,10 @@ def check_masked_linear_kernels(ml, mlc, ab_shapes):
             results[(kname, (B, H, N, F, D))] = dict(
                 max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, coeffs_route_ms=route_ms,
-                **({} if kname == "masked_linear_fwd" else {"jnp_residual_bwd_ms": jnp_ms}))
+                launch=infos[kname][(B, H, N, F, D)],
+                **({} if kname == "masked_linear_fwd" else {"jnp_residual_bwd_ms": jnp_ms}),
+                **({"dt_groups": ml.dt_batch_groups(B, H, N, F, D, dtype)}
+                   if kname == "masked_linear_bwd_dt" else {}))
     return results
 
 

@@ -2,21 +2,25 @@
 // masked_linear_coeffs_bwd.cu, kerple_fused_phi_fwd.cu, and the
 // materialised-T masked_linear_fwd.cu and masked_linear_bwd.cu): the
 // shared-memory arena, cp.async tile staging (and, for the mma.sync
-// kernels, 4-byte-word row staging and the store of an accumulator
-// fragment), the Toeplitz mask of a tile pair (from a coefficient window or
-// a staged tile of T), the tile products (WMMA bf16 on the tensor cores,
-// fp32 FMA loops for fp32) over square [TILE, TILE] tiles of 16, 32 or 64
-// rows, the batch sum of dW * A that both dcoeffs and dT are made of, and
-// the register-resident key/value stage and epilogue of the bf16 forward
-// that the KERPLE forward (mlc_fwd_mma_kernel) and the fused-phi forward
-// (kfp_fwd_mma_kernel) share, on flash_attention_mma.cuh's fragments.
+// kernels, 4-byte-word row staging, the staging of a tile of T and the
+// store of an accumulator fragment), the mask of a tile pair, the staged
+// kernels' tile products (WMMA bf16 on the tensor cores, fp32 FMA loops for
+// fp32) over square [TILE, TILE] tiles of 16, 32 or 64 rows, the batch sum
+// of dW * A that the staged dcoeffs and dT kernels are made of, and the
+// register-resident stages of the bf16 mma.sync kernels on
+// flash_attention_mma.cuh's fragments: the forward's key/value stage and
+// epilogue (fwd_mma_stage, fwd_mma_store: the KERPLE forwards over c and
+// over T and the fused-phi forward) and the dk' / dv stage (dkv_mma_stage),
+// each shared by the coefficient kernel and the materialised-T one.
 //
-// Toeplitz convention: with T[i, j] = c[h, j - i + N - 1], a block working on
-// the q tile starting at row i0 and the kv tile starting at row j0 reads the
-// 2 * TILE - 1 coefficients w[t] = c[j0 - i0 + N - TILE + t] and indexes its
-// tile as T[a, b] = w[b - a + TILE - 1]; T never reaches device memory. The
-// materialised-T kernels instead stage the [TILE, TILE] tile T[h, i0 + a,
-// j0 + b] of a given [H, N, N] fp32 T.
+// The mask is each stage's template policy: WindowMask reads the Toeplitz
+// coefficient window of a tile pair, TileMask a staged tile of T, FragMask
+// T held in registers. With T[i, j] = c[h, j - i + N - 1], a block working
+// on the q tile starting at row i0 and the kv tile starting at row j0 reads
+// the 2 * TILE - 1 coefficients w[t] = c[j0 - i0 + N - TILE + t] and
+// indexes its tile as T[a, b] = w[b - a + TILE - 1]; T never reaches device
+// memory. The materialised-T kernels instead stage the tile T[h, i0 + a,
+// j0 + b] of a given [H, N, N] fp32 T (zero past N).
 
 #pragma once
 
@@ -309,19 +313,45 @@ __device__ __forceinline__ void accumulate(float* C, int ldc, const T* A, int ld
   }
 }
 
-// The Toeplitz mask of a tile pair, T[a, b] for a q row a and a kv row b of
-// the tile: from its coefficient window (WindowMask: w[b - a + TILE - 1]) or
-// from a staged [TILE, TILE] fp32 tile of T (TileMask, row stride ld).
+// The mask of a tile pair, T[a, b] for a q row a and a kv row b of the
+// tile: from its Toeplitz coefficient window (WindowMask: w[b - a + TILE -
+// 1]) or from a staged fp32 tile of T (TileMask, row stride ld). weigh_by
+// and the mma.sync stages (fwd_mma_stage, dkv_mma_stage, and the
+// materialised-T dq' kernel's dq_mma_stage) take either (the stages also
+// FragMask below) as their template policy and read T[a, b] as at(a, b,
+// nb, e), nb and e naming the thread's 8-column block and fragment element
+// of it; a TileMask (kPairs) gives the pair T[a, b], T[a, b + 1] of
+// fragment elements e, e + 1 (b even) as one 8-byte word, pair(a, b).
 template <int TILE>
 struct WindowMask {
+  static constexpr bool kPairs = false;
   const float* w;
-  __device__ __forceinline__ float operator()(int a, int b) const { return w[b - a + TILE - 1]; }
+  __device__ __forceinline__ float at(int a, int b, int, int) const { return w[b - a + TILE - 1]; }
 };
 
 struct TileMask {
+  static constexpr bool kPairs = true;
   const float* t;
   int ld;
-  __device__ __forceinline__ float operator()(int a, int b) const { return t[a * ld + b]; }
+  __device__ __forceinline__ float at(int a, int b, int, int) const { return t[a * ld + b]; }
+  __device__ __forceinline__ float2 pair(int a, int b) const {
+    return *reinterpret_cast<const float2*>(t + a * ld + b);
+  }
+};
+
+// T held in registers in the m16n8 accumulator layout of a warp's 16 rows
+// against 8 NB columns: element e of 8-column block nb is v[nb][e]
+// (load_t_frag fills it).
+template <int NB>
+struct FragMask {
+  static constexpr bool kPairs = false;
+  const float (&v)[NB][4];
+  __device__ __forceinline__ float at(int, int, int nb, int e) const { return v[nb][e]; }
+};
+
+// A stage's hook that does nothing (see fwd_mma_stage).
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
 };
 
 // dst[a, b] = round(w(a, b) * mask(a, b)) for a < rows, b < cols, zero
@@ -335,7 +365,7 @@ __device__ __forceinline__ void weigh_by(T* dst, int ldw, const float* src, int 
     float w = 0.f;
     if (a < rows && b < cols) {
       const float x = sub ? src[a * lds + b] - sub[a] : src[a * lds + b];
-      w = x * mask(a, b);
+      w = x * mask.at(a, b, 0, 0);
     }
     dst[a * ldw + b] = from_float<T>(w);
   }
@@ -494,17 +524,22 @@ constexpr float FWD_EPS = 1e-6f;  // denominator stabiliser of the forward
 // over the kf 16-steps F needs (q' as A fragments qf, else QREG false: read
 // by ldmatrix from the row-major tile Qs at every 16-step; k' the stage's
 // row-major [8 NB, *] tile Kt, row stride ldf), then per fragment element,
-// with T[a, b] = w_t[b - a + BM - 1] for the block's row a and the stage's
-// row b, W = S * T (exactly 0 past N in either direction: row_ok holds this
-// thread's rows r, r + 8 below N), added to this thread's fp32 row sums rs
-// and rounded to bf16 as the A fragments of acc += round(W) v (v the
-// stage's row-major [8 NB, 8 DB] tile Vt, row stride ldd).
-template <int KF, int NB, int DB, int BM, bool QREG>
+// with T[a, b] from the mask for the block's row a and the stage's row b (a
+// WindowMask<BM> over the stage's coefficient window, a TileMask over its
+// staged tile of T or a FragMask over T in registers), W = S * T (exactly 0
+// past N in either direction: row_ok holds this thread's rows r, r + 8
+// below N), added to this thread's fp32 row sums rs and rounded to bf16 as
+// the A fragments of acc += round(W) v (v the stage's row-major
+// [8 NB, 8 DB] tile Vt, row stride ldd). after_mask() runs once the mask
+// has been read (a FragMask's registers may then be refilled for the next
+// stage).
+template <int KF, int NB, int DB, int BM, bool QREG, typename Mask, typename Hook = NoHook>
 __device__ __forceinline__ void fwd_mma_stage(float (&acc)[DB][4], float (&rs)[2],
                                               uint32_t (&qf)[QREG ? KF : 1][4], const bf16* Qs,
                                               int ldf, int kf, const bf16* Kt, const bf16* Vt,
-                                              int ldd, const float* w_t, int row0,
-                                              const bool (&row_ok)[2], int i0, int j0, int N) {
+                                              int ldd, const Mask& mask, int row0,
+                                              const bool (&row_ok)[2], int i0, int j0, int N,
+                                              Hook after_mask = Hook{}) {
   namespace fm = flash::mma;
   const int lane = threadIdx.x % 32;
   const int r = lane / 4;         // this thread's fragment rows r, r + 8
@@ -526,16 +561,26 @@ __device__ __forceinline__ void fwd_mma_stage(float (&acc)[DB][4], float (&rs)[2
   }
   const bool ragged = j0 + 8 * NB > N || i0 + BM > N;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NB; ++nb) {
+    float2 tp;  // kPairs: T of this thread's element pair
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int a = row0 + r + 8 * (e / 2);
       const int c = nb * 8 + qc + (e & 1);
-      float w = s[nb][e] * w_t[c - a + BM - 1];
+      float t;
+      if constexpr (Mask::kPairs) {
+        if ((e & 1) == 0) tp = mask.pair(a, c);
+        t = (e & 1) ? tp.y : tp.x;
+      } else {
+        t = mask.at(a, c, nb, e);
+      }
+      float w = s[nb][e] * t;
       if (ragged && !(row_ok[e / 2] && j0 + c < N)) w = 0.f;
       rs[e / 2] += w;
       s[nb][e] = w;
     }
+  }
+  after_mask();
   uint32_t wa[NB / 2][4];
   fm::to_a(wa, s);                          // round(W) as A fragments
   fm::mma_a_cols<NB / 2, DB>(acc, wa, Vt, ldd);  // acc += round(W) v
@@ -567,6 +612,224 @@ __device__ __forceinline__ void fwd_mma_store(float (&acc)[DB][4], const float (
 #pragma unroll
     for (int half = 0; half < 2; ++half)
       if (row_ok[half]) den_bh[row + lane / 4 + 8 * half] = dn[half];
+  }
+}
+
+// ─── the bf16 backward's dk'/dv stage on mma.sync ──────────────────────
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// B fragments of one 8-column block of B = T^T for a row-major tile T: B's
+// columns are T's rows row0..row0+7, B's depth T's columns col0..col0+31 in
+// two 16-steps (b[0], b[1] the first, b[2], b[3] the second).
+__device__ __forceinline__ void load_b8_rows2(uint32_t (&b)[4], const bf16* tile, int ld,
+                                              int row0, int col0) {
+  namespace fm = flash::mma;
+  const int lane = threadIdx.x % 32;
+  fm::ldsm_x4(b, fm::smem_addr(tile + (row0 + lane % 8) * ld + col0 + (lane / 8) * 8));
+}
+
+// The same over one 16-step of depth.
+__device__ __forceinline__ void load_b8_rows1(uint32_t (&b)[2], const bf16* tile, int ld,
+                                              int row0, int col0) {
+  namespace fm = flash::mma;
+  const int lane = threadIdx.x % 32;
+  ldsm_x2(b, fm::smem_addr(tile + (row0 + lane % 8) * ld + col0 + ((lane / 8) % 2) * 8));
+}
+
+// A thread's place in the bf16 dk' / dv kernels: its warp and lane, the
+// row group of four warps and this warp's quarter of it, the group's first
+// key/value row in the block, this warp's 8 query columns q8.. in the score
+// products, this thread's key/value rows jr (of the block at j0) and its
+// query columns c, c + 1 of a tile. Made once, before the sweep.
+struct DkvThread {
+  int warp, lane, group, quarter, row0, q8, jr[2], c;
+  __device__ __forceinline__ explicit DkvThread(int j0)
+      : warp(threadIdx.x / 32), lane(threadIdx.x % 32), group(warp / 4), quarter(warp % 4),
+        row0(group * 16), q8(quarter * 8),
+        jr{j0 + row0 + lane / 4, j0 + row0 + lane / 4 + 8}, c(q8 + 2 * (lane % 4)) {}
+};
+
+// One query tile of the bf16 dk' / dv kernels (mlc_bwd_dkv_mma_kernel and
+// mlt_bwd_dkv_mma_kernel, geometry C: BN = 32 query rows a tile, four warps
+// per 16 key/value rows of the block at j0, features staged up to FMAX,
+// values to DP). k' (Ks) and v (Vs) are the block's resident row-major
+// tiles; q' (Qt), gn (Gt) and s (s_t) the tile's, at query row i0. Each
+// warp computes, for its 8 query columns, A^T = k' q'^T over all of F (even
+// and odd 16-steps in two chains, added once) and M^T = v gn^T over D in
+// registers, then per cell, with T^T[j, i] = mask(i - i0, j - j0) (a
+// WindowMask<BN> over the tile pair's coefficient window or a TileMask over
+// its staged [BN, BM] tile of T), Wk^T = round((M^T - s_i) T^T) and Wv^T =
+// round(A^T T^T), packed as bf16 pairs: exactly the four registers of an mma
+// A fragment that its 8 columns fill. The four warps of a row group swap
+// these through xch (a named barrier of the four), so each holds the
+// rounded Wk^T and Wv^T of all 32 columns as the A operands of dk' += Wk^T
+// q' (feature blocks p_begin.. p_begin + p_count - 1) and dv += Wv^T gn
+// (its DV_PAIRS 16-column blocks of dv; at DP < 64 only the first DP / 16
+// warps of a group hold any), accumulated in dka and dva.
+template <typename C, typename Mask>
+__device__ __forceinline__ void dkv_mma_stage(float (&dka)[2 * C::PAIRS][4],
+                                              float (&dva)[2 * C::DV_PAIRS][4], const bf16* Ks,
+                                              const bf16* Vs, const bf16* Qt, const bf16* Gt,
+                                              const float* s_t, const Mask& mask, uint4* xch,
+                                              const DkvThread& th, int i0, int j0, int N, int kf,
+                                              int p_begin, int p_count) {
+  namespace fm = flash::mma;
+  const int lane = th.lane, group = th.group, quarter = th.quarter, row0 = th.row0, q8 = th.q8;
+  const int c = th.c;
+
+  // A^T and M^T for this warp's 8 query columns
+  float a[4] = {0.f, 0.f, 0.f, 0.f}, a_odd[4] = {0.f, 0.f, 0.f, 0.f};
+  float m[4] = {0.f, 0.f, 0.f, 0.f};
+  int kk = 0;
+  for (; kk + 2 <= kf; kk += 2) {
+    uint32_t b[4], af[4], af2[4];
+    load_b8_rows2(b, Qt, C::LDF, q8, kk * 16);
+    fm::load_a(af, Ks, C::LDF, row0, kk * 16);
+    fm::load_a(af2, Ks, C::LDF, row0, kk * 16 + 16);
+    fm::mma_bf16(a, af, b[0], b[1]);
+    fm::mma_bf16(a_odd, af2, b[2], b[3]);
+  }
+  if (kk < kf) {
+    uint32_t b[2], af[4];
+    load_b8_rows1(b, Qt, C::LDF, q8, kk * 16);
+    fm::load_a(af, Ks, C::LDF, row0, kk * 16);
+    fm::mma_bf16(a, af, b[0], b[1]);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) a[e] += a_odd[e];
+#pragma unroll
+  for (int kd = 0; kd + 2 <= C::DP / 16; kd += 2) {
+    uint32_t b[4], af[4], af2[4];
+    load_b8_rows2(b, Gt, C::LDD, q8, kd * 16);
+    fm::load_a(af, Vs, C::LDD, row0, kd * 16);
+    fm::load_a(af2, Vs, C::LDD, row0, kd * 16 + 16);
+    fm::mma_bf16(m, af, b[0], b[1]);
+    fm::mma_bf16(m, af2, b[2], b[3]);
+  }
+  if constexpr ((C::DP / 16) % 2 == 1) {
+    uint32_t b[2], af[4];
+    load_b8_rows1(b, Gt, C::LDD, q8, C::DP - 16);
+    fm::load_a(af, Vs, C::LDD, row0, C::DP - 16);
+    fm::mma_bf16(m, af, b[0], b[1]);
+  }
+  // per cell (key/value row j, query row i): rounded Wk^T and Wv^T
+  const float2 s_c = *reinterpret_cast<const float2*>(s_t + c);
+  float wk[4], wv[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int j = th.jr[e / 2];
+    const int i = i0 + c + (e & 1);
+    wk[e] = wv[e] = 0.f;
+    if (j < N && i < N) {
+      const float t = mask.at(c + (e & 1), j - j0, 0, e);
+      wv[e] = a[e] * t;
+      wk[e] = (m[e] - ((e & 1) ? s_c.y : s_c.x)) * t;
+    }
+  }
+  xch[th.warp * 32 + lane] = make_uint4(fm::pack_bf16(wk[0], wk[1]), fm::pack_bf16(wk[2], wk[3]),
+                                     fm::pack_bf16(wv[0], wv[1]), fm::pack_bf16(wv[2], wv[3]));
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+  // the A fragments over all 32 query columns: 16-step kk takes the words
+  // of the warps owning columns 16 kk.. (registers 0, 1) and 16 kk + 8..
+  // (registers 2, 3)
+  uint32_t atk[2][4], atv[2][4];
+#pragma unroll
+  for (int step = 0; step < 2; ++step)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint4 w4 = xch[(group * 4 + 2 * step + hh) * 32 + lane];
+      atk[step][2 * hh] = w4.x;
+      atk[step][2 * hh + 1] = w4.y;
+      atv[step][2 * hh] = w4.z;
+      atv[step][2 * hh + 1] = w4.w;
+    }
+#pragma unroll
+  for (int step = 0; step < 2; ++step)
+#pragma unroll
+    for (int lp = 0; lp < C::PAIRS; ++lp) {
+      if (lp >= p_count) continue;
+      uint32_t b[4];
+      fm::load_b_cols(b, Qt, C::LDF, step * 16, (p_begin + lp) * 16);
+      fm::mma_bf16(dka[2 * lp], atk[step], b[0], b[1]);
+      fm::mma_bf16(dka[2 * lp + 1], atk[step], b[2], b[3]);
+    }
+  if constexpr (4 * C::DV_PAIRS * 16 > C::DP) {
+    if (quarter * C::DV_PAIRS * 16 >= C::DP) return;  // this warp holds no dv block
+  }
+#pragma unroll
+  for (int step = 0; step < 2; ++step)
+#pragma unroll
+    for (int lp = 0; lp < C::DV_PAIRS; ++lp) {
+      uint32_t b[4];
+      fm::load_b_cols(b, Gt, C::LDD, step * 16, (quarter * C::DV_PAIRS + lp) * 16);
+      fm::mma_bf16(dva[2 * lp], atv[step], b[0], b[1]);
+      fm::mma_bf16(dva[2 * lp + 1], atv[step], b[2], b[3]);
+    }
+}
+
+// Stage rows i0.. i0 + ROWS - 1, columns j0.. j0 + COLS - 1 of T[h] (tb,
+// [N, N] fp32) into dst[ROWS][ld] (16-byte aligned rows), zero past N in
+// either direction, as cp.async words committed by the caller: 16-byte
+// words where N % 4 == 0 (T's rows, and j0, a multiple of 4: a word lies
+// wholly below or past N), else 4-byte words (rows of an odd N are 4-byte
+// aligned only). Consecutive threads take consecutive words of a row.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void stage_t_tile(float* dst, int ld, const float* __restrict__ tb,
+                                             int i0, int j0, int N) {
+  const int rows = min(ROWS, N - i0);
+  const int cols = min(COLS, N - j0);
+  const float* src = tb + (size_t)i0 * N + j0;
+  if (N % 4 == 0 && (reinterpret_cast<uintptr_t>(tb) & 15) == 0) {
+    constexpr int W = COLS / 4;  // 16-byte words of a row
+    for (int idx = threadIdx.x; idx < ROWS * W; idx += NT) {
+      const int r = idx / W;
+      const int c = 4 * (idx % W);
+      const bool valid = r < rows && c < cols;
+      flash::cp_async<16>(dst + r * ld + c, valid ? src + (size_t)r * N + c : tb, valid ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += NT) {
+      const int r = idx / COLS;
+      const int c = idx % COLS;
+      const bool valid = r < rows && c < cols;
+      cp_async4(dst + r * ld + c, valid ? src + (size_t)r * N + c : tb, valid ? 4 : 0);
+    }
+  }
+}
+
+// This thread's elements of T[h] (tb, [N, N] fp32) in the m16n8
+// accumulator layout of the 16 rows i.. against the 8 NB columns j0..
+// (FragMask's v), zero past N in either direction: 8-byte loads where N is
+// even (the column pair and the row start 8-byte aligned), else 4-byte ones.
+template <int NB>
+__device__ __forceinline__ void load_t_frag(float (&v)[NB][4], const float* __restrict__ tb,
+                                            int i, int j0, int N) {
+  const int lane = threadIdx.x % 32;
+  const int c0 = j0 + 2 * (lane % 4);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = i + lane / 4 + 8 * half;
+    const float* src = tb + (size_t)min(row, N - 1) * N;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int c = c0 + nb * 8;
+      float2 x = make_float2(0.f, 0.f);
+      if (row < N && c < N) {
+        if (N % 2 == 0) {
+          x = __ldg(reinterpret_cast<const float2*>(src + c));
+        } else {
+          x.x = __ldg(src + c);
+          if (c + 1 < N) x.y = __ldg(src + c + 1);
+        }
+      }
+      v[nb][2 * half] = x.x;
+      v[nb][2 * half + 1] = x.y;
+    }
   }
 }
 

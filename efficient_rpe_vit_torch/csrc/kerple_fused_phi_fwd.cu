@@ -822,7 +822,8 @@ kfp_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (C::CL > 1) cluster_sync(); else __syncthreads();
     if (!warp_live) continue;
     fwd_mma_stage<C::KF, C::NB, C::DP / 8, C::BM, true>(
-        acc, rs, qf, nullptr, C::LDF, kf, Phk, Vt, C::LDX, w_t, row0, row_ok, i0, j0, N);
+        acc, rs, qf, nullptr, C::LDF, kf, Phk, Vt, C::LDX, WindowMask<C::BM>{w_t}, row0, row_ok,
+        i0, j0, N);
   }
   if (!warp_live) return;
   fwd_mma_store<C::DP / 8>(acc, rs, row_ok, out + bh * N * Dv, den + bh * N, N, Dv, i0 + row0);

@@ -317,8 +317,9 @@ namespace fm = flash::mma;
 // of two stages, each q' [BN, LDF] and gn [BN, LDD] bf16, s [BN] and the
 // tile pair's coefficient window [WINP] fp32; and per warp one 16-byte
 // word a lane of rounded weights, which the other three warps read.
-template <int FMAX, int DP, int BM_>
+template <int FMAX_, int DP_, int BM_>
 struct DkvMma {
+  static constexpr int FMAX = FMAX_, DP = DP_;
   static constexpr int BM = BM_, BN = 32, WARPS = BM / 4, NT = 32 * WARPS;
   static constexpr int LDF = FMAX + 8, LDD = DP + 8;
   static constexpr int PAIRS = (FMAX / 16 + 3) / 4;  // most 16-column dk' blocks a warp holds
@@ -333,28 +334,6 @@ struct DkvMma {
   static_assert(KV % 16 == 0 && STAGE % 16 == 0 && (BN * (LDF + LDD) * 2) % 16 == 0,
                 "regions start 16-byte aligned");
 };
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// B fragments of one 8-column block of B = T^T for a row-major tile T: B's
-// columns are T's rows row0..row0+7, B's depth T's columns col0..col0+31 in
-// two 16-steps (b[0], b[1] the first, b[2], b[3] the second).
-__device__ __forceinline__ void load_b8_rows2(uint32_t (&b)[4], const bf16* tile, int ld,
-                                              int row0, int col0) {
-  const int lane = threadIdx.x % 32;
-  fm::ldsm_x4(b, fm::smem_addr(tile + (row0 + lane % 8) * ld + col0 + (lane / 8) * 8));
-}
-
-// The same over one 16-step of depth.
-__device__ __forceinline__ void load_b8_rows1(uint32_t (&b)[2], const bf16* tile, int ld,
-                                              int row0, int col0) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x2(b, fm::smem_addr(tile + (row0 + lane % 8) * ld + col0 + ((lane / 8) % 2) * 8));
-}
 
 // dk' and dv for one (BM-row key/value tile, head, batch), bf16, F <= FMAX,
 // D <= DP. k' and v stay resident; query tiles (q', gn, s and the tile
@@ -388,11 +367,8 @@ mlc_bwd_dkv_mma_kernel(const bf16* __restrict__ gn, const float* __restrict__ s,
   const int h = blockIdx.y;
   const size_t bh = (size_t)blockIdx.z * H + h;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int group = warp / 4;
   const int quarter = warp % 4;
-  const int row0 = group * 16;  // the group's first key/value row in the tile
-  const int q8 = quarter * 8;   // this warp's query columns in the score products
+  const int row0 = warp / 4 * 16;  // the row group's first key/value row in the tile
   const int fp = (F + 15) / 16 * 16;
   const int kf = fp / 16;  // 16-column steps of the A^T sum and blocks of dk'
   const int p_count = kf / 4 + (quarter < kf % 4 ? 1 : 0);
@@ -431,8 +407,7 @@ mlc_bwd_dkv_mma_kernel(const bf16* __restrict__ gn, const float* __restrict__ s,
   float dka[2 * C::PAIRS][4], dva[2 * C::DV_PAIRS][4];
   fm::zero_acc(dka);
   fm::zero_acc(dva);
-  const int jr[2] = {j0 + row0 + lane / 4, j0 + row0 + lane / 4 + 8};  // this thread's rows
-  const int c = q8 + 2 * (lane % 4);  // this thread's query columns c, c + 1 of the tile
+  const DkvThread th(j0);
 
   const int n_q = (N + C::BN - 1) / C::BN;
   for (int it = 0; it < n_q; ++it) {
@@ -447,87 +422,8 @@ mlc_bwd_dkv_mma_kernel(const bf16* __restrict__ gn, const float* __restrict__ s,
     const bf16* Gt = Qt + C::BN * C::LDF;
     const float* s_t = reinterpret_cast<const float*>(Gt + C::BN * C::LDD);
     const float* w_t = s_t + C::BN;
-    const int i0 = it * C::BN;
-
-    // A^T and M^T for this warp's 8 query columns
-    float a[4] = {0.f, 0.f, 0.f, 0.f}, a_odd[4] = {0.f, 0.f, 0.f, 0.f};
-    float m[4] = {0.f, 0.f, 0.f, 0.f};
-    int kk = 0;
-    for (; kk + 2 <= kf; kk += 2) {
-      uint32_t b[4], af[4], af2[4];
-      load_b8_rows2(b, Qt, C::LDF, q8, kk * 16);
-      fm::load_a(af, Ks, C::LDF, row0, kk * 16);
-      fm::load_a(af2, Ks, C::LDF, row0, kk * 16 + 16);
-      fm::mma_bf16(a, af, b[0], b[1]);
-      fm::mma_bf16(a_odd, af2, b[2], b[3]);
-    }
-    if (kk < kf) {
-      uint32_t b[2], af[4];
-      load_b8_rows1(b, Qt, C::LDF, q8, kk * 16);
-      fm::load_a(af, Ks, C::LDF, row0, kk * 16);
-      fm::mma_bf16(a, af, b[0], b[1]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[e] += a_odd[e];
-#pragma unroll
-    for (int kd = 0; kd < DP / 16; kd += 2) {
-      uint32_t b[4], af[4], af2[4];
-      load_b8_rows2(b, Gt, C::LDD, q8, kd * 16);
-      fm::load_a(af, Vs, C::LDD, row0, kd * 16);
-      fm::load_a(af2, Vs, C::LDD, row0, kd * 16 + 16);
-      fm::mma_bf16(m, af, b[0], b[1]);
-      fm::mma_bf16(m, af2, b[2], b[3]);
-    }
-    // per cell (key/value row j, query row i): rounded Wk^T and Wv^T
-    const float2 s_c = *reinterpret_cast<const float2*>(s_t + c);
-    float wk[4], wv[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = jr[e / 2];
-      const int i = i0 + c + (e & 1);
-      wk[e] = wv[e] = 0.f;
-      if (j < N && i < N) {
-        const float t = w_t[(j - j0) - (c + (e & 1)) + C::BN - 1];
-        wv[e] = a[e] * t;
-        wk[e] = (m[e] - ((e & 1) ? s_c.y : s_c.x)) * t;
-      }
-    }
-    xch[warp * 32 + lane] = make_uint4(fm::pack_bf16(wk[0], wk[1]), fm::pack_bf16(wk[2], wk[3]),
-                                       fm::pack_bf16(wv[0], wv[1]), fm::pack_bf16(wv[2], wv[3]));
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
-    // the A fragments over all 32 query columns: 16-step kk takes the words
-    // of the warps owning columns 16 kk.. (registers 0, 1) and 16 kk + 8..
-    // (registers 2, 3)
-    uint32_t atk[2][4], atv[2][4];
-#pragma unroll
-    for (int step = 0; step < 2; ++step)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const uint4 w4 = xch[(group * 4 + 2 * step + hh) * 32 + lane];
-        atk[step][2 * hh] = w4.x;
-        atk[step][2 * hh + 1] = w4.y;
-        atv[step][2 * hh] = w4.z;
-        atv[step][2 * hh + 1] = w4.w;
-      }
-#pragma unroll
-    for (int step = 0; step < 2; ++step)
-#pragma unroll
-      for (int lp = 0; lp < C::PAIRS; ++lp) {
-        if (lp >= p_count) continue;
-        uint32_t b[4];
-        fm::load_b_cols(b, Qt, C::LDF, step * 16, (p_begin + lp) * 16);
-        fm::mma_bf16(dka[2 * lp], atk[step], b[0], b[1]);
-        fm::mma_bf16(dka[2 * lp + 1], atk[step], b[2], b[3]);
-      }
-#pragma unroll
-    for (int step = 0; step < 2; ++step)
-#pragma unroll
-      for (int lp = 0; lp < C::DV_PAIRS; ++lp) {
-        uint32_t b[4];
-        fm::load_b_cols(b, Gt, C::LDD, step * 16, (quarter * C::DV_PAIRS + lp) * 16);
-        fm::mma_bf16(dva[2 * lp], atv[step], b[0], b[1]);
-        fm::mma_bf16(dva[2 * lp + 1], atv[step], b[2], b[3]);
-      }
+    dkv_mma_stage<C>(dka, dva, Ks, Vs, Qt, Gt, s_t, WindowMask<C::BN>{w_t}, xch, th, it * C::BN,
+                     j0, N, kf, p_begin, p_count);
   }
   store_block<C::PAIRS>(dk + bh * N * F, F, N, F, j0 + row0, p_begin * 16, p_count, dka);
   store_block<C::DV_PAIRS>(dv + bh * N * D, D, N, D, j0 + row0, quarter * C::DV_PAIRS * 16,

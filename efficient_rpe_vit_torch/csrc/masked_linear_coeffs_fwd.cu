@@ -497,7 +497,8 @@ mlc_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* Vt = Kt + C::BN * C::LDF;
     const float* w_t = reinterpret_cast<const float*>(Vt + C::BN * C::LDD);
     fwd_mma_stage<C::KF, C::NB, C::DP / 8, C::BM, C::QREG>(
-        acc, rs, qf, Qs, C::LDF, kf, Kt, Vt, C::LDD, w_t, row0, row_ok, i0, js * C::BN, N);
+        acc, rs, qf, Qs, C::LDF, kf, Kt, Vt, C::LDD, WindowMask<C::BM>{w_t}, row0, row_ok, i0,
+        js * C::BN, N);
   }
   if (!warp_live) return;
   fwd_mma_store<C::DP / 8>(acc, rs, row_ok, out + bh * N * D, den + bh * N, N, D, i0 + row0);

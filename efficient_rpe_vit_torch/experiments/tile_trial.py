@@ -44,6 +44,21 @@ with the instantiation swapped, at the main paths' shapes:
                        block per (head, row tile) (no partial sums), and
                        registers capped for more resident warps (64 rows
                        at 3 blocks per SM, 128 rows at 2)
+    mlt_fwd, mlt_bwd_dq, mlt_bwd_dkv, mlt_bwd_dt
+                       the materialised-T kernels (#4, #5) at the pallas_ab
+                       shapes (256, 2, 197, 44, 16), (8, 2, 1024, 44, 16),
+                       (32, 4, 512, 128, 64) and at (4, 12, 4097, 266, 64),
+                       bf16, T not Toeplitz: the forward and dq with T
+                       loaded by each thread into registers in the
+                       accumulator layout a stage ahead where N % 4 != 0
+                       and staged in the ring elsewhere (shipped), or one
+                       way at every N; 128 query rows (shipped) or 64 for
+                       the forward, dq and dT, 64 key/value rows (shipped)
+                       or 32 for dkv; the narrow instantiations (shipped)
+                       or the 272 / 64 one for every (F, D); dT's batch
+                       groups by the waves rule (shipped) or one group, and
+                       its narrow kernel at two blocks per SM (shipped) or
+                       one
 
 Every variant is first held against the kernel's plain version (max
 |err| / max |plain|), then timed as chip_smoke.py times kernels: calls
@@ -72,6 +87,7 @@ import torch
 from ..ops.kernels import _build
 from ..ops.kernels import circulant_rotate as cr
 from ..ops.kernels import flash_attention as fa
+from ..ops.kernels import masked_linear as ml
 from ..ops.kernels import masked_linear_coeffs as mlc
 from ..utils.timing import device_label
 
@@ -179,14 +195,88 @@ def _rot_variants(kind: str, backward: bool) -> dict:
 VARIANTS["rot_fwd"] = ("circulant_rotate", cr, "_lib", _rot_variants("FWD", False))
 VARIANTS["rot_bwd"] = ("circulant_rotate", cr, "_lib", _rot_variants("BWD", True))
 
+
+def _t_usings(prefix: str, geometry: str, shipped: Dict[str, str], swap,
+              treg: bool = False) -> list:
+    """Swaps of the materialised-T kernels' `using {prefix}Wide/Mid/Narrow =
+    {geometry}<...>;` lines (`template <bool TREG> using ...` where treg):
+    swap(width, template arguments) gives each one's new arguments."""
+    head = "template <bool TREG> using" if treg else "using"
+    return [(f"{head} {prefix}{width} = {geometry}<{args}>;",
+             f"{head} {prefix}{width} = {geometry}<{swap(width, args)}>;")
+            for width, args in shipped.items()]
+
+
+_TFWD = {"Wide": "272, 64, 128, 64, TREG", "Narrow": "64, 16, 128, 64, TREG"}
+_TDQ = {"Wide": "272, 64, 128, 2, 64, TREG", "Mid": "128, 64, 128, 2, 64, TREG",
+        "Narrow": "64, 16, 128, 2, 64, TREG"}
+_TDKV = {"Wide": "272, 64, 64", "Mid": "128, 64, 64", "Narrow": "64, 16, 64"}
+_TDT = {"Wide": "272, 64, 128, 64, 1", "Mid": "128, 64, 128, 64, 1",
+        "Narrow": "64, 16, 128, 64, 2"}
+_WIDE_ONLY = "no narrow instantiations (272 / 64 for every F, D)"
+_FWD_TREG = "bool fwd_t_in_registers(int N) { return N % 4 != 0; }"
+_DQ_TREG = "bool dq_t_in_registers(int N) { return N % 4 != 0; }"
+_DT_GROUPS = "  for (int groups = 2; groups <= B; ++groups) {"
+
+
+def _rows64(width, args):
+    return args.replace(", 128, ", ", 64, ")
+
+
+def _wide(shipped: Dict[str, str]):
+    return lambda width, args: shipped["Wide"]
+
+
+VARIANTS["mlt_fwd"] = ("masked_linear_fwd", ml, "_fwd_fns", {
+    "128 q rows, T in registers where N % 4 != 0, else in the ring": [],
+    "128 q rows, T staged in the ring at every N": [
+        (_FWD_TREG, _FWD_TREG.replace("N % 4 != 0", "false"))],
+    "128 q rows, T in registers at every N": [
+        (_FWD_TREG, _FWD_TREG.replace("N % 4 != 0", "true"))],
+    "64 q rows, T as shipped": _t_usings("Fwd", "TFwdMma", _TFWD, _rows64, True),
+    _WIDE_ONLY: _t_usings("Fwd", "TFwdMma", _TFWD, _wide(_TFWD), True),
+})
+VARIANTS["mlt_bwd_dq"] = ("masked_linear_bwd", ml, "_bwd_fns", {
+    "128 q rows (16 warps, 2 per 16 rows), T in registers where N % 4 != 0": [],
+    "128 q rows, T staged in the ring at every N": [
+        (_DQ_TREG, _DQ_TREG.replace("N % 4 != 0", "false"))],
+    "128 q rows, T in registers at every N": [
+        (_DQ_TREG, _DQ_TREG.replace("N % 4 != 0", "true"))],
+    "64 q rows (8 warps, 2 per 16 rows, two blocks per SM)": _t_usings(
+        "Dq", "TDqMma", _TDQ, _rows64, True),
+    _WIDE_ONLY: _t_usings("Dq", "TDqMma", _TDQ, _wide(_TDQ), True),
+})
+VARIANTS["mlt_bwd_dkv"] = ("masked_linear_bwd", ml, "_bwd_fns", {
+    "64 kv rows (16 warps)": [],
+    "32 kv rows (8 warps, two blocks per SM)": _t_usings(
+        "Dkv", "TDkvMma", _TDKV, lambda w, a: a[: a.rindex("64")] + "32"),
+    _WIDE_ONLY: _t_usings("Dkv", "TDkvMma", _TDKV, _wide(_TDKV)),
+})
+VARIANTS["mlt_bwd_dt"] = ("masked_linear_bwd", ml, "_bwd_fns", {
+    "128 q rows, the waves rule, narrow at two blocks per SM": [],
+    "128 q rows, the waves rule, narrow at one block per SM": [
+        ("using DtNarrow = TDtMma<64, 16, 128, 64, 2>;",
+         "using DtNarrow = TDtMma<64, 16, 128, 64, 1>;")],
+    "128 q rows, one group (no partial sums)": [
+        (_DT_GROUPS, _DT_GROUPS.replace("groups <= B;", "groups <= 1;"))],
+    "64 q rows (4 warps), the waves rule": _t_usings("Dt", "TDtMma", _TDT, _rows64),
+    _WIDE_ONLY: _t_usings("Dt", "TDtMma", _TDT, _wide(_TDT)),
+})
+# the materialised-T kernels' shapes (B, H, N, F, D)
+T_SHAPES = [(256, 2, 197, 44, 16), (8, 2, 1024, 44, 16), (32, 4, 512, 128, 64),
+            (4, 12, 4097, 266, 64)]
+
 # the launch_info name of each kernel the wrapper module reports on
 LAUNCH_INFO = {"mlc_bwd_dq": "masked_linear_coeffs_bwd_dq",
                "mlc_bwd_dkv": "masked_linear_coeffs_bwd_dkv",
                "mlc_bwd_dc": "masked_linear_coeffs_bwd_dc",
                "mlc_fwd": "masked_linear_coeffs_fwd",
                "kfp_fwd": "kerple_fused_phi_fwd",
-               "rot_fwd": "circulant_rotate_fwd", "rot_bwd": "circulant_rotate_bwd"}
-# the sequence lengths launch_info is asked at, per kernel (default 197 and 4097)
+               "rot_fwd": "circulant_rotate_fwd", "rot_bwd": "circulant_rotate_bwd",
+               "mlt_fwd": "masked_linear_fwd", "mlt_bwd_dq": "masked_linear_bwd_dq",
+               "mlt_bwd_dkv": "masked_linear_bwd_dkv", "mlt_bwd_dt": "masked_linear_bwd_dt"}
+# the sequence lengths launch_info is asked at, per kernel (default 197 and
+# 4097; the materialised-T kernels at each of T_SHAPES' (N, F, D))
 LAUNCH_INFO_N = {"kfp_fwd": (197,)}
 
 
@@ -347,6 +437,35 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
         out["rot_bwd"].append((
             shape, lambda a=(cot, x, ct, st): cr.circulant_rotate_bwd(*a, True),
             lambda got, want=want_bwd: _max_rel(got, want)))
+    for B, H, N, F, D in T_SHAPES if any(k.startswith("mlt_") for k in kernels) else ():
+        qp, kp = ((torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).bfloat16()
+                  for _ in range(2))
+        vv, ct = (torch.randn(B, H, N, D, generator=g, device="cuda").bfloat16()
+                  for _ in range(2))
+        t = torch.rand(H, N, N, generator=g, device="cuda") + 0.5  # not Toeplitz
+        o, den = ml.masked_linear_fwd_reference(qp, kp, vv, t)
+        gn, s = mlc.kerple_bwd_residuals(den, o, ct)
+        shape = f"({B}, {H}, {N}, {F}, {D})"
+        first = [x[:1] for x in (qp, kp, vv, gn, s)]
+        q1, k1, v1, gn1, s1 = first
+        out["mlt_fwd"].append((
+            shape, lambda a=(qp, kp, vv, t): ml.masked_linear_fwd(*a),
+            lambda got, a=(q1, k1, v1, t): _max_rel(_first(got),
+                                                    ml.masked_linear_fwd_reference(*a))))
+        out["mlt_bwd_dq"].append((
+            shape, lambda a=(gn, s, vv, kp, t): ml.masked_linear_bwd_dq(*a),
+            lambda got, a=(gn1, s1, v1, k1, t): _max_rel(_first(got),
+                                                         mlc.kerple_dense_bwd_dq(*a))))
+        out["mlt_bwd_dkv"].append((
+            shape, lambda a=(gn, s, vv, qp, kp, t): ml.masked_linear_bwd_dkv(*a),
+            lambda got, a=(gn1, s1, v1, q1, k1, t): _max_rel(_first(got),
+                                                             mlc.kerple_dense_bwd_dkv(*a))))
+        # dT sums over the batch: the plain version of all of it, computed once
+        want = mlc.kerple_dense_bwd_dt(gn, s, vv, qp, kp) if "mlt_bwd_dt" in kernels else None
+        out["mlt_bwd_dt"].append((
+            shape, lambda a=(gn, s, vv, qp, kp): ml.masked_linear_bwd_dt(*a),
+            lambda got, want=want: _max_rel(got, want)))
+        del o, den
     return out
 
 
@@ -365,8 +484,13 @@ def main() -> None:
         _, module, loader, _ = VARIANTS[kernel]
         if kernel in LAUNCH_INFO:
             use_library(module, loader, path, originals)
+            name = LAUNCH_INFO[kernel]
+            if module is ml:
+                for _, _, n, f, d in T_SHAPES:
+                    info = ml.launch_info(name, n, f, d, torch.bfloat16)
+                    print(f"{kernel} {variant} launch_info N={n} F={f} D={d}: {info}", flush=True)
+                continue
             for n in LAUNCH_INFO_N.get(kernel, (197, 4097)):
-                name = LAUNCH_INFO[kernel]
                 info = (module.launch_info(name, n, 64, torch.bfloat16, (12 * n * 64, n * 64, 64))
                         if module is cr else
                         module.launch_info(name, n, 266, 64, torch.bfloat16))
@@ -378,6 +502,9 @@ def main() -> None:
             for shape, run, check in trial[kernel]:
                 rel = check(run())
                 ms = kernel_ms(run, iters=20 if "4097" not in shape else 3)
+                if kernel == "mlt_bwd_dt":
+                    dims = [int(x) for x in shape.strip("()").split(",")]
+                    shape += f", {ml._bwd_fns().mlt_bwd_dt_groups(*dims, 1)} groups"
                 print(f"round {rnd} {kernel} {variant} {shape}: {ms:.4f} ms, "
                       f"max|err|/max|plain| {rel:.3e}", flush=True)
 

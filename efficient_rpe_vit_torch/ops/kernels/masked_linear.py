@@ -8,10 +8,13 @@ fused_masked_linear_attention` (`_masked_linear_fwd_impl`,
 `_masked_linear_kernel`) and of `ops/pallas/masked_linear_bwd.py::
 masked_linear_bwd` (`_dq_kernel`, `_dkv_kernel`, `_dt_kernel`). The forward
 is hand-written CUDA C++ for sm_90a in `csrc/masked_linear_fwd.cu`, the
-backward three kernels in `csrc/masked_linear_bwd.cu`. They are the
-coefficient kernels (`masked_linear_coeffs.py`) with a staged tile of T in
-place of the coefficient window, so T may be any [H, N, N] matrix, and the
-backward also returns dT = sum_b dW*A.
+backward three kernels in `csrc/masked_linear_bwd.cu`. In bf16 (at even
+F <= 272, D <= 64: `mma_takes`) the forward, dq and dkv are the coefficient
+kernels' register-resident mainloops (`masked_linear_coeffs.py`) with T's
+tiles in place of the coefficient window, so T may be any [H, N, N]
+matrix, and dT = sum_b dW*A sums the batch in groups into a scratch of
+partial sums that a second kernel adds in order; fp32 and the other shapes
+take the staged first versions.
 
 Every kernel has a wrapper that checks its inputs, takes the plain version
 for CPU tensors and launches the kernel for CUDA tensors (never falling
@@ -19,7 +22,10 @@ back), and counts its launches in `<wrapper>.launches`. The plain versions
 are `masked_linear_fwd_reference`, `masked_linear_bwd_reference` (the
 residual VJP, `masked_linear_vjp_residual`) and, per backward kernel,
 `kerple_dense_bwd_dq` / `_dkv` / `_dt` of `masked_linear_coeffs.py`.
-`fused_masked_linear_attention` is the differentiable op. T is read in
+`fused_masked_linear_attention` is the differentiable op. `launch_info`
+reports what a launch runs on the card; `dt_batch_groups` and
+`dt_scratch_floats` mirror the dT kernel's batch groups and the scratch of
+their partial sums that the dT wrapper allocates. T is read in
 fp32: a bf16 T is upcast by the wrapper and dT is rounded back to T's
 dtype, which is the JAX arithmetic (the Pallas bodies' `s * t` promotes).
 The JAX `block_q` / `block_kv` / `interpret` arguments are TPU tiling and
@@ -35,7 +41,8 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from ._build import dtype_suffix, launch, load, on_cpu
+from ._build import LAUNCH_INFO_KEYS  # noqa: F401 (re-exported: what launch_info reports)
+from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
 from .masked_linear_coeffs import (
     _check_bwd_inputs,
     _check_inputs,
@@ -54,6 +61,15 @@ _BWD_SOURCE = "masked_linear_bwd"
 # byte budget for this choice was set from its own accelerator's memory)
 BWD_MODES = ("pallas", "jnp_residual", "auto")
 _T_DTYPES = (torch.float32, torch.bfloat16)
+
+# dT's batch groups, as `dt_groups` in csrc/masked_linear_bwd.cu computes
+# them for a bf16 launch its mma.sync kernel takes: blocks of DT_TILE =
+# (query rows, key/value rows) per head and batch group, run in waves of
+# (blocks per SM) x DT_SMS; at most DT_SCRATCH_CAP fp32 partial sums
+# (32 MiB) when there is more than one group
+DT_TILE = (128, 64)
+DT_SMS = 132
+DT_SCRATCH_CAP = 8 << 20
 
 
 # ─── plain versions ─────────────────────────────────────────────────────
@@ -95,6 +111,49 @@ def _check_t(t: torch.Tensor, H: int, N: int, device: torch.device,
         raise ValueError("T must be contiguous")
 
 
+def mma_takes(f: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether a launch at feature count f and value dim d in `dtype` runs
+    the register-resident mma.sync kernels (the sources' `*_mma_takes`
+    rule: bf16 at even f <= 272, d <= 64); the staged kernels run the rest."""
+    return dtype == torch.bfloat16 and f <= 272 and f % 2 == 0 and d <= 64
+
+
+def dt_batch_groups(B: int, H: int, N: int, F: int, D: int, dtype: torch.dtype) -> int:
+    """The batch groups a dT launch at [B, H, N, F, D] in `dtype` splits the
+    batch into (1 for the staged kernel, which sums it in one block): of
+    the counts that leave no group empty (groups of ceil(B / groups)
+    elements), the fewest that minimise waves x elements per group, a wave
+    being (blocks per SM: 2 for the narrow F <= 64, D <= 16 kernel, else 1)
+    x DT_SMS blocks and a block summing its group's elements one after
+    another; at most DT_SCRATCH_CAP partial sums. Mirrors `dt_groups` in
+    csrc/masked_linear_bwd.cu (chip_smoke.py holds the two equal on the
+    card)."""
+    if not mma_takes(F, D, dtype):
+        return 1
+    rows, cols = DT_TILE
+    blocks = -(-N // rows) * -(-N // cols) * H
+    slots = (2 if F <= 64 and D <= 16 else 1) * DT_SMS
+    best, best_cost = 1, -(-blocks // slots) * B
+    for groups in range(2, B + 1):
+        if groups * H * N * N > DT_SCRATCH_CAP:
+            break
+        per = -(-B // groups)
+        if -(-B // per) != groups:  # a group would be empty
+            continue
+        cost = -(-(blocks * groups) // slots) * per
+        if cost < best_cost:
+            best, best_cost = groups, cost
+    return best
+
+
+def dt_scratch_floats(B: int, H: int, N: int, F: int, D: int, dtype: torch.dtype) -> int:
+    """fp32 values of the scratch a dT launch needs: the partial sums
+    [groups, H, N, N] of its batch groups where there is more than one, else
+    0 (dT is written directly)."""
+    groups = dt_batch_groups(B, H, N, F, D, dtype)
+    return groups * H * N * N if groups > 1 else 0
+
+
 @functools.cache
 def _fwd_fns():
     lib = load(_FWD_SOURCE)
@@ -102,6 +161,8 @@ def _fwd_fns():
     for fn in (lib.mlt_fwd_bf16, lib.mlt_fwd_f32):
         fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         fn.restype = i32
+    lib.mlt_fwd_launch_info.argtypes = [i32] * 4 + [ptr]
+    lib.mlt_fwd_launch_info.restype = i32
     lib.mlt_error_string.argtypes = [i32]
     lib.mlt_error_string.restype = ctypes.c_char_p
     return lib
@@ -114,12 +175,54 @@ def _bwd_fns():
     for suffix in ("bf16", "f32"):
         getattr(lib, f"mlt_bwd_dq_{suffix}").argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         getattr(lib, f"mlt_bwd_dkv_{suffix}").argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-        getattr(lib, f"mlt_bwd_dt_{suffix}").argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        getattr(lib, f"mlt_bwd_dt_{suffix}").argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         for kind in ("dq", "dkv", "dt"):
             getattr(lib, f"mlt_bwd_{kind}_{suffix}").restype = i32
+    lib.mlt_bwd_dt_scratch_floats.argtypes = [i32] * 6
+    lib.mlt_bwd_dt_scratch_floats.restype = ctypes.c_longlong
+    lib.mlt_bwd_dt_groups.argtypes = [i32] * 6
+    lib.mlt_bwd_dt_groups.restype = i32
+    lib.mlt_bwd_launch_info.argtypes = [i32] * 5 + [ptr]
+    lib.mlt_bwd_launch_info.restype = i32
     lib.mlt_bwd_error_string.argtypes = [i32]
     lib.mlt_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_BWD_KINDS = {"masked_linear_bwd_dq": 0, "masked_linear_bwd_dkv": 1, "masked_linear_bwd_dt": 2}
+
+
+def launch_info(kernel: str, n: int, f: int, d: int, dtype: torch.dtype) -> dict:
+    """What a launch of the forward ("masked_linear_fwd") or of the backward
+    kernel `kernel` ("masked_linear_bwd_dq", "..._dkv" or "..._dt") at
+    sequence length n, feature count f and value dim d in `dtype` runs on
+    this card, asked of the built library: rows per block (per tile for a
+    staged kernel), threads, dynamic shared memory bytes, resident blocks
+    per SM, registers and local (spilled) bytes per thread under
+    `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs ("mma.sync" by
+    `mma_takes`, else "staged"). Needs a GPU: raises RuntimeError without
+    one."""
+    if kernel != _FWD_SOURCE and kernel not in _BWD_KINDS:
+        raise ValueError(f"unknown materialised-T kernel {kernel!r}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"unsupported dtype {dtype}: bfloat16 or float32")
+    if n <= 0 or f <= 0 or d <= 0:
+        raise ValueError(f"need n, f, d > 0, got n={n}, f={f}, d={d}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{kernel} launch info needs a GPU: no CUDA device is available")
+    info = launch_info_buffer()
+    is_bf16 = int(dtype == torch.bfloat16)
+    if kernel == _FWD_SOURCE:
+        lib = _fwd_fns()
+        err, errors = lib.mlt_fwd_launch_info(n, f, d, is_bf16, info), lib.mlt_error_string
+    else:
+        lib = _bwd_fns()
+        err = lib.mlt_bwd_launch_info(_BWD_KINDS[kernel], n, f, d, is_bf16, info)
+        errors = lib.mlt_bwd_error_string
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch info at n={n} f={f} d={d}: CUDA error "
+                           f"{err} ({errors(err).decode()})")
+    return launch_info_dict(info)
 
 
 # ─── forward ────────────────────────────────────────────────────────────
@@ -198,17 +301,23 @@ def masked_linear_bwd_dkv(gn, s, v, q_prime, k_prime, t):
 
 
 def masked_linear_bwd_dt(gn, s, v, q_prime, k_prime):
-    """dT = sum_b dW*A, [H, N, N] fp32, summed over the batch in order (no
-    atomics). Replaces `_dt_kernel`."""
+    """dT = sum_b dW*A, [H, N, N] fp32, summed over the batch in a fixed
+    order (no atomics): the bf16 mma.sync kernel sums each batch group in
+    order into a scratch of partial sums allocated here (`dt_scratch_floats`
+    as the built library counts it), then the groups in order. Replaces
+    `_dt_kernel`."""
     _check_bwd_inputs(gn, s, v, k_prime, q_prime)
     B, H, N, F_ = k_prime.shape
+    D = v.shape[-1]
     if on_cpu(v):
         return kerple_dense_bwd_dt(gn, s, v, q_prime, k_prime)
     lib = _bwd_fns()
     dt = torch.empty((H, N, N), dtype=torch.float32, device=v.device)
+    floats = lib.mlt_bwd_dt_scratch_floats(B, H, N, F_, D, int(v.dtype == torch.bfloat16))
+    scratch = torch.empty(floats, dtype=torch.float32, device=v.device) if floats > 0 else None
     launch(lib.mlt_bwd_error_string, "masked_linear_bwd_dt",
            getattr(lib, f"mlt_bwd_dt_{dtype_suffix(v.dtype)}"), v.device,
-           gn, s, v, q_prime, k_prime, dt, B, H, N, F_, v.shape[-1])
+           gn, s, v, q_prime, k_prime, dt, scratch, B, H, N, F_, D)
     masked_linear_bwd_dt.launches += 1
     return dt
 

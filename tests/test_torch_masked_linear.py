@@ -36,17 +36,22 @@ SHAPES = [(2, 2, 197, 44, 16), (3, 2, 17, 44, 16)]
 IDS = ["N197", "N17"]
 
 
-def _inputs(seed, B, H, N, F, D):
+def _inputs(seed, B, H, N, F, D, toeplitz=True):
     """q', k' = |normal| x 0.1, v and the cotangent normal, T = the Toeplitz
-    matrix of exp(0.02 normal) coefficients, all fp32 numpy."""
+    matrix of exp(0.02 normal) coefficients (toeplitz False: every element
+    uniform in [0.5, 1.5), as chip_smoke.py's phase 3f draws a T that is
+    not Toeplitz), all fp32 numpy."""
     rng = np.random.default_rng(seed)
     qp = np.abs(rng.normal(size=(B, H, N, F))).astype(np.float32) * 0.1
     kp = np.abs(rng.normal(size=(B, H, N, F))).astype(np.float32) * 0.1
     v = rng.normal(size=(B, H, N, D)).astype(np.float32)
     g = rng.normal(size=(B, H, N, D)).astype(np.float32)
-    coeffs = np.exp(rng.normal(size=(H, 2 * N - 1)) * 0.02).astype(np.float32)
-    idx = np.arange(N)
-    t = np.ascontiguousarray(coeffs[:, idx[None, :] - idx[:, None] + N - 1])
+    if toeplitz:
+        coeffs = np.exp(rng.normal(size=(H, 2 * N - 1)) * 0.02).astype(np.float32)
+        idx = np.arange(N)
+        t = np.ascontiguousarray(coeffs[:, idx[None, :] - idx[:, None] + N - 1])
+    else:
+        t = (rng.random(size=(H, N, N)) + 0.5).astype(np.float32)
     return qp, kp, v, t, g
 
 
@@ -137,6 +142,26 @@ def test_plain_backward_matches_jax_kernels(shape):
         _close(a, b)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_plain_versions_over_a_non_toeplitz_t_match_jax_kernels(shape):
+    """The kernels take any positive T, not only a Toeplitz one: the plain
+    forward and backward over a T drawn element by element against the JAX
+    kernels (interpret mode) fed the same T."""
+    qp, kp, v, t, g = _inputs(8, *shape, toeplitz=False)
+    targs = [torch.from_numpy(a) for a in (qp, kp, v, t)]
+    j_args = [jnp.asarray(a) for a in (qp, kp, v, t)]
+    out, den = ml.masked_linear_fwd(*targs)
+    j_out, j_den = ak._masked_linear_fwd_impl(*j_args, block_q=128, block_kv=128,
+                                              interpret=True)
+    _close(out, j_out)
+    _close(den, j_den)
+    got = ml.masked_linear_bwd(*targs, den, out, torch.from_numpy(g))
+    want = jax_bwd(*j_args, jnp.asarray(den.numpy()), jnp.asarray(out.numpy()), jnp.asarray(g),
+                   block_q=128, block_kv=128, interpret=True)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
 @pytest.mark.parametrize("mode", ["pallas", "jnp_residual"])
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 def test_autograd_op_matches_jax_grad(shape, mode):
@@ -168,6 +193,129 @@ def test_dt_only_when_t_needs_a_gradient(monkeypatch, need_t):
     assert len(calls) == int(need_t)
     assert (grads[3] is not None) == need_t
     assert all(x is not None for x in grads[:3])
+
+
+# ─── dT's batch groups (csrc/masked_linear_bwd.cu `dt_groups`) ──────────
+#
+# The bf16 dT kernel sums the batch in groups, each group's elements in
+# order into a scratch of partial sums, then the groups in order. The
+# wrapper mirrors the library's rule; chip_smoke.py holds the two equal on
+# the card. Expected: the pallas_ab shapes, long N and a batch the groups
+# do not divide; fp32 takes the staged kernel (one group, no scratch).
+
+DT_GROUP_CASES = [  # (B, H, N, F, D, dtype), groups
+    ((256, 2, 197, 44, 16, torch.bfloat16), 16),
+    ((8, 2, 1024, 44, 16, torch.bfloat16), 1),
+    ((32, 4, 512, 128, 64, torch.bfloat16), 1),
+    ((4, 12, 4097, 266, 64, torch.bfloat16), 1),
+    ((20, 2, 300, 44, 16, torch.bfloat16), 7),
+    ((256, 2, 197, 44, 16, torch.float32), 1),
+    ((256, 2, 197, 532, 64, torch.bfloat16), 1),
+]
+
+
+@pytest.mark.parametrize("case", DT_GROUP_CASES, ids=[
+    "ab197", "ab1024", "ab512", "longN", "B20_not_divided", "fp32_staged", "F532_staged"])
+def test_dt_batch_groups_and_scratch(case):
+    (B, H, N, F, D, dtype), groups = case
+    assert ml.dt_batch_groups(B, H, N, F, D, dtype) == groups
+    want = groups * H * N * N if groups > 1 else 0
+    assert ml.dt_scratch_floats(B, H, N, F, D, dtype) == want
+    assert want <= ml.DT_SCRATCH_CAP
+    # every group non-empty
+    per = -(-B // groups)
+    assert (groups - 1) * per < B <= groups * per
+
+
+def test_dt_scratch_cap_bounds_the_groups(monkeypatch):
+    """With a smaller cap on the partial sums the groups shrink until they
+    fit; the waves rule then picks among the counts that do."""
+    B, H, N = 256, 2, 197
+    free = ml.dt_batch_groups(B, H, N, 44, 16, torch.bfloat16)
+    monkeypatch.setattr(ml, "DT_SCRATCH_CAP", 500_000)
+    groups = ml.dt_batch_groups(B, H, N, 44, 16, torch.bfloat16)
+    assert 1 < groups < free
+    assert groups * H * N * N <= 500_000 < (groups + 1) * H * N * N
+    assert ml.dt_scratch_floats(B, H, N, 44, 16, torch.bfloat16) == groups * H * N * N
+
+
+@pytest.mark.parametrize("shape", [(20, 2, 300, 8, 4), (5, 2, 33, 8, 4)], ids=["B20", "B5"])
+def test_dt_group_partition_and_ordered_sum_equal_the_plain_dt(shape):
+    """The dT kernel's arithmetic on the CPU in fp32: the batch split by
+    `dt_batch_groups` (groups of ceil(B / groups), the last shorter where
+    they do not divide B), each group's (M - s) * A summed over its elements
+    in order, then the groups in order, against `kerple_dense_bwd_dt`."""
+    from efficient_rpe_vit_torch.ops.kernels import masked_linear_coeffs as mlc
+
+    B, H, N, F, D = shape
+    qp, kp, v, t, g = (torch.from_numpy(a) for a in _inputs(9, *shape, toeplitz=False))
+    out, den = ml.masked_linear_fwd(qp, kp, v, t)
+    gn, s = mlc.kerple_bwd_residuals(den, out, g)
+    # the rule at this shape in bf16 (the dtype the mma.sync kernel takes)
+    groups = ml.dt_batch_groups(B, H, N, 44, 16, torch.bfloat16)
+    per = -(-B // groups)
+    bounds = [(i * per, min(B, (i + 1) * per)) for i in range(groups)]
+    assert groups > 1 and bounds[-1][1] == B and all(b0 < b1 for b0, b1 in bounds)
+    parts = []
+    for b0, b1 in bounds:
+        part = torch.zeros(H, N, N)
+        for b in range(b0, b1):
+            a = qp[b] @ kp[b].transpose(-1, -2)
+            m = gn[b] @ v[b].transpose(-1, -2)
+            part += (m - s[b][..., None]) * a
+        parts.append(part)
+    dt = parts[0]
+    for part in parts[1:]:
+        dt = dt + part
+    want = mlc.kerple_dense_bwd_dt(gn, s, v, qp, kp)
+    torch.testing.assert_close(dt, want, rtol=TOL, atol=TOL * want.abs().max().item())
+    assert torch.equal(ml.masked_linear_bwd_dt(gn, s, v, qp, kp), want)
+
+
+# ─── launch_info and the dispatch rule ──────────────────────────────────
+
+@pytest.mark.parametrize("kernel", ["masked_linear_fwd", "masked_linear_bwd_dq",
+                                    "masked_linear_bwd_dkv", "masked_linear_bwd_dt"])
+def test_launch_info_needs_a_gpu(monkeypatch, kernel):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        ml.launch_info(kernel, 197, 44, 16, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ml.launch_info("masked_linear_bwd_dc", 197, 44, 16, torch.bfloat16)
+    with pytest.raises(TypeError):
+        ml.launch_info(kernel, 197, 44, 16, torch.float16)
+    with pytest.raises(ValueError):
+        ml.launch_info(kernel, 0, 44, 16, torch.bfloat16)
+
+
+def test_mma_rule_and_sources():
+    """bf16 at even F <= 272 and D <= 64 runs the mma.sync kernels, the rest
+    the staged ones; the sources hold both, share the forward's and dkv's
+    mask-policy stages of kerple_common.cuh with the coefficient kernels
+    and use no float atomics."""
+    from efficient_rpe_vit_torch.ops.kernels import _build
+
+    assert ml.mma_takes(44, 16, torch.bfloat16) and ml.mma_takes(266, 64, torch.bfloat16)
+    assert not ml.mma_takes(44, 16, torch.float32)
+    assert not ml.mma_takes(532, 64, torch.bfloat16) and not ml.mma_takes(45, 16, torch.bfloat16)
+    assert not ml.mma_takes(266, 128, torch.bfloat16)
+    fwd = (_build.CSRC / "masked_linear_fwd.cu").read_text()
+    bwd = (_build.CSRC / "masked_linear_bwd.cu").read_text()
+    common = (_build.CSRC / "kerple_common.cuh").read_text()
+    for name in ("mlt_fwd_mma_kernel", "mlc_t_fwd_kernel", "mlt_fwd_launch_info",
+                 "fwd_mma_stage<", "TileMask", "FragMask", "fwd_t_in_registers"):
+        assert name in fwd
+    for name in ("mlt_bwd_dq_mma_kernel", "mlt_bwd_dkv_mma_kernel", "mlt_bwd_dt_mma_kernel",
+                 "mlt_bwd_dt_group_sum_kernel", "mlt_bwd_dt_scratch_floats", "mlt_bwd_dt_groups",
+                 "mlt_bwd_launch_info", "dq_mma_stage<", "dkv_mma_stage<", "dq_t_in_registers",
+                 "DT_SCRATCH_CAP = 8LL << 20", f"SMS = {ml.DT_SMS}"):
+        assert name in bwd
+    assert "void dq_mma_stage(" in bwd
+    for name in ("struct WindowMask", "struct TileMask", "struct FragMask",
+                 "void dkv_mma_stage(", "void fwd_mma_stage(", "void stage_t_tile("):
+        assert name in common
+    for src in (fwd, bwd):
+        assert "atomicAdd" not in src
 
 
 # ─── input checks ───────────────────────────────────────────────────────
