@@ -114,6 +114,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      trained as phase 8 (12 launches of the forward and of each backward
      kernel per step, bitwise step-1 gradients, ms per step, peak memory)
      and serving one batch on the kernels against the fft arm.
+ 17. K steps per CUDA-graph replay (`make_multi_step`): #1 and #2 at the
+     JAX bench_headline row's shape (256, 2, 197, 44, 16) against their plain
+     versions, timed; dropout masks drawn in a replayed graph equal the eager
+     draws from the same generator, and a second replay draws new ones; sgd
+     and feature redraw refused on the card (NotImplementedError); the
+     card's capturable adam and adamw against the CPU's optax-equal path
+     (6 updates, warmup-cosine, weight decay); the headline model
+     (mnist_config at patch 2, batch 256, bf16, dropout 0.1, depth 3) at
+     K=25: the first call's 25 eager warm-up steps and the capture, their
+     launches read apart (the counts zeroed between them; 25 x 3 of #1 and
+     of each backward kernel in each, the capture's on the kernels line), then
+     two replays, each bitwise against 25 eager make_train_step steps of a
+     twin model (losses, corrects, parameters, Adam moments, generators), ms
+     per step replayed and eager; ViT-B widths (N=197, batch 64) at K=5, one
+     replay against 5 eager steps;
+ 18. the engine: a synthetic MNIST-shaped uint8 DeviceDataset on the card
+     (flagged synthetic), one epoch of the headline model at dropout 0
+     through train_epoch per batch, with make_multi_step (K=4) and
+     gather-fused (K=4): equal metrics and bitwise equal parameters;
+     evaluate per batch against gather-fused (K=3, a tail chunk).
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -325,6 +345,21 @@ OTHER_VARIANTS = [
     ("performer_relu_most_general", FUSED_PHI, {"method": "dense"}),
 ]
 VARIANT_DEPTH = 2
+# phase 17: the JAX bench_headline row's model (mnist_config: depth 3, dim
+# 32, 2 heads, dropout 0.1) at patch 2 (N = 197), batch 256, bf16, K steps
+# per CUDA-graph replay; its attention runs #1 / #2 at (256, 2, 197, 44, 16)
+HEADLINE = dict(patch_size=2, batch_size=256, compute_dtype="bfloat16")
+HEADLINE_K = 25
+HEADLINE_SHAPE = (256, 2, 197, 44, 16)
+# and the bench_vitb_kerple row's (28x28 at patch 2: N = 197, ViT-B widths)
+ENGINE_VITB = dict(patch_size=2, batch_size=TRAIN_BATCH, dim=768, depth=12, heads=12,
+                   mlp_dim=3072, dropout=0.0, compute_dtype="bfloat16")
+ENGINE_VITB_K = 5
+# phase 18: a synthetic MNIST of ENGINE_N train and ENGINE_N // 4 test
+# images, one epoch of the headline model at dropout 0 per loop
+ENGINE_N = 4096
+ENGINE_K = 4
+ENGINE_EVAL_K = 3
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
@@ -1948,6 +1983,322 @@ def longn_kerple_serve(wrappers, card: str):
     return launches
 
 
+def _params_differ(a, b):
+    """Names of the parameters and buffers where models a and b differ."""
+    sb = b.state_dict()
+    return [n for n, t in a.state_dict().items() if not torch.equal(t, sb[n])]
+
+
+def check_replayed_masks() -> None:
+    """Dropout masks drawn inside a CUDA graph (`train.training._Replays`,
+    whose generator takes the caller's state before a replay and gives the
+    advanced state back): each call's masks equal the eager draws from the
+    same generator, and a second replay draws new ones."""
+    from efficient_rpe_vit_torch.models.dense import Dropout
+    from efficient_rpe_vit_torch.train.training import _Replays
+
+    drop = Dropout(0.1).train()
+    x = torch.ones(1 << 16, device="cuda")
+    replays = _Replays(torch.device("cuda"))
+    g, ref = (torch.Generator(device="cuda").manual_seed(3) for _ in range(2))
+    got = [replays(("masks",), lambda t, gen: (drop(t, gen),), (x,), g)[0]
+           for _ in range(3)]  # the warm-up and capture, then two replays
+    want = [drop(x, ref) for _ in range(3)]
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    fresh = not torch.equal(got[1], got[2])
+    log("multistep", f"dropout masks: eager warm-up, replay 1, replay 2 equal to the eager "
+        f"draws {same}; replay 2 differs from replay 1: {fresh}")
+    if not (all(same) and fresh and torch.equal(g.get_state(), ref.get_state())):
+        raise AssertionError("replayed dropout masks do not follow the generator")
+
+
+def check_graph_refusals() -> None:
+    """The K-step programs refuse, on the card, what a CUDA graph cannot
+    hold: sgd (its update reads a tensor learning rate on the host) and
+    feature redraw (the host reads the redraw counter)."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import create_train_state, make_multi_step
+
+    x = torch.zeros(2, 2, 28, 28, 1, device="cuda")
+    y = torch.zeros(2, 2, dtype=torch.long, device="cuda")
+    for what, cfg_fields, attn in (("sgd", dict(optimizer="sgd"), None),
+                                   ("feature redraw", {}, {"feature_redraw_interval": 2})):
+        cfg = mnist_config(**cfg_fields)
+        model = create_model("performer_favor_most_general", cfg, device="cuda",
+                             attention_config=attn)
+        try:
+            make_multi_step(model)(create_train_state(model, cfg), x, y,
+                                   torch.Generator(device="cuda"))
+        except NotImplementedError as e:
+            log("multistep", f"{what} refused on the card: {e}")
+        else:
+            raise AssertionError(f"make_multi_step ran {what} on the card")
+
+
+def check_capturable_optimizer() -> None:
+    """The card's adam and adamw (`create_optimizer` builds them capturable,
+    with a device fp32 lr, the update every card train step and replay
+    takes) against the CPU's, the path tests/test_torch_train.py holds to
+    optax: one parameter set and one gradient sequence, weight decay 0.05
+    (coupled for adam, decoupled for adamw), a warmup-cosine schedule over
+    6 updates through `TrainState.apply_gradients`, the lr checked at each.
+
+    Tolerance: |card - cpu| <= 1e-6 |cpu| + 2e-5 x the CPU parameter's path
+    (the sum of its 6 updates' sizes). Capturable Adam computes the bias
+    corrections 1 - beta^t on the device in fp32 (optax does too), the CPU
+    in float64: fp32(0.999) is within half an ulp, 2.98e-8, of 0.999, so
+    1 - beta2^t is within 3e-5 of itself and the update, which divides by
+    its root, within 1.5e-5 (beta1's share is 3e-7). A wrong lr, decay or
+    bias correction moves an update by far more than that."""
+    import torch.nn as nn
+    from efficient_rpe_vit_torch.train import TrainState, create_lr_scheduler, create_optimizer
+
+    g = torch.Generator().manual_seed(5)
+    w0, b0 = torch.randn(48, 64, generator=g), torch.randn(48, generator=g)
+    grads = [(torch.randn(48, 64, generator=g), torch.randn(48, generator=g))
+             for _ in range(6)]
+    schedule = create_lr_scheduler("warmup_cosine", 0.05, 6, 1, 2)
+    for optimizer in ("adam", "adamw"):
+        states, path = {}, [torch.zeros_like(w0), torch.zeros_like(b0)]
+        for device in ("cpu", "cuda"):
+            layer = nn.Linear(64, 48).to(device)
+            with torch.no_grad():
+                layer.weight.copy_(w0)
+                layer.bias.copy_(b0)
+            states[device] = state = TrainState(model=layer, optimizer=create_optimizer(
+                optimizer, layer.parameters(), schedule, 0.05), schedule=schedule)
+            for i, (gw, gb) in enumerate(grads):
+                before = [p.detach().clone() for p in layer.parameters()]
+                layer.weight.grad = gw.to(device)
+                layer.bias.grad = gb.to(device)
+                state.apply_gradients()
+                lr = state.optimizer.param_groups[0]["lr"]
+                if device == "cpu":
+                    for total, p, q in zip(path, layer.parameters(), before):
+                        total += (p.detach() - q).abs()
+                    ok = lr == schedule(i)
+                else:
+                    ok = torch.equal(lr, torch.tensor(schedule(i), dtype=torch.float32,
+                                                      device=device))
+                if not ok:
+                    raise AssertionError(f"{optimizer} on {device}: lr {lr} at update {i}, "
+                                         f"schedule {schedule(i)}")
+        card = states["cuda"].optimizer
+        if not all(g["capturable"] and torch.is_tensor(g["lr"]) and g["lr"].is_cuda
+                   for g in card.param_groups):
+            raise AssertionError(f"{optimizer} on the card is not capturable with a device lr")
+        excess, gap = [], []
+        for p_cpu, p_card, walked in zip(states["cpu"].model.parameters(),
+                                         states["cuda"].model.parameters(), path):
+            diff = (p_card.detach().cpu() - p_cpu.detach()).abs()
+            excess.append(float((diff - 1e-6 * p_cpu.detach().abs() - 2e-5 * walked).max()))
+            gap.append(float((diff / walked).max()))
+        log("multistep", f"capturable {optimizer} on the card vs the CPU path over 6 updates "
+            f"(warmup-cosine, peak lr 0.05, weight decay 0.05): max |card - cpu| / path "
+            f"{max(gap):.3e}, max |card - cpu| - (1e-6 |cpu| + 2e-5 path) {max(excess):.3e} "
+            f"(must be <= 0); path up to {max(float(t.max()) for t in path):.3e}")
+        if max(excess) > 0 or min(float(t.min()) for t in path) == 0:
+            raise AssertionError(f"capturable {optimizer} on the card differs from the CPU's")
+
+
+def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_step,
+                    card: str, profile: bool = False, timed: int = 0):
+    """`make_multi_step` on the card: twin models from one seed, one through
+    K-step calls, the other through K eager `make_train_step` steps per
+    call, with generators of one seed. The first call runs K eager steps (the
+    warm-up) and captures the graph; each of `replays` later calls replays
+    it. Losses, corrects, parameters (and the Adam moments) and the
+    generators' states must be bitwise equal after every call; a replay
+    launches nothing through a wrapper, so launches are counted at capture:
+    the counts are read and zeroed between the warm-up and the capture
+    (`_Replays.before_capture`), and read again after the capture. Returns
+    the capture's counts as read (expected: K times `per_step`)."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import create_train_state, make_multi_step, make_train_step
+
+    cfg = mnist_config(**cfg_fields)
+    batch, size = cfg_fields["batch_size"], cfg.model.image_size
+    models = [create_model("performer_favor_most_general", cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0)) for _ in range(2)]
+    states = [create_train_state(m, cfg, steps_per_epoch=100) for m in models]
+    multi, step = make_multi_step(models[0]), make_train_step(models[1])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    xs = torch.randn(k, batch, size, size, 1, generator=g, device="cuda")
+    ys = torch.randint(0, 10, (k, batch), generator=g, device="cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
+    log(phase, f"performer_favor_most_general dim {cfg.model.dim} depth {cfg.model.depth} "
+        f"heads {cfg.model.heads}, N={cfg.model.seq_len}, batch {batch}, bf16, dropout "
+        f"{cfg.model.dropout}, K={k} steps per call")
+
+    def eager():
+        out = [step(states[1], xs[i], ys[i], gens[1])[1:] for i in range(k)]
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+    def compare(call: str, got):
+        want = eager()
+        torch.cuda.synchronize()
+        differ = _params_differ(models[0], models[1])
+        moments = [key for key in ("exp_avg", "exp_avg_sq") if not all(
+            torch.equal(a[key], b[key]) for a, b in zip(
+                states[0].optimizer.state.values(), states[1].optimizer.state.values()))]
+        ok = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and not differ
+              and not moments and torch.equal(gens[0].get_state(), gens[1].get_state())
+              and states[0].step == states[1].step)
+        log(phase, f"{call}: losses {got[0][0].item():.6f} .. {got[0][-1].item():.6f}, "
+            f"corrects {got[1].sum().item()}; vs {k} eager steps: losses and corrects "
+            f"bitwise {torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])}, "
+            f"parameters differing {differ[:3]}{'...' if len(differ) > 3 else ''}, "
+            f"Adam moments differing {moments}, generators equal "
+            f"{torch.equal(gens[0].get_state(), gens[1].get_state())}, step {states[0].step}")
+        if not ok:
+            raise AssertionError(f"{call} differs from {k} eager steps")
+        if not all(bool(torch.isfinite(t).all()) for t in got[0]):
+            raise AssertionError("a training loss is not finite")
+
+    warm_up = {}
+
+    def between_warm_up_and_capture():
+        warm_up.update(counts(wrappers))
+        zero_counts(wrappers)
+
+    multi.replays.before_capture = between_warm_up_and_capture
+    zero_counts(wrappers)
+    first = multi(states[0], xs, ys, gens[0])[1:]
+    torch.cuda.synchronize()
+    captured = counts(wrappers)
+    expected = {n: k * c for n, c in per_step.items()}
+    log(phase, f"first call: launches in the {k} eager warm-up steps {warm_up}, in the "
+        f"capture of {k} steps {captured} (expected {expected} each: {k} x {per_step} "
+        "per step; a replay runs them without Python)")
+    if warm_up != expected or captured != expected:
+        raise AssertionError(f"expected {expected} launches in the warm-up and in the "
+                             f"capture, got {warm_up} and {captured}")
+    compare("first call", first)
+    for r in range(replays):
+        zero_counts(wrappers)
+        got = multi(states[0], xs, ys, gens[0])[1:]
+        torch.cuda.synchronize()
+        if any(counts(wrappers).values()):
+            raise AssertionError(f"a replay counted launches: {counts(wrappers)}")
+        compare(f"replay {r + 1}", got)
+    if timed:
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            multi(states[0], xs, ys, gens[0])
+        fetch = float(states[0].model.mlp_head[1].weight.detach().float().sum())
+        replay_ms = (time.perf_counter() - t0) / (timed * k) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            eager()
+        fetch += float(states[1].model.mlp_head[1].weight.detach().float().sum())
+        eager_ms = (time.perf_counter() - t0) / (timed * k) * 1e3
+        log(phase, f"host clock per step over {timed} calls of {k}: replayed "
+            f"{replay_ms:.3f} ms ({batch / replay_ms * 1e3:.1f} images/s), eager "
+            f"{eager_ms:.3f} ms ({batch / eager_ms * 1e3:.1f} images/s): "
+            f"{eager_ms / replay_ms:.2f}x, on {card} (fetched {fetch:.3f})")
+    if profile:
+        profile_step(f"one replay of {k} steps", lambda: multi(states[0], xs, ys, gens[0]),
+                     card)
+    del models, states, multi
+    return captured
+
+
+def engine_phase(wrappers, per_step, per_forward, card: str):
+    """Phase 18: a synthetic MNIST DeviceDataset on the card, one epoch of
+    the headline model at dropout 0 through `train_epoch` with each loop
+    (per batch, K-step `make_multi_step`, gather-fused
+    `make_gather_multi_step`) from the same weights and batches: equal
+    metrics and bitwise equal parameters; then `evaluate` per batch against
+    the gather-fused `make_gather_multi_eval`. Returns the launch counts of
+    the loops' run."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.data import DeviceDataset
+    from efficient_rpe_vit_torch.data.datasets import _synthetic
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import (create_train_state, evaluate, make_eval_step,
+                                               make_gather_multi_eval, make_gather_multi_step,
+                                               make_multi_step, make_train_step, train_epoch)
+
+    cfg = mnist_config(**dict(HEADLINE, dropout=0.0))
+    batch = cfg.train.batch_size
+    raw = _synthetic(ENGINE_N, ENGINE_N // 4, 28, 1)
+    t0 = time.perf_counter()
+
+    def dataset(split):
+        train = split == "train"
+        return DeviceDataset(raw[f"{split}_images"], raw[f"{split}_labels"], cfg.data.mean,
+                             cfg.data.std, batch, shuffle=train, drop_last=train, seed=0,
+                             device="cuda", synthetic=raw["synthetic"])
+
+    probe = dataset("train")
+    log("engine", f"synthetic: {probe.synthetic}; MNIST-shaped uint8 dataset on the card: "
+        f"{ENGINE_N} train / {ENGINE_N // 4} test images, {tuple(probe.images.shape)} "
+        f"{probe.images.dtype}, made in {time.perf_counter() - t0:.2f} s (set-up)")
+    if not probe.synthetic:
+        raise AssertionError("the synthetic dataset is not flagged")
+    loops = {"per batch": lambda m: dict(train_step=make_train_step(m)),
+             f"multi_step K={ENGINE_K}": lambda m: dict(
+                 train_step=None, multi_step=make_multi_step(m), fused_steps=ENGINE_K),
+             f"gather-fused K={ENGINE_K}": lambda m: dict(
+                 train_step=None, gather_step=make_gather_multi_step(m),
+                 fused_steps=ENGINE_K)}
+    runs = {}
+    zero_counts(wrappers)
+    for name, make in loops.items():
+        model = create_model("performer_favor_most_general", cfg, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, cfg, steps_per_epoch=len(probe))
+        t0 = time.perf_counter()
+        state, metrics = train_epoch(state, dataset=dataset("train"),
+                                     generator=torch.Generator(device="cuda").manual_seed(1),
+                                     verbose=False, **make(model))
+        log("engine", f"train_epoch, {name}: {metrics} in {time.perf_counter() - t0:.2f} s "
+            f"(first calls of each shape run eagerly and capture)")
+        runs[name] = (model, metrics)
+    (m0, r0), *rest = runs.values()
+    for name, (m, r) in zip(list(runs)[1:], rest):
+        differ = _params_differ(m0, m)
+        same = all(r[key] == r0[key] for key in ("loss", "accuracy", "samples"))
+        log("engine", f"{name} vs per batch: metrics equal {same}, parameters differing "
+            f"{differ[:3]}")
+        if not same or differ:
+            raise AssertionError(f"train_epoch with {name} differs from the per-batch loop")
+    if not (r0["samples"] == len(probe) * batch and 0 < r0["loss"] < 10):
+        raise AssertionError(f"implausible epoch metrics {r0}")
+    test = dataset("test")
+    plain = evaluate(make_eval_step(m0), test, num_classes=10, detailed=True)
+    fused = evaluate(None, test, num_classes=10, detailed=True,
+                     gather_eval=make_gather_multi_eval(m0), fused_steps=ENGINE_EVAL_K)
+    torch.cuda.synchronize()
+    launches = counts(wrappers)
+    rel = abs(fused["loss"] - plain["loss"]) / plain["loss"]
+    log("engine", f"evaluate: per batch loss {plain['loss']:.6f} acc {plain['accuracy']:.2f}% "
+        f"f1_macro {plain['f1_macro']:.4f}; gather-fused K={ENGINE_EVAL_K} loss "
+        f"{fused['loss']:.6f} acc {fused['accuracy']:.2f}% (loss rel diff {rel:.1e}, "
+        f"sums in another order; tol 1e-6)")
+    if not (rel <= 1e-6 and fused["accuracy"] == plain["accuracy"]
+            and fused["confusion_matrix"] == plain["confusion_matrix"]
+            and fused["samples"] == plain["samples"] == ENGINE_N // 4):
+        raise AssertionError("gather-fused evaluate differs from the per-batch one")
+    # launches: per batch, and per fused loop the eager warm-up of each
+    # chunk shape plus its capture (replays run no wrapper); the evaluations
+    # likewise
+    steps, chunks = len(probe), -(-len(probe) // ENGINE_K)
+    fused_steps = 2 * min(ENGINE_K, steps) + (2 * (steps % ENGINE_K) if steps % ENGINE_K else 0)
+    n_eval = len(test)
+    eval_fwd = n_eval + 2 * min(ENGINE_EVAL_K, n_eval) + (
+        2 * (n_eval % ENGINE_EVAL_K) if n_eval % ENGINE_EVAL_K else 0)
+    expected = {n: c * (steps + 2 * fused_steps) + per_forward.get(n, 0) * eval_fwd
+                for n, c in per_step.items()}
+    log("engine", f"launches {launches} (expected {expected}: {steps} steps per epoch, "
+        f"{chunks} chunks per fused epoch)")
+    if launches != expected:
+        raise AssertionError(f"expected {expected} launches, got {launches}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2084,6 +2435,28 @@ def main() -> int:
                          LONGN_STEPS, LONGN_TIMED, card, args.profile)
     longn_kerple_serve(kerple, card)
 
+    # 17. K train steps per CUDA-graph replay (make_multi_step): #1 / #2 at the
+    # headline row's shape, the replayed masks, the headline model at K=25
+    # and ViT-B at K=5 against eager steps, bit for bit
+    head_fwd = check_kernels(mlc, [HEADLINE_SHAPE], BF16_ONLY, timed=[HEADLINE_SHAPE])
+    head_fwd = head_fwd[("bfloat16", HEADLINE_SHAPE[0])]
+    head_bwd = check_bwd_kernels(mlc, [HEADLINE_SHAPE], BF16_ONLY, timed=HEADLINE_SHAPE)
+    check_replayed_masks()
+    check_graph_refusals()
+    check_capturable_optimizer()
+    head_depth = 3  # mnist_config's
+    head_step = {n: 0 if n == "kerple_fused_phi_fwd" else head_depth for n in kerple}
+    multi_launches = multistep_check("multistep", HEADLINE, HEADLINE_K, 2, kerple, head_step,
+                                     card, args.profile, timed=4)
+    vitb_launches = multistep_check("multistep-vitb", ENGINE_VITB, ENGINE_VITB_K, 1, kerple,
+                                    {n: 0 if n == "kerple_fused_phi_fwd" else depth
+                                     for n in kerple}, card)
+
+    # 18. the engine: a device-resident synthetic MNIST, one epoch per
+    # train_epoch loop, evaluate per batch and gather-fused
+    engine_launches = engine_phase(kerple, head_step,
+                                   {"masked_linear_coeffs_fwd": head_depth}, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -2130,6 +2503,16 @@ def main() -> int:
     for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
         rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
                      "kerple_longn_train", longn_bwd[name], kerple_longn[name]))
+    # the K-step CUDA graphs (phase 17: the capture's own launches) and the
+    # engine's loops (phase 18)
+    for path, launches, fwd_row, bwd_rows in (
+            ("multistep", multi_launches, head_fwd, head_bwd),
+            ("multistep_vitb", vitb_launches, kernel[("bfloat16", TRAIN_BATCH)], kernel_bwd),
+            ("engine", engine_launches, head_fwd, head_bwd)):
+        rows.append((*fwd, path, fwd_row, launches["masked_linear_coeffs_fwd"]))
+        for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+            rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
+                         path, bwd_rows[name], launches[name]))
     # the materialised-T kernels on the pallas_ab path, one row per shape
     for shape in pallas_ab.SHAPES:
         for name, source, replaces in (

@@ -8,8 +8,10 @@ easy to find; every Pallas kernel becomes a hand-written CUDA kernel under
 JAX package stays the reference: nothing here imports it.
 
 Entry points (`models.create_model`, `train.make_eval_step`,
-`train.make_train_step`) run on the GPU unless the caller passes
-`device="cpu"`.
+`train.make_train_step`, `train.make_multi_step`,
+`train.make_gather_multi_step`, `train.make_gather_multi_eval`,
+`data.DeviceDataset`, `data.get_dataloaders`) run on the GPU unless the
+caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

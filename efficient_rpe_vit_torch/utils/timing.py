@@ -68,6 +68,30 @@ def chained_time(fn: Callable, args: tuple, steps: int,
     return sorted(times)[len(times) // 2]
 
 
+class Timer:
+    """Context manager measuring host wall time, with `block_on` to wait
+    for device work (`fetch_barrier`) before the clock is read.
+
+    >>> with Timer() as t:
+    ...     y = step(x)
+    ...     t.block_on(y)
+    >>> t.elapsed  # seconds
+    """
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        self.elapsed = None
+        return self
+
+    def block_on(self, value):
+        fetch_barrier(value)
+        return value
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.start
+        return False
+
+
 def device_memory_stats(device: Union[str, torch.device, None] = None) -> Dict[str, int]:
     """Device memory counters in bytes (in use, peak since the last
     `torch.cuda.reset_peak_memory_stats`, the card's total); {} for the CPU."""
