@@ -117,9 +117,9 @@ Phases, each printed as it runs; any failure exits non-zero:
  17. K steps per CUDA-graph replay (`make_multi_step`): #1 and #2 at the
      JAX bench_headline row's shape (256, 2, 197, 44, 16) against their plain
      versions, timed; dropout masks drawn in a replayed graph equal the eager
-     draws from the same generator, and a second replay draws new ones; sgd
-     and feature redraw refused on the card (NotImplementedError); the
-     card's capturable adam and adamw against the CPU's optax-equal path
+     draws from the same generator, and a second replay draws new ones; feature
+     redraw refused on the card (NotImplementedError); the card's
+     capturable adam, adamw and sgd against the CPU's optax-equal path
      (6 updates, warmup-cosine, weight decay); the headline model
      (mnist_config at patch 2, batch 256, bf16, dropout 0.1, depth 3) at
      K=25: the first call's 25 eager warm-up steps and the capture, their
@@ -128,12 +128,33 @@ Phases, each printed as it runs; any failure exits non-zero:
      two replays, each bitwise against 25 eager make_train_step steps of a
      twin model (losses, corrects, parameters, Adam moments, generators), ms
      per step replayed and eager; ViT-B widths (N=197, batch 64) at K=5, one
-     replay against 5 eager steps;
+     replay against 5 eager steps; the headline model under sgd (momentum,
+     its capturable update: a device lr, foreach ops) at K=5, one replay
+     against 5 eager steps, bitwise, momentum traces included;
  18. the engine: a synthetic MNIST-shaped uint8 DeviceDataset on the card
      (flagged synthetic), one epoch of the headline model at dropout 0
      through train_epoch per batch, with make_multi_step (K=4) and
      gather-fused (K=4): equal metrics and bitwise equal parameters;
-     evaluate per batch against gather-fused (K=3, a tail chunk).
+     evaluate per batch against gather-fused (K=3, a tail chunk);
+ 19. the entry points on the card, in process, in a temporary directory:
+     a. `experiments.train.main` trains performer_favor_most_general at the
+        JAX mnist_config widths (dim 32, depth 3, 2 heads, patch 7: N=17,
+        F=44, D=16) on the flagged synthetic MNIST, bf16, 2 epochs of K=4
+        steps per replay, keeping the best checkpoint: #1 and #2 (dq, dkv,
+        dc) launched by the run, the metrics JSON with every key of the JAX
+        CLI's schema and finite values, epoch seconds and inference
+        images/s; #1 and #2 checked against their plain versions at the
+        run's shape and timed;
+     b. `experiments.predict.main` from that checkpoint: the test accuracy
+        of the checkpointed epoch exactly, its loss within 1e-6 relative;
+     c. `--resume auto --epochs 3` starts after the checkpointed epoch (the
+        best; a tie keeps the earlier) and writes a row per epoch to 3;
+     d. ViT-B/16 performer_favor_most_general with the soft-MoE MLP (4
+        experts), bf16, batch 64, Adam, dropout 0.1: one train step with
+        remat and one without from the same weights and generator state,
+        every gradient within 1e-6 relative (bitwise equality logged), #1
+        launched 24 times per step with remat and 12 without, peak memory
+        of each (lower with remat) and ms per step (5 after 3).
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -144,6 +165,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -360,6 +382,31 @@ ENGINE_VITB_K = 5
 ENGINE_N = 4096
 ENGINE_K = 4
 ENGINE_EVAL_K = 3
+
+# phase 19: the train CLI's run (the flagship at the JAX mnist_config widths,
+# patch 7: N = 17, F = 44, D = 16; default batch 32), its #1 / #2 shape, the
+# JAX CLI's metrics keys, and the ViT-B MoE model trained with and without remat
+CLI_FLAGS = ["--model", "performer_favor_most_general", "--dataset", "mnist",
+             "--compute-dtype", "bfloat16", "--fused-steps", "4", "--save-model",
+             "--seed", "0", "--quiet"]
+CLI_SHAPE = (32, 2, 17, 44, 16)
+CLI_METRICS_KEYS = {
+    "metadata": ["model_name", "dataset", "attention_type", "rpe_type", "seed",
+                 "num_parameters", "backend", "synthetic_data", "config"],
+    "per_epoch": ["epoch", "train_loss", "train_accuracy", "test_loss", "test_accuracy",
+                  "epoch_time"],
+    "aggregate": ["best_test_accuracy", "final_test_accuracy", "final_test_loss",
+                  "log_likelihood", "aic", "bic", "final_train_accuracy", "final_train_loss",
+                  "total_train_time"],
+    "inference": ["mode", "chain_length", "num_chains", "fetch_rt_ms",
+                  "throughput_images_per_sec", "latency_mean_ms", "latency_std_ms",
+                  "latency_min_ms", "latency_max_ms", "latency_p50_ms",
+                  "latency_ms_per_sample", "batch_size", "num_iterations"],
+}
+MOE_VITB = dict(VITB, batch_size=TRAIN_BATCH, dropout=0.1)
+MOE_EXPERTS = 4
+MOE_GRAD_RTOL = 1e-6
+MOE_WARMUP, MOE_TIMED = 3, 5
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
@@ -2014,30 +2061,27 @@ def check_replayed_masks() -> None:
 
 def check_graph_refusals() -> None:
     """The K-step programs refuse, on the card, what a CUDA graph cannot
-    hold: sgd (its update reads a tensor learning rate on the host) and
-    feature redraw (the host reads the redraw counter)."""
+    hold: feature redraw (the host reads the redraw counter)."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.train import create_train_state, make_multi_step
 
     x = torch.zeros(2, 2, 28, 28, 1, device="cuda")
     y = torch.zeros(2, 2, dtype=torch.long, device="cuda")
-    for what, cfg_fields, attn in (("sgd", dict(optimizer="sgd"), None),
-                                   ("feature redraw", {}, {"feature_redraw_interval": 2})):
-        cfg = mnist_config(**cfg_fields)
-        model = create_model("performer_favor_most_general", cfg, device="cuda",
-                             attention_config=attn)
-        try:
-            make_multi_step(model)(create_train_state(model, cfg), x, y,
-                                   torch.Generator(device="cuda"))
-        except NotImplementedError as e:
-            log("multistep", f"{what} refused on the card: {e}")
-        else:
-            raise AssertionError(f"make_multi_step ran {what} on the card")
+    cfg = mnist_config()
+    model = create_model("performer_favor_most_general", cfg, device="cuda",
+                         attention_config={"feature_redraw_interval": 2})
+    try:
+        make_multi_step(model)(create_train_state(model, cfg), x, y,
+                               torch.Generator(device="cuda"))
+    except NotImplementedError as e:
+        log("multistep", f"feature redraw refused on the card: {e}")
+    else:
+        raise AssertionError("make_multi_step ran feature redraw on the card")
 
 
 def check_capturable_optimizer() -> None:
-    """The card's adam and adamw (`create_optimizer` builds them capturable,
+    """The card's adam, adamw and sgd (`create_optimizer` builds them capturable,
     with a device fp32 lr, the update every card train step and replay
     takes) against the CPU's, the path tests/test_torch_train.py holds to
     optax: one parameter set and one gradient sequence, weight decay 0.05
@@ -2050,7 +2094,9 @@ def check_capturable_optimizer() -> None:
     in float64: fp32(0.999) is within half an ulp, 2.98e-8, of 0.999, so
     1 - beta2^t is within 3e-5 of itself and the update, which divides by
     its root, within 1.5e-5 (beta1's share is 3e-7). A wrong lr, decay or
-    bias correction moves an update by far more than that."""
+    bias correction moves an update by far more than that. sgd's update is
+    the same fp32 products on both sides (the card multiplies by its device
+    lr, the CPU by the same fp32 value)."""
     import torch.nn as nn
     from efficient_rpe_vit_torch.train import TrainState, create_lr_scheduler, create_optimizer
 
@@ -2059,7 +2105,7 @@ def check_capturable_optimizer() -> None:
     grads = [(torch.randn(48, 64, generator=g), torch.randn(48, generator=g))
              for _ in range(6)]
     schedule = create_lr_scheduler("warmup_cosine", 0.05, 6, 1, 2)
-    for optimizer in ("adam", "adamw"):
+    for optimizer in ("adam", "adamw", "sgd"):
         states, path = {}, [torch.zeros_like(w0), torch.zeros_like(b0)]
         for device in ("cpu", "cuda"):
             layer = nn.Linear(64, 48).to(device)
@@ -2108,7 +2154,7 @@ def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_
     K-step calls, the other through K eager `make_train_step` steps per
     call, with generators of one seed. The first call runs K eager steps (the
     warm-up) and captures the graph; each of `replays` later calls replays
-    it. Losses, corrects, parameters (and the Adam moments) and the
+    it. Losses, corrects, parameters (and the optimiser's state) and the
     generators' states must be bitwise equal after every call; a replay
     launches nothing through a wrapper, so launches are counted at capture:
     the counts are read and zeroed between the warm-up and the capture
@@ -2130,7 +2176,7 @@ def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_
     gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
     log(phase, f"performer_favor_most_general dim {cfg.model.dim} depth {cfg.model.depth} "
         f"heads {cfg.model.heads}, N={cfg.model.seq_len}, batch {batch}, bf16, dropout "
-        f"{cfg.model.dropout}, K={k} steps per call")
+        f"{cfg.model.dropout}, {cfg.train.optimizer}, K={k} steps per call")
 
     def eager():
         out = [step(states[1], xs[i], ys[i], gens[1])[1:] for i in range(k)]
@@ -2140,9 +2186,9 @@ def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_
         want = eager()
         torch.cuda.synchronize()
         differ = _params_differ(models[0], models[1])
-        moments = [key for key in ("exp_avg", "exp_avg_sq") if not all(
-            torch.equal(a[key], b[key]) for a, b in zip(
-                states[0].optimizer.state.values(), states[1].optimizer.state.values()))]
+        moments = sorted({key for a, b in zip(states[0].optimizer.state.values(),
+                                              states[1].optimizer.state.values())
+                          for key, t in a.items() if not torch.equal(t, b[key])})
         ok = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and not differ
               and not moments and torch.equal(gens[0].get_state(), gens[1].get_state())
               and states[0].step == states[1].step)
@@ -2150,7 +2196,7 @@ def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_
             f"corrects {got[1].sum().item()}; vs {k} eager steps: losses and corrects "
             f"bitwise {torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])}, "
             f"parameters differing {differ[:3]}{'...' if len(differ) > 3 else ''}, "
-            f"Adam moments differing {moments}, generators equal "
+            f"optimiser state differing {moments}, generators equal "
             f"{torch.equal(gens[0].get_state(), gens[1].get_state())}, step {states[0].step}")
         if not ok:
             raise AssertionError(f"{call} differs from {k} eager steps")
@@ -2297,6 +2343,159 @@ def engine_phase(wrappers, per_step, per_forward, card: str):
     if launches != expected:
         raise AssertionError(f"expected {expected} launches, got {launches}")
     return launches
+
+
+def _check_metrics(metrics) -> None:
+    """The train CLI's metrics hold every key of the JAX CLI's schema, with
+    finite numbers, and say the data was synthetic."""
+    missing = [f"{section}.{key}" for section, keys in CLI_METRICS_KEYS.items()
+               for key in keys
+               if key not in (metrics[section][0] if section == "per_epoch"
+                              else metrics[section])]
+    numbers = [v for section in ("aggregate", "inference") for v in metrics[section].values()
+               if isinstance(v, (int, float))]
+    numbers += [v for row in metrics["per_epoch"] for v in row.values()]
+    finite = all(math.isfinite(v) for v in numbers)
+    log("entry", f"metrics JSON: {sum(map(len, CLI_METRICS_KEYS.values()))} keys of the JAX "
+        f"schema, missing {missing}; {len(numbers)} numbers all finite: {finite}; "
+        f"synthetic_data {metrics['metadata']['synthetic_data']}, backend "
+        f"{metrics['metadata']['backend']!r}")
+    if missing or not finite or not metrics["metadata"]["synthetic_data"]:
+        raise AssertionError("the train CLI's metrics do not follow the JAX schema")
+
+
+def entry_points_phase(mlc, wrappers, card: str):
+    """Phase 19 a-c: the train CLI (`experiments.train.main`) on the card,
+    predict from its checkpoint, and a resumed run. Returns the kernel rows'
+    timings at the run's shape and the train run's launch counts."""
+    import tempfile
+
+    from efficient_rpe_vit_torch.experiments import predict
+    from efficient_rpe_vit_torch.experiments import train as train_cli
+
+    fwd_row = check_kernels(mlc, [CLI_SHAPE], BF16_ONLY, timed=[CLI_SHAPE])
+    bwd_rows = check_bwd_kernels(mlc, [CLI_SHAPE], BF16_ONLY, timed=CLI_SHAPE)
+    with tempfile.TemporaryDirectory() as out:
+        flags = CLI_FLAGS + ["--output-dir", out]
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        metrics = train_cli.main(flags + ["--epochs", "2"])
+        torch.cuda.synchronize()
+        launches = counts(wrappers)
+        log("entry", f"train CLI {' '.join(flags[:-2])} --epochs 2: done in "
+            f"{time.perf_counter() - t0:.1f} s; KERPLE launches {launches}")
+        grew = [n for n in ("masked_linear_coeffs_fwd", *BWD_KERNELS[:3]) if launches[n] == 0]
+        if grew:
+            raise AssertionError(f"the train CLI did not launch {grew}")
+        _check_metrics(metrics)
+        for row in metrics["per_epoch"]:
+            log("entry", f"epoch {row['epoch']}: {row['epoch_time']:.3f} s, train loss "
+                f"{row['train_loss']:.4f} acc {row['train_accuracy']:.2f}%, test loss "
+                f"{row['test_loss']:.4f} acc {row['test_accuracy']:.2f}%")
+        inf = metrics["inference"]
+        log("entry", f"inference ({inf['mode']}, chains of {inf['chain_length']}, batch "
+            f"{inf['batch_size']}): {inf['throughput_images_per_sec']:.1f} images/s, "
+            f"{inf['latency_mean_ms']:.4f} ms/batch mean, p50 {inf['latency_p50_ms']:.4f} ms "
+            f"(CUDA events), on {card}")
+
+        # b. predict from the best checkpoint: the checkpointed epoch's numbers
+        ckpt = f"{out}/performer_favor_most_general_mnist_best.pt"
+        best = max(metrics["per_epoch"], key=lambda r: r["test_accuracy"])  # the first best
+        result = predict.main(["--checkpoint", ckpt])
+        rel = abs(result["loss"] - best["test_loss"]) / best["test_loss"]
+        log("entry", f"predict from the epoch-{best['epoch']} checkpoint: acc "
+            f"{result['accuracy']:.2f}% over {result['samples']} (train run "
+            f"{best['test_accuracy']:.2f}%), loss {result['loss']:.6f} (train run "
+            f"{best['test_loss']:.6f}, rel diff {rel:.1e}, tol 1e-6)")
+        if result["accuracy"] != best["test_accuracy"] or rel > 1e-6:
+            raise AssertionError("predict disagrees with the train run's evaluation")
+
+        # c. resume from the run's own checkpoint, the best epoch's (ties
+        # keep the earlier one, as in JAX): it runs the epochs after it
+        resumed = train_cli.main(flags + ["--resume", "auto", "--epochs", "3"])
+        epochs = [row["epoch"] for row in resumed["per_epoch"]]
+        want = list(range(best["epoch"] + 1, 4))
+        log("entry", f"--resume auto --epochs 3 from the epoch-{best['epoch']} checkpoint: "
+            f"epochs run {epochs} (expected {want}), test acc "
+            f"{resumed['aggregate']['final_test_accuracy']:.2f}%")
+        if epochs != want:
+            raise AssertionError(f"the resumed run ran epochs {epochs}, expected {want}")
+    return fwd_row[("bfloat16", CLI_SHAPE[0])], bwd_rows, launches
+
+
+def moe_remat_phase(wrappers, card: str):
+    """Phase 19 d: ViT-B/16 performer_favor_most_general with the soft-MoE
+    MLP, one train step with remat and one without, from the same weights
+    and generator state: gradients, #1's launches per step (the recompute
+    runs each block's forward again), peak memory and ms per step. Returns
+    the remat arm's launch counts of one step."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import count_parameters, create_model
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    cfg = mnist_config(**MOE_VITB)
+    batch, size = MOE_VITB["batch_size"], MOE_VITB["image_size"]
+    mlp = {"mlp_type": "moe", "num_experts": MOE_EXPERTS}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(batch, size, size, 3, generator=g, device="cuda")
+    y = torch.randint(0, MOE_VITB["num_classes"], (batch,), generator=g, device="cuda")
+    arms, grads, launches, peaks = {}, {}, {}, {}
+    for remat in (False, True):
+        model = create_model("performer_favor_most_general", cfg, mlp_config=mlp,
+                             remat=remat, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, cfg, steps_per_epoch=100)
+        step = make_train_step(model)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        state, loss, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(), before)
+        launches[remat] = counts(wrappers)
+        grads[remat] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        arms[remat] = (model, state, step)
+        log("moe-remat", f"remat={remat}: {count_parameters(model)['total']:,} parameters, "
+            f"step-1 loss {loss.item():.6f}, launches in one step {launches[remat]}, peak "
+            f"memory {peaks[remat][0] / 2**30:.3f} GiB ({(peaks[remat][0] - before) / 2**30:.3f} "
+            f"GiB above the {before / 2**30:.3f} GiB held before the step)")
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError("the MoE train loss is not finite")
+    rel = {n: ((grads[True][n].float() - t.float()).norm()
+               / t.float().norm().clamp_min(1e-30)).item() for n, t in grads[False].items()}
+    worst = max(rel, key=rel.get)
+    bitwise = all(torch.equal(grads[True][n], t) for n, t in grads[False].items())
+    log("moe-remat", f"gradients remat vs plain: {len(rel)} tensors, worst {worst} at "
+        f"{rel[worst]:.3e} (tol {MOE_GRAD_RTOL}); bitwise equal: {bitwise}")
+    fwd = "masked_linear_coeffs_fwd"
+    depth = MOE_VITB["depth"]
+    peak_step = {r: peaks[r][0] - peaks[r][1] for r in peaks}
+    if rel[worst] > MOE_GRAD_RTOL:
+        raise AssertionError("remat gradients disagree with the plain ones")
+    if launches[True][fwd] != 2 * depth or launches[False][fwd] != depth:
+        raise AssertionError(f"#1 per step: {launches[True][fwd]} with remat, "
+                             f"{launches[False][fwd]} without (expected {2 * depth}, {depth})")
+    if not peak_step[True] < peak_step[False]:
+        raise AssertionError("remat did not lower the step's peak memory")
+    for remat, (model, state, step) in arms.items():
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        for _ in range(MOE_WARMUP):
+            state, _, _ = step(state, x, y, gen)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(MOE_TIMED):
+            state, loss, _ = step(state, x, y, gen)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / MOE_TIMED
+        log("moe-remat", f"remat={remat}: {ms:.3f} ms/step of {batch} (N=197, CUDA events over "
+            f"{MOE_TIMED} steps after {MOE_WARMUP}), {batch / ms * 1e3:.1f} images/s, step "
+            f"peak {peak_step[remat] / 2**30:.3f} GiB, on {card}")
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError("the MoE train loss is not finite")
+    del arms
+    return launches[True]
 
 
 def main() -> int:
@@ -2451,11 +2650,18 @@ def main() -> int:
     vitb_launches = multistep_check("multistep-vitb", ENGINE_VITB, ENGINE_VITB_K, 1, kerple,
                                     {n: 0 if n == "kerple_fused_phi_fwd" else depth
                                      for n in kerple}, card)
+    multistep_check("multistep-sgd", dict(HEADLINE, optimizer="sgd"), 5, 1, kerple,
+                    head_step, card)
 
     # 18. the engine: a device-resident synthetic MNIST, one epoch per
     # train_epoch loop, evaluate per batch and gather-fused
     engine_launches = engine_phase(kerple, head_step,
                                    {"masked_linear_coeffs_fwd": head_depth}, card)
+
+    # 19. the entry points: the train CLI, predict from its checkpoint, a
+    # resumed run; then the ViT-B MoE with and without remat
+    cli_fwd, cli_bwd, cli_launches = entry_points_phase(mlc, kerple, card)
+    moe_launches = moe_remat_phase(kerple, card)
 
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
@@ -2508,7 +2714,9 @@ def main() -> int:
     for path, launches, fwd_row, bwd_rows in (
             ("multistep", multi_launches, head_fwd, head_bwd),
             ("multistep_vitb", vitb_launches, kernel[("bfloat16", TRAIN_BATCH)], kernel_bwd),
-            ("engine", engine_launches, head_fwd, head_bwd)):
+            ("engine", engine_launches, head_fwd, head_bwd),
+            ("cli_train", cli_launches, cli_fwd, cli_bwd),
+            ("moe_remat_train", moe_launches, kernel[("bfloat16", TRAIN_BATCH)], kernel_bwd)):
         rows.append((*fwd, path, fwd_row, launches["masked_linear_coeffs_fwd"]))
         for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
             rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",

@@ -11,7 +11,9 @@ Entry points (`models.create_model`, `train.make_eval_step`,
 `train.make_train_step`, `train.make_multi_step`,
 `train.make_gather_multi_step`, `train.make_gather_multi_eval`,
 `data.DeviceDataset`, `data.get_dataloaders`) run on the GPU unless the
-caller passes `device="cpu"`.
+caller passes `device="cpu"`; the CLIs
+(`python -m efficient_rpe_vit_torch.experiments.train` / `.predict`) run
+on the GPU unless given `--cpu`.
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,12 @@ from .base import (
     DEFAULT_RPE_PARAMS,
 )
 from .datasets import (
-    mnist_config,
+    CIFAR10_CONFIG,
+    DATASET_CONFIGS,
+    MNIST_CONFIG,
     cifar10_config,
+    get_dataset_config,
+    mnist_config,
 )
 
 __all__ = [
@@ -20,4 +24,8 @@ __all__ = [
     "DEFAULT_RPE_PARAMS",
     "mnist_config",
     "cifar10_config",
+    "DATASET_CONFIGS",
+    "get_dataset_config",
+    "MNIST_CONFIG",
+    "CIFAR10_CONFIG",
 ]

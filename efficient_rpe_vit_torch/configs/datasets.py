@@ -4,6 +4,9 @@ MNIST:    28px, 1ch, patch 7 -> 16 patches, dim 32, depth 3, heads 2,
           mlp 64, bs 32, lr 1e-3, 10 epochs, mean .1307 / std .3081.
 CIFAR-10: 32px, 3ch, patch 8 -> 16 patches, dim 32, depth 3, heads 2,
           mlp 64, bs 64, lr 1e-3, wd .01, 20 epochs, warmup 2.
+
+`get_dataset_config(name, **overrides)` looks a dataset up by name; an
+override of None keeps the default, as the train CLI relies on.
 """
 
 from __future__ import annotations
@@ -71,3 +74,23 @@ def cifar10_config(**overrides) -> ExperimentConfig:
     )
     return cfg.replace(**overrides) if overrides else cfg
 
+
+
+DATASET_CONFIGS = {
+    "mnist": mnist_config,
+    "cifar10": cifar10_config,
+}
+
+
+def get_dataset_config(name: str, **overrides) -> ExperimentConfig:
+    try:
+        return DATASET_CONFIGS[name.lower()](**overrides)
+    except KeyError:
+        raise ValueError(
+            f"Unknown dataset {name!r}. Available: {sorted(DATASET_CONFIGS)}"
+        ) from None
+
+
+# flat-dict views for quick interactive use
+MNIST_CONFIG = mnist_config().to_dict()
+CIFAR10_CONFIG = cifar10_config().to_dict()

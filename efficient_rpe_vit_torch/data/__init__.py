@@ -1,4 +1,5 @@
-from .datasets import compute_dataset_stats, get_dataloaders, get_sample_batch, load_dataset
+from .datasets import (compute_dataset_stats, get_dataloaders, get_sample_batch, load_dataset,
+                       visualize_batch)
 from .io import read_cifar10_batches, read_idx_images, read_idx_labels
 from .pipeline import DeviceDataset, augment_cifar, augment_mnist, normalize_images
 
@@ -10,6 +11,7 @@ __all__ = [
     "get_dataloaders",
     "get_sample_batch",
     "compute_dataset_stats",
+    "visualize_batch",
     "DeviceDataset",
     "normalize_images",
     "augment_mnist",

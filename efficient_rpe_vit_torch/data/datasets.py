@@ -15,8 +15,8 @@ copied (the port never imports the JAX package):
     `synthetic: True` in every result made from it.
 
 Returned splits are host numpy; `pipeline.DeviceDataset` moves them to
-the device once and assembles batches there by index.
-`visualize_batch` (matplotlib) is not ported yet.
+the device once and assembles batches there by index. `visualize_batch`
+draws a batch with matplotlib, imported only when it is called.
 """
 
 from __future__ import annotations
@@ -211,6 +211,51 @@ def get_sample_batch(config, split: str = "test", batch_size: Optional[int] = No
     if batch_size is not None:
         images, labels = images[:batch_size], labels[:batch_size]
     return images, labels
+
+
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend, or an ImportError that names
+    the missing package."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("drawing needs matplotlib, which is not installed "
+                          "here; install it or leave out the plot flags") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def visualize_batch(images, labels, out_path: Optional[str] = None,
+                    max_images: int = 16, class_names=None):
+    """Grid plot of one (possibly normalised) batch [B, H, W, C] (tensors
+    on any device, or arrays). Saves a PNG when out_path is given and
+    returns the path, else returns the matplotlib figure."""
+    plt = _pyplot()
+    imgs = torch.as_tensor(images).detach().float().cpu().numpy()[:max_images]
+    labs = torch.as_tensor(labels).detach().cpu().numpy()[:max_images]
+    # undo normalisation roughly for display
+    imgs = imgs - imgs.min()
+    denom = imgs.max() if imgs.max() > 0 else 1.0
+    imgs = imgs / denom
+    n = len(imgs)
+    cols = int(np.ceil(np.sqrt(n)))
+    rows = int(np.ceil(n / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(2 * cols, 2 * rows))
+    for i, ax in enumerate(np.atleast_1d(axes).ravel()):
+        ax.set_axis_off()
+        if i < n:
+            img = imgs[i]
+            ax.imshow(img.squeeze() if img.shape[-1] == 1 else img,
+                      cmap="gray" if img.shape[-1] == 1 else None)
+            name = class_names[labs[i]] if class_names else str(labs[i])
+            ax.set_title(name, fontsize=8)
+    if out_path:
+        fig.savefig(out_path, dpi=110, bbox_inches="tight")
+        plt.close(fig)
+        return out_path
+    return fig
 
 
 def compute_dataset_stats(name: str) -> Dict[str, Tuple[float, ...]]:

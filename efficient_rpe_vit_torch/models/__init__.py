@@ -6,11 +6,14 @@ from .attention import (
     ReluAttention,
     ATTENTION_REGISTRY,
 )
-from .layers import Mlp, TransformerBlock
+from .layers import Mlp, MoeMlp, TransformerBlock
 from .vit import ViT, patchify
 from .factory import (
     MODEL_VARIANTS,
+    count_parameters,
     create_model,
+    get_model_info,
+    list_available_models,
 )
 
 __all__ = [
@@ -25,9 +28,13 @@ __all__ = [
     "ReluAttention",
     "ATTENTION_REGISTRY",
     "Mlp",
+    "MoeMlp",
     "TransformerBlock",
     "ViT",
     "patchify",
     "MODEL_VARIANTS",
     "create_model",
+    "list_available_models",
+    "get_model_info",
+    "count_parameters",
 ]

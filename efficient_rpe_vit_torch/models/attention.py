@@ -45,7 +45,7 @@ from ..ops import (
     softmax_attention,
 )
 from ..ops.feature_maps import mxu_num_features
-from .dense import Dense, Dropout
+from .dense import Dense, Dropout, draw, replaying
 from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D
 
 # Byte size of one fp32 phi (4 * B * H * N * m) past which phi(q) and phi(k)
@@ -139,8 +139,8 @@ class SoftmaxAttention(nn.Module):
             if generator is None:
                 raise ValueError("train-mode dropout needs a generator: pass "
                                  "one to the model's forward")
-            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
-                                 generator=generator, device=x.device)
+            seed = draw(lambda: torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                              generator=generator, device=x.device))
         out = softmax_attention(q, k, v, self.head_dim ** -0.5, mask=mask,
                                 return_attention=return_attention,
                                 dropout_rate=rate, dropout_seed=seed,
@@ -194,9 +194,9 @@ class _KernelAttention(nn.Module):
         )
 
     def draw_omega(self, generator: torch.Generator) -> torch.Tensor:
-        draw = (orthogonal_gaussian_features if self.use_orthogonal
-                else gaussian_features)
-        return draw(generator, self.heads, self.head_dim, self.m)
+        sample = (orthogonal_gaussian_features if self.use_orthogonal
+                  else gaussian_features)
+        return sample(generator, self.heads, self.head_dim, self.m)
 
     def _phi(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         if self.feature_kind == "favor_plus":
@@ -233,7 +233,9 @@ class _KernelAttention(nn.Module):
                 "matrices. Returning attention weights would require O(N^2) "
                 "computation."
             )
-        if self.training and self.feature_redraw_interval is not None:
+        # a recomputed block (ViT remat) neither redraws nor counts again
+        if (self.training and self.feature_redraw_interval is not None
+                and not replaying()):
             self._maybe_redraw(generator)
         q, k, v = (_split_heads(t, self.heads)
                    for t in self.qkv(x).chunk(3, dim=-1))

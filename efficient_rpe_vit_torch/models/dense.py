@@ -4,12 +4,16 @@ Parameters stay fp32 and are cast to the compute dtype where they are
 used, as flax's `nn.Dense(dtype=...)` does in the JAX package;
 LayerNorm takes its statistics in fp32 and returns the compute dtype.
 State-dict names are torch's own (`weight`, `bias`). Dropout draws its
-masks from a generator the caller passes, never from torch's global RNG.
+masks from a generator the caller passes, never from torch's global RNG,
+through `draw`, which lets a recomputed block (`ViT(remat=True)`) take
+back the draws of its first run.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Callable, Iterator, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +26,72 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dtype
+
+
+class DrawTape:
+    """The random draws of one checkpointed block call, in order.
+
+    The block's first run keeps each draw (`draw` appends it); each later
+    run, the recompute in the backward, takes them back in the same order
+    instead of drawing, so it sees the forward's dropout masks and seeds and
+    leaves the generator where the forward left it. Inside a CUDA-graph
+    capture a generator's state cannot be saved and restored (`set_state`
+    refuses there, `get_state` does not see the offsets a capture advances,
+    and `graphsafe_get_state` shares the state rather than copying it), so
+    the draws themselves are kept: boolean masks, which a dropout's
+    backward keeps in any case, and int32 seeds."""
+
+    def __init__(self):
+        self.draws: List[torch.Tensor] = []
+        self.runs = 0
+        self.pos = 0
+
+    @property
+    def replaying(self) -> bool:
+        return self.runs > 1
+
+    @contextlib.contextmanager
+    def active(self) -> Iterator["DrawTape"]:
+        """Make this tape the one `draw` uses on this thread, for one run of
+        the block (the recompute runs on the autograd engine's thread)."""
+        previous = _current_tape()
+        _ACTIVE.tape = self
+        self.runs += 1
+        self.pos = 0
+        try:
+            yield self
+        finally:
+            _ACTIVE.tape = previous
+
+
+# the tape of the block run in progress on each thread: the draws happen
+# deep inside the block's modules, which take no tape argument
+_ACTIVE = threading.local()
+
+
+def _current_tape() -> Optional[DrawTape]:
+    return getattr(_ACTIVE, "tape", None)
+
+
+def draw(make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """`make()`, a random draw from the caller's generator; inside a block
+    run under a `DrawTape`, kept on the first run and taken back on a
+    recompute."""
+    tape = _current_tape()
+    if tape is None:
+        return make()
+    if tape.replaying:
+        tape.pos += 1
+        return tape.draws[tape.pos - 1]
+    tape.draws.append(make())
+    return tape.draws[-1]
+
+
+def replaying() -> bool:
+    """True while a checkpointed block is being recomputed: work with side
+    effects (the feature redraw and its counter) must not run again."""
+    tape = _current_tape()
+    return tape is not None and tape.replaying
 
 
 class Dense(nn.Linear):
@@ -66,5 +136,6 @@ class Dropout(nn.Dropout):
             raise ValueError("train-mode dropout needs a generator: pass one "
                              "to the model's forward")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        keep = draw(lambda: torch.rand(x.shape, generator=generator,
+                                       device=x.device) < keep_prob)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -4,14 +4,18 @@ Counterpart of `efficient_rpe_vit_tpu/models/factory.py`: the same variant
 names, the same custom "<attention>_<rpe>" parsing and the same
 per-mechanism `attention_params` / `rpe_params` merging: the 11 reference
 variants, the aliases and the custom names (`favor_plus_rope_2d`,
-`favor_hyper_circulant`, ...) all build; softmax with KERPLE raises.
+`favor_hyper_circulant`, ...) all build; softmax with KERPLE raises. The
+soft-MoE MLP (`mlp_config`) and per-block checkpointing (`remat`) are
+taken as in JAX; `list_available_models`, `get_model_info` and
+`count_parameters` are the JAX lookups.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
 from ..configs import ExperimentConfig
 from ..utils.device import resolve_device
@@ -87,10 +91,12 @@ def create_model(
             (e.g. rpe_config={"method": "dense"} for KERPLE, {"method":
             "chain"} for Circulant-STRING, {"block_size": 16,
             "enable_block_circulant": True} for block-circulant).
-        mlp_config: optional MLP override, as in the JAX factory; only
-            {"mlp_type": "dense"} (the default) is ported.
-        remat: per-block activation checkpointing, as in the JAX factory;
-            not ported, so only False is taken.
+        mlp_config: optional MLP override, as in the JAX factory:
+            {"mlp_type": "moe", "num_experts": E} switches the block MLPs
+            to the soft mixture of experts (`layers.MoeMlp`); an
+            `expert_mesh` in it raises NotImplementedError (not ported).
+        remat: per-block activation checkpointing (`ViT.remat`); the
+            config's `remat` field turns it on too.
         device: where the model lives; None means the GPU, and raises when
             there is none. Pass "cpu" to run on the CPU.
         generator: CPU generator the weights are drawn from; None seeds
@@ -98,16 +104,8 @@ def create_model(
         **overrides: architecture field overrides (dim, depth, dropout, ...).
 
     Raises:
-        NotImplementedError: for the rejected softmax+KERPLE combination,
-            an `mlp_type` other than "dense" and `remat=True`: the MoE MLP
-            and per-block checkpointing are not ported yet, and dropping
-            them would build another model than the one asked for.
+        NotImplementedError: for the rejected softmax+KERPLE combination.
     """
-    mlp_type = (mlp_config or {}).get("mlp_type", "dense")
-    if mlp_type != "dense":
-        raise NotImplementedError(
-            f"mlp_type={mlp_type!r}: MoeMlp (the soft mixture-of-experts "
-            "MLP) is not ported yet; only the dense MLP is")
     device = resolve_device(device)
     attention_type, rpe_type = _resolve_variant(model_name)
     if attention_type in ("softmax", "baseline") and rpe_type in (
@@ -120,10 +118,8 @@ def create_model(
         )
     cfg = config.to_dict() if isinstance(config, ExperimentConfig) else dict(config)
     cfg.update(overrides)
-    if remat or cfg.get("remat"):
-        raise NotImplementedError(
-            "remat=True: per-block activation checkpointing is not ported "
-            "yet")
+    mlp_kwargs = dict(mlp_config or {})
+    mlp_type = mlp_kwargs.pop("mlp_type", "dense")
 
     attn_kwargs = dict((cfg.get("attention_params") or {}).get(attention_type, {}))
     if attention_config:
@@ -152,9 +148,48 @@ def create_model(
         attention_kwargs=attn_kwargs,
         rpe_kwargs=rpe_kwargs,
         dtype=cfg.get("compute_dtype", "float32"),
+        mlp_type=mlp_type,
+        mlp_kwargs=mlp_kwargs,
+        remat=bool(remat or cfg.get("remat", False)),
     )
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     model.reset_parameters(generator)
     return model.to(device).eval()
 
+
+
+def list_available_models() -> list:
+    """All pre-configured variant names."""
+    return list(MODEL_VARIANTS.keys())
+
+
+def get_model_info(model_name: str) -> Dict[str, Any]:
+    """Variant metadata: name, attention and RPE types, complexity."""
+    if model_name not in MODEL_VARIANTS:
+        raise ValueError(f"Unknown model: {model_name}")
+    attention_type, rpe_type = MODEL_VARIANTS[model_name]
+    return {
+        "name": model_name,
+        "attention_type": attention_type,
+        "rpe_type": rpe_type,
+        "attention_complexity": "O(N²)" if attention_type == "softmax" else "O(N)",
+        "has_rpe": rpe_type is not None,
+    }
+
+
+# persistent buffers of the port's models: the JAX package's `constants`
+# (Omega) and `state` (the feature-redraw counters) collections, which its
+# parameter count leaves out
+_BUFFER_NAMES = ("omega", "redraw_counter")
+
+
+def count_parameters(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, int]:
+    """Parameter count of a model or of its state dict: parameters only,
+    never Omega or the redraw counters (all parameters train)."""
+    if isinstance(model, nn.Module):
+        total = sum(p.numel() for p in model.parameters())
+    else:
+        total = sum(t.numel() for name, t in model.items()
+                    if name.rsplit(".", 1)[-1] not in _BUFFER_NAMES)
+    return {"total": total, "trainable": total, "non_trainable": 0}

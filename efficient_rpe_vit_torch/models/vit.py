@@ -7,10 +7,15 @@ with RPE), depth x transformer blocks, LayerNorm + Linear head on the CLS
 output in fp32. Images come in NHWC, as in the JAX package.
 
 Init (`reset_parameters`, from an explicit generator): Xavier-uniform
-linear weights / zero biases, unit LayerNorms, N(0, 0.02) for
-pos_embedding, cls_token and KERPLE biases, N(0, 0.01) for circulant
-coefficients, Omega drawn per block (and the feature-redraw counters
-zeroed).
+linear weights / zero biases (the MoE expert kernels under flax's fan rule
+for 3-D kernels), unit LayerNorms, N(0, 0.02) for pos_embedding, cls_token
+and KERPLE biases, N(0, 0.01) for circulant coefficients, Omega drawn per
+block (and the feature-redraw counters zeroed).
+
+`remat=True` recomputes each block's activations in the backward
+(`torch.utils.checkpoint`, non-reentrant; the JAX package's `nn.remat`), in
+train mode with gradients on; eval and `torch.inference_mode` run the
+blocks as they are.
 """
 
 from __future__ import annotations
@@ -19,10 +24,11 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import _KernelAttention
-from .dense import Dense, LayerNorm, torch_dtype
-from .layers import TransformerBlock
+from .dense import Dense, DrawTape, LayerNorm, torch_dtype
+from .layers import MoeMlp, TransformerBlock
 from .rpe import CirculantStringRPE, KerpleRPE
 
 
@@ -35,6 +41,22 @@ def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     x = x.reshape(B, C, H // p, p, W // p, p)
     x = x.permute(0, 2, 4, 1, 3, 5)  # (B, H/p, W/p, C, p, p)
     return x.reshape(B, (H // p) * (W // p), C * p * p)
+
+
+def _checkpointed_block(block: TransformerBlock, x: torch.Tensor,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`block(x, generator)` with its activations recomputed in the
+    backward. The recompute takes back the first run's random draws from a
+    `DrawTape` (the same dropout masks and seeds, the generator left where
+    the forward left it) and skips the feature redraw, so the gradients are
+    those of the plain block."""
+    tape = DrawTape()
+
+    def run(x):
+        with tape.active():
+            return block(x, generator)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class ViT(nn.Module):
@@ -53,8 +75,15 @@ class ViT(nn.Module):
                  rpe_type: Optional[str] = None,
                  attention_kwargs: Optional[Dict[str, Any]] = None,
                  rpe_kwargs: Optional[Dict[str, Any]] = None,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", mlp_type: str = "dense",
+                 mlp_kwargs: Optional[Dict[str, Any]] = None,
+                 remat: bool = False):
         super().__init__()
+        self.attention_type = attention_type
+        self.rpe_type = rpe_type
+        self.mlp_type = mlp_type
+        self.depth = depth
+        self.remat = remat
         self.image_size = image_size
         self.in_channels = in_channels
         self.patch_size = patch_size
@@ -67,7 +96,7 @@ class ViT(nn.Module):
         self.transformer_blocks = nn.ModuleList(
             TransformerBlock(dim, heads, mlp_dim, n, dropout, attention_type,
                              rpe_type, attention_kwargs, rpe_kwargs,
-                             self.compute_dtype)
+                             self.compute_dtype, mlp_type, mlp_kwargs)
             for _ in range(depth)
         )
         self.mlp_head = nn.Sequential(LayerNorm(dim, eps=1e-5),
@@ -98,6 +127,11 @@ class ViT(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, MoeMlp):
+                for w in (m.w1, m.w2):
+                    draw(nn.init.uniform_, w, -m.init_limit, m.init_limit)
+                m.b1.zero_()
+                m.b2.zero_()
             elif isinstance(m, KerpleRPE):
                 draw(nn.init.normal_, m.rel_pos_bias, 0.0, 0.02)
             elif isinstance(m, CirculantStringRPE):
@@ -131,7 +165,12 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
         attention_maps = []
+        remat = (self.remat and not return_attention and self.training
+                 and torch.is_grad_enabled())
         for block in self.transformer_blocks:
+            if remat:
+                x = _checkpointed_block(block, x, generator)
+                continue
             x = block(x, generator, return_attention=return_attention)
             if return_attention:
                 x, weights = x

@@ -1,5 +1,5 @@
 """Loss, LR schedules, optimisers, the train and eval steps, the fused
-K-step programs and the epoch / evaluation loops.
+K-step programs, the epoch / evaluation loops and the inference benchmark.
 
 Counterpart of `efficient_rpe_vit_tpu/train/training.py`: the same
 schedule vocabulary with optax's values at every step, adam / adamw / sgd
@@ -7,7 +7,8 @@ with optax's update rules, a train state with an optional EMA shadow, a
 train step (forward, backward, update) with label smoothing and gradient
 accumulation over microbatches, `make_multi_step` and the gather-fused
 `make_gather_multi_step` / `make_gather_multi_eval` (K steps per call),
-and `train_epoch` / `evaluate` with their fused loops. The JAX package
+`train_epoch` / `evaluate` with their fused loops, and
+`make_inference_chain` / `benchmark_inference`. The JAX package
 jits one program per step or scans K of them; here a step runs eagerly on
 the model's device, updating the model and optimiser in place, and on the
 GPU the K-step programs are CUDA graphs (`_Replays`): K full steps
@@ -109,6 +110,41 @@ def create_lr_scheduler(scheduler: Optional[str], learning_rate: float,
 
 # ─── optimisers ─────────────────────────────────────────────────────────
 
+class SGD(torch.optim.Optimizer):
+    """Heavy-ball SGD with optax's rule (`add_decayed_weights` -> `sgd`):
+    g' = g + wd p, trace = momentum trace + g', p -= lr trace, the trace
+    made at zero with the optimiser.
+
+    Its update is foreach ops on tensors only: `lr` may be a float or a
+    0-dim tensor on the parameters' device, which the update multiplies in
+    on the device without reading it, so the update can be captured in a
+    CUDA graph (`capturable` marks the groups built that way)."""
+
+    def __init__(self, params, lr: Union[float, torch.Tensor], momentum: float = 0.9,
+                 weight_decay: float = 0.0, capturable: bool = False):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay, capturable=capturable))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["momentum_buffer"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            traces = [self.state[p]["momentum_buffer"] for p in params]
+            torch._foreach_mul_(traces, group["momentum"])
+            torch._foreach_add_(traces, grads)
+            torch._foreach_sub_(params, torch._foreach_mul(traces, group["lr"]))
+        return None
+
+
 def create_optimizer(optimizer: str, params: Iterable[nn.Parameter],
                      schedule: Schedule, weight_decay: float = 0.0,
                      momentum: float = 0.9) -> torch.optim.Optimizer:
@@ -118,28 +154,29 @@ def create_optimizer(optimizer: str, params: Iterable[nn.Parameter],
       optax's `add_decayed_weights` -> `adam`), betas (0.9, 0.999), eps 1e-8;
     * adamw: decay decoupled, `weight_decay` passed explicitly (torch's
       AdamW default 0.01 is not the config's value);
-    * sgd: heavy-ball momentum, trace initialised at zero, coupled decay.
+    * sgd: heavy-ball momentum, trace initialised at zero, coupled decay
+      (`SGD`).
 
     The learning rate is set from `schedule` before every update
     (`TrainState.apply_gradients`); it starts at schedule(0). On the GPU
-    adam and adamw are built capturable, with the learning rate a 0-dim
-    fp32 tensor on the card and the step counts on the card too, so that
-    K updates can be captured in one CUDA graph (`make_multi_step`), and
-    the eager step takes the same arithmetic as the replayed one.
+    every optimiser is built capturable, with the learning rate a 0-dim
+    fp32 tensor on the card (and adam's step counts on the card too), so
+    that K updates can be captured in one CUDA graph (`make_multi_step`),
+    and the eager step takes the same arithmetic as the replayed one.
     """
     params = list(params)
     lr = schedule(0)
     on_card = any(p.is_cuda for p in params)
-    if optimizer in ("adam", "adamw"):
-        cls = torch.optim.Adam if optimizer == "adam" else torch.optim.AdamW
-        if on_card:
-            lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
-        return cls(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                   weight_decay=weight_decay, capturable=on_card)
+    if optimizer not in ("adam", "adamw", "sgd"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    if on_card:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
     if optimizer == "sgd":
-        return torch.optim.SGD(params, lr=lr, momentum=momentum,
-                               weight_decay=weight_decay)
-    raise ValueError(f"unknown optimizer {optimizer!r}")
+        return SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
+                   capturable=on_card)
+    cls = torch.optim.Adam if optimizer == "adam" else torch.optim.AdamW
+    return cls(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+               weight_decay=weight_decay, capturable=on_card)
 
 
 # ─── train state ────────────────────────────────────────────────────────
@@ -481,7 +518,8 @@ def make_multi_step(model: nn.Module, label_smoothing: float = 0.0,
     fills, and `state.step` advances by K on the host. A step that cannot
     be captured raises NotImplementedError on the GPU: feature redraw
     (`feature_redraw_interval`), and an optimiser that is not capturable
-    (sgd). On the CPU the K steps run as a loop of the train step.
+    (one not built by `create_optimizer` for the card). On the CPU the K
+    steps run as a loop of the train step.
     """
     device = resolve_device(device)
     train_step = make_train_step(model, label_smoothing=label_smoothing,
@@ -810,3 +848,184 @@ def evaluate(eval_step: Callable, dataset, num_classes: Optional[int] = None,
         detail.pop("accuracy", None)
         out.update(detail)
     return out
+
+
+# ─── inference benchmark ────────────────────────────────────────────────
+
+def make_inference_chain(model: nn.Module) -> Callable[[torch.Tensor, int], torch.Tensor]:
+    """`chain(images, length) -> scalar`: `length` data-dependent eval
+    forwards of `model` under `torch.inference_mode()`, each one's input
+    images + 1e-30 * sum(previous logits), so no forward can start before
+    the one it depends on has finished or be skipped; the result is one
+    scalar for one host read at the end. `length` is an argument, so one
+    chain serves every length."""
+
+    def chain(images: torch.Tensor, length: int) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            x = images
+            for _ in range(int(length)):
+                out = model(x)
+                x = images + (1e-30 * out.float().sum()).to(images.dtype)
+            return x.sum()
+
+    return chain
+
+
+def _latency_stats(samples: List[float], batch: int) -> Dict[str, float]:
+    lat = np.asarray(samples, np.float64)
+    mean = float(lat.mean())
+    return {
+        "latency_mean_ms": mean * 1e3,
+        "latency_std_ms": float(lat.std()) * 1e3,
+        "latency_min_ms": float(lat.min()) * 1e3,
+        "latency_max_ms": float(lat.max()) * 1e3,
+        "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "latency_ms_per_sample": mean * 1e3 / batch,
+    }
+
+
+class _Clock:
+    """Seconds of device work between `start()` and `stop()`: CUDA events
+    on the GPU (the stop waits for the event), the host clock around a
+    finished host read on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.begin = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+
+    def start(self) -> None:
+        if self.cuda:
+            self.begin.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self, result: torch.Tensor) -> float:
+        if self.cuda:
+            self.end.record()
+            float(result)
+            self.end.synchronize()
+            return self.begin.elapsed_time(self.end) / 1e3
+        float(result)
+        return time.perf_counter() - self.t0
+
+
+def benchmark_inference(
+    model: nn.Module,
+    images: torch.Tensor,
+    num_warmup: int = 10,
+    num_iterations: int = 100,
+    fwd: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    mode: str = "chained",
+    num_chains: int = 10,
+    chain_fn: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
+    target_chain_time: Optional[float] = None,
+) -> Dict[str, float]:
+    """Latency and throughput of eval forwards of `model` (which carries its
+    weights: pass `state.eval_view()` to serve an EMA) on one fixed batch.
+
+    mode='chained' (default): `num_chains` chains of data-dependent
+    forwards (`make_inference_chain`, or `chain_fn`), one host read per
+    chain; per-iteration latency is the chain's time divided by its length,
+    and the statistics are over the chains. The chain length starts at
+    num_iterations // num_chains and grows until a chain takes
+    `target_chain_time` seconds (default max(8 x the host-read round trip,
+    50 ms)); 0 pins it at the start length. mode='per_iter': `num_warmup`
+    forwards, then `num_iterations` timed one by one (`fwd`, default the
+    model's eval forward), each ended by a host read.
+
+    On the GPU every time is taken with CUDA events after the warm-up; on
+    the CPU with the host clock, less the round trip of a host read (a
+    CPU time, never a device measurement). `fetch_rt_ms` is that round
+    trip; `peak_memory_bytes` (the GPU's allocator peak) is there on the
+    GPU only. The keys are the JAX package's.
+    """
+    from ..utils.timing import device_memory_stats
+
+    device = images.device
+    batch = images.shape[0]
+    clock = _Clock(device)
+
+    def measure_rt() -> float:
+        ready = torch.zeros((), device=device)
+        float(ready)
+        rts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            float(ready.sum())
+            rts.append(time.perf_counter() - t0)
+        return sorted(rts)[len(rts) // 2]
+
+    def elapsed(run) -> float:
+        clock.start()
+        seconds = clock.stop(run())
+        return seconds if clock.cuda else max(0.0, seconds - rt)
+
+    def memory() -> Dict[str, int]:
+        peak = device_memory_stats(device).get("peak_bytes_in_use")
+        return {} if peak is None else {"peak_memory_bytes": peak}
+
+    if mode == "chained":
+        chain = chain_fn if chain_fn is not None else make_inference_chain(model)
+        chain_len = max(1, num_iterations // num_chains)
+        float(chain(images, chain_len))  # warm-up (and kernel builds)
+        float(chain(images, chain_len))
+        rt = measure_rt()
+        if target_chain_time is None:
+            target_chain_time = max(8.0 * rt, 0.05)
+        max_chain_len = 65536
+        if target_chain_time > 0:
+            for _ in range(12):
+                probe = elapsed(lambda: chain(images, chain_len))
+                if probe >= target_chain_time or chain_len >= max_chain_len:
+                    break
+                if probe < 0.5 * rt:
+                    chain_len = min(max_chain_len, chain_len * 4)
+                else:
+                    est = int(math.ceil(target_chain_time / (probe / chain_len)))
+                    chain_len = min(max_chain_len, max(chain_len + 1, est))
+        samples = [elapsed(lambda: chain(images, chain_len)) / chain_len
+                   for _ in range(num_chains)]
+        clipped = sum(1 for s in samples if s == 0.0)
+        mean = float(np.mean(samples))
+        return {
+            # chains whose host time fell below the read's round trip clip
+            # to 0: the chain is too short for the clock (CPU only)
+            **({"clipped_chains": clipped} if clipped else {}),
+            **memory(),
+            "mode": "chained",
+            "chain_length": chain_len,
+            "num_chains": num_chains,
+            "fetch_rt_ms": rt * 1e3,
+            "throughput_images_per_sec": batch / max(mean, 1e-9),
+            **_latency_stats(samples, batch),
+            "batch_size": batch,
+            "num_iterations": num_chains * chain_len,
+        }
+    if mode != "per_iter":
+        raise ValueError(f"unknown mode {mode!r}: 'chained' or 'per_iter'")
+
+    if fwd is None:
+        def fwd(x):
+            model.eval()
+            with torch.inference_mode():
+                return model(x)
+
+    out = fwd(images)
+    for _ in range(max(0, num_warmup - 1)):
+        out = fwd(images)
+    float(out.float().sum())
+    rt = measure_rt()
+    samples = [elapsed(lambda: fwd(images).float().sum()) for _ in range(num_iterations)]
+    total = max(float(np.sum(samples)), 1e-9)
+    return {
+        **memory(),
+        "mode": "per_iter",
+        "fetch_rt_ms": rt * 1e3,
+        "throughput_images_per_sec": batch * num_iterations / total,
+        **_latency_stats(samples, batch),
+        "batch_size": batch,
+        "num_iterations": num_iterations,
+    }

@@ -4,7 +4,9 @@
 as nested dicts of arrays (numpy arrays, or anything `numpy.asarray`
 takes). Dense kernels [in, out] become Linear weights [out, in], LayerNorm
 `scale` becomes `weight`, Omega is copied from `constants`, never redrawn,
-and the feature-redraw counters come from `state`. The names produced are
+and the feature-redraw counters come from `state`. A soft-MoE block's
+`mlp` carries `router` (a Dense) and the expert tensors `w1`, `b1`, `w2`,
+`b2`, copied as they are (the port keeps the flax layouts). The names produced are
 the reference torch naming that
 `efficient_rpe_vit_tpu.utils.import_torch.state_dict_to_params` maps back.
 """
@@ -20,6 +22,16 @@ from torch import nn
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def moe_mlp_state_dict(p: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax MoeMlp's params -> the port MoeMlp's state dict (names under
+    `prefix`): the router kernel transposed, the expert tensors as they are."""
+    sd = {f"{prefix}router.weight": _tensor(p["router"]["kernel"]).T.contiguous(),
+          f"{prefix}router.bias": _tensor(p["router"]["bias"])}
+    for name in ("w1", "b1", "w2", "b2"):
+        sd[prefix + name] = _tensor(p[name])
+    return sd
 
 
 def flax_to_state_dict(params: Mapping[str, Any],
@@ -49,8 +61,11 @@ def flax_to_state_dict(params: Mapping[str, Any],
         norm(pre + "norm2", blk["norm2"])
         dense(pre + "attention.qkv", blk["attention"]["qkv"])
         dense(pre + "attention.proj", blk["attention"]["proj"])
-        dense(pre + "mlp.0", blk["mlp"]["fc1"])
-        dense(pre + "mlp.3", blk["mlp"]["fc2"])
+        if "router" in blk["mlp"]:  # MoeMlp
+            sd.update(moe_mlp_state_dict(blk["mlp"], pre + "mlp."))
+        else:
+            dense(pre + "mlp.0", blk["mlp"]["fc1"])
+            dense(pre + "mlp.3", blk["mlp"]["fc2"])
         for name in ("rel_pos_bias", "circulant_coeffs"):  # KERPLE, Circulant-STRING
             if name in blk.get("rpe", {}):
                 sd[pre + "rpe." + name] = _tensor(blk["rpe"][name])

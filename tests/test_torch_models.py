@@ -245,21 +245,6 @@ def test_training_only_and_unported_options_raise():
         model.transformer_blocks[0].rpe(x)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"mlp_config": {"mlp_type": "moe", "num_experts": 4}},
-    {"remat": True},
-    {"config_remat": True},
-], ids=["moe", "remat", "remat_in_config"])
-def test_unported_mlp_and_remat_raise(kwargs):
-    """The MoE MLP and per-block checkpointing are not ported: asking for
-    either raises rather than building the dense, unchecked model."""
-    cfg = mnist_config(**SMALL)
-    if kwargs.pop("config_remat", False):
-        cfg = dict(cfg.to_dict(), remat=True)
-    with pytest.raises(NotImplementedError, match="MoeMlp|checkpointing"):
-        create_model("performer_favor", cfg, device="cpu", **kwargs)
-
-
 def test_dense_mlp_config_builds_the_default_model():
     cfg = mnist_config(**SMALL)
     a, b = (create_model("performer_favor_most_general", cfg, device="cpu",

@@ -225,6 +225,40 @@ def test_optimizer_matches_optax(optimizer, scheduler):
                                rtol=1e-5, atol=1e-6)
 
 
+def test_sgd_with_a_device_style_lr_equals_the_float_one():
+    """The sgd update takes its learning rate as a float (the CPU) or as a
+    0-dim tensor it multiplies in without reading it (the card's capturable
+    build): the same fp32 products, so bitwise the same parameters and
+    momentum traces over a schedule; built capturable it passes the K-step
+    programs' graph check."""
+    from efficient_rpe_vit_torch.train import SGD
+    from efficient_rpe_vit_torch.train import training as port_training
+
+    rng = np.random.default_rng(6)
+    w0 = rng.normal(size=(5, 4)).astype(np.float32)
+    grads = [rng.normal(size=(5, 4)).astype(np.float32) for _ in range(4)]
+    schedule = create_lr_scheduler("warmup_cosine", 0.05, 4, 1, 1)
+    layers, states = [], []
+    for lr in (schedule(0), torch.tensor(schedule(0), dtype=torch.float32)):
+        layer = nn.Linear(4, 5, bias=False)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(w0))
+        opt = SGD(layer.parameters(), lr=lr, momentum=0.9, weight_decay=0.05,
+                  capturable=isinstance(lr, torch.Tensor))
+        layers.append(layer)
+        states.append(TrainState(model=layer, optimizer=opt, schedule=schedule))
+    for g in grads:
+        for layer, state in zip(layers, states):
+            layer.weight.grad = torch.from_numpy(g)
+            state.apply_gradients()
+    assert torch.equal(layers[0].weight, layers[1].weight)
+    traces = [s.optimizer.state[l.weight]["momentum_buffer"] for s, l in zip(states, layers)]
+    assert torch.equal(*traces)
+    assert port_training._graph_blocker(layers[1], states[1].optimizer) is None
+    assert "SGD is not capturable" in port_training._graph_blocker(layers[0],
+                                                                   states[0].optimizer)
+
+
 # ─── train steps ────────────────────────────────────────────────────────
 
 STEP_CASES = {
