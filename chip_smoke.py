@@ -155,6 +155,24 @@ Phases, each printed as it runs; any failure exits non-zero:
         every gradient within 1e-6 relative (bitwise equality logged), #1
         launched 24 times per step with remat and 12 without, peak memory
         of each (lower with remat) and ms per step (5 after 3).
+ 20. the benchmark runner (`experiments.benchmark.main`) in process in a
+     temporary directory, performer_favor_most_general and baseline at the
+     mnist_config widths in bf16 (N=17, D=16; dropout 0.1), seeds 42 and
+     153, 2 epochs of K=4 steps per replay:
+     a. sequential, each model's seeds sharing one `shared` dict: #1, #2,
+        #6 and 7a launched, every run's metrics with the JAX CLI's keys and
+        finite values, seed 153's per-epoch metrics bitwise equal to a
+        train CLI run of seed 153 alone (train seconds with and without
+        `shared` logged); `--skip-existing` again launches no kernel;
+     b. `--ensemble`: each member's per-epoch metrics bitwise equal to the
+        sequential run of its seed, the two members different, epoch
+        seconds of the ensemble and of the two sequential runs; then one
+        chunk (K=4 x 32) of a 2-member make_ensemble_gather_multi_step and
+        of one model's make_gather_multi_step: the launches each graph
+        holds (counted at capture) 2x the single model's, replays timed;
+     c. #6 and 7a against their plain versions at (32, 2, 17, 16), bf16,
+        dropout 0.1, their launch_info logged, timed beside their bounds
+        and SDPA.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -403,6 +421,25 @@ CLI_METRICS_KEYS = {
                   "latency_min_ms", "latency_max_ms", "latency_p50_ms",
                   "latency_ms_per_sample", "batch_size", "num_iterations"],
 }
+# phase 20: the benchmark runner (experiments.benchmark) at the dataset
+# config's widths in bf16, 2 seeds x 2 epochs of K = 4 steps per replay,
+# sequential (one `shared` dict per model), then --skip-existing, then as
+# one ensemble: the flagship on #1 / #2 at CLI_SHAPE, the baseline on #6 /
+# 7a at BENCH_FLASH_SHAPE (B, H, N, D) with the config's dropout 0.1
+BENCH_MODELS = ("performer_favor_most_general", "baseline")
+BENCH_SEEDS = (42, 153)
+BENCH_FLAGS = ["--models", *BENCH_MODELS, "--num-runs", "2", "--epochs", "2",
+               "--fused-steps", "4", "--compute-dtype", "bfloat16", "--quiet"]
+BENCH_ROWS = ("epoch", "train_loss", "train_accuracy", "test_loss", "test_accuracy")
+BENCH_FLASH_SHAPE = (32, 2, 17, 16)
+BENCH_FLASH_RATE = 0.1
+BENCH_KERNELS = {"performer_favor_most_general": ("masked_linear_coeffs_fwd",
+                                                  "masked_linear_coeffs_bwd_dq",
+                                                  "masked_linear_coeffs_bwd_dkv",
+                                                  "masked_linear_coeffs_bwd_dc"),
+                 "baseline": ("flash_fwd", "flash_bwd_fused")}
+# the ensemble's capture against one model's, one chunk of K steps of B
+ENSEMBLE_K, ENSEMBLE_S = 4, 2
 MOE_VITB = dict(VITB, batch_size=TRAIN_BATCH, dropout=0.1)
 MOE_EXPERTS = 4
 MOE_GRAD_RTOL = 1e-6
@@ -2345,7 +2382,7 @@ def engine_phase(wrappers, per_step, per_forward, card: str):
     return launches
 
 
-def _check_metrics(metrics) -> None:
+def _check_metrics(metrics, phase: str = "entry") -> None:
     """The train CLI's metrics hold every key of the JAX CLI's schema, with
     finite numbers, and say the data was synthetic."""
     missing = [f"{section}.{key}" for section, keys in CLI_METRICS_KEYS.items()
@@ -2356,7 +2393,7 @@ def _check_metrics(metrics) -> None:
                if isinstance(v, (int, float))]
     numbers += [v for row in metrics["per_epoch"] for v in row.values()]
     finite = all(math.isfinite(v) for v in numbers)
-    log("entry", f"metrics JSON: {sum(map(len, CLI_METRICS_KEYS.values()))} keys of the JAX "
+    log(phase, f"metrics JSON: {sum(map(len, CLI_METRICS_KEYS.values()))} keys of the JAX "
         f"schema, missing {missing}; {len(numbers)} numbers all finite: {finite}; "
         f"synthetic_data {metrics['metadata']['synthetic_data']}, backend "
         f"{metrics['metadata']['backend']!r}")
@@ -2496,6 +2533,228 @@ def moe_remat_phase(wrappers, card: str):
             raise AssertionError("the MoE train loss is not finite")
     del arms
     return launches[True]
+
+
+def _bench_runs(out: str):
+    """{(model, run index): metrics} of a benchmark results tree."""
+    return {(m, i): json.loads(Path(out, m, f"run_{i}_seed_{seed}",
+                                    f"{m}_mnist_metrics.json").read_text())
+            for m in BENCH_MODELS for i, seed in enumerate(BENCH_SEEDS)}
+
+
+def _bench_rows(metrics):
+    return [[row[k] for k in BENCH_ROWS] for row in metrics["per_epoch"]]
+
+
+def _bench_launched(phase: str, launches) -> None:
+    missing = [n for names in BENCH_KERNELS.values() for n in names if launches[n] == 0]
+    log(phase, f"launches {launches}")
+    if missing:
+        raise AssertionError(f"the benchmark did not launch {missing}")
+
+
+def benchmark_phase(wrappers, card: str):
+    """Phase 20 a, b: `experiments.benchmark.main` on the card, sequential
+    (each model's seeds sharing one `shared` dict), its seed-153 runs
+    against standalone train CLI runs bit for bit, `--skip-existing`
+    launching nothing, then `--ensemble`, each member bit for bit its
+    sequential seed's run. Returns the launch counts of the sequential and
+    the ensemble call."""
+    import tempfile
+
+    from efficient_rpe_vit_torch.experiments import benchmark
+    from efficient_rpe_vit_torch.experiments import train as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir, ens_dir = f"{tmp}/seq", f"{tmp}/ens"
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        summary = benchmark.main(BENCH_FLAGS + ["--output-dir", seq_dir])
+        torch.cuda.synchronize()
+        log("bench", f"benchmark {' '.join(BENCH_FLAGS)}: done in "
+            f"{time.perf_counter() - t0:.1f} s")
+        seq_launches = counts(wrappers)
+        _bench_launched("bench", seq_launches)
+        if {m: summary.get(m, {}).get("num_runs") for m in BENCH_MODELS} != dict.fromkeys(
+                BENCH_MODELS, 2):
+            raise AssertionError(f"the summary lacks runs: {summary}")
+        seq = _bench_runs(seq_dir)
+        for (model, i), metrics in seq.items():
+            _check_metrics(metrics, "bench")
+            log("bench", f"{model} seed {BENCH_SEEDS[i]}: epochs " + ", ".join(
+                f"{r['epoch_time']:.3f} s" for r in metrics["per_epoch"])
+                + f", train {metrics['aggregate']['total_train_time']:.3f} s"
+                f"{' (shared: the graphs of seed 42 replayed)' if i else ''}, test acc "
+                f"{metrics['aggregate']['final_test_accuracy']:.2f}%, inference "
+                f"{metrics['inference']['throughput_images_per_sec']:.1f} images/s, on {card}")
+
+        # seed 153 of each model without `shared`: the same numbers
+        args = benchmark.parse_args(BENCH_FLAGS)
+        for model in BENCH_MODELS:
+            t0 = time.perf_counter()
+            alone = train_cli.main(benchmark.train_cli_args(model, BENCH_SEEDS[1],
+                                                            f"{tmp}/alone", args))
+            torch.cuda.synchronize()
+            same = _bench_rows(alone) == _bench_rows(seq[(model, 1)])
+            log("bench", f"{model} seed {BENCH_SEEDS[1]} alone: train "
+                f"{alone['aggregate']['total_train_time']:.3f} s (with shared "
+                f"{seq[(model, 1)]['aggregate']['total_train_time']:.3f} s), the run "
+                f"{time.perf_counter() - t0:.3f} s; per-epoch metrics bitwise equal to the "
+                f"shared run's: {same}")
+            if not same:
+                raise AssertionError(f"{model}: the shared run differs from the run alone")
+
+        zero_counts(wrappers)
+        again = benchmark.main(BENCH_FLAGS + ["--output-dir", seq_dir, "--skip-existing"])
+        idle = counts(wrappers)
+        log("bench", f"--skip-existing: runs {[again[m]['num_runs'] for m in BENCH_MODELS]}, "
+            f"launches {idle}")
+        if any(idle.values()) or any(again[m]["num_runs"] != 2 for m in BENCH_MODELS):
+            raise AssertionError("--skip-existing ran kernels or lost runs")
+
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        benchmark.main(BENCH_FLAGS + ["--output-dir", ens_dir, "--ensemble"])
+        torch.cuda.synchronize()
+        log("ensemble", f"benchmark --ensemble: done in {time.perf_counter() - t0:.1f} s")
+        ens_launches = counts(wrappers)
+        _bench_launched("ensemble", ens_launches)
+        ens = _bench_runs(ens_dir)
+        for model in BENCH_MODELS:
+            for i, seed in enumerate(BENCH_SEEDS):
+                _check_metrics(ens[(model, i)], "ensemble")
+                same = _bench_rows(ens[(model, i)]) == _bench_rows(seq[(model, i)])
+                log("ensemble", f"{model} member {i} (seed {seed}): per-epoch metrics "
+                    f"bitwise equal to the sequential run's: {same}; {_bench_rows(ens[(model, i)])}")
+                if not same:
+                    raise AssertionError(f"{model} member {i} differs from its sequential run")
+            if _bench_rows(ens[(model, 0)]) == _bench_rows(ens[(model, 1)]):
+                raise AssertionError(f"{model}: the two members trained alike")
+            shared_epochs = [r["epoch_time"] for r in ens[(model, 0)]["per_epoch"]]
+            seq_epochs = [sum(seq[(model, i)]["per_epoch"][e]["epoch_time"] for i in range(2))
+                          for e in range(len(shared_epochs))]
+            log("ensemble", f"{model}: epoch s, ensemble of 2 " + ", ".join(
+                f"{t:.3f}" for t in shared_epochs) + "; the two sequential runs together "
+                + ", ".join(f"{t:.3f}" for t in seq_epochs) + f" (host clock, on {card})")
+    return seq_launches, ens_launches
+
+
+def ensemble_capture_check(wrappers, card: str) -> None:
+    """Phase 20 b: one chunk of K steps of B through
+    make_ensemble_gather_multi_step (S members) and through one model's
+    make_gather_multi_step, each model at the benchmark's widths: the
+    launches each graph holds, counted at capture, S times the single
+    model's; then each replayed, timed."""
+    import numpy as np
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.data import DeviceDataset
+    from efficient_rpe_vit_torch.data.datasets import _synthetic
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import (create_ensemble_train_state, create_train_state,
+                                               make_ensemble_gather_multi_step,
+                                               make_gather_multi_step)
+
+    cfg = mnist_config(compute_dtype="bfloat16")
+    batch = cfg.train.batch_size
+    raw = _synthetic(ENSEMBLE_K * batch * 2, 0, 28, 1)
+    ds = DeviceDataset(raw["train_images"], raw["train_labels"], cfg.data.mean, cfg.data.std,
+                       batch, device="cuda", synthetic=True)
+    data = (ds.images, ds.labels, ds.mean, ds.std)
+    idx = np.stack([np.random.default_rng(s).permutation(ds.n)[:ENSEMBLE_K * batch]
+                    .reshape(ENSEMBLE_K, batch) for s in range(ENSEMBLE_S)])
+    for name, kernels in BENCH_KERNELS.items():
+        def build(seed):
+            return create_model(name, cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(seed))
+
+        models = [build(s) for s in range(ENSEMBLE_S)]
+        ens_state = create_ensemble_train_state(models, cfg)
+        ens_step = make_ensemble_gather_multi_step(models, per_member_order=True)
+        single_model = build(0)
+        single_state = create_train_state(single_model, cfg)
+        single_step = make_gather_multi_step(single_model)
+        gens = [torch.Generator(device="cuda").manual_seed(s) for s in range(ENSEMBLE_S)]
+        captured, ms = {}, {}
+        for arm, step, call in (
+                ("ensemble", ens_step, lambda: ens_step(ens_state, *data, idx, gens)),
+                ("single", single_step, lambda: single_step(single_state, *data, idx[0],
+                                                            gens[0]))):
+            step.replays.before_capture = lambda: zero_counts(wrappers)
+            call()  # warm-up and capture
+            torch.cuda.synchronize()
+            captured[arm] = counts(wrappers)
+            call()
+            ms[arm] = time_ms(call, iters=5, warmup=1)
+        want = {n: ENSEMBLE_S * c for n, c in captured["single"].items()}
+        log("ensemble", f"{name}: one chunk of K={ENSEMBLE_K} x B={batch}, launches held by "
+            f"the graph: ensemble of {ENSEMBLE_S} {captured['ensemble']}, one model "
+            f"{captured['single']}; replay {ms['ensemble']:.3f} ms against {ms['single']:.3f} "
+            f"ms for one model (CUDA events over 5 replays, on {card})")
+        if captured["ensemble"] != want or not all(captured["single"][n] for n in kernels):
+            raise AssertionError(f"{name}: the ensemble's graph holds {captured['ensemble']}, "
+                                 f"expected {want}")
+
+
+def bench_flash_check(fa, card: str):
+    """Phase 20 c: #6 and 7a against their plain versions at the
+    benchmark baseline's shape (bf16, dropout 0.1), each one's launch_info
+    logged, timed beside its bound and SDPA (dropout 0; the kernels also at
+    dropout 0, `ms_dropout0`). Returns {kernel: row}."""
+    B, H, N, D = BENCH_FLASH_SHAPE
+    rate, dtype, name = BENCH_FLASH_RATE, torch.bfloat16, "bfloat16"
+    q, k, v, cot, _, seed = _flash_inputs(B, H, N, D, None, rate, dtype)
+    scale = D ** -0.5
+    shape = f"B{B} H{H} N{N} D{D} dropout {rate} {name}"
+    tol = FLASH_TOL[name]
+    infos = {}
+    for kname in ("flash_fwd", "flash_bwd_fused"):
+        infos[kname] = fa.launch_info(kname, N, D, dtype)
+        log("bench-kernel", f"{kname} N={N} D={D} {name}: " + ", ".join(
+            f"{key} {value}" for key, value in infos[kname].items()))
+    out, lse = fa.flash_attention_fwd(q, k, v, scale, None, rate, seed)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_softmax_attention_reference(q, k, v, scale, None, rate, seed)
+    delta = fa.flash_delta(out, cot)
+    bwd_args = (q, k, v, cot, lse, delta, scale, None, rate, seed)
+    got = fa.flash_attention_bwd_fused(*bwd_args)
+    want = fa.flash_bwd_reference(*bwd_args)
+    torch.cuda.synchronize()
+    rels = [_max_rel(out, ref_out)] + [_max_rel(a, b) for a, b in zip(got, want)]
+    lse_err = (lse - ref_lse).abs().max().item()
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, *got))
+    log("bench-kernel", f"flash {shape}: out, dq, dk, dv max|err|/max|plain| "
+        f"{', '.join(f'{r:.3e}' for r in rels)} (tol {tol}), lse max|err| {lse_err:.3e} "
+        f"(tol {LSE_ATOL}), finite {finite}")
+    if not (finite and max(rels) <= tol and lse_err <= LSE_ATOL):
+        raise AssertionError(f"#6 / 7a disagree with their plain versions at {shape}")
+    errs = {"flash_fwd": (out.float() - ref_out.float()).abs().max().item(),
+            "flash_bwd_fused": max((a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(got, want))}
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, cot)
+    no_drop = (q, k, v, cot, lse, delta, scale)
+    timed = {"flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale, None, rate, seed),
+                           lambda: fa.flash_softmax_attention_reference(q, k, v, scale, None,
+                                                                        rate, seed),
+                           lambda: fa.flash_attention_fwd(q, k, v, scale),
+                           flash_bound(B, H, N, D, name), lib_fwd),
+             "flash_bwd_fused": (lambda: fa.flash_attention_bwd_fused(*bwd_args),
+                                 lambda: fa.flash_bwd_reference(*bwd_args),
+                                 lambda: fa.flash_attention_bwd_fused(*no_drop),
+                                 flash_bwd_bounds(B, H, N, D, name)["flash_bwd_fused"],
+                                 lib_bwd)}
+    rows = {}
+    for kname, (kernel_fn, plain_fn, no_drop_fn, (bound_ms, bound_by), library_ms) in (
+            timed.items()):
+        ms, ms0 = kernel_ms(kernel_fn), kernel_ms(no_drop_fn)
+        plain_ms = time_ms(plain_fn, iters=5, warmup=1)
+        log("bench-kernel", f"{kname} {shape}: kernel {ms:.4f} ms (dropout 0: {ms0:.4f}), "
+            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), kernel/bound {ms / bound_ms:.1f}x, on {card}")
+        rows[kname] = dict(max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms, ms_dropout0=ms0,
+                           launch=infos[kname], shape=list(BENCH_FLASH_SHAPE))
+    return rows
 
 
 def main() -> int:
@@ -2663,6 +2922,14 @@ def main() -> int:
     cli_fwd, cli_bwd, cli_launches = entry_points_phase(mlc, kerple, card)
     moe_launches = moe_remat_phase(kerple, card)
 
+    # 20. the benchmark runner: sequential with `shared`, --skip-existing and
+    # --ensemble, the ensemble's capture against one model's, then #6 / 7a
+    # at the benchmark baseline's shape
+    bench_k = {**kerple, **flash_k}
+    bench_seq, bench_ens = benchmark_phase(bench_k, card)
+    ensemble_capture_check(bench_k, card)
+    bench_flash = bench_flash_check(fa, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -2721,6 +2988,18 @@ def main() -> int:
         for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
             rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
                          path, bwd_rows[name], launches[name]))
+    # the benchmark runner's calls (phase 20): #1 / #2 at the CLI's shape
+    # (phase 19's rows), #6 / 7a at the baseline's (phase 20 c)
+    flash_tpu = {"flash_fwd": ("flash_attention_fwd.cu", "attention_kernels.py:354"),
+                 "flash_bwd_fused": ("flash_attention_bwd.cu", "flash_bwd.py:197")}
+    for path, launches in (("benchmark_seq", bench_seq), ("benchmark_ensemble", bench_ens)):
+        rows.append((*fwd, path, cli_fwd, launches["masked_linear_coeffs_fwd"]))
+        for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+            rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
+                         path, cli_bwd[name], launches[name]))
+        for name, (source, replaces) in flash_tpu.items():
+            rows.append((name, f"{src}/{source}", f"{pallas}/{replaces}", path,
+                         bench_flash[name], launches[name]))
     # the materialised-T kernels on the pallas_ab path, one row per shape
     for shape in pallas_ab.SHAPES:
         for name, source, replaces in (

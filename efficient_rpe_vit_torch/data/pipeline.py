@@ -159,6 +159,13 @@ class DeviceDataset:
     def num_samples(self) -> int:
         return self.n
 
+    def reseed(self, seed: int) -> None:
+        """Restart the shuffle and augmentation streams as a dataset built
+        with `seed` starts them, keeping the tensors on the device (their
+        addresses stay those a captured CUDA graph reads)."""
+        self._rng = np.random.default_rng(seed)
+        self._aug_gen.manual_seed(seed + 1)
+
     def epoch_order(self) -> np.ndarray:
         """One epoch's sample order: a fresh permutation when shuffling (it
         advances the stream the iterator uses). The gather-fused epoch

@@ -7,13 +7,17 @@ with optax's update rules, a train state with an optional EMA shadow, a
 train step (forward, backward, update) with label smoothing and gradient
 accumulation over microbatches, `make_multi_step` and the gather-fused
 `make_gather_multi_step` / `make_gather_multi_eval` (K steps per call),
-`train_epoch` / `evaluate` with their fused loops, and
+`train_epoch` / `evaluate` with their fused loops, the ensemble engine
+(`create_ensemble_train_state`, the `make_ensemble_*` programs,
+`ensemble_train_epoch` / `ensemble_evaluate`: S seeds trained together,
+each member its own model, optimiser and generator), and
 `make_inference_chain` / `benchmark_inference`. The JAX package
 jits one program per step or scans K of them; here a step runs eagerly on
 the model's device, updating the model and optimiser in place, and on the
 GPU the K-step programs are CUDA graphs (`_Replays`): K full steps
-captured once per input shape and replayed by one call. Dropout masks and
-augmentation draws come from the generator each call is given.
+captured once per input shape and replayed by one call (an ensemble's S
+members' steps in one graph). Dropout masks and augmentation draws come
+from the generator each call is given, one per member in an ensemble.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import copy
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -259,6 +263,46 @@ def create_train_state(model: nn.Module, config, steps_per_epoch: int = 100,
                       ema_params=ema, ema_decay=float(ema_decay))
 
 
+@torch.no_grad()
+def copy_module_(dst: nn.Module, src: nn.Module) -> None:
+    """Copy every parameter and buffer of `src` into `dst`'s tensor of the
+    same name, in place (a captured CUDA graph keeps reading `dst`'s)."""
+    theirs = {**dict(src.named_parameters()), **dict(src.named_buffers())}
+    ours = [*dst.named_parameters(), *dst.named_buffers()]
+    if sorted(theirs) != sorted(name for name, _ in ours):
+        raise ValueError(f"{type(src).__name__} and {type(dst).__name__} hold "
+                         "different parameters or buffers")
+    for name, t in ours:
+        t.copy_(theirs[name])
+
+
+@torch.no_grad()
+def reset_train_state(state: TrainState, template: nn.Module) -> TrainState:
+    """Make `state` what `create_train_state` makes for `template` (a freshly
+    built model of the same structure) without moving a tensor: the
+    template's parameters and buffers are copied into `state.model`, every
+    optimiser state tensor (moments, momentum traces, the capturable step
+    counts) is zeroed, the learning rate is set back to schedule(0), the
+    update count to 0 and the EMA shadow to the parameters. A CUDA graph
+    captured for the state then computes a fresh state's steps."""
+    copy_module_(state.model, template)
+    for per_param in state.optimizer.state.values():
+        for value in per_param.values():
+            if isinstance(value, torch.Tensor):
+                value.zero_()
+    lr = state.schedule(0)
+    for group in state.optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+    state.step = 0
+    if state.ema_params is not None:
+        for name, p in state.model.named_parameters():
+            state.ema_params[name].copy_(p)
+    return state
+
+
 # ─── loss and steps ─────────────────────────────────────────────────────
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -386,11 +430,14 @@ class _Replays:
     objects alive, and the caller puts their identity in the key. The
     body's Python runs only at capture (so wrappers' `.launches` count the
     kernels a graph holds, once) and must make no host read of a device
-    value. Random draws come from a generator of the graph's own,
-    registered with it: before each replay it takes the caller's
-    generator state and after it gives the advanced state back, so the
-    caller's generator moves on as it would over the eager steps and the
-    next replay draws new masks. `before_capture`, when set, is called
+    value. Random draws come from generators of the graph's own, one for
+    each generator the caller passes (one, or a tuple of them: an
+    ensemble's members each draw from their own), all registered with the
+    graph: before each replay each takes its caller generator's state and
+    after it gives the advanced state back, so the caller's generators
+    move on as they would over the eager steps and the next replay draws
+    new masks. The body gets the graph's generators in the form the
+    caller gave its own. `before_capture`, when set, is called
     between a key's warm-up and its capture (a caller that counts
     launches reads the warm-up's there and zeroes them, so that what it
     reads after the call is the graph's own).
@@ -407,7 +454,10 @@ class _Replays:
             return body(*copied, generator)
 
     def __call__(self, key: tuple, body: Callable, copied: Tuple[torch.Tensor, ...],
-                 generator: Optional[torch.Generator] = None, pins=()):
+                 generator: Union[torch.Generator, Tuple[torch.Generator, ...], None] = None,
+                 pins=()):
+        callers = (() if generator is None else (generator,)
+                   if isinstance(generator, torch.Generator) else tuple(generator))
         entry = self.graphs.get(key)
         if entry is None:
             current = torch.cuda.current_stream(self.device)
@@ -419,22 +469,24 @@ class _Replays:
             if self.before_capture is not None:
                 self.before_capture()
             static = tuple(t.clone() for t in copied)
-            own = None if generator is None else torch.Generator(self.device)
+            owns = tuple(torch.Generator(self.device) for _ in callers)
             graph = torch.cuda.CUDAGraph()
-            if own is not None:
+            for own in owns:
                 graph.register_generator_state(own)
+            given = (None if generator is None else owns[0]
+                     if isinstance(generator, torch.Generator) else owns)
             with torch.cuda.graph(graph):
-                static_out = self._run(body, static, own)
-            self.graphs[key] = (graph, static, static_out, own, pins)
+                static_out = self._run(body, static, given)
+            self.graphs[key] = (graph, static, static_out, owns, pins)
             return out
-        graph, static, static_out, own, _ = entry
+        graph, static, static_out, owns, _ = entry
         for dst, src in zip(static, copied):
             dst.copy_(src)
-        if own is not None:
-            own.set_state(generator.get_state())
+        for own, caller in zip(owns, callers):
+            own.set_state(caller.get_state())
         graph.replay()
-        if own is not None:
-            generator.set_state(own.get_state())
+        for own, caller in zip(owns, callers):
+            caller.set_state(own.get_state())
         return tuple(t.clone() for t in static_out)
 
 
@@ -599,6 +651,7 @@ def make_gather_multi_step(model: nn.Module, label_smoothing: float = 0.0,
         return state, losses, corrects
 
     gather_step.augment = augment
+    gather_step.replays = replays
     return gather_step
 
 
@@ -645,28 +698,31 @@ def make_gather_multi_eval(model: nn.Module,
     _check_on(model, device, "eval")
     replays = _Replays(device, inference=True) if device.type == "cuda" else None
 
-    def body(idx, images_u8, labels_all, mean, std):
-        model.eval()
-        losses, corrects, preds = [], [], []
-        for rows in idx:
-            x, y = _gather_batch(images_u8, labels_all, rows, mean, std, None, None)
-            logits = model(x)
-            p = logits.argmax(dim=-1)
-            losses.append(cross_entropy_loss(logits, y))
-            corrects.append((p == y).sum())
-            preds.append(p)
-        return torch.stack(losses), torch.stack(corrects), torch.stack(preds)
-
     def gather_eval(images_u8, labels_all, mean, std, idx):
         idx = np.asarray(idx, dtype=np.int32)
         data = (images_u8, labels_all, mean, std)
         if replays is None:
             with torch.inference_mode():
-                return body(torch.from_numpy(idx), *data)
-        return replays((idx.shape, *map(id, data)), lambda i, _: body(i, *data),
+                return _eval_chunk(model, torch.from_numpy(idx), *data)
+        return replays((idx.shape, *map(id, data)), lambda i, _: _eval_chunk(model, i, *data),
                        (_to_card(idx, device),), pins=data)
 
     return gather_eval
+
+
+def _eval_chunk(model: nn.Module, idx, images_u8, labels_all, mean, std):
+    """K eval forwards of `model` over the rows idx [K, B]: (losses [K],
+    corrects [K], preds [K, B])."""
+    model.eval()
+    losses, corrects, preds = [], [], []
+    for rows in idx:
+        x, y = _gather_batch(images_u8, labels_all, rows, mean, std, None, None)
+        logits = model(x)
+        p = logits.argmax(dim=-1)
+        losses.append(cross_entropy_loss(logits, y))
+        corrects.append((p == y).sum())
+        preds.append(p)
+    return torch.stack(losses), torch.stack(corrects), torch.stack(preds)
 
 
 # ─── epoch and evaluation loops ─────────────────────────────────────────
@@ -848,6 +904,344 @@ def evaluate(eval_step: Callable, dataset, num_classes: Optional[int] = None,
         detail.pop("accuracy", None)
         out.update(detail)
     return out
+
+
+# ─── ensembles: S members, each its own model, optimiser and generator ──
+
+@dataclass
+class EnsembleTrainState:
+    """S members trained together (`create_ensemble_train_state`): member i
+    is `members[i]`, a `TrainState` of its own model, optimiser, schedule,
+    update count and EMA shadow. The JAX package stacks the members' arrays
+    and vmaps one member's program over them; here each member keeps its
+    module and runs its own steps, and on the GPU the `make_ensemble_*`
+    programs capture all members' steps in one CUDA graph."""
+
+    members: List[TrainState]
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def eval_view(self) -> List[nn.Module]:
+        """Each member's `TrainState.eval_view()`: its EMA copy, refreshed
+        in place, or its model."""
+        return [member.eval_view() for member in self.members]
+
+
+def _structure(model: nn.Module):
+    return (type(model), [(n, tuple(t.shape), t.dtype, t.device) for n, t in
+                          [*model.named_parameters(), *model.named_buffers()]])
+
+
+def create_ensemble_train_state(models: Sequence[nn.Module], config,
+                                steps_per_epoch: int = 100,
+                                ema_decay: float = 0.0) -> EnsembleTrainState:
+    """Train states for S seeds at once: one `create_train_state` per model
+    of `models`, which the caller builds, each from its own seed, as the
+    train CLI builds its one model. The members share one optimiser
+    configuration and one step program, so models that differ in structure
+    (class, parameter or buffer names, shapes, dtypes or devices) are
+    refused, as is one model passed twice."""
+    models = list(models)
+    if not models:
+        raise ValueError("an ensemble needs at least one member")
+    if len({id(m) for m in models}) != len(models):
+        raise ValueError("each ensemble member needs a model of its own")
+    layout = _structure(models[0])
+    for i, model in enumerate(models[1:], 1):
+        if _structure(model) != layout:
+            raise ValueError(f"ensemble member {i} differs in structure from member 0: "
+                             "the members share one optimiser configuration and one "
+                             "step program")
+    return EnsembleTrainState([create_train_state(m, config, steps_per_epoch, ema_decay)
+                               for m in models])
+
+
+def ensemble_member(state: EnsembleTrainState, i: int) -> TrainState:
+    """Member i's `TrainState`, the member itself (not a copy): saving it
+    checkpoints that seed's model, `eval_view()` serves it."""
+    return state.members[i]
+
+
+def _check_ensemble(state: EnsembleTrainState, models: List[nn.Module],
+                    generators, device: torch.device, step: str) -> None:
+    if len(state.members) != len(models) or any(
+            m.model is not model for m, model in zip(state.members, models)):
+        raise ValueError("the ensemble state was created for other models")
+    if len(generators) != len(models):
+        raise ValueError(f"{len(generators)} generators for {len(models)} members")
+    for i, member in enumerate(state.members):
+        _check_call(member, models[i], generators[i], device)
+    if device.type == "cuda":
+        for i, member in enumerate(state.members):
+            blocker = _graph_blocker(member.model, member.optimizer)
+            if blocker:
+                raise NotImplementedError(f"{step} on the GPU: member {i}: {blocker}")
+
+
+def _member_lr_tables(state: EnsembleTrainState, k: int) -> np.ndarray:
+    """[S, K] fp32: each member's learning rates of its next K updates."""
+    return np.stack([_lr_table(m.schedule, m.step, k) for m in state.members])
+
+
+def _stacked(outs) -> Tuple[torch.Tensor, ...]:
+    """Per-member tuples of tensors -> one tensor per position, stacked
+    over the members."""
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def make_ensemble_train_step(models: Sequence[nn.Module], label_smoothing: float = 0.0,
+                             mesh=None, member_axis: str = "data",
+                             device: Union[str, torch.device, None] = None
+                             ) -> Callable[..., Tuple[EnsembleTrainState, torch.Tensor,
+                                                      torch.Tensor]]:
+    """One train step of every member on a shared batch: `ensemble_step(state,
+    images, labels, generators) -> (state, losses [S], corrects [S])`,
+    member i's step `make_train_step`'s with `generators[i]` (its dropout
+    masks and redrawn features). On the GPU all S steps are one CUDA graph
+    per batch shape (`_Replays`, one registered generator per member); on
+    the CPU they run one after the other. `mesh` (members sharded over
+    `member_axis`) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"make_ensemble_train_step over a mesh ({member_axis!r} axis) is not ported: "
+            "the multi-device paths come with the parallelism slice (ROADMAP.md Queue A #7)")
+    device = resolve_device(device)
+    models = list(models)
+    steps = [make_train_step(m, label_smoothing=label_smoothing, device=device)
+             for m in models]
+    runs = [_step_body(m, 1, label_smoothing) for m in models]
+    replays = _Replays(device)
+
+    def ensemble_step(state: EnsembleTrainState, images, labels, generators):
+        _check_ensemble(state, models, generators, device, "make_ensemble_train_step")
+        if device.type != "cuda":
+            outs = [steps[i](m, images, labels, generators[i])[1:]
+                    for i, m in enumerate(state.members)]
+            return (state, *_stacked(outs))
+        images = torch.as_tensor(images, device=device)
+        labels = torch.as_tensor(labels, device=device)
+        lrs = _to_card(_member_lr_tables(state, 1), device)
+
+        def body(images, labels, lrs, gens):
+            return _stacked([runs[i](m, images, labels, gens[i], lrs[i, 0])
+                             for i, m in enumerate(state.members)])
+
+        key = (id(state), tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype)
+        losses, corrects = replays(key, body, (images, labels, lrs), tuple(generators),
+                                   pins=(state,))
+        for member in state.members:
+            member.step += 1
+        return state, losses, corrects
+
+    return ensemble_step
+
+
+def make_ensemble_gather_multi_step(models: Sequence[nn.Module], label_smoothing: float = 0.0,
+                                    augment: Optional[str] = None,
+                                    per_member_order: bool = False,
+                                    device: Union[str, torch.device, None] = None
+                                    ) -> Callable[..., Tuple[EnsembleTrainState,
+                                                             torch.Tensor, torch.Tensor]]:
+    """K gather-fused train steps of every member per call:
+    `ens_gather_step(state, images_u8, labels_all, mean, std, idx,
+    generators) -> (state, losses [S, K], corrects [S, K])`. Member i
+    gathers its rows, augments from `generators[i]` and runs K full steps:
+    what `make_gather_multi_step`'s step computes for it alone.
+
+    `per_member_order` False: idx is [K, B], shared by the members; True:
+    idx is [S, K, B], each member's own (`ensemble_train_epoch`'s
+    `member_rngs`). On the GPU all S x K steps are one CUDA graph per
+    (S, K, B) and dataset, and the only host-to-device copy of a call is one
+    int32 vector: the indices and the members' K learning rates. On the CPU
+    each member's K steps run as its own loop."""
+    device = resolve_device(device)
+    models = list(models)
+    singles = [make_gather_multi_step(m, label_smoothing, augment, device) for m in models]
+    runs = [_step_body(m, 1, label_smoothing) for m in models]
+    replays = _Replays(device)
+    order_dims = 3 if per_member_order else 2
+
+    def ens_gather_step(state: EnsembleTrainState, images_u8, labels_all, mean, std, idx,
+                        generators):
+        _check_ensemble(state, models, generators, device, "make_ensemble_gather_multi_step")
+        idx = np.asarray(idx, dtype=np.int32)
+        n = len(models)
+        if idx.ndim != order_dims or (per_member_order and idx.shape[0] != n):
+            raise ValueError(f"idx of shape {idx.shape}: expected "
+                             f"{f'[{n}, K, B]' if per_member_order else '[K, B]'} "
+                             f"(per_member_order={per_member_order})")
+        if device.type != "cuda":
+            outs = [singles[i](m, images_u8, labels_all, mean, std,
+                               idx[i] if per_member_order else idx, generators[i])[1:]
+                    for i, m in enumerate(state.members)]
+            return (state, *_stacked(outs))
+        k = idx.shape[-2]
+        lrs = _member_lr_tables(state, k)
+        packed = _to_card(np.concatenate([idx.reshape(-1), lrs.reshape(-1).view(np.int32)]),
+                          device)
+        data = (images_u8, labels_all, mean, std)
+
+        def steps(packed, gens):
+            rows = packed[:idx.size].view(idx.shape)
+            lr = packed[idx.size:].view(torch.float32).view(n, k)
+            outs = []
+            for i, member in enumerate(state.members):
+                own = rows[i] if per_member_order else rows
+                member_outs = []
+                for j in range(k):
+                    x, y = _gather_batch(images_u8, labels_all, own[j], mean, std, augment,
+                                         gens[i])
+                    member_outs.append(runs[i](member, x, y, gens[i], lr[i, j]))
+                outs.append(_stacked(member_outs))
+            return _stacked(outs)
+
+        losses, corrects = replays((id(state), idx.shape, *map(id, data)), steps, (packed,),
+                                   tuple(generators), pins=(state, *data))
+        for member in state.members:
+            member.step += k
+        return state, losses, corrects
+
+    ens_gather_step.augment = augment
+    ens_gather_step.per_member_order = per_member_order
+    ens_gather_step.replays = replays
+    return ens_gather_step
+
+
+def make_ensemble_gather_multi_eval(models: Sequence[nn.Module],
+                                    device: Union[str, torch.device, None] = None
+                                    ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor,
+                                                             torch.Tensor]]:
+    """K eval forwards of every member per call, the members sharing the
+    eval order: `ens_eval(images_u8, labels_all, mean, std, idx [K, B]) ->
+    (losses [S, K], corrects [S, K], preds [S, K, B])`, member i's what
+    `make_gather_multi_eval(models[i])` returns. Pass the members' eval
+    views (`EnsembleTrainState.eval_view()`) to evaluate their EMA shadows.
+    On the GPU one inference-mode CUDA graph per chunk shape and dataset."""
+    device = resolve_device(device)
+    models = list(models)
+    singles = [make_gather_multi_eval(m, device) for m in models]
+    replays = _Replays(device, inference=True)
+
+    def ens_eval(images_u8, labels_all, mean, std, idx):
+        if device.type != "cuda":
+            return _stacked([single(images_u8, labels_all, mean, std, idx)
+                             for single in singles])
+        idx = np.asarray(idx, dtype=np.int32)
+        data = (images_u8, labels_all, mean, std)
+        return replays((idx.shape, *map(id, data)),
+                       lambda i, _: _stacked([_eval_chunk(m, i, *data) for m in models]),
+                       (_to_card(idx, device),), pins=data)
+
+    return ens_eval
+
+
+def _member_sums(totals, outs, scale: int) -> None:
+    """Add each member's row of `outs` [S, K] to its running total as its
+    own loop does: the row's sum (taken from a fresh copy, aligned as a
+    single model's output is, so the reduction is the same) times `scale`."""
+    for i in range(len(totals)):
+        totals[i] = totals[i] + outs[i].clone().sum() * scale
+
+
+def _read_members(losses, corrects, leaves=()) -> Tuple[List[float], List[float]]:
+    """One host read of the members' loss and correct totals (with
+    `leaves`, loss i plus 0 times a sum of a parameter of member i, so the
+    read waits for its last update, as `_EpochMetrics.result` does)."""
+    loss = [torch.as_tensor(t) for t in losses]
+    if leaves:
+        loss = [t + 0.0 * leaf.detach().float().sum() for t, leaf in zip(loss, leaves)]
+    device = loss[0].device
+    both = torch.cat([torch.stack([t.to(device) for t in loss]).double(),
+                      torch.stack([torch.as_tensor(c).to(device) for c in corrects]).double()])
+    host = both.tolist()
+    return host[:len(loss)], host[len(loss):]
+
+
+def ensemble_train_epoch(state: EnsembleTrainState, ens_gather_step: Callable, dataset,
+                         generators: Sequence[torch.Generator], n_members: int,
+                         epoch: int = 0, fused_steps: int = 64,
+                         member_rngs: Optional[List[np.random.Generator]] = None,
+                         verbose: bool = True) -> Tuple[EnsembleTrainState, Dict]:
+    """One epoch of every member through `ens_gather_step`
+    (`make_ensemble_gather_multi_step`) over a `DeviceDataset`, in [K, B]
+    chunks of `fused_steps`. Returns (state, {loss, accuracy: length-S lists,
+    time, samples: per member}).
+
+    With `member_rngs` (S numpy Generators the caller keeps across epochs)
+    each member draws its own epoch permutation: seeded
+    `np.random.default_rng(seed_i)`, member i sees the order a sequential
+    run of seed i sees (`DeviceDataset`'s stream), and the step must be
+    built with `per_member_order=True`. Without them the order is the
+    dataset's, shared. Each member's loss and correct count are summed as
+    `train_epoch` sums one model's, and read by the host once, at the end.
+    """
+    if len(generators) != n_members or len(state) != n_members:
+        raise ValueError(f"{len(generators)} generators and {len(state)} members for "
+                         f"n_members={n_members}")
+    if getattr(ens_gather_step, "augment", None) != getattr(dataset, "augment", None):
+        raise ValueError("the ensemble step must augment as the dataset does: build it "
+                         "with make_ensemble_gather_multi_step(..., augment=dataset.augment)")
+    if getattr(ens_gather_step, "per_member_order", member_rngs is not None) != (
+            member_rngs is not None):
+        raise ValueError("member_rngs needs a step built with per_member_order=True, and "
+                         "a shared order one built with per_member_order=False")
+    t0 = time.perf_counter()
+    if member_rngs is not None:
+        if len(member_rngs) != n_members:
+            raise ValueError(f"member_rngs has {len(member_rngs)} generators for "
+                             f"{n_members} members")
+        per_member = [_index_chunks(g.permutation(dataset.n) if dataset.shuffle
+                                    else np.arange(dataset.n), dataset.batch_size,
+                                    dataset.n, dataset.drop_last, fused_steps)
+                      for g in member_rngs]
+        # the members' chunks have the same shapes: each stack is [S, K, B]
+        chunks = [np.stack(cs) for cs in zip(*per_member)]
+    else:
+        chunks = _index_chunks(dataset.epoch_order(), dataset.batch_size, dataset.n,
+                               dataset.drop_last, fused_steps)
+    loss, correct, seen = [0.0] * n_members, [0] * n_members, 0
+    for chunk in chunks:
+        state, losses, corrects = ens_gather_step(
+            state, dataset.images, dataset.labels, dataset.mean, dataset.std, chunk,
+            generators)
+        _member_sums(loss, losses, chunk.shape[-1])
+        _member_sums(correct, corrects, 1)
+        seen += chunk.shape[-2] * chunk.shape[-1]
+    loss, correct = _read_members(
+        loss, correct, [next(m.model.parameters()) for m in state.members])
+    total = max(1, seen)
+    elapsed = time.perf_counter() - t0
+    accuracy = [100.0 * c / total for c in correct]
+    if verbose:
+        print(f"  epoch {epoch} [ensemble x{n_members}] acc {min(accuracy):.2f}-"
+              f"{max(accuracy):.2f}% ({elapsed:.1f}s)", flush=True)
+    return state, {"loss": [v / total for v in loss], "accuracy": accuracy,
+                   "time": elapsed, "samples": seen}
+
+
+def ensemble_evaluate(ens_gather_eval: Callable, dataset, n_members: int,
+                      fused_steps: int = 64) -> Dict:
+    """Full-split evaluation of every member with `ens_gather_eval`
+    (`make_ensemble_gather_multi_eval`) over a `DeviceDataset` in [K, B]
+    chunks: {loss, accuracy: length-S lists, samples}, each member's as the
+    gather-fused `evaluate` takes one model's, one host read in all."""
+    chunks = _index_chunks(np.arange(dataset.n), dataset.batch_size, dataset.n,
+                           dataset.drop_last, fused_steps)
+    loss, correct, seen = [0] * n_members, [0] * n_members, 0
+    for chunk in chunks:
+        losses, corrects, _ = ens_gather_eval(dataset.images, dataset.labels, dataset.mean,
+                                              dataset.std, chunk)
+        _member_sums(loss, losses, chunk.shape[1])
+        _member_sums(correct, corrects, 1)
+        seen += chunk.size
+    if not chunks:
+        return {"loss": [0.0] * n_members, "accuracy": [0.0] * n_members, "samples": 0}
+    loss, correct = _read_members(loss, correct)
+    total = max(1, seen)
+    return {"loss": [v / total for v in loss],
+            "accuracy": [100.0 * c / total for c in correct],
+            "samples": seen}
 
 
 # ─── inference benchmark ────────────────────────────────────────────────

@@ -433,6 +433,8 @@ def test_entry_points_import_neither_jax_nor_matplotlib_at_module_level():
     functions that draw, so they load on a machine without it."""
     port = REPO / "efficient_rpe_vit_torch"
     files = [port / "experiments" / "train.py", port / "experiments" / "predict.py",
+             port / "experiments" / "benchmark.py", port / "experiments" / "report.py",
+             port / "experiments" / "charts.py", port / "train" / "training.py",
              port / "train" / "checkpoint.py", port / "train" / "benchmark_utils.py",
              port / "data" / "datasets.py", port / "models" / "layers.py"]
     for f in files:
