@@ -173,6 +173,24 @@ Phases, each printed as it runs; any failure exits non-zero:
      c. #6 and 7a against their plain versions at (32, 2, 17, 16), bf16,
         dropout 0.1, their launch_info logged, timed beside their bounds
         and SDPA.
+ 21. serving artifacts (`efficient_rpe_vit_torch.serve`), in a temporary
+     directory; each artifact is saved, loaded with `load_exported` and
+     served from counts of 0, its logits bitwise equal to the live model's:
+     a. ViT-B/16 performer_favor_most_general (phase 4's model and
+        weights, bf16) exported on the card: #1 (launch_info: the mma.sync
+        kernel) launched 12 times per forward at batches 1, 32 and 256,
+        nothing else; artifact and live model timed at 32;
+     b. `baseline`, the fused-phi flagship and `baseline_circulant` at the
+        mnist_config widths (N=17, D=16, bf16), exported on the card, batch
+        32: #6 (3 per forward), #3 (3) and #8 (6, beside 3 of #6);
+     c. the flagship at those widths exported on the CPU and moved to the
+        card: #1 (3 per forward) against a live model on the card;
+     d./e. `experiments.serve_bench.main --vitb --quick` (ViT-B baseline,
+        10 synthetic fit steps, batches 1 / 32 / 256): its rows logged, the
+        bf16 and int8 artifacts smaller than 0.75x and 0.6x the fp32 one,
+        their top-1 agreement and logit MAE against the fp32 artifact on 64
+        probes logged; then #6, #3 and #8 against their plain versions at
+        the mnist-width artifacts' shape, timed beside their bounds.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -444,6 +462,22 @@ MOE_VITB = dict(VITB, batch_size=TRAIN_BATCH, dropout=0.1)
 MOE_EXPERTS = 4
 MOE_GRAD_RTOL = 1e-6
 MOE_WARMUP, MOE_TIMED = 3, 5
+
+# phase 21: serving artifacts (efficient_rpe_vit_torch.serve). The ViT-B
+# flagship artifact (phase 4's model and weights) serves these batches; the
+# mnist_config-width artifacts (dim 32, depth 3, 2 heads, patch 7: N = 17,
+# D = 16, F = 44) serve SERVE_MNIST_BATCH, their kernels at SERVE_SHAPE
+# (B, H, N, D, F). A reloaded artifact runs the same kernels on the same
+# weights as the live model, so its logits must equal the live model's
+# bitwise. serve_bench --vitb fits SERVE_FIT_STEPS steps and times short
+# chains; its reduced artifacts must be smaller than the fp32 one by the JAX
+# package's test factors (bf16 < 0.75x, int8 < 0.6x).
+SERVE_BATCHES = (1, 32, 256)
+SERVE_MNIST = dict(compute_dtype="bfloat16")
+SERVE_MNIST_BATCH = 32
+SERVE_SHAPE = (SERVE_MNIST_BATCH, 2, 17, 16, 44)
+SERVE_FIT_STEPS = 10
+SERVE_BYTES_FACTOR = {"artifact_bf16": 0.75, "artifact_int8": 0.6}
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
@@ -2757,6 +2791,214 @@ def bench_flash_check(fa, card: str):
     return rows
 
 
+def served_kernel_rows(mlc, fa, cr, card: str):
+    """Phase 21: #6, #3 and #8 against their plain versions at the
+    mnist-width artifacts' shape (SERVE_SHAPE, bf16, no mask, dropout 0, the
+    rotation keeping CLS), timed beside their bounds (#6 also beside SDPA).
+    Returns {kernel: row}."""
+    B, H, N, D, F_ = SERVE_SHAPE
+    name, dtype = "bfloat16", torch.bfloat16
+    q, k, v, _, _, _ = _flash_inputs(B, H, N, D, None, 0.0, dtype)
+    scale = D ** -0.5
+    qf, kf, vf, omega, c = _fused_inputs(B, H, N, D, F_, dtype)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(B, H, N, D, generator=g, device="cuda").to(dtype)
+    theta = torch.randn(H, N, D // 2 + 1, generator=g, device="cuda")
+    ct, st = theta.cos().contiguous(), theta.sin().contiguous()
+    rtol, atol = OUT_TOL[name]
+    cases = {
+        "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale)[0],
+                      lambda: fa.flash_softmax_attention_reference(q, k, v, scale)[0],
+                      lambda got, want: _max_rel(got, want) <= FLASH_TOL[name],
+                      flash_bound(B, H, N, D, name),
+                      lambda: F.scaled_dot_product_attention(q, k, v)),
+        "kerple_fused_phi_fwd": (
+            lambda: mlc.kerple_attention_fused_phi_fwd(qf, kf, vf, omega, c)[0],
+            lambda: mlc.kerple_attention_fused_phi_fwd_reference(qf, kf, vf, omega, c)[0],
+            lambda got, want: bool(((got.float() - want.float()).abs()
+                                    <= atol + rtol * want.float().abs()).all()),
+            fused_phi_bound(B, H, N, D, F_, name), None),
+        "circulant_rotate_fwd": (
+            lambda: cr.circulant_rotate_fwd(x, ct, st, True),
+            lambda: cr.circulant_rotate_fwd_reference(x, ct, st, True),
+            lambda got, want: _max_rel(got, want) <= ROT_TOL[name],
+            rotation_bounds(B, H, N, D, name)["circulant_rotate_fwd"], None),
+    }
+    rows = {}
+    for kname, (kernel_fn, plain_fn, agrees, (bound_ms, bound_by), library_fn) in cases.items():
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = agrees(got, want) and bool(torch.isfinite(got.float()).all())
+        ms = kernel_ms(kernel_fn)
+        plain_ms = time_ms(plain_fn, iters=5, warmup=1)
+        library_ms = kernel_ms(library_fn) if library_fn is not None else None
+        log("serve-export", f"{kname} B{B} H{H} N{N} D{D}{f' F{F_}' if 'phi' in kname else ''} "
+            f"{name}: max|err| {err:.3e}, agrees with its plain version {ok}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{'' if library_ms is None else f'SDPA {library_ms:.4f} ms, '}bound "
+            f"{bound_ms:.5f} ms ({bound_by}), kernel/bound {ms / bound_ms:.1f}x, on {card}")
+        if not ok:
+            raise AssertionError(f"{kname} disagrees with its plain version at {SERVE_SHAPE}")
+        rows[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms, shape=list(SERVE_SHAPE))
+    return rows
+
+
+def serve_artifact(label: str, model, live, wrappers, per_forward, batches, out_dir: str,
+                   export_device: str, card: str):
+    """One artifact of `model` exported on `export_device`, saved under
+    `out_dir` and loaded on the card with `load_exported`; at each batch one
+    forward of the artifact from counts of 0 must launch `per_forward`, and
+    its logits must equal the live model `live`'s bitwise. Returns the
+    launches summed over the batches."""
+    from efficient_rpe_vit_torch.serve import load_exported, save_exported
+
+    m = live.image_size, live.in_channels
+    t0 = time.perf_counter()
+    path = save_exported(f"{out_dir}/{label}.pt2", model, image_size=m[0], in_channels=m[1],
+                         device=export_device)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, meta = load_exported(path)
+    log("serve-export", f"{label}: exported on {meta['device']} in {t_export:.1f} s, "
+        f"{Path(path).stat().st_size} bytes, loaded on the card in "
+        f"{time.perf_counter() - t0:.1f} s; out_avals {meta['out_avals']}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    total = {n: 0 for n in wrappers}
+    for B in batches:
+        x = torch.randn(B, m[0], m[0], m[1], generator=g, device="cuda")
+        # the main path: counts from 0, read right after
+        zero_counts(wrappers)
+        got = fn(x)
+        torch.cuda.synchronize()
+        launches = counts(wrappers)
+        with torch.inference_mode():
+            want = live(x)
+        diff = (got - want).abs().max().item()
+        log("serve-export", f"{label} B={B}: launches {launches} (expected {per_forward}); "
+            f"logits {tuple(got.shape)} vs the live model: max|diff| {diff:.3e}, bitwise "
+            f"{torch.equal(got, want)}")
+        if launches != per_forward:
+            raise AssertionError(f"{label} launched {launches} at B={B}, expected {per_forward}")
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{label}'s logits differ from the live model's at B={B}")
+        for n in total:
+            total[n] += launches[n]
+    if 32 in batches:
+        x = torch.randn(32, m[0], m[0], m[1], generator=g, device="cuda")
+        times = {}
+        for arm, run in (("artifact", fn), ("live", live)):
+            with torch.inference_mode():
+                for _ in range(2):
+                    run(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    run(x)
+                torch.cuda.synchronize()
+            times[arm] = (time.perf_counter() - t0) / 10 * 1e3
+        log("serve-export", f"{label} B=32, host clock over 10 forwards: artifact "
+            f"{times['artifact']:.3f} ms, live model {times['live']:.3f} ms, on {card}")
+    return total
+
+
+def serve_export_phase(mlc, fa, cr, card: str):
+    """Phase 21: serving artifacts (`efficient_rpe_vit_torch.serve`) on the
+    card: a. the ViT-B/16 flagship (phase 4's model) exported on the card,
+    #1 launched 12 times per forward at SERVE_BATCHES; b. `baseline`, the
+    fused-phi flagship and `baseline_circulant` at mnist_config widths,
+    exported on the card (#6, #3, #8); c. the flagship at those widths
+    exported on the CPU, moved to the card (#1); d./e. serve_bench --vitb
+    (reduced-weight artifacts: bytes and top-1 agreement against the fp32
+    artifact; latency rows). Returns {path: (kernel, launches)} and the
+    served kernels' rows at SERVE_SHAPE."""
+    import tempfile
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.experiments import serve_bench
+    from efficient_rpe_vit_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    kerple, flash_k = kerple_wrappers(mlc), flash_wrappers(fa)
+    served = {**kerple, **flash_k, "circulant_rotate_fwd": cr.circulant_rotate_fwd}
+    info = mlc.launch_info("masked_linear_coeffs_fwd", 197, 266, 64, torch.bfloat16)
+    log("serve-export", "masked_linear_coeffs_fwd N=197 F=266 D=64 bfloat16: " + ", ".join(
+        f"{key} {value}" for key, value in info.items()))
+    if info["kernel"] != "mma.sync":
+        raise AssertionError("the flagship artifact's #1 is not the mma.sync kernel")
+
+    def per_forward(**nonzero):
+        return {n: nonzero.get(n, 0) for n in served}
+
+    seed = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. the ViT-B/16 flagship, exported on the card
+        vitb = create_model("performer_favor_most_general", mnist_config(**VITB),
+                            device="cuda", generator=seed(), rpe_config={"method": "pallas"})
+        out["serve_export_vitb"] = ("masked_linear_coeffs_fwd", serve_artifact(
+            "vitb_flagship", vitb, vitb, served,
+            per_forward(masked_linear_coeffs_fwd=VITB["depth"]), SERVE_BATCHES, tmp,
+            "cuda", card))
+        del vitb
+        # b. mnist_config widths, exported on the card
+        cfg = mnist_config(**SERVE_MNIST)
+        depth = cfg.model.depth
+        for path, name, kw, kname, n in (
+                ("serve_export_baseline", "baseline", {}, "flash_fwd", depth),
+                ("serve_export_fused", "performer_favor_most_general",
+                 {"attention_config": {"fused_phi": True}}, "kerple_fused_phi_fwd", depth),
+                ("serve_export_circulant", "baseline_circulant", {}, "circulant_rotate_fwd",
+                 2 * depth)):
+            model = create_model(name, cfg, device="cuda", generator=seed(), **kw)
+            want = per_forward(**{kname: n}, **({"flash_fwd": depth}
+                                                if name == "baseline_circulant" else {}))
+            out[path] = (kname, serve_artifact(path.removeprefix("serve_export_"), model, model,
+                                               served, want, (SERVE_MNIST_BATCH,), tmp, "cuda",
+                                               card))
+        # c. the flagship at those widths exported on the CPU, served on the card
+        on_cpu = create_model("performer_favor_most_general", cfg, device="cpu",
+                              generator=seed())
+        live = create_model("performer_favor_most_general", cfg, device="cuda",
+                            generator=seed())
+        out["serve_export_cpu"] = ("masked_linear_coeffs_fwd", serve_artifact(
+            "flagship_cpu_export", on_cpu, live, served,
+            per_forward(masked_linear_coeffs_fwd=depth), (SERVE_MNIST_BATCH,), tmp, "cpu",
+            card))
+
+        # d. / e. serve_bench --vitb: reduced weights and latency rows
+        zero_counts(served)
+        t0 = time.perf_counter()
+        result = serve_bench.main(["--vitb", "--fit-steps", str(SERVE_FIT_STEPS), "--quick",
+                                   "--batches", *map(str, SERVE_BATCHES),
+                                   "--out", f"{tmp}/serve_bench.json"])
+        torch.cuda.synchronize()
+        launches = counts(served)
+        log("serve-bench", f"serve_bench --vitb ({result['model']}) in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        if launches["flash_fwd"] == 0:
+            raise AssertionError("serve_bench --vitb launched no flash forward")
+        out["serve_bench_vitb"] = ("flash_fwd", launches)
+    for row in result["rows"]:
+        log("serve-bench", json.dumps(row))
+    size = {r["case"]: r["artifact_bytes"] for r in result["rows"] if "artifact_bytes" in r}
+    agreement = result["agreement_vs_fp32_artifact"]
+    for label, factor in SERVE_BYTES_FACTOR.items():
+        ratio = size[label] / size["artifact_fp32"]
+        a = agreement[label]
+        log("serve-bench", f"{label}: {size[label]} bytes, {ratio:.4f}x the fp32 artifact's "
+            f"{size['artifact_fp32']} (limit {factor}x); top-1 agreement with the fp32 "
+            f"artifact {a['top1_agreement']:.4f} on 64 probes, logit MAE {a['logit_mae']:.4f} "
+            f"(|logit| max {a['logit_max_abs']:.2f}), on {card}")
+        if ratio >= factor or not math.isfinite(a["logit_mae"]):
+            raise AssertionError(f"{label} is not smaller than {factor}x the fp32 artifact "
+                                 "or its logits are not finite")
+    rows = served_kernel_rows(mlc, fa, cr, card)
+    log("serve-export", f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return {path: (kname, launches[kname]) for path, (kname, launches) in out.items()}, rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2930,6 +3172,10 @@ def main() -> int:
     ensemble_capture_check(bench_k, card)
     bench_flash = bench_flash_check(fa, card)
 
+    # 21. serving artifacts: the ViT-B flagship and mnist-width artifacts
+    # exported on the card, one exported on the CPU, serve_bench --vitb
+    served_launches, served_rows = serve_export_phase(mlc, fa, cr, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -3010,6 +3256,21 @@ def main() -> int:
             rows.append((name, f"{src}/{source}", f"{pallas}/{replaces}", "pallas_ab",
                          dict(materialised[(name, shape)], shape=list(shape)),
                          ab_launches[shape][name]))
+    # the served artifacts (phase 21): #1 at phase 3's serving shape (ViT-B)
+    # and at the CLI's (mnist widths, the CPU export), #6 of serve_bench
+    # --vitb at phase 3c's serving shape, the rest at SERVE_SHAPE
+    served_src = {
+        "masked_linear_coeffs_fwd": fwd[1:],
+        "flash_fwd": flash_fwd[1:],
+        "kerple_fused_phi_fwd": fused_fwd[1:],
+        "circulant_rotate_fwd": (rot_src, f"{rot_tpu}:107"),
+    }
+    served_at = {"serve_export_vitb": kernel[("bfloat16", VITB["batch_size"])],
+                 "serve_export_cpu": cli_fwd,
+                 "serve_bench_vitb": flash[("flash_fwd", "baseline_serve")]}
+    for path, (name, launches) in served_launches.items():
+        rows.append((name, *served_src[name], path, served_at.get(path, served_rows.get(name)),
+                     launches))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Offline inference CLI of the port: load a checkpoint, classify images.
 
-Counterpart of `experiments/predict.py` (the JAX package's CLI) in its
-checkpoint mode: restore a `save_checkpoint` file (its metadata sidecar
+Counterpart of `experiments/predict.py` (the JAX package's CLI). With
+`--checkpoint`: restore a `save_checkpoint` file (its metadata sidecar
 names the variant, the dataset and the architecture knobs), serve the EMA
 shadow when one was tracked, and either
 
@@ -15,8 +15,14 @@ shadow when one was tracked, and either
     python -m efficient_rpe_vit_torch.experiments.predict --checkpoint ckpt.pt \\
         --input digits.npy --output preds.json
 
-The GPU unless `--cpu` is given. `--artifact` (serving an exported
-artifact) is refused: the export path is not ported.
+With `--artifact` (written by `experiments.export`): serve the exported
+program alone, with the geometry and normalisation of its sidecar, on an
+.npy batch or the sidecar dataset's test split; no model code is built.
+
+    python -m efficient_rpe_vit_torch.experiments.predict --artifact model.pt2 \\
+        --input digits.npy
+
+The GPU unless `--cpu` is given.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help="path written by save_checkpoint")
     p.add_argument("--artifact", default=None,
-                   help="serving artifact written by an export (not ported)")
+                   help="serving artifact written by experiments.export")
     p.add_argument("--model", default=None,
                    help="variant name; default from the checkpoint metadata")
     p.add_argument("--dataset", default=None, choices=[None, "mnist", "cifar10"],
@@ -125,22 +131,61 @@ def _render_attention_maps(model, x, out_png):
     return out_png
 
 
+def _predict_from_artifact(args, device):
+    """Serve an exported artifact: no model code, no config import for an
+    .npy batch; the geometry and normalisation come from its sidecar."""
+    from ..serve import load_exported
+
+    fn, meta = load_exported(args.artifact, device=device)
+    if "input_shape" not in meta:
+        raise SystemExit(
+            f"artifact sidecar {args.artifact}.meta.json is missing or incomplete: "
+            "it carries the input geometry and normalisation stats; re-export with "
+            "experiments.export or copy the sidecar next to the artifact")
+    md = meta.get("metadata", {})
+    _, H, W, C = meta["input_shape"]
+    mean = np.asarray(md.get("mean", [0.0]), np.float32)
+    std = np.asarray(md.get("std", [1.0]), np.float32)
+    name = md.get("model_name", "artifact")
+
+    if args.input:
+        x = _normalise(_load_input_npy(args.input, C), mean, std)
+        return _classify_and_emit(lambda xb: fn(torch.as_tensor(xb, device=device)), x,
+                                  args.batch_size, name, args.output)
+
+    # evaluate the test split of the sidecar's dataset
+    from ..configs import get_dataset_config
+    from ..data import get_dataloaders
+
+    dataset = args.dataset or md.get("dataset", "mnist")
+    _, test_ds = get_dataloaders(get_dataset_config(dataset), device=device)
+    correct = total = 0
+    for images, labels in test_ds:
+        correct += int((fn(images).argmax(-1) == labels).sum())
+        total += int(labels.shape[0])
+    acc = 100.0 * correct / max(1, total)
+    print(f"{name} (artifact) on {dataset} test split: "
+          f"acc {acc:.2f}% over {total} samples")
+    return {"accuracy": acc, "samples": total}
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.artifact is not None:
-        raise SystemExit("--artifact is not ported: the export / serving path "
-                         "comes later (ROADMAP.md Queue A #6); use --checkpoint")
-    if args.checkpoint is None:
-        raise SystemExit("--checkpoint is required")
+    if (args.checkpoint is None) == (args.artifact is None):
+        raise SystemExit("exactly one of --checkpoint / --artifact required")
+
+    from ..utils.device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else None)
+    if args.artifact:
+        return _predict_from_artifact(args, device)
 
     from ..configs import get_dataset_config
     from ..data import get_dataloaders
     from ..models import create_model
     from ..train import (benchmark_inference, create_train_state, evaluate,
                          load_checkpoint, make_eval_step, model_kwargs_from_metadata)
-    from ..utils.device import resolve_device
 
-    device = resolve_device("cpu" if args.cpu else None)
     meta = {}
     meta_path = args.checkpoint + ".meta.json"
     if os.path.exists(meta_path):

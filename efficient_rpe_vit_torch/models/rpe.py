@@ -79,6 +79,12 @@ class KerpleRPE(nn.Module):
     init N(0, 0.02) (`ViT.reset_parameters`).
     """
 
+    # parameters used in their own dtype: c = exp(b) is computed in b's
+    # dtype, as flax computes it, so a bf16 serving artifact (which keeps b
+    # in bf16, `serve.export.ServedForward`) rounds c to bf16 as the JAX
+    # package's bf16 artifact does
+    keeps_param_dtype = ("rel_pos_bias",)
+
     def __init__(self, num_patches: int, dim: int, heads: int,
                  method: str = "auto"):
         super().__init__()
@@ -93,8 +99,9 @@ class KerpleRPE(nn.Module):
         return 2 * self.num_patches - 1
 
     def coeffs(self) -> torch.Tensor:
-        """Positive Toeplitz coefficients c_k = exp(b_k), fp32."""
-        return torch.exp(self.rel_pos_bias.float())
+        """Positive Toeplitz coefficients c_k = exp(b_k) in b's dtype, as
+        fp32."""
+        return torch.exp(self.rel_pos_bias).float()
 
     def attention(self, q_prime: torch.Tensor, k_prime: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,8 @@
 
 Counterpart of `efficient_rpe_vit_tpu/ops/pallas/`. CUDA sources live in
 `efficient_rpe_vit_torch/csrc/` and are built by `_build.py` on first use.
+Importing this package registers the forward kernels as `torch.library`
+custom ops (`_library.py`), which exported programs name.
 """
 
 # the differentiable `circulant_rotate` stays in its module of the same name

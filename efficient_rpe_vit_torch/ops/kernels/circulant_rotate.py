@@ -21,9 +21,13 @@ so autograd owns the chain from the circulant coefficients to them, as in
 the JAX package. Every kernel has a wrapper that checks its inputs, takes
 the plain version (`*_reference`, fp32, written from the kernels' math) for
 CPU tensors and launches the kernel for CUDA tensors (never falling back),
-and counts its launches in `<wrapper>.launches`. `circulant_rotate` is the
-differentiable op: a `torch.autograd.Function` over the forward wrapper
-whose backward is `circulant_rotate_bwd`.
+and counts its launches in `<wrapper>.launches`. The forward wrapper calls
+the custom op `efficient_rpe_vit::circulant_rotate_fwd` (`_library.py`),
+whose CPU, CUDA and fake implementations are the plain version, the launch
+and a shape-only one, so `torch.export` keeps it as one node of an
+exported graph. `circulant_rotate` is the differentiable op: a
+`torch.autograd.Function` over the forward op whose backward is
+`circulant_rotate_bwd`.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
+from ._library import define, real_constants
 
 MAX_D = 128  # largest head dim the kernels take (a multiple of 4)
 
@@ -50,9 +55,8 @@ def rdft_matrices(D: int, device=torch.device("cpu")):
     y = y_re @ C_b - y_im @ S_b, with C_f, S_f [D, K] and C_b, S_b [K, D]
     (K = D//2 + 1) by the JAX package's `_rdft_matrices` formula, whose
     C_b / S_b weights fold the Hermitian-half doubling and the 1/D scale.
-    fp32 tensors on `device`, built once per (D, device), as normal tensors
-    even under inference mode (a cached inference tensor could not be saved
-    for a later backward)."""
+    fp32 tensors on `device`, built once per (D, device) as real, normal
+    tensors (`real_constants`)."""
     k = np.arange(D // 2 + 1, dtype=np.float32)
     d = np.arange(D, dtype=np.float32)
     ang = 2 * np.pi * k[:, None] * d[None, :] / D  # [K, D]
@@ -62,7 +66,7 @@ def rdft_matrices(D: int, device=torch.device("cpu")):
         w[-1] = 1.0
     mats = (np.cos(ang).T, np.sin(ang).T,
             np.cos(ang) * w[:, None] / D, np.sin(ang) * w[:, None] / D)
-    with torch.inference_mode(False):
+    with real_constants():
         return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device) for m in mats)
 
 
@@ -73,7 +77,7 @@ def _kernel_matrices(D: int, device):
     im_0 .. im_{h-1}, re_h, im_h] with h = D // 2 (the Nyquist pair last)."""
     C_f, S_f, C_b, S_b = rdft_matrices(D, device)
     h = D // 2
-    with torch.inference_mode(False):
+    with real_constants():
         fm = torch.cat([C_f[:, :h], -S_f[:, :h], C_f[:, h:], -S_f[:, h:]], dim=1)
         bm = torch.cat([C_b[:h], -S_b[:h], C_b[h:], -S_b[h:]], dim=0)
         return fm.contiguous(), bm.contiguous()
@@ -230,9 +234,37 @@ def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype,
     return launch_info_dict(info)
 
 
+def _fwd_cuda(x, ct, st, keep_cls):
+    _check(x, ct, st)
+    B, H, N, D = x.shape
+    lib = _lib()
+    fm, bm = _kernel_matrices(D, x.device)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    launch(lib.circulant_rotate_error_string, "circulant_rotate_fwd",
+           getattr(lib, f"circulant_rotate_fwd_{dtype_suffix(x.dtype)}"), x.device,
+           x, ct, st, fm, bm, out, B, H, N, D, int(keep_cls), *x.stride()[:3])
+    circulant_rotate_fwd.launches += 1
+    return out
+
+
+def _fwd_cpu(x, ct, st, keep_cls):
+    _check(x, ct, st)
+    return circulant_rotate_fwd_reference(x, ct, st, keep_cls)
+
+
+def _fwd_fake(x, ct, st, keep_cls):
+    _check(x, ct, st)  # refuses meta tensors, which land here, like any other device
+    return x.new_empty(x.shape)
+
+
+_fwd_op = define("circulant_rotate_fwd",
+                 "(Tensor x, Tensor ct, Tensor st, bool keep_cls) -> Tensor",
+                 _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
 def circulant_rotate_fwd(x, ct, st, keep_cls: bool = False) -> torch.Tensor:
     """Rotate x by the per-(head, position) half-spectrum angles. Replaces
-    `_rot_kernel`.
+    `_rot_kernel`; the custom op `efficient_rpe_vit::circulant_rotate_fwd`.
 
     Args:
         x: [B, H, N, D] bfloat16 or float32 with a contiguous last dim (other
@@ -246,18 +278,7 @@ def circulant_rotate_fwd(x, ct, st, keep_cls: bool = False) -> torch.Tensor:
         ValueError / TypeError on malformed inputs, RuntimeError when the
         kernel launch is refused.
     """
-    _check(x, ct, st)
-    if on_cpu(x):
-        return circulant_rotate_fwd_reference(x, ct, st, keep_cls)
-    B, H, N, D = x.shape
-    lib = _lib()
-    fm, bm = _kernel_matrices(D, x.device)
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    launch(lib.circulant_rotate_error_string, "circulant_rotate_fwd",
-           getattr(lib, f"circulant_rotate_fwd_{dtype_suffix(x.dtype)}"), x.device,
-           x, ct, st, fm, bm, out, B, H, N, D, int(keep_cls), *x.stride()[:3])
-    circulant_rotate_fwd.launches += 1
-    return out
+    return _fwd_op(x, ct, st, bool(keep_cls))
 
 
 def circulant_rotate_bwd(g, x, ct, st, keep_cls: bool = False):
@@ -300,7 +321,7 @@ class _CirculantRotate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ct, st, keep_cls):
-        out = circulant_rotate_fwd(x, ct, st, keep_cls)
+        out = _fwd_op(x, ct, st, keep_cls)
         ctx.save_for_backward(x, ct, st)
         ctx.keep_cls = keep_cls
         return out

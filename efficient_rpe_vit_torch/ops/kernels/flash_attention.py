@@ -19,8 +19,12 @@ attention-probability dropout inside the kernel, from a counter hash of
 Every kernel has a wrapper that checks its inputs, takes the plain version
 (`*_reference`) for CPU tensors and launches the kernel for CUDA tensors
 (never falling back), and counts its launches in `<wrapper>.launches`.
+The forward wrapper calls the custom op `efficient_rpe_vit::
+flash_attention_fwd` (`_library.py`), whose CPU, CUDA and fake
+implementations are the plain version, the launch and a shape-only one, so
+`torch.export` keeps it as one node of an exported graph.
 `flash_softmax_attention` is the differentiable op: a
-`torch.autograd.Function` over the forward wrapper whose backward is
+`torch.autograd.Function` over the forward op whose backward is
 `flash_attention_bwd`.
 """
 
@@ -35,6 +39,7 @@ from torch.autograd.function import once_differentiable
 
 from ._build import LAUNCH_INFO_KEYS  # noqa: F401 (re-exported: what launch_info reports)
 from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
+from ._library import define
 
 # the finite mask value of the forward (JAX: -0.7 * float32 max); the
 # backward masks with -inf
@@ -387,11 +392,62 @@ def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
     return launch_info_dict(info)
 
 
+def _check_extras(q, mask, seed) -> int:
+    """The op's mask ([B, 1|H, N, N] bool, contiguous) and seed (int32 [1])
+    as `_extras` gives them, on q's device; returns the mask's head count."""
+    for name, t, dtype in (("mask", mask, torch.bool), ("seed", seed, torch.int32)):
+        if t is None:
+            continue
+        if t.device != q.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}")
+    if mask is None:
+        return 1
+    B, H, N, _ = q.shape
+    if mask.dim() != 4 or mask.shape[0] != B or mask.shape[1] not in (1, H) \
+            or mask.shape[2:] != (N, N):
+        raise ValueError(f"mask must be [B, 1|H, N, N] = [{B}, 1|{H}, {N}, {N}], "
+                         f"got {tuple(mask.shape)}")
+    return mask.shape[1]
+
+
+def _fwd_cuda(q, k, v, mask, seed, scale, dropout_rate):
+    _check(q, k, v)
+    Hm = _check_extras(q, mask, seed)
+    if dropout_rate > 0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    lib = _fwd_lib()
+    out = torch.empty_like(v)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    launch(lib.flash_fwd_error_string, "flash_fwd",
+           getattr(lib, f"flash_fwd_{dtype_suffix(q.dtype)}"), q.device,
+           q, k, v, mask, seed, out, lse, *_scalars(q, Hm, scale, dropout_rate))
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def _fwd_cpu(q, k, v, mask, seed, scale, dropout_rate):
+    _check(q, k, v)
+    _check_extras(q, mask, seed)
+    return flash_softmax_attention_reference(q, k, v, scale, mask, dropout_rate, seed)
+
+
+def _fwd_fake(q, k, v, mask, seed, scale, dropout_rate):
+    _check(q, k, v)  # refuses meta tensors, which land here, like any other device
+    _check_extras(q, mask, seed)
+    return torch.empty_like(v), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+_fwd_op = define("flash_attention_fwd",
+                 "(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? seed, float scale,"
+                 " float dropout_rate) -> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
 def flash_attention_fwd(q, k, v, scale: float, mask=None,
                         dropout_rate: float = 0.0, dropout_seed=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention forward with the row log-sum-exp. Replaces
-    `_flash_kernel`.
+    `_flash_kernel`; the custom op `efficient_rpe_vit::flash_attention_fwd`
+    after the mask and seed are put in the form it takes (`_extras`).
 
     Args:
         q, k, v: [B, H, N, D], one dtype (bfloat16 or float32), contiguous,
@@ -408,19 +464,8 @@ def flash_attention_fwd(q, k, v, scale: float, mask=None,
         ValueError / TypeError on malformed inputs, RuntimeError when the
         kernel launch is refused.
     """
-    _check(q, k, v)
-    if on_cpu(q):
-        return flash_softmax_attention_reference(q, k, v, scale, mask,
-                                                 dropout_rate, dropout_seed)
-    mask, Hm, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
-    lib = _fwd_lib()
-    out = torch.empty_like(v)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    launch(lib.flash_fwd_error_string, "flash_fwd",
-           getattr(lib, f"flash_fwd_{dtype_suffix(q.dtype)}"), q.device,
-           q, k, v, mask, seed, out, lse, *_scalars(q, Hm, scale, rate))
-    flash_attention_fwd.launches += 1
-    return out, lse
+    mask, _, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
+    return _fwd_op(q, k, v, mask, seed, float(scale), rate)
 
 
 def _bwd_launch(kind: str, q, k, v, g, lse, delta, scale, mask, dropout_rate,
@@ -520,7 +565,7 @@ class _FlashSoftmax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, scale, rate):
-        out, lse = flash_attention_fwd(q, k, v, scale, mask, rate, seed)
+        out, lse = _fwd_op(q, k, v, mask, seed, scale, rate)
         ctx.save_for_backward(q, k, v, out, lse, mask, seed)
         ctx.scale, ctx.rate = scale, rate
         return out

@@ -20,7 +20,11 @@ tensor exists on the kernel path.
 Every kernel has a wrapper that checks its inputs, takes the plain version
 for CPU tensors and launches the kernel for CUDA tensors (never falling
 back), and counts its launches in `<wrapper>.launches`. The plain versions
-(`*_reference`) sit beside them. `masked_linear_attention_coeffs` and
+(`*_reference`) sit beside them. The two forward wrappers call custom ops
+of the same names in the `efficient_rpe_vit` namespace (`_library.py`),
+whose CPU, CUDA and fake implementations are the plain version, the
+launch and a shape-only one, so `torch.export` keeps each as one node of
+an exported graph. `masked_linear_attention_coeffs` and
 `kerple_attention_fused_phi` are the differentiable ops:
 `torch.autograd.Function`s over the forward wrappers whose backward is
 `masked_linear_attention_coeffs_bwd` (for the fused op, after phi is
@@ -41,6 +45,7 @@ from ..feature_maps import phi_positive, phi_relu
 from ..fft_toeplitz import toeplitz_diag_sums, toeplitz_from_coeffs
 from ._build import LAUNCH_INFO_KEYS  # noqa: F401 (re-exported: what launch_info reports)
 from ._build import dtype_suffix, launch, launch_info_buffer, launch_info_dict, load, on_cpu
+from ._library import define
 
 EPS = 1e-6  # denominator stabiliser, as in the JAX package
 
@@ -449,10 +454,41 @@ def _fused_kernel_fns():
 
 # ─── forward ────────────────────────────────────────────────────────────
 
+def _fwd_cuda(q_prime, k_prime, v, coeffs):
+    _check_inputs(q_prime, k_prime, v, coeffs)
+    B, H, N, F_ = q_prime.shape
+    D = v.shape[-1]
+    lib = _kernel_fns()
+    out = torch.empty_like(v)
+    den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
+    launch(lib.mlc_error_string, "masked_linear_coeffs_fwd",
+           getattr(lib, f"mlc_fwd_{dtype_suffix(v.dtype)}"), v.device,
+           q_prime, k_prime, v, coeffs, out, den, B, H, N, F_, D)
+    masked_linear_attention_coeffs_fwd.launches += 1
+    return out, den
+
+
+def _fwd_cpu(q_prime, k_prime, v, coeffs):
+    _check_inputs(q_prime, k_prime, v, coeffs)
+    return masked_linear_attention_coeffs_reference(q_prime, k_prime, v, coeffs)
+
+
+def _fwd_fake(q_prime, k_prime, v, coeffs):
+    _check_inputs(q_prime, k_prime, v, coeffs)
+    on_cpu(q_prime)  # meta tensors land here: refused like any other device
+    return torch.empty_like(v), v.new_empty(v.shape[:3], dtype=torch.float32)
+
+
+_fwd_op = define("masked_linear_attention_coeffs_fwd",
+                 "(Tensor q_prime, Tensor k_prime, Tensor v, Tensor coeffs)"
+                 " -> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
 def masked_linear_attention_coeffs_fwd(
         q_prime: torch.Tensor, k_prime: torch.Tensor, v: torch.Tensor,
         coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """KERPLE attention forward straight from the coefficient vector.
+    """KERPLE attention forward straight from the coefficient vector: the
+    custom op `efficient_rpe_vit::masked_linear_attention_coeffs_fwd`.
 
     Args:
         q_prime, k_prime: [B, H, N, F] non-negative features.
@@ -469,23 +505,43 @@ def masked_linear_attention_coeffs_fwd(
         ValueError / TypeError on malformed inputs, RuntimeError when the
         kernel launch is refused.
     """
-    _check_inputs(q_prime, k_prime, v, coeffs)
-    if on_cpu(q_prime):
-        return masked_linear_attention_coeffs_reference(
-            q_prime, k_prime, v, coeffs)
-    B, H, N, F_ = q_prime.shape
-    D = v.shape[-1]
-    lib = _kernel_fns()
-    out = torch.empty_like(v)
-    den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
-    launch(lib.mlc_error_string, "masked_linear_coeffs_fwd",
-           getattr(lib, f"mlc_fwd_{dtype_suffix(v.dtype)}"), v.device,
-           q_prime, k_prime, v, coeffs, out, den, B, H, N, F_, D)
-    masked_linear_attention_coeffs_fwd.launches += 1
-    return out, den
+    return _fwd_op(q_prime, k_prime, v, coeffs)
 
 
 masked_linear_attention_coeffs_fwd.launches = 0
+
+
+def _fused_fwd_cuda(q, k, v, omega, coeffs, feature_kind):
+    _check_fused_inputs(q, k, v, omega, coeffs, feature_kind)
+    B, H, N, D = q.shape
+    F_ = omega.shape[-1]
+    lib = _fused_kernel_fns()
+    out = torch.empty_like(v)
+    den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
+    launch(lib.kfp_error_string, "kerple_fused_phi_fwd",
+           getattr(lib, f"kfp_fwd_{dtype_suffix(v.dtype)}"), v.device,
+           q, k, v, omega, coeffs, out, den, B, H, N, D, v.shape[-1], F_,
+           int(feature_kind == "relu"), 1.0 / F_ ** 0.5)
+    kerple_attention_fused_phi_fwd.launches += 1
+    return out, den
+
+
+def _fused_fwd_cpu(q, k, v, omega, coeffs, feature_kind):
+    _check_fused_inputs(q, k, v, omega, coeffs, feature_kind)
+    return kerple_attention_fused_phi_fwd_reference(q, k, v, omega, coeffs,
+                                                    feature_kind)
+
+
+def _fused_fwd_fake(q, k, v, omega, coeffs, feature_kind):
+    _check_fused_inputs(q, k, v, omega, coeffs, feature_kind)
+    on_cpu(q)  # meta tensors land here: refused like any other device
+    return torch.empty_like(v), v.new_empty(v.shape[:3], dtype=torch.float32)
+
+
+_fused_fwd_op = define("kerple_attention_fused_phi_fwd",
+                       "(Tensor q, Tensor k, Tensor v, Tensor omega, Tensor coeffs,"
+                       " str feature_kind) -> (Tensor, Tensor)",
+                       _fused_fwd_cpu, _fused_fwd_cuda, _fused_fwd_fake)
 
 
 def kerple_attention_fused_phi_fwd(
@@ -494,7 +550,8 @@ def kerple_attention_fused_phi_fwd(
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KERPLE attention forward from the raw q and k: phi (FAVOR+ or ReLU
     features, `fused_phi_reference`'s rules) is computed per tile inside the
-    kernel and never stored. Replaces `_fused_phi_fwd_kernel`.
+    kernel and never stored. Replaces `_fused_phi_fwd_kernel`; the custom op
+    `efficient_rpe_vit::kerple_attention_fused_phi_fwd`.
 
     Args:
         q, k: [B, H, N, D], L2-normalised (the KERPLE contract).
@@ -511,21 +568,7 @@ def kerple_attention_fused_phi_fwd(
         ValueError / TypeError on malformed inputs, RuntimeError when the
         kernel launch is refused.
     """
-    _check_fused_inputs(q, k, v, omega, coeffs, feature_kind)
-    if on_cpu(q):
-        return kerple_attention_fused_phi_fwd_reference(q, k, v, omega, coeffs,
-                                                        feature_kind)
-    B, H, N, D = q.shape
-    F_ = omega.shape[-1]
-    lib = _fused_kernel_fns()
-    out = torch.empty_like(v)
-    den = torch.empty((B, H, N), dtype=torch.float32, device=v.device)
-    launch(lib.kfp_error_string, "kerple_fused_phi_fwd",
-           getattr(lib, f"kfp_fwd_{dtype_suffix(v.dtype)}"), v.device,
-           q, k, v, omega, coeffs, out, den, B, H, N, D, v.shape[-1], F_,
-           int(feature_kind == "relu"), 1.0 / F_ ** 0.5)
-    kerple_attention_fused_phi_fwd.launches += 1
-    return out, den
+    return _fused_fwd_op(q, k, v, omega, coeffs, feature_kind)
 
 
 kerple_attention_fused_phi_fwd.launches = 0
@@ -667,7 +710,7 @@ class _MaskedLinearCoeffs(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q_prime, k_prime, v, coeffs):
-        out, den = masked_linear_attention_coeffs_fwd(q_prime, k_prime, v, coeffs)
+        out, den = _fwd_op(q_prime, k_prime, v, coeffs)
         ctx.save_for_backward(q_prime, k_prime, v, coeffs, den, out)
         return out
 
@@ -699,8 +742,7 @@ class _KerpleFusedPhi(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, omega, coeffs, feature_kind):
-        out, den = kerple_attention_fused_phi_fwd(q, k, v, omega, coeffs,
-                                                  feature_kind)
+        out, den = _fused_fwd_op(q, k, v, omega, coeffs, feature_kind)
         ctx.feature_kind = feature_kind
         ctx.save_for_backward(q, k, v, omega, coeffs, den, out)
         return out

@@ -35,6 +35,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from .kernels._library import real_constants
 from .kernels.circulant_rotate import circulant_rotate, rdft_matrices
 
 METHODS = ("auto", "pallas", "chain")
@@ -163,11 +164,11 @@ def circulant_eigenvalues(coeffs: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _sin_dft_t(block: int, device) -> torch.Tensor:
-    """-sin(2 pi k d / block) as [block, K], cached as a normal tensor even
-    under inference mode."""
+    """-sin(2 pi k d / block) as [block, K], cached as a real, normal tensor
+    (`real_constants`)."""
     k = np.arange(block // 2 + 1, dtype=np.float32)
     d = np.arange(block, dtype=np.float32)
-    with torch.inference_mode(False):
+    with real_constants():
         return torch.from_numpy(-np.sin(2 * np.pi * k[:, None] * d[None, :] / block).T
                                 ).contiguous().to(device)
 
