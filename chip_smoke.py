@@ -191,6 +191,28 @@ Phases, each printed as it runs; any failure exits non-zero:
         their top-1 agreement and logit MAE against the fp32 artifact on 64
         probes logged; then #6, #3 and #8 against their plain versions at
         the mnist-width artifacts' shape, timed beside their bounds.
+ 22. parallelism (`efficient_rpe_vit_torch.parallel`), the flagship of
+     phase 4 at batch 64, dropout 0, weights from seed 0:
+     a. one rank on NCCL (a FileStore in a temporary directory): the
+        parallel step on data=1, data=1 with FSDP and model=1, each held
+        bit for bit to make_train_step on the same weights and batch (loss,
+        correct, gradients, parameters after the step), #1 and each #2
+        kernel launched 12 times per step, ms per step beside
+        make_train_step's; make_parallel_multi_step at K=4 captured with
+        its NCCL all-reduces inside (counted at capture), two replays
+        bitwise against 8 eager parallel steps, replay and eager ms/step;
+     b. two spawned ranks sharing the card over gloo: data=2, data=2 with
+        FSDP, model=2 (6 heads per rank; #1's launch_info logged), seq=2
+        on the flagship (ring KERPLE) and on `baseline` (ring softmax),
+        expert=2 with the soft-MoE MLP (4 experts), one step each held to
+        the single-process step on the card (loss, correct count, every
+        gradient of the rank's part; bf16 tolerances), launches per step,
+        host-staged ms per step; #1 and #2 checked and timed first at a
+        rank's shapes (half the batch, half the heads);
+     c. seq=2 at 1024x1024 (N = 4097), batch 4, the same way, each rank's
+        peak memory logged;
+     d. with more than one card, b and c again over NCCL, one card per
+        rank; with one, a line saying it was not run and why.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -462,6 +484,43 @@ MOE_VITB = dict(VITB, batch_size=TRAIN_BATCH, dropout=0.1)
 MOE_EXPERTS = 4
 MOE_GRAD_RTOL = 1e-6
 MOE_WARMUP, MOE_TIMED = 3, 5
+
+# phase 22: parallelism (efficient_rpe_vit_torch.parallel) on the one card.
+# PAR is phase 4's flagship at the training batch, dropout 0. a) one rank on
+# NCCL: every collective runs over one rank, a copy, so each parallel step
+# must equal make_train_step's bit for bit; PAR_K steps per CUDA-graph
+# replay against PAR_K eager parallel steps, bitwise. b) two ranks share the
+# card over gloo (the collectives go through host memory: their times are
+# no measure of NCCL), each case held to the single-process step on the
+# card, bf16: the loss to PAR_LOSS_RTOL and each gradient tensor (this
+# rank's part: a TP / EP slice, an FSDP shard) to GRAD_REL_TOL of its norm.
+# A half batch runs other cuBLAS tile choices and #2's dc sums its batch in
+# another order; the rings sum their blocks in fp32 in another order than
+# the kernels; the Megatron all-reduce rounds the projections' partial sums
+# to bf16 before they are added. An arg-max may flip at a near-tie of the
+# 1000 random-weight logits: the correct counts may differ by
+# PAR_CORRECT_SLACK. c) context parallelism at long N: the flagship at
+# 1024x1024 (N = 4097), batch 4, seq=2, held the same way.
+PAR = dict(VITB, batch_size=TRAIN_BATCH)
+PAR_FLAGSHIP = "performer_favor_most_general"
+PAR_WORLD1 = (("data1", "data=1", False), ("fsdp1", "data=1", True), ("model1", "model=1", False))
+PAR_K = 4
+PAR_TIMED = 3
+PAR_LOSS_RTOL = 1e-2
+PAR_CORRECT_SLACK = 2
+PAR_EXPERTS = 4
+# (path, mesh, model, options): each case's model is built from seed 0
+PAR_CASES = (("parallel_dp2", "data=2", PAR_FLAGSHIP, {}),
+             ("parallel_fsdp2", "data=2", PAR_FLAGSHIP, {"fsdp": True}),
+             ("parallel_tp2", "model=2", PAR_FLAGSHIP, {}),
+             ("parallel_cp2", "seq=2", PAR_FLAGSHIP, {}),
+             ("parallel_cp2_baseline", "seq=2", "baseline", {}),
+             ("parallel_ep2", "expert=2", PAR_FLAGSHIP, {"moe": PAR_EXPERTS}))
+PAR_LONGN = dict(LONGN, dropout=0.0)
+# the KERPLE kernels' shapes on a rank: half the batch (DP, FSDP), half the
+# heads (TP)
+PAR_SHAPES = {"half_batch": (TRAIN_BATCH // 2, 12, 197, 266, 64),
+              "half_heads": (TRAIN_BATCH, 6, 197, 266, 64)}
 
 # phase 21: serving artifacts (efficient_rpe_vit_torch.serve). The ViT-B
 # flagship artifact (phase 4's model and weights) serves these batches; the
@@ -2999,6 +3058,353 @@ def serve_export_phase(mlc, fa, cr, card: str):
     return {path: (kname, launches[kname]) for path, (kname, launches) in out.items()}, rows
 
 
+def _par_batch(cfg_fields, seed: int = 5):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size, batch = cfg_fields["image_size"], cfg_fields["batch_size"]
+    x = torch.randn(batch, size, size, 3, generator=g, device="cuda")
+    y = torch.randint(0, cfg_fields["num_classes"], (batch,), generator=g, device="cuda")
+    return x, y
+
+
+def _par_model(name, cfg, mesh=None, moe=None):
+    from efficient_rpe_vit_torch.models import create_model
+
+    attention = {"seq_mesh": mesh} if mesh is not None and "seq" in mesh else None
+    mlp = None
+    if moe:
+        mlp = {"mlp_type": "moe", "num_experts": moe}
+        if mesh is not None and "expert" in mesh:
+            mlp["expert_mesh"] = mesh
+    return create_model(name, cfg, attention_config=attention, mlp_config=mlp, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+
+
+def _par_step_ms(step, state, x, y, gen, steps: int = PAR_TIMED) -> float:
+    """Host clock around `steps` steps after one, ended by a synchronise:
+    the collectives of a gloo rank wait on the host."""
+    state, _, _ = step(state, x, y, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss, _ = step(state, x, y, gen)
+    float(loss)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def parallel_world1(kerple, per_step, card: str):
+    """Phase 22 a: one rank on NCCL, in process. The flagship's parallel
+    step on data=1, data=1 with FSDP and model=1 against make_train_step on
+    the same weights and batch (loss, correct, every gradient and the
+    parameters after the step, bit for bit; #1 and #2 launched 12 times
+    each), then make_parallel_multi_step at K=4 captured with its NCCL
+    all-reduces against 2 x 4 eager parallel steps, bitwise. Returns
+    {path: launches}."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.parallel import (
+        comm,
+        create_sharded_train_state,
+        make_mesh_from_spec,
+        make_parallel_multi_step,
+        make_parallel_train_step,
+    )
+    from efficient_rpe_vit_torch.parallel.train_parallel import full_payload
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        log("parallel", f"world 1 on {dist.get_backend()}: every collective over one rank")
+        cfg = mnist_config(**PAR)
+        x, y = _par_batch(PAR)
+        ref = _par_model(PAR_FLAGSHIP, cfg)
+        rstate = create_train_state(ref, cfg, steps_per_epoch=100)
+        rstep = make_train_step(ref)
+        rstate, rloss, rcorrect = rstep(rstate, x, y, torch.Generator(device="cuda").manual_seed(3))
+        ref_grads = {n: p.grad.clone() for n, p in ref.named_parameters()}
+        ref_params = {n: t.clone() for n, t in ref.state_dict().items()}
+        ref_ms = _par_step_ms(rstep, rstate, x, y, torch.Generator(device="cuda").manual_seed(4))
+        del ref, rstate, rstep
+        torch.cuda.empty_cache()
+        log("parallel", f"make_train_step: loss {rloss.item():.6f}, {ref_ms:.3f} ms/step of "
+            f"{PAR['batch_size']} (host clock over {PAR_TIMED} steps after one), on {card}")
+        for label, spec, fsdp in PAR_WORLD1:
+            mesh = make_mesh_from_spec(spec, device="cuda")
+            model = _par_model(PAR_FLAGSHIP, cfg)
+            state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=100, fsdp=fsdp)
+            step = make_parallel_train_step(model, mesh, state)
+            zero_counts(kerple)
+            state, loss, correct = step(state, x, y, torch.Generator(device="cuda").manual_seed(3))
+            torch.cuda.synchronize()
+            launches = counts(kerple)
+            grads = {n: (state.fsdp.shards[n].grad, state.fsdp.local(n, g)) if fsdp
+                     else (dict(model.named_parameters())[n].grad, g)
+                     for n, g in ref_grads.items()}
+            params = full_payload(state)["model"]
+            same = {"loss": torch.equal(loss, rloss), "correct": int(correct) == int(rcorrect),
+                    "gradients": all(torch.equal(a, b) for a, b in grads.values()),
+                    "parameters": all(torch.equal(params[n], t) for n, t in ref_params.items())}
+            ms = _par_step_ms(step, state, x, y, torch.Generator(device="cuda").manual_seed(4))
+            log("parallel", f"{label} ({spec}{', fsdp' if fsdp else ''}): launches in one step "
+                f"{launches}; bitwise against make_train_step: {same}; {ms:.3f} ms/step "
+                f"(make_train_step {ref_ms:.3f}), on {card}")
+            if not all(same.values()):
+                worst = max(((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)
+                             ).item() for a, b in grads.values())
+                raise AssertionError(f"world-1 {label} step differs from make_train_step "
+                                     f"(worst gradient rel {worst:.3e})")
+            if launches != per_step:
+                raise AssertionError(f"world-1 {label}: launches {launches}, want {per_step}")
+            out[f"parallel_world1_{label}"] = launches
+            del model, state, step
+            torch.cuda.empty_cache()
+        # K steps per CUDA-graph replay with the NCCL all-reduces inside
+        mesh = make_mesh_from_spec("data=1", device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(6)
+        xs = torch.randn(2 * PAR_K, *x.shape, generator=g, device="cuda")
+        ys = torch.randint(0, PAR["num_classes"], (2 * PAR_K, x.shape[0]), generator=g,
+                           device="cuda")
+        graphed, twin = _par_model(PAR_FLAGSHIP, cfg), _par_model(PAR_FLAGSHIP, cfg)
+        gstate = create_sharded_train_state(graphed, cfg, mesh, steps_per_epoch=100)
+        tstate = create_sharded_train_state(twin, cfg, mesh, steps_per_epoch=100)
+        multi = make_parallel_multi_step(graphed, mesh, gstate)
+        eager = make_parallel_train_step(twin, mesh, tstate)
+        reduces = {"n": 0}
+        plain_all_reduce = comm.all_reduce
+
+        def counted(*args, **kwargs):
+            reduces["n"] += 1
+            return plain_all_reduce(*args, **kwargs)
+
+        warm = {}
+
+        def before_capture():
+            warm.update(counts(kerple))
+            zero_counts(kerple)
+            reduces["n"] = 0
+            comm.all_reduce = counted
+
+        multi.replays.before_capture = before_capture
+        zero_counts(kerple)
+        gen_g, gen_t = (torch.Generator(device="cuda").manual_seed(7) for _ in range(2))
+        try:
+            gstate, losses1, _ = multi(gstate, xs[:PAR_K], ys[:PAR_K], gen_g)
+        finally:
+            comm.all_reduce = plain_all_reduce
+        captured = counts(kerple)
+        captured_reduces = reduces["n"]
+        gstate, losses2, corrects2 = multi(gstate, xs[PAR_K:], ys[PAR_K:], gen_g)
+        twin_losses = []
+        for i in range(2 * PAR_K):
+            tstate, loss, _ = eager(tstate, xs[i], ys[i], gen_t)
+            twin_losses.append(loss)
+        torch.cuda.synchronize()
+        same = (torch.equal(torch.cat([losses1, losses2]), torch.stack(twin_losses))
+                and all(torch.equal(a, b) for a, b in zip(graphed.parameters(), twin.parameters())))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        gstate, _, _ = multi(gstate, xs[PAR_K:], ys[PAR_K:], gen_g)
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / PAR_K
+        eager_ms = _par_step_ms(eager, tstate, xs[0], ys[0], gen_t, PAR_K)
+        log("parallel", f"make_parallel_multi_step K={PAR_K} on NCCL: the first call's "
+            f"{PAR_K} eager warm-up steps launched {warm}; the capture holds {captured} "
+            f"launches and {captured_reduces} NCCL all-reduces (gradient bucket and metrics per "
+            f"step); two replays bitwise against {2 * PAR_K} eager parallel steps: {same}; "
+            f"replay {replay_ms:.3f} ms/step (CUDA events over one replay), eager "
+            f"{eager_ms:.3f} ms/step, on {card}")
+        want = {n: PAR_K * c for n, c in per_step.items()}
+        if not same or captured != want or captured_reduces != 2 * PAR_K:
+            raise AssertionError(f"the K={PAR_K} parallel graph: bitwise {same}, launches "
+                                 f"{captured} (want {want}), all-reduces {captured_reduces}")
+        out["parallel_multistep_nccl"] = captured
+        del graphed, twin, gstate, tstate, multi, eager
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_case(label, spec, name, opts, cfg_fields, wrappers, per_step):
+    """One parallel case on this rank against the single-process step on
+    the card from the same weights and batch; returns its numbers, raises
+    when they disagree."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.parallel import (
+        create_sharded_train_state,
+        host_batch_slice,
+        make_mesh_from_spec,
+        make_parallel_train_step,
+    )
+    from efficient_rpe_vit_torch.parallel.mesh import local_slice, param_layouts
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    cfg = mnist_config(**cfg_fields)
+    x, y = _par_batch(cfg_fields)
+    moe = opts.get("moe")
+    ref = _par_model(name, cfg, moe=moe)
+    rstate = create_train_state(ref, cfg, steps_per_epoch=100)
+    zero_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    _, rloss, rcorrect = make_train_step(ref)(rstate, x, y,
+                                              torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_launches = counts(wrappers)
+    ref_grads = {n: p.grad.float().clone() for n, p in ref.named_parameters()}
+    del ref, rstate
+    torch.cuda.empty_cache()
+    mesh = make_mesh_from_spec(spec, device="cuda")
+    model = _par_model(name, cfg, mesh, moe)
+    state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=100,
+                                       fsdp=opts.get("fsdp", False))
+    step = make_parallel_train_step(model, mesh, state)
+    rows = host_batch_slice(x.shape[0], mesh)
+    zero_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    state, loss, correct = step(state, x[rows], y[rows],
+                                torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts(wrappers)
+    layouts = param_layouts(model)
+    rel = {}
+    for n, p in model.named_parameters():
+        want = ref_grads[n]
+        if n in layouts:
+            shard, dim, blocks = layouts[n]
+            want = local_slice(want, dim, blocks, shard.index, shard.count)
+        got = p.grad
+        if state.fsdp is not None:
+            want, got = state.fsdp.local(n, want), state.fsdp.shards[n].grad
+        rel[n] = ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    ms = _par_step_ms(step, state, x[rows], y[rows], torch.Generator(device="cuda").manual_seed(4),
+                      steps=1)
+    heads = model.transformer_blocks[0].attention.heads
+    result = dict(loss=loss.item(), ref_loss=rloss.item(), correct=int(correct),
+                  ref_correct=int(rcorrect), worst=worst, worst_rel=rel[worst], ms=ms,
+                  launches=launches, ref_launches=ref_launches, heads=heads, peak=peak,
+                  ref_peak=ref_peak)
+    loss_rel = abs(result["loss"] - result["ref_loss"]) / abs(result["ref_loss"])
+    if (loss_rel > PAR_LOSS_RTOL or rel[worst] > GRAD_REL_TOL
+            or abs(result["correct"] - result["ref_correct"]) > PAR_CORRECT_SLACK
+            or (per_step is not None and launches != per_step)):
+        raise AssertionError(f"{label}: {result}")
+    del model, state, step, ref_grads
+    torch.cuda.empty_cache()
+    return result
+
+
+def _par_rank(rank: int, tmp: str, backend: str) -> None:
+    """A rank of phase 22 b / c: two processes share the card over gloo
+    (or, with NCCL, rank r takes card r)."""
+    import os
+
+    import torch.distributed as dist
+
+    from efficient_rpe_vit_torch.ops.kernels import flash_attention as fa
+    from efficient_rpe_vit_torch.ops.kernels import masked_linear_coeffs as mlc
+    from efficient_rpe_vit_torch.parallel import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = backend == "nccl"
+    torch.cuda.set_device(rank if nccl else 0)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 2),
+                            rank=rank, world_size=2,
+                            **({"device_id": torch.device("cuda", rank)} if nccl else {}))
+    wrappers = {**kerple_wrappers(mlc), **flash_wrappers(fa)}
+    kerple_step = {n: 0 if n == "kerple_fused_phi_fwd" else VITB["depth"]
+                   for n in kerple_wrappers(mlc)}
+    none = {n: 0 for n in wrappers}
+    results = {}
+    for label, spec, name, opts in PAR_CASES:
+        per_step = ({**none, **kerple_step} if name == PAR_FLAGSHIP and "seq" not in spec
+                    else none)
+        results[label] = _par_case(label, spec, name, opts, PAR, wrappers, per_step)
+    results["parallel_cp2_longn"] = _par_case("parallel_cp2_longn", "seq=2", PAR_FLAGSHIP, {},
+                                              PAR_LONGN, wrappers, none)
+    results["staged"] = sorted(comm.staged_ops())
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def parallel_two_ranks(card: str, backend: str = "gloo"):
+    """Phase 22 b / c: two spawned processes share the card over gloo
+    (d: with NCCL, one card each), the kernels already built by this
+    process; returns rank 0's results, each case's launches checked on
+    both ranks."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_par_rank, args=(rank, tmp, backend)) for rank in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"the two {backend} ranks exited with {codes}")
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(2)]
+    where = "one card over gloo" if backend == "gloo" else "two cards over NCCL"
+    log("parallel", f"two ranks on {where}: {time.perf_counter() - t0:.1f} s "
+        f"including the spawn; ops staged through host memory: {ranks[0]['staged']}")
+    for label in (*(c[0] for c in PAR_CASES), "parallel_cp2_longn"):
+        for r, res in enumerate(ranks):
+            log("parallel", f"{label} rank {r}: loss {res[label]['loss']:.6f} (single process "
+                f"{res[label]['ref_loss']:.6f}), correct {res[label]['correct']} "
+                f"({res[label]['ref_correct']}), worst gradient {res[label]['worst']} at "
+                f"{res[label]['worst_rel']:.3e} of its norm (tol {GRAD_REL_TOL}), "
+                f"{res[label]['heads']} heads per rank, launches in one step "
+                f"{res[label]['launches']} (single process {res[label]['ref_launches']}), "
+                f"{res[label]['ms']:.1f} ms/step ({'host-staged gloo' if backend == 'gloo' else 'NCCL'}), peak memory "
+                f"{res[label]['peak'] / 2**30:.3f} GiB (single process "
+                f"{res[label]['ref_peak'] / 2**30:.3f} GiB), on {card}")
+        if ranks[0][label]["launches"] != ranks[1][label]["launches"]:
+            raise AssertionError(f"{label}: the ranks launched different kernels")
+    if ranks[0]["parallel_tp2"]["heads"] != 6:
+        raise AssertionError("the model=2 rank does not hold 6 heads")
+    return ranks[0]
+
+
+def parallel_phase(mlc, kerple, card: str):
+    """Phase 22: parallelism on the one card. Returns {path: (launches,
+    forward row, backward rows)} for the kernels line."""
+    depth = VITB["depth"]
+    per_step = {n: 0 if n == "kerple_fused_phi_fwd" else depth for n in kerple}
+    world1 = parallel_world1(kerple, per_step, card)
+    log("parallel", f"#1 launch_info at the model=2 rank's shape (H = 6 of 12 heads): "
+        f"{check_kerple_rule(mlc, KERPLE_FORWARDS[0], 197, 266, 64, torch.bfloat16, 'parallel')}")
+    rows = {}
+    for key, shape in PAR_SHAPES.items():
+        rows[key] = (check_kernels(mlc, [shape], BF16_ONLY, timed=[shape])[("bfloat16", shape[0])],
+                     check_bwd_kernels(mlc, [shape], BF16_ONLY, timed=shape))
+    two = parallel_two_ranks(card)
+    if torch.cuda.device_count() > 1:
+        parallel_two_ranks(card, "nccl")
+    else:
+        log("parallel", "22 d not run: this machine has 1 card, and NCCL takes one rank per "
+            "card, so the multi-rank cases ran over gloo on the one card (22 b)")
+    return world1, rows, two
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3176,6 +3582,11 @@ def main() -> int:
     # exported on the card, one exported on the CPU, serve_bench --vitb
     served_launches, served_rows = serve_export_phase(mlc, fa, cr, card)
 
+    # 22. parallelism: one rank on NCCL (bitwise against make_train_step, the
+    # K-step graph with its all-reduces), two ranks sharing the card over
+    # gloo (DP, FSDP, TP, CP, EP against the single-process step), CP at N=4097
+    par_world1, par_rows, par_two = parallel_phase(mlc, kerple, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -3271,6 +3682,18 @@ def main() -> int:
     for path, (name, launches) in served_launches.items():
         rows.append((name, *served_src[name], path, served_at.get(path, served_rows.get(name)),
                      launches))
+    # the parallel paths (phase 22): #1 / #2 at the shape a rank runs them
+    train_rows = (kernel[("bfloat16", TRAIN_BATCH)], kernel_bwd)
+    par_paths = [(path, launches, train_rows) for path, launches in par_world1.items()]
+    par_paths += [(path, par_two[path]["launches"], par_rows[key] if key else train_rows)
+                  for path, key in (("parallel_dp2", "half_batch"),
+                                    ("parallel_fsdp2", "half_batch"),
+                                    ("parallel_tp2", "half_heads"), ("parallel_ep2", None))]
+    for path, launches, (fwd_row, bwd_rows) in par_paths:
+        rows.append((*fwd, path, fwd_row, launches["masked_linear_coeffs_fwd"]))
+        for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+            rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
+                         path, bwd_rows[name], launches[name]))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

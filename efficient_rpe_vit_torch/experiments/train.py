@@ -13,10 +13,21 @@ key tree (`metadata`, `per_epoch`, `aggregate`, `inference`).
 
 The run takes the GPU unless `--cpu` is given; with no card and no
 `--cpu` it stops with the device error. `--fused-steps K` runs K train
-steps per call, one CUDA graph replay on the GPU. The multi-device flags
-(`--mesh`, `--distributed`, `--num-processes`, `--process-id`,
-`--microbatches`) and `--checkpoint-backend orbax` are refused: the
-parallel paths are not ported.
+steps per call, one CUDA graph replay on the GPU.
+
+Sharded training runs one process per rank, joined by `--distributed`
+(bare: torchrun's environment; or `host:port` with `--num-processes` and
+`--process-id`), over a `--mesh` of 'data', 'model', 'seq' and 'expert'
+axes (`efficient_rpe_vit_torch.parallel`):
+
+    torchrun --nproc-per-node 2 -m efficient_rpe_vit_torch.experiments.train \
+        --mesh data=2 --distributed
+
+Each data rank trains on its rows of every batch, evaluation sums the
+ranks' counts, and only the coordinator prints, writes the metrics and
+saves checkpoints. A 'pipe' axis, `--microbatches` and
+`--checkpoint-backend orbax` are refused: GPipe and sharded checkpoint
+directories are not ported.
 """
 
 from __future__ import annotations
@@ -28,8 +39,9 @@ import time
 
 import torch
 
-NOT_PORTED = ("is not ported: the multi-device paths and sharded checkpoints "
-              "come with the parallelism slice (ROADMAP.md Queue A #7)")
+NOT_PORTED = ("is not ported: the GPipe pipeline, the benchmark runner's mesh "
+              "and sharded checkpoint directories are later work (ROADMAP.md "
+              "Queue A #7)")
 
 
 def parse_args(argv=None):
@@ -119,27 +131,86 @@ def parse_args(argv=None):
     p.add_argument("--num-experts", type=int, default=4,
                    help="expert count for --mlp-type moe")
     p.add_argument("--mesh", type=str, default=None, metavar="AXES",
-                   help="device mesh for sharded training (not ported)")
+                   help="mesh of the run's processes for sharded training, e.g. "
+                        "'data=2' (DP), 'data=2,model=2' (DP x TP), 'data=2,seq=2' "
+                        "(DP x CP: sequence split inside attention), 'expert=2' "
+                        "(with --mlp-type moe); needs --distributed and as many "
+                        "processes as the sizes' product")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--distributed", nargs="?", const="auto", default=None,
                    metavar="COORD",
-                   help="multi-host run (not ported)")
+                   help="join a multi-process run before anything else: bare, "
+                        "from torchrun's environment (RANK, WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT); or host:port with "
+                        "--num-processes and --process-id")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="process count for --distributed (not ported)")
+                   help="process count for an explicit --distributed COORD")
     p.add_argument("--process-id", type=int, default=None,
-                   help="rank for --distributed (not ported)")
+                   help="this process's rank for an explicit --distributed COORD")
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    for flag, value in (("--mesh", args.mesh), ("--distributed", args.distributed),
-                        ("--num-processes", args.num_processes),
-                        ("--process-id", args.process_id),
-                        ("--microbatches", args.microbatches)):
-        if value is not None:
-            raise SystemExit(f"{flag} {NOT_PORTED}")
+def _refuse(args) -> None:
+    """The flags the port refuses, before anything runs."""
+    if args.microbatches is not None:
+        raise SystemExit(f"--microbatches {NOT_PORTED}")
     if args.checkpoint_backend == "orbax":
         raise SystemExit(f"--checkpoint-backend orbax {NOT_PORTED}")
+    explicit = args.distributed not in (None, "auto")
+    for flag, value in (("--num-processes", args.num_processes),
+                        ("--process-id", args.process_id)):
+        if value is not None and not explicit:
+            raise SystemExit(f"{flag} only applies to an explicit --distributed "
+                             "host:port (bare --distributed reads torchrun's "
+                             "environment)")
+    if args.mesh and args.fused_steps > 1:
+        raise SystemExit(
+            "--fused-steps composes with the plain single-chip step only "
+            "(not --mesh or --grad-accum); the sharded / accumulated steps "
+            "have their own structure")
+
+
+def _join(args) -> bool:
+    """`--distributed`: join the process group; True when this call made
+    it. The coordinator alone keeps its voice."""
+    from ..parallel import multihost
+
+    if args.distributed is None:
+        return False
+    made = not torch.distributed.is_initialized()
+    try:
+        multihost.initialize(None if args.distributed == "auto" else args.distributed,
+                             args.num_processes, args.process_id,
+                             backend="gloo" if args.cpu else None)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"--distributed: {e}") from None
+    if not multihost.is_coordinator():
+        args.quiet = True
+    return made
+
+
+def _build_mesh(args, device: torch.device):
+    """--mesh over the run's processes, or a refusal."""
+    from ..parallel import Mesh
+    from ..parallel.mesh import parse_mesh_spec
+
+    try:
+        axes = parse_mesh_spec(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}") from None
+    if "pipe" in axes:
+        raise SystemExit(f"--mesh with a 'pipe' axis {NOT_PORTED}")
+    need = 1
+    for n in axes.values():
+        need *= n
+    have = (torch.distributed.get_world_size() if torch.distributed.is_initialized()
+            else 1)
+    if not torch.distributed.is_initialized() or need != have:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs {need} processes in a process group, have "
+            f"{have} (launch with torchrun --nproc-per-node {need} ... --distributed, "
+            f"or --distributed host:port --num-processes {need} --process-id R)")
+    return Mesh(axes, device)
 
 
 def device_name(device: torch.device) -> str:
@@ -185,7 +256,8 @@ def main(argv=None, shared=None):
     the first run captured. Other flags start the dict afresh.
     """
     args = parse_args(argv)
-    _refuse_unported(args)
+    _refuse(args)
+    joined = _join(args)
     signature = {k: v for k, v in vars(args).items() if k not in _PER_RUN_FLAGS}
     reuse = shared is not None and shared.get("signature") == signature
     if shared is not None and not reuse:
@@ -214,7 +286,13 @@ def main(argv=None, shared=None):
     from ..train.metrics import compute_information_criteria
     from ..utils.device import resolve_device
 
-    device = resolve_device("cpu" if args.cpu else None)
+    if args.distributed is not None:
+        from ..parallel.multihost import local_device
+
+        device = local_device(args.cpu)
+    else:
+        device = resolve_device("cpu" if args.cpu else None)
+    mesh = _build_mesh(args, device) if args.mesh else None
     set_random_seeds(args.seed)
     config = get_dataset_config(
         args.dataset,
@@ -257,6 +335,12 @@ def main(argv=None, shared=None):
 
     attention_config, mlp_config = model_options(args.model, args.mlp_type,
                                                  args.num_experts, args.num_features)
+    if mesh is not None and "seq" in mesh:
+        attention_config = dict(attention_config or {}, seq_mesh=mesh, seq_axis="seq")
+    if mesh is not None and "expert" in mesh:
+        if mlp_config is None:
+            raise SystemExit("--mesh with an 'expert' axis requires --mlp-type moe")
+        mlp_config.update(expert_mesh=mesh, expert_axis="expert")
     if args.fused_steps > 1 and args.grad_accum > 1:
         raise SystemExit(
             "--fused-steps composes with the plain single-chip step only "
@@ -268,10 +352,17 @@ def main(argv=None, shared=None):
     if reuse:  # this seed's weights into the kept model, its state zeroed
         state = reset_train_state(shared["state"], model)
         model = state.model
+    elif mesh is not None:
+        from ..parallel import create_sharded_train_state
+        from ..parallel.train_parallel import parameter_count
+
+        state = create_sharded_train_state(model, config, mesh,
+                                           steps_per_epoch=len(train_ds),
+                                           ema_decay=args.ema_decay)
     else:
         state = create_train_state(model, config, steps_per_epoch=len(train_ds),
                                    ema_decay=args.ema_decay)
-    n_params = count_parameters(model)
+    n_params = count_parameters(model) if mesh is None else parameter_count(state)
     if not args.quiet:
         print(f"Parameters: {n_params['total']:,}")
 
@@ -289,6 +380,14 @@ def main(argv=None, shared=None):
 
     if reuse:
         train_step, eval_step, multi_step, gather_step, gather_eval = shared["steps"]
+    elif mesh is not None:
+        from ..parallel import make_parallel_eval_step, make_parallel_train_step
+
+        train_step = make_parallel_train_step(model, mesh, state,
+                                              label_smoothing=args.label_smoothing,
+                                              grad_accum=args.grad_accum)
+        eval_step = make_parallel_eval_step(state.eval_view(), mesh)
+        multi_step = gather_step = gather_eval = None
     else:
         train_step = make_train_step(model, grad_accum=args.grad_accum,
                                      label_smoothing=args.label_smoothing, device=device)
@@ -313,11 +412,18 @@ def main(argv=None, shared=None):
     for epoch in range(start_epoch, config.train.epochs + 1):
         profiling = bool(args.profile) and epoch == start_epoch
         with _profiler(device) if profiling else contextlib.nullcontext() as profiler:
-            state, tm = train_epoch(
-                state, train_step, train_ds, generator, epoch=epoch,
-                log_interval_frac=args.log_interval, verbose=not args.quiet,
-                multi_step=multi_step, gather_step=gather_step,
-                fused_steps=args.fused_steps)
+            if mesh is not None:
+                from ..parallel import parallel_train_epoch
+
+                state, tm = parallel_train_epoch(
+                    state, train_step, train_ds, generator, mesh, epoch=epoch,
+                    log_interval_frac=args.log_interval, verbose=not args.quiet)
+            else:
+                state, tm = train_epoch(
+                    state, train_step, train_ds, generator, epoch=epoch,
+                    log_interval_frac=args.log_interval, verbose=not args.quiet,
+                    multi_step=multi_step, gather_step=gather_step,
+                    fused_steps=args.fused_steps)
             if profiling and device.type == "cuda":
                 torch.cuda.synchronize(device)
         if profiling:
@@ -371,9 +477,12 @@ def main(argv=None, shared=None):
                       "samples": test_ds.num_samples}
 
     bench_images, _ = next(iter(test_ds))
+    # on a mesh the ranks' forwards meet in collectives, so every rank runs
+    # chains of one fixed length (no length search by each rank's clock)
     inference = benchmark_inference(
         model, bench_images, num_warmup=args.bench_warmup,
-        num_iterations=args.bench_iters, chain_fn=make_inference_chain(model))
+        num_iterations=args.bench_iters, chain_fn=make_inference_chain(model),
+        target_chain_time=0 if mesh is not None else None)
     if not args.quiet:
         print(f"Inference: {inference['throughput_images_per_sec']:.1f} img/s, "
               f"{inference['latency_mean_ms']:.2f} ms/batch")
@@ -409,13 +518,16 @@ def main(argv=None, shared=None):
         },
         "inference": inference,
     }
-    if args.save_metrics:
+    coordinator = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+    if args.save_metrics and coordinator:
         path = os.path.join(args.output_dir, f"{args.model}_{args.dataset}_metrics.json")
         save_run_metrics(path, metrics)
         if not args.quiet:
             print(f"Metrics written to {path}")
-    if args.save_plots and per_epoch:
+    if args.save_plots and per_epoch and coordinator:
         _save_plots(per_epoch, args)
+    if joined:
+        torch.distributed.destroy_process_group()
     return metrics
 
 

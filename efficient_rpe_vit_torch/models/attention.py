@@ -22,7 +22,16 @@ Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
     'state' collection), Omega drawn from the caller's generator,
   * phi recomputed in the backward (a checkpoint) once the fp32 phi of one
     of q, k would exceed PHI_CHECKPOINT_BYTES,
-  * dropout on the output, masks from the caller's generator.
+  * dropout on the output, masks from the caller's generator,
+  * context parallelism (`seq_mesh`, `seq_axis`): the core runs with the
+    sequence split over the mesh axis (`parallel/seq_parallel.py`): ring
+    softmax, ring KERPLE or the summed linear attention; no masks, no
+    return_attention, no attention-probability dropout in training, and
+    no fused phi,
+  * tensor parallelism (`tp`, set by `parallel.shard_model`): heads / P
+    heads of width `inner` = dim / P, the input through `copy_to_group`,
+    the projection's partial sums through `reduce_from_group` and its bias
+    added once after it.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -45,7 +55,7 @@ from ..ops import (
     softmax_attention,
 )
 from ..ops.feature_maps import mxu_num_features
-from .dense import Dense, Dropout, draw, replaying
+from .dense import Dense, Dropout, batch_part, draw, replaying
 from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D
 
 # Byte size of one fp32 phi (4 * B * H * N * m) past which phi(q) and phi(k)
@@ -73,6 +83,73 @@ def _safe_normalize(t: torch.Tensor) -> torch.Tensor:
     return t / torch.sqrt(torch.clamp(sq, min=1e-24))
 
 
+def _check_mesh(seq_mesh, seq_axis: str) -> None:
+    from ..parallel.mesh import Mesh
+
+    if not isinstance(seq_mesh, Mesh):
+        raise TypeError(f"seq_mesh must be a parallel.Mesh, got {type(seq_mesh).__name__}")
+    if seq_axis not in seq_mesh:
+        raise ValueError(f"seq_mesh {seq_mesh.shape} has no axis {seq_axis!r}")
+
+
+def _fold_seed(seed: torch.Tensor, k: int) -> torch.Tensor:
+    """An int32 dropout seed made distinct for rank part `k` (unchanged for
+    k = 0), so that ranks holding other samples or heads draw other
+    keep-masks."""
+    if k == 0:
+        return seed
+    v = (seed.long() + k * 0x9E3779B1) % 2 ** 32
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+class _Attention(nn.Module):
+    """What the attention modules share: the fused `qkv` and the `proj`,
+    `inner` = heads * head_dim (dim alone, dim / P under tensor
+    parallelism), and the context- / tensor-parallel wiring."""
+
+    def __init__(self, dim: int, heads: int, dropout: float, qkv_bias: bool,
+                 compute_dtype: torch.dtype, seq_mesh, seq_axis: str):
+        super().__init__()
+        if seq_mesh is not None:
+            _check_mesh(seq_mesh, seq_axis)
+        self.dim = dim
+        self.heads = heads
+        self.inner = dim
+        self.dropout = dropout
+        self.seq_mesh = seq_mesh
+        self.seq_axis = seq_axis
+        self.tp = None
+        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=compute_dtype)
+        self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.drop = Dropout(dropout)
+
+    @property
+    def head_dim(self) -> int:
+        return self.inner // self.heads
+
+    @property
+    def seq_group(self):
+        return None if self.seq_mesh is None else self.seq_mesh.get_group(self.seq_axis)
+
+    def _qkv(self, x: torch.Tensor):
+        if self.tp is not None:
+            from ..parallel.comm import copy_to_group
+
+            x = copy_to_group(x, self.tp.group)
+        return (_split_heads(t, self.heads) for t in self.qkv(x).chunk(3, dim=-1))
+
+    def _out(self, out: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """[B, H, N, D] -> the projected [B, N, dim] with output dropout."""
+        out = _merge_heads(out)
+        if self.tp is None:
+            return self.drop(self.proj(out), generator)
+        from ..parallel.comm import reduce_from_group
+
+        dt = self.proj.compute_dtype
+        y = reduce_from_group(F.linear(out.to(dt), self.proj.weight.to(dt)), self.tp.group)
+        return self.drop(y + self.proj.bias.to(dt), generator)
+
+
 def _rotate(q: torch.Tensor, k: torch.Tensor, rpe: Optional[nn.Module]):
     """q and k rotated by a RoPE, RoPE2D or Circulant-STRING rpe; unchanged
     for None and KERPLE, which the caller handles; any other module raises."""
@@ -94,7 +171,7 @@ _KERPLE_REJECTION = (
 )
 
 
-class SoftmaxAttention(nn.Module):
+class SoftmaxAttention(_Attention):
     """Standard multi-head softmax attention: fused `qkv` (optional bias),
     scale head_dim^-1/2, `proj`, dropout on the probabilities (train mode)
     and on the output."""
@@ -102,23 +179,9 @@ class SoftmaxAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dropout: float = 0.0,
                  qkv_bias: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 method: str = "auto", seq_mesh=None):
-        super().__init__()
-        if seq_mesh is not None:
-            raise NotImplementedError(
-                "context-parallel softmax attention (seq_mesh) is not ported "
-                "yet; it comes with the parallelism slice")
-        self.dim = dim
-        self.heads = heads
-        self.dropout = dropout
+                 method: str = "auto", seq_mesh=None, seq_axis: str = "seq"):
+        super().__init__(dim, heads, dropout, qkv_bias, compute_dtype, seq_mesh, seq_axis)
         self.method = method
-        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=compute_dtype)
-        self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
-        self.drop = Dropout(dropout)
-
-    @property
-    def head_dim(self) -> int:
-        return self.dim // self.heads
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 rpe: Optional[nn.Module] = None, return_attention: bool = False,
@@ -130,10 +193,24 @@ class SoftmaxAttention(nn.Module):
         `generator`."""
         if isinstance(rpe, KerpleRPE):
             raise NotImplementedError(_KERPLE_REJECTION)
-        q, k, v = (_split_heads(t, self.heads)
-                   for t in self.qkv(x).chunk(3, dim=-1))
-        q, k = _rotate(q, k, rpe)
         rate = float(self.dropout) if self.training and self.dropout > 0 else 0.0
+        if self.seq_mesh is not None:
+            if mask is not None or return_attention:
+                raise NotImplementedError(
+                    "context-parallel softmax attention supports neither "
+                    "masks nor return_attention")
+            if rate > 0:
+                raise NotImplementedError(
+                    "context-parallel softmax attention does not support "
+                    "attention-probability dropout; set dropout=0 or train "
+                    "without seq_mesh")
+        q, k, v = self._qkv(x)
+        q, k = _rotate(q, k, rpe)
+        if self.seq_mesh is not None:
+            from ..parallel.seq_parallel import ring_softmax_attention
+
+            out = ring_softmax_attention(q, k, v, self.head_dim ** -0.5, self.seq_group)
+            return self._out(out, generator)
         seed = None
         if rate > 0:
             if generator is None:
@@ -141,17 +218,20 @@ class SoftmaxAttention(nn.Module):
                                  "one to the model's forward")
             seed = draw(lambda: torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                                               generator=generator, device=x.device))
+            row, _ = batch_part()
+            tp_index, tp_count = (0, 1) if self.tp is None else (self.tp.index, self.tp.count)
+            seed = _fold_seed(seed, row * tp_count + tp_index)
         out = softmax_attention(q, k, v, self.head_dim ** -0.5, mask=mask,
                                 return_attention=return_attention,
                                 dropout_rate=rate, dropout_seed=seed,
                                 method=self.method)
         if return_attention:
             out, weights = out
-            return self.drop(self.proj(_merge_heads(out)), generator), weights
-        return self.drop(self.proj(_merge_heads(out)), generator)
+            return self._out(out, generator), weights
+        return self._out(out, generator)
 
 
-class _KernelAttention(nn.Module):
+class _KernelAttention(_Attention):
     """Shared machinery for FAVOR+, hyperbolic FAVOR+ and ReLU linear
     attention."""
 
@@ -163,25 +243,16 @@ class _KernelAttention(nn.Module):
                  feature_redraw_interval: Optional[int] = None,
                  qkv_bias: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 fused_phi: bool = False):
-        super().__init__()
-        self.dim = dim
-        self.heads = heads
+                 fused_phi: bool = False, seq_mesh=None, seq_axis: str = "seq"):
+        super().__init__(dim, heads, dropout, qkv_bias, compute_dtype, seq_mesh, seq_axis)
         self.fused_phi = fused_phi
         self.num_features = num_features
         self.use_orthogonal = use_orthogonal
         self.feature_redraw_interval = feature_redraw_interval
-        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=compute_dtype)
-        self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
-        self.drop = Dropout(dropout)
         self.register_buffer("omega", torch.empty(heads, self.head_dim, self.m))
         if feature_redraw_interval is not None:
             self.register_buffer("redraw_counter",
                                  torch.zeros((), dtype=torch.int32))
-
-    @property
-    def head_dim(self) -> int:
-        return self.dim // self.heads
 
     @property
     def m(self) -> int:
@@ -194,9 +265,13 @@ class _KernelAttention(nn.Module):
         )
 
     def draw_omega(self, generator: torch.Generator) -> torch.Tensor:
+        """Omega of every head from `generator`; under tensor parallelism
+        the whole model's heads are drawn and this rank's are kept."""
         sample = (orthogonal_gaussian_features if self.use_orthogonal
                   else gaussian_features)
-        return sample(generator, self.heads, self.head_dim, self.m)
+        index, count = (0, 1) if self.tp is None else (self.tp.index, self.tp.count)
+        omega = sample(generator, self.heads * count, self.head_dim, self.m)
+        return omega[index * self.heads:(index + 1) * self.heads]
 
     def _phi(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         if self.feature_kind == "favor_plus":
@@ -237,8 +312,7 @@ class _KernelAttention(nn.Module):
         if (self.training and self.feature_redraw_interval is not None
                 and not replaying()):
             self._maybe_redraw(generator)
-        q, k, v = (_split_heads(t, self.heads)
-                   for t in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = self._qkv(x)
 
         q, k = _rotate(q, k, rpe)
         use_kerple = isinstance(rpe, KerpleRPE)
@@ -250,14 +324,14 @@ class _KernelAttention(nn.Module):
             scale = self.head_dim ** -0.25  # d^-1/4 on both q and k
             q, k = q * scale, k * scale
 
-        if self.fused_phi and use_kerple:
+        if self.fused_phi and use_kerple and self.seq_mesh is None:
             if self.feature_kind not in ("favor_plus", "relu"):
                 raise NotImplementedError(
                     f"fused_phi supports favor_plus/relu, not {self.feature_kind}")
             out = kerple_attention_fused_phi(q.contiguous(), k.contiguous(),
                                              v.contiguous(), self.omega,
                                              rpe.coeffs(), self.feature_kind)
-            return self.drop(self.proj(_merge_heads(out)), generator)
+            return self._out(out, generator)
 
         B, H, N, _ = q.shape
         if torch.is_grad_enabled() and 4 * B * H * N * self.m > PHI_CHECKPOINT_BYTES:
@@ -269,11 +343,21 @@ class _KernelAttention(nn.Module):
                                           preserve_rng_state=False)
         else:
             q_prime, k_prime = self._phi_pair(q, k, self.omega)
-        if use_kerple:
+        if self.seq_mesh is not None:
+            from ..parallel.seq_parallel import (
+                ring_kerple_attention,
+                seq_parallel_linear_attention,
+            )
+
+            if use_kerple:
+                out = ring_kerple_attention(q_prime, k_prime, v, rpe.coeffs(), self.seq_group)
+            else:
+                out = seq_parallel_linear_attention(q_prime, k_prime, v, self.seq_group)
+        elif use_kerple:
             out = rpe.attention(q_prime, k_prime, v.contiguous())
         else:
             out = linear_attention(q_prime, k_prime, v)
-        return self.drop(self.proj(_merge_heads(out)), generator)
+        return self._out(out, generator)
 
 
 class FavorPlusAttention(_KernelAttention):

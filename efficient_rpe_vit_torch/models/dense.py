@@ -6,14 +6,17 @@ LayerNorm takes its statistics in fp32 and returns the compute dtype.
 State-dict names are torch's own (`weight`, `bias`). Dropout draws its
 masks from a generator the caller passes, never from torch's global RNG,
 through `draw`, which lets a recomputed block (`ViT(remat=True)`) take
-back the draws of its first run.
+back the draws of its first run. Under a mesh (`batch_shard`, a Dropout's
+`shard`) a rank draws the mask of the whole batch and hidden width from
+the generator every rank shares and keeps its own part, so the ranks'
+generators stay in step and the masks are the single-device step's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +76,28 @@ def _current_tape() -> Optional[DrawTape]:
     return getattr(_ACTIVE, "tape", None)
 
 
+# (index, count) of the batch rows this thread's rank holds, set by the
+# parallel train steps
+_BATCH = threading.local()
+
+
+@contextlib.contextmanager
+def batch_shard(index: int, count: int) -> Iterator[None]:
+    """Within the block: the batches this thread runs are rows `index` of
+    `count` equal parts of a global batch (a data-parallel rank's)."""
+    previous = getattr(_BATCH, "shard", None)
+    _BATCH.shard = (index, count)
+    try:
+        yield
+    finally:
+        _BATCH.shard = previous
+
+
+def batch_part() -> Tuple[int, int]:
+    """(index, count) of the global batch this rank runs; (0, 1) alone."""
+    return getattr(_BATCH, "shard", None) or (0, 1)
+
+
 def draw(make: Callable[[], torch.Tensor]) -> torch.Tensor:
     """`make()`, a random draw from the caller's generator; inside a block
     run under a `DrawTape`, kept on the first run and taken back on a
@@ -126,7 +151,11 @@ class Dropout(nn.Dropout):
     """Dropout whose mask comes from an explicit generator, as flax's
     `nn.Dropout` takes its 'dropout' rng: in train mode with p > 0, keep
     each element with probability 1-p and scale it by 1/(1-p); identity
-    otherwise."""
+    otherwise. Under `batch_shard` and with `shard` = (index, count) (its
+    input's last dim split over tensor-parallel ranks) the mask is this
+    part of the whole batch's and width's."""
+
+    shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -136,6 +165,15 @@ class Dropout(nn.Dropout):
             raise ValueError("train-mode dropout needs a generator: pass one "
                              "to the model's forward")
         keep_prob = 1.0 - self.p
-        keep = draw(lambda: torch.rand(x.shape, generator=generator,
-                                       device=x.device) < keep_prob)
+        (row, rows), (col, cols) = batch_part(), self.shard or (0, 1)
+        full = list(x.shape)
+        full[0] *= rows
+        full[-1] *= cols
+
+        def mask():
+            u = torch.rand(full, generator=generator, device=x.device)
+            u = u.narrow(0, row * x.shape[0], x.shape[0])
+            return u.narrow(-1, col * x.shape[-1], x.shape[-1]) < keep_prob
+
+        keep = draw(mask)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))

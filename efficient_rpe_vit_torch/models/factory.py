@@ -93,8 +93,11 @@ def create_model(
             "enable_block_circulant": True} for block-circulant).
         mlp_config: optional MLP override, as in the JAX factory:
             {"mlp_type": "moe", "num_experts": E} switches the block MLPs
-            to the soft mixture of experts (`layers.MoeMlp`); an
-            `expert_mesh` in it raises NotImplementedError (not ported).
+            to the soft mixture of experts (`layers.MoeMlp`); with
+            "expert_mesh" (a `parallel.Mesh`) and "expert_axis" its
+            experts are split over that mesh axis. An attention_config's
+            "seq_mesh" / "seq_axis" split the attention core's sequence
+            over that axis (context parallelism).
         remat: per-block activation checkpointing (`ViT.remat`); the
             config's `remat` field turns it on too.
         device: where the model lives; None means the GPU, and raises when

@@ -4,8 +4,9 @@ transformer block.
 Counterpart of `efficient_rpe_vit_tpu/models/layers.py`:
 x + attn(LN(x), rpe) then x + mlp(LN(x)), with the RPE threaded INTO the
 attention call (KERPLE runs inside the kernelised-attention math). The
-block's MLP is the dense one or the soft mixture of experts on one device;
-sharding the experts over devices (`expert_mesh`) is not ported.
+block's MLP is the dense one or the soft mixture of experts, whose experts
+may be split over a mesh axis (`expert_mesh`); under tensor parallelism
+(`parallel.shard_model`) the dense MLP holds mlp_dim / P hidden units.
 """
 
 from __future__ import annotations
@@ -25,7 +26,11 @@ from .rpe import RPE_REGISTRY
 class Mlp(nn.Sequential):
     """Linear -> GELU(exact erf) -> Dropout -> Linear -> Dropout; the
     linears are `mlp.0` and `mlp.3` in a state dict. The dropout masks come
-    from the generator passed to forward."""
+    from the generator passed to forward. Under tensor parallelism (`tp`)
+    the input enters through `copy_to_group`, `mlp.3`'s partial sums go
+    through `reduce_from_group` and its bias is added once after them."""
+
+    tp = None
 
     def __init__(self, dim: int, mlp_dim: int, dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
@@ -39,13 +44,24 @@ class Mlp(nn.Sequential):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.tp is not None:
+            return self._tp_forward(x, generator)
         for layer in self:
             x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
         return x
 
+    def _tp_forward(self, x: torch.Tensor, generator) -> torch.Tensor:
+        from ..parallel.comm import copy_to_group, reduce_from_group
+
+        fc1, gelu, drop1, fc2, drop2 = self
+        h = drop1(gelu(fc1(copy_to_group(x, self.tp.group))), generator)
+        dt = fc2.compute_dtype
+        y = reduce_from_group(F.linear(h.to(dt), fc2.weight.to(dt)), self.tp.group)
+        return drop2(y + fc2.bias.to(dt), generator)
+
 
 class MoeMlp(nn.Module):
-    """Soft mixture of E experts (dense routing), on one device.
+    """Soft mixture of E experts (dense routing).
 
     gates = softmax(router(x)) over the experts, in the compute dtype; each
     expert is fc1 -> exact GELU -> fc2 on every token, its products summed
@@ -53,20 +69,40 @@ class MoeMlp(nn.Module):
     gate-weighted sum of the experts' outputs (fp32 sum, rounded), with
     dropout once on it. Parameters keep the flax layouts: `router` [E, C]
     (a Linear), `w1` [E, C, M], `b1` [E, M], `w2` [E, M, C], `b2` [E, C].
+
+    With `expert_mesh` (a `parallel.Mesh`) the experts are split over its
+    `expert_axis`: this rank holds E / P of them (`w1`, `b1`, `w2`, `b2`
+    [E / P, ...], drawn as the single-device model's and sliced), runs them
+    on every token with its slice of the gates (x entering through
+    `copy_to_group`, the gates through `scatter_seq` on the expert dim),
+    rounds its partial mixture to the compute dtype and sums the ranks'
+    partials with `reduce_from_group`, as the JAX package's
+    `_moe_partial_combine` and psum do.
     """
 
     def __init__(self, dim: int, mlp_dim: int, num_experts: int = 4,
                  dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 expert_mesh=None, expert_axis: Optional[str] = None):
+                 expert_mesh=None, expert_axis: str = "expert"):
         super().__init__()
-        if expert_mesh is not None or expert_axis is not None:
-            raise NotImplementedError(
-                "expert parallelism (expert_mesh / expert_axis) is not ported "
-                "yet; it comes with the parallel paths (ROADMAP.md Queue A #7)")
+        self.num_experts = num_experts
+        self.ep = None
         E, C, M = num_experts, dim, mlp_dim
+        if expert_mesh is not None:
+            from ..parallel.mesh import Mesh
+
+            if not isinstance(expert_mesh, Mesh):
+                raise TypeError("expert_mesh must be a parallel.Mesh, got "
+                                f"{type(expert_mesh).__name__}")
+            if expert_axis not in expert_mesh:
+                raise ValueError(f"expert_mesh {expert_mesh.shape} has no axis {expert_axis!r}")
+            self.ep = expert_mesh.shard(expert_axis)
+            if E % self.ep.count:
+                raise ValueError(f"{E} experts do not split over {self.ep.count} ranks")
+            E //= self.ep.count
+            self.split = {name: (self.ep, 0, 1) for name in ("w1", "b1", "w2", "b2")}
         self.compute_dtype = compute_dtype
-        self.router = Dense(C, E, compute_dtype=compute_dtype)
+        self.router = Dense(C, num_experts, compute_dtype=compute_dtype)
         self.w1 = nn.Parameter(torch.empty(E, C, M))
         self.b1 = nn.Parameter(torch.empty(E, M))
         self.w2 = nn.Parameter(torch.empty(E, M, C))
@@ -78,19 +114,26 @@ class MoeMlp(nn.Module):
         """flax's xavier_uniform bound for the [E, C, M] / [E, M, C] expert
         kernels: the leading E counts as a receptive field, so fan_in + fan_out
         = E * (C + M)."""
-        E, C, M = self.w1.shape
-        return math.sqrt(6.0 / (E * (C + M)))
+        _, C, M = self.w1.shape
+        return math.sqrt(6.0 / (self.num_experts * (C + M)))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.to(dt)
         gates = torch.softmax(self.router(x), dim=-1)  # [B, N, E]
+        if self.ep is not None:
+            from ..parallel.comm import copy_to_group, reduce_from_group, scatter_seq
+
+            x = copy_to_group(x, self.ep.group)
+            gates = scatter_seq(gates, self.ep.group, dim=-1)
         h = torch.einsum("bnc,ecm->ebnm", x, self.w1.to(dt))
         h = F.gelu(h + self.b1.to(dt)[:, None, None, :], approximate="none")
         y = torch.einsum("ebnm,emc->ebnc", h, self.w2.to(dt))
         y = y + self.b2.to(dt)[:, None, None, :]
         out = torch.einsum("ebnc,bne->bnc", y.float(), gates.float()).to(dt)
+        if self.ep is not None:
+            out = reduce_from_group(out, self.ep.group)
         return self.drop(out, generator)
 
 

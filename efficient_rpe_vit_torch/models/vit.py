@@ -114,10 +114,13 @@ class ViT(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every parameter and Omega buffer from `generator` (a CPU
         generator gives the same model on every device)."""
-        def draw(fill, t, *args):
-            tmp = torch.empty(t.shape, dtype=t.dtype)
+        def draw(fill, t, *args, shard=None):
+            # a split tensor (the experts of an expert_mesh MoE) takes its
+            # part of the whole tensor's draw
+            count = 1 if shard is None else shard.count
+            tmp = torch.empty((t.shape[0] * count, *t.shape[1:]), dtype=t.dtype)
             fill(tmp, *args, generator=generator)
-            t.copy_(tmp)
+            t.copy_(tmp.chunk(count)[0 if shard is None else shard.index])
 
         for m in self.modules():
             if isinstance(m, nn.Linear):
@@ -129,7 +132,7 @@ class ViT(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, MoeMlp):
                 for w in (m.w1, m.w2):
-                    draw(nn.init.uniform_, w, -m.init_limit, m.init_limit)
+                    draw(nn.init.uniform_, w, -m.init_limit, m.init_limit, shard=m.ep)
                 m.b1.zero_()
                 m.b2.zero_()
             elif isinstance(m, KerpleRPE):

@@ -8,7 +8,12 @@ counter buffers, the JAX package's params, constants and mutable state —
 the optimiser's `state_dict()`, and `ema_params` only when an EMA is
 tracked), read back with `weights_only=True`; `<path>.meta.json` is the
 JAX sidecar `{epoch, metrics, metadata}`. A resumed run starts at
-meta['epoch'] + 1. Sharded checkpoints are not ported.
+meta['epoch'] + 1. A state on a mesh (`parallel.create_sharded_train_state`)
+saves the same single file: every rank takes part in gathering the whole
+model, optimiser state and EMA shadow, and the coordinator alone writes;
+loading one reads it on the coordinator, broadcasts it and keeps each
+rank's part. So a checkpoint saved under a mesh loads into a single-device
+run and the other way round. Sharded (per-rank) files are not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def save_checkpoint(
@@ -27,16 +33,24 @@ def save_checkpoint(
     metrics: Optional[Dict[str, Any]] = None,
     metadata: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Write `<path>` (torch.save) and `<path>.meta.json` for a TrainState."""
+    """Write `<path>` (torch.save) and `<path>.meta.json` for a TrainState;
+    for a state on a mesh every rank calls it and the coordinator writes."""
+    if getattr(state, "mesh", None) is not None:
+        from ..parallel.train_parallel import full_payload
+
+        payload = full_payload(state)
+        if dist.get_rank() != 0:
+            return path
+    else:
+        payload = {
+            "step": int(state.step),
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+        }
+        # key present only when EMA is tracked, as in the JAX format
+        if state.ema_params is not None:
+            payload["ema_params"] = state.ema_params
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    payload = {
-        "step": int(state.step),
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-    }
-    # key present only when EMA is tracked, as in the JAX format
-    if state.ema_params is not None:
-        payload["ema_params"] = state.ema_params
     torch.save(payload, path)
     meta = {
         "epoch": int(epoch),
@@ -94,17 +108,30 @@ def load_checkpoint(path: str, state) -> Tuple[Any, Dict[str, Any]]:
     round). Parameters, buffers, the EMA shadow and the optimiser state are
     copied into the template's own tensors, whose addresses a captured CUDA
     graph holds. A checkpoint saved without an EMA loads into a state that
-    tracks one: the shadow starts at the restored parameters.
+    tracks one: the shadow starts at the restored parameters. Every rank of
+    a state on a mesh calls it: the coordinator reads the file, broadcasts
+    it, and each rank keeps its part.
     """
-    device = next(state.model.parameters()).device
-    payload = torch.load(path, map_location=device, weights_only=True)
-    _copy_into(state.model.state_dict(), payload["model"], "model")
+    if getattr(state, "mesh", None) is not None:
+        from ..parallel.train_parallel import local_payload
+
+        box = [torch.load(path, map_location="cpu", weights_only=True)
+               if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        payload = local_payload(state, box[0])
+    else:
+        device = next(state.model.parameters()).device
+        payload = torch.load(path, map_location=device, weights_only=True)
+    # the tensors the optimiser updates (the parameters, or a mesh state's
+    # FSDP shards) stand in for the model's own
+    stepped = dict(state._stepped())
+    _copy_into({**state.model.state_dict(), **stepped}, payload["model"], "model")
     _load_optimizer(state.optimizer, payload["optimizer"])
     state.step = int(payload["step"])
     if state.ema_params is not None:
         ema = payload.get("ema_params")
         if ema is None:  # pre-EMA checkpoint: the shadow starts at the params
-            ema = dict(state.model.named_parameters())
+            ema = stepped
         _copy_into(state.ema_params, ema, "ema_params")
     meta_path = path + ".meta.json"
     meta: Dict[str, Any] = {}

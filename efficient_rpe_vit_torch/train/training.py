@@ -223,8 +223,13 @@ class TrainState:
         if self.ema_params is not None:
             d = self.ema_decay
             with torch.no_grad():
-                for name, p in self.model.named_parameters():
+                for name, p in self._stepped():
                     self.ema_params[name].mul_(d).add_(p, alpha=1.0 - d)
+
+    def _stepped(self):
+        """(name, tensor) of what the optimiser updates, which the EMA
+        shadow follows: the model's parameters."""
+        return self.model.named_parameters()
 
     def eval_view(self) -> nn.Module:
         """The model to evaluate or serve: a copy carrying the EMA
@@ -579,15 +584,22 @@ def make_multi_step(model: nn.Module, label_smoothing: float = 0.0,
     if device.type != "cuda":
         return lambda state, images, labels, generator: _loop(
             train_step, state, zip(images, labels), generator)
+    return _graphed_steps(model, _step_body(model, 1, label_smoothing), device,
+                          "make_multi_step")
 
-    run = _step_body(model, 1, label_smoothing)
+
+def _graphed_steps(model: nn.Module, run, device: torch.device, what: str,
+                   blocker: Callable[[], Optional[str]] = lambda: None):
+    """The GPU's K-step program over the step body `run`: one CUDA graph per
+    input shape (`_Replays`), refused where `_graph_blocker` or `blocker()`
+    names a reason."""
     replays = _Replays(device)
 
     def graphed_multi_step(state: TrainState, images, labels, generator):
         _check_call(state, model, generator, device)
-        blocker = _graph_blocker(model, state.optimizer)
-        if blocker:
-            raise NotImplementedError(f"make_multi_step on the GPU: {blocker}")
+        reason = _graph_blocker(model, state.optimizer) or blocker()
+        if reason:
+            raise NotImplementedError(f"{what} on the GPU: {reason}")
         images = torch.as_tensor(images, device=device)
         labels = torch.as_tensor(labels, device=device)
         k = images.shape[0]

@@ -174,10 +174,13 @@ def test_train_cli_options(tmp_path, flags, check):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data=2"], "--mesh"),
-    (["--distributed"], "--distributed"),
-    (["--num-processes", "2"], "--num-processes"),
-    (["--process-id", "1"], "--process-id"),
+    (["--mesh", "data=2"], "--mesh data=2 needs 2 processes in a process group, have 1"),
+    (["--mesh", "data=2,pipe=2"], "--mesh with a 'pipe' axis is not ported"),
+    (["--mesh", "data=2", "--fused-steps", "2"], "--fused-steps composes"),
+    (["--distributed"], "--distributed: initialize.. without an address reads torchrun"),
+    (["--num-processes", "2"], "--num-processes only applies to an explicit --distributed"),
+    (["--process-id", "1"], "--process-id only applies to an explicit --distributed"),
+    (["--distributed", "--num-processes", "2"], "--num-processes only applies"),
     (["--microbatches", "2"], "--microbatches"),
     (["--checkpoint-backend", "orbax"], "orbax"),
     (["--fused-steps", "2", "--grad-accum", "2"], "--fused-steps"),

@@ -290,3 +290,15 @@ def test_port_imports_no_jax():
     bad = [(str(f.relative_to(REPO)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, bad
+
+
+def test_packaging_names_every_port_subpackage():
+    """pyproject.toml's package list holds every package of the port, so an
+    install carries the data, serving and parallel layers too."""
+    import tomllib
+
+    listed = set(tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]
+                 ["packages"])
+    found = {".".join(f.parent.relative_to(REPO).parts)
+             for f in (REPO / "efficient_rpe_vit_torch").rglob("__init__.py")}
+    assert found - listed == set(), sorted(found - listed)

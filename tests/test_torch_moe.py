@@ -140,10 +140,16 @@ def test_moe_model_builds_and_differs_from_dense():
 
 
 def test_expert_parallel_arguments_raise():
-    for kwargs in ({"expert_mesh": object()}, {"expert_axis": "expert"}):
-        with pytest.raises(NotImplementedError, match="Queue A #7"):
-            create_model("performer_favor", mnist_config(), device="cpu",
-                         mlp_config=dict(MOE, **kwargs))
+    """An expert_mesh must be a parallel.Mesh (the expert-parallel runs are
+    tests/test_torch_parallel.py's); an expert_axis alone names the axis of
+    no mesh and changes nothing, as in the JAX module."""
+    with pytest.raises(TypeError, match="expert_mesh must be a parallel.Mesh"):
+        create_model("performer_favor", mnist_config(), device="cpu",
+                     mlp_config=dict(MOE, expert_mesh=object()))
+    model = create_model("performer_favor", mnist_config(), device="cpu",
+                         mlp_config=dict(MOE, expert_axis="expert"))
+    assert model.transformer_blocks[0].mlp.ep is None
+    assert model.transformer_blocks[0].mlp.w1.shape[0] == 4
 
 
 @pytest.mark.parametrize("name", ["performer_favor", "performer_favor_most_general"])

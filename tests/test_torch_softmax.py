@@ -554,7 +554,7 @@ def test_softmax_attention_module_refusals():
         attn(x, rpe=KerpleRPE(num_patches=17, dim=32, heads=2))
     with pytest.raises(TypeError, match="unsupported RPE module"):
         attn(x, rpe=torch.nn.Identity())
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    with pytest.raises(TypeError, match="seq_mesh must be a parallel.Mesh"):
         SoftmaxAttention(dim=32, heads=2, seq_mesh=object())
     with pytest.raises(NotImplementedError):
         create_model("baseline_most_general", mnist_config(**SMALL), device="cpu")
