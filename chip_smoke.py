@@ -201,14 +201,21 @@ Phases, each printed as it runs; any failure exits non-zero:
         make_train_step's; make_parallel_multi_step at K=4 captured with
         its NCCL all-reduces inside (counted at capture), two replays
         bitwise against 8 eager parallel steps, replay and eager ms/step;
+        the GPipe step on pipe=1 with M = 4 microbatches of 16, held to
+        make_train_step at b's bf16 tolerances (the microbatch split
+        changes the GEMMs' shapes and the order of the sums), #1 and each
+        #2 kernel launched 12 x 4 = 48 times per step, ms per step;
      b. two spawned ranks sharing the card over gloo: data=2, data=2 with
         FSDP, model=2 (6 heads per rank; #1's launch_info logged), seq=2
         on the flagship (ring KERPLE) and on `baseline` (ring softmax),
-        expert=2 with the soft-MoE MLP (4 experts), one step each held to
-        the single-process step on the card (loss, correct count, every
-        gradient of the rank's part; bf16 tolerances), launches per step,
-        host-staged ms per step; #1 and #2 checked and timed first at a
-        rank's shapes (half the batch, half the heads);
+        expert=2 with the soft-MoE MLP (4 experts), pipe=2 (GPipe, M = 4,
+        6 blocks per rank; no bubble tick runs a block), one step each held
+        to the single-process step on the card (loss, correct count, every
+        gradient of the rank's part; bf16 tolerances), launches per step
+        (pipe=2: (12 / 2) x 4 = 24 of #1 and of each #2 on each rank),
+        host-staged ms per step, each rank's peak memory beside the single
+        process's; #1 and #2 checked and timed first at a rank's shapes
+        (half the batch, half the heads, the pipeline's microbatch of 16);
      c. seq=2 at 1024x1024 (N = 4097), batch 4, the same way, each rank's
         peak memory logged;
      d. with more than one card, b and c again over NCCL, one card per
@@ -222,6 +229,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -509,18 +517,21 @@ PAR_TIMED = 3
 PAR_LOSS_RTOL = 1e-2
 PAR_CORRECT_SLACK = 2
 PAR_EXPERTS = 4
+PAR_MICROBATCHES = 4  # GPipe's M on pipe=1 (22 a) and pipe=2 (22 b)
 # (path, mesh, model, options): each case's model is built from seed 0
 PAR_CASES = (("parallel_dp2", "data=2", PAR_FLAGSHIP, {}),
              ("parallel_fsdp2", "data=2", PAR_FLAGSHIP, {"fsdp": True}),
              ("parallel_tp2", "model=2", PAR_FLAGSHIP, {}),
              ("parallel_cp2", "seq=2", PAR_FLAGSHIP, {}),
              ("parallel_cp2_baseline", "seq=2", "baseline", {}),
-             ("parallel_ep2", "expert=2", PAR_FLAGSHIP, {"moe": PAR_EXPERTS}))
+             ("parallel_ep2", "expert=2", PAR_FLAGSHIP, {"moe": PAR_EXPERTS}),
+             ("parallel_pp2", "pipe=2", PAR_FLAGSHIP, {"microbatches": PAR_MICROBATCHES}))
 PAR_LONGN = dict(LONGN, dropout=0.0)
 # the KERPLE kernels' shapes on a rank: half the batch (DP, FSDP), half the
-# heads (TP)
+# heads (TP), one GPipe microbatch (PP)
 PAR_SHAPES = {"half_batch": (TRAIN_BATCH // 2, 12, 197, 266, 64),
-              "half_heads": (TRAIN_BATCH, 6, 197, 266, 64)}
+              "half_heads": (TRAIN_BATCH, 6, 197, 266, 64),
+              "microbatch": (TRAIN_BATCH // PAR_MICROBATCHES, 12, 197, 266, 64)}
 
 # phase 21: serving artifacts (efficient_rpe_vit_torch.serve). The ViT-B
 # flagship artifact (phase 4's model and weights) serves these batches; the
@@ -3227,10 +3238,70 @@ def parallel_world1(kerple, per_step, card: str):
                                  f"{captured} (want {want}), all-reduces {captured_reduces}")
         out["parallel_multistep_nccl"] = captured
         del graphed, twin, gstate, tstate, multi, eager
+        torch.cuda.empty_cache()
+        out["pipeline"] = pipeline_world1(cfg, x, y, rloss, rcorrect, ref_grads, ref_ms,
+                                          kerple, per_step, card)
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
     return out
+
+
+def pipeline_world1(cfg, x, y, rloss, rcorrect, ref_grads, ref_ms, kerple, per_step,
+                    card: str):
+    """Phase 22 a, GPipe: the flagship staged on pipe=1 and trained through
+    make_pipeline_train_step at M = 4 against make_train_step's step 1 on
+    the same weights and batch, at 22 b's bf16 tolerances; #1 and each #2
+    kernel launched M times their per-step count. Returns the launches."""
+    from efficient_rpe_vit_torch.parallel import (
+        create_pipeline_train_state,
+        make_mesh_from_spec,
+        make_pipeline_train_step,
+    )
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    M = PAR_MICROBATCHES
+    mesh = make_mesh_from_spec("pipe=1", device="cuda")
+    peaks = {}
+    for arm in ("make_train_step", "pipeline"):  # the step's peak, above what it began with
+        model = _par_model(PAR_FLAGSHIP, cfg)
+        if arm == "pipeline":
+            state = create_pipeline_train_state(model, cfg, mesh, steps_per_epoch=100)
+            step = make_pipeline_train_step(model, mesh, state, n_microbatches=M)
+        else:
+            state = create_train_state(model, cfg, steps_per_epoch=100)
+            step = make_train_step(model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        zero_counts(kerple)
+        state, loss, correct = step(state, x, y, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        peaks[arm] = (torch.cuda.max_memory_allocated() - start) / 2**30
+        if arm == "make_train_step":
+            del model, state, step
+    launches = counts(kerple)
+    rel = {n: ((p.grad.float() - ref_grads[n].float()).norm()
+               / ref_grads[n].float().norm().clamp_min(1e-30)).item()
+           for n, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss.item() - rloss.item()) / abs(rloss.item())
+    ms = _par_step_ms(step, state, x, y, torch.Generator(device="cuda").manual_seed(4))
+    want = {n: M * c for n, c in per_step.items()}
+    log("parallel", f"pipeline (pipe=1, M={M} microbatches of {x.shape[0] // M}): launches in "
+        f"one step {launches} (want {want}); loss {loss.item():.6f} against make_train_step's "
+        f"{rloss.item():.6f} (rel {loss_rel:.3e}, tol {PAR_LOSS_RTOL}), correct {int(correct)} "
+        f"({int(rcorrect)}), worst gradient {worst} at {rel[worst]:.3e} of its norm (tol "
+        f"{GRAD_REL_TOL}); {ms:.3f} ms/step (make_train_step {ref_ms:.3f}); step peak "
+        f"{peaks['pipeline']:.3f} GiB above its start (make_train_step "
+        f"{peaks['make_train_step']:.3f}), on {card}")
+    if (loss_rel > PAR_LOSS_RTOL or rel[worst] > GRAD_REL_TOL
+            or abs(int(correct) - int(rcorrect)) > PAR_CORRECT_SLACK or launches != want):
+        raise AssertionError(f"world-1 pipeline step: loss rel {loss_rel:.3e}, worst gradient "
+                             f"{worst} {rel[worst]:.3e}, launches {launches} (want {want})")
+    del model, state, step
+    return launches
 
 
 def _par_case(label, spec, name, opts, cfg_fields, wrappers, per_step):
@@ -3239,10 +3310,12 @@ def _par_case(label, spec, name, opts, cfg_fields, wrappers, per_step):
     when they disagree."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.parallel import (
+        create_pipeline_train_state,
         create_sharded_train_state,
         host_batch_slice,
         make_mesh_from_spec,
         make_parallel_train_step,
+        make_pipeline_train_step,
     )
     from efficient_rpe_vit_torch.parallel.mesh import local_slice, param_layouts
     from efficient_rpe_vit_torch.train import create_train_state, make_train_step
@@ -3254,6 +3327,7 @@ def _par_case(label, spec, name, opts, cfg_fields, wrappers, per_step):
     rstate = create_train_state(ref, cfg, steps_per_epoch=100)
     zero_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
+    ref_start = torch.cuda.memory_allocated()
     _, rloss, rcorrect = make_train_step(ref)(rstate, x, y,
                                               torch.Generator(device="cuda").manual_seed(3))
     torch.cuda.synchronize()
@@ -3261,15 +3335,22 @@ def _par_case(label, spec, name, opts, cfg_fields, wrappers, per_step):
     ref_launches = counts(wrappers)
     ref_grads = {n: p.grad.float().clone() for n, p in ref.named_parameters()}
     del ref, rstate
+    gc.collect()
     torch.cuda.empty_cache()
     mesh = make_mesh_from_spec(spec, device="cuda")
     model = _par_model(name, cfg, mesh, moe)
-    state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=100,
-                                       fsdp=opts.get("fsdp", False))
-    step = make_parallel_train_step(model, mesh, state)
-    rows = host_batch_slice(x.shape[0], mesh)
+    if "pipe" in mesh:  # the GPipe step takes the global batch
+        state = create_pipeline_train_state(model, cfg, mesh, steps_per_epoch=100)
+        step = make_pipeline_train_step(model, mesh, state, n_microbatches=opts["microbatches"])
+        rows = slice(None)
+    else:
+        state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=100,
+                                           fsdp=opts.get("fsdp", False))
+        step = make_parallel_train_step(model, mesh, state)
+        rows = host_batch_slice(x.shape[0], mesh)
     zero_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     state, loss, correct = step(state, x[rows], y[rows],
                                 torch.Generator(device="cuda").manual_seed(3))
     torch.cuda.synchronize()
@@ -3289,11 +3370,11 @@ def _par_case(label, spec, name, opts, cfg_fields, wrappers, per_step):
     worst = max(rel, key=rel.get)
     ms = _par_step_ms(step, state, x[rows], y[rows], torch.Generator(device="cuda").manual_seed(4),
                       steps=1)
-    heads = model.transformer_blocks[0].attention.heads
+    heads = next(b.attention.heads for b in model.transformer_blocks if hasattr(b, "attention"))
     result = dict(loss=loss.item(), ref_loss=rloss.item(), correct=int(correct),
                   ref_correct=int(rcorrect), worst=worst, worst_rel=rel[worst], ms=ms,
                   launches=launches, ref_launches=ref_launches, heads=heads, peak=peak,
-                  ref_peak=ref_peak)
+                  ref_peak=ref_peak, start=start, ref_start=ref_start)
     loss_rel = abs(result["loss"] - result["ref_loss"]) / abs(result["ref_loss"])
     if (loss_rel > PAR_LOSS_RTOL or rel[worst] > GRAD_REL_TOL
             or abs(result["correct"] - result["ref_correct"]) > PAR_CORRECT_SLACK
@@ -3330,6 +3411,8 @@ def _par_rank(rank: int, tmp: str, backend: str) -> None:
     for label, spec, name, opts in PAR_CASES:
         per_step = ({**none, **kerple_step} if name == PAR_FLAGSHIP and "seq" not in spec
                     else none)
+        if "pipe" in spec:  # a stage's blocks, once per microbatch
+            per_step = {n: c * opts["microbatches"] // 2 for n, c in per_step.items()}
         results[label] = _par_case(label, spec, name, opts, PAR, wrappers, per_step)
     results["parallel_cp2_longn"] = _par_case("parallel_cp2_longn", "seq=2", PAR_FLAGSHIP, {},
                                               PAR_LONGN, wrappers, none)
@@ -3376,10 +3459,18 @@ def parallel_two_ranks(card: str, backend: str = "gloo"):
                 f"{res[label]['heads']} heads per rank, launches in one step "
                 f"{res[label]['launches']} (single process {res[label]['ref_launches']}), "
                 f"{res[label]['ms']:.1f} ms/step ({'host-staged gloo' if backend == 'gloo' else 'NCCL'}), peak memory "
-                f"{res[label]['peak'] / 2**30:.3f} GiB (single process "
-                f"{res[label]['ref_peak'] / 2**30:.3f} GiB), on {card}")
+                f"{res[label]['peak'] / 2**30:.3f} GiB, {res[label]['start'] / 2**30:.3f} at the "
+                f"step's start (single process {res[label]['ref_peak'] / 2**30:.3f}, "
+                f"{res[label]['ref_start'] / 2**30:.3f}), on {card}")
         if ranks[0][label]["launches"] != ranks[1][label]["launches"]:
             raise AssertionError(f"{label}: the ranks launched different kernels")
+        if label == "parallel_pp2":
+            gib = lambda r, k: round(r[label][k] / 2**30, 3)  # noqa: E731
+            log("parallel", f"parallel_pp2 (pipe=2, M={PAR_MICROBATCHES}): rank peak memory "
+                f"{[gib(r, 'peak') for r in ranks]} GiB (allocated when the step began "
+                f"{[gib(r, 'start') for r in ranks]}) against the single process's "
+                f"{gib(ranks[0], 'ref_peak')} ({gib(ranks[0], 'ref_start')}) GiB; host-staged "
+                f"{[round(r[label]['ms'], 1) for r in ranks]} ms/step, on {card}")
     if ranks[0]["parallel_tp2"]["heads"] != 6:
         raise AssertionError("the model=2 rank does not hold 6 heads")
     return ranks[0]
@@ -3583,8 +3674,9 @@ def main() -> int:
     served_launches, served_rows = serve_export_phase(mlc, fa, cr, card)
 
     # 22. parallelism: one rank on NCCL (bitwise against make_train_step, the
-    # K-step graph with its all-reduces), two ranks sharing the card over
-    # gloo (DP, FSDP, TP, CP, EP against the single-process step), CP at N=4097
+    # K-step graph with its all-reduces, GPipe at pipe=1), two ranks sharing
+    # the card over gloo (DP, FSDP, TP, CP, EP, PP against the single-process
+    # step), CP at N=4097
     par_world1, par_rows, par_two = parallel_phase(mlc, kerple, card)
 
     # one row per kernel and main path: its launches in that path's run, its
@@ -3684,11 +3776,13 @@ def main() -> int:
                      launches))
     # the parallel paths (phase 22): #1 / #2 at the shape a rank runs them
     train_rows = (kernel[("bfloat16", TRAIN_BATCH)], kernel_bwd)
-    par_paths = [(path, launches, train_rows) for path, launches in par_world1.items()]
+    par_paths = [(path, launches, par_rows["microbatch"] if path == "pipeline" else train_rows)
+                 for path, launches in par_world1.items()]
     par_paths += [(path, par_two[path]["launches"], par_rows[key] if key else train_rows)
                   for path, key in (("parallel_dp2", "half_batch"),
                                     ("parallel_fsdp2", "half_batch"),
-                                    ("parallel_tp2", "half_heads"), ("parallel_ep2", None))]
+                                    ("parallel_tp2", "half_heads"), ("parallel_ep2", None),
+                                    ("parallel_pp2", "microbatch"))]
     for path, launches, (fwd_row, bwd_rows) in par_paths:
         rows.append((*fwd, path, fwd_row, launches["masked_linear_coeffs_fwd"]))
         for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):

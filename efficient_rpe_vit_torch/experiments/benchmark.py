@@ -18,7 +18,24 @@ keeps the runs whose metrics JSON exists. `--ensemble` trains all seeds of
 a model together (`run_ensemble_benchmark`): one CUDA graph per chunk
 holds every member's K steps, and each seed's metrics JSON has a
 sequential run's schema. The default device is the GPU; `--cpu` runs on
-the CPU. `--mesh` and `--microbatches` are not ported.
+the CPU.
+
+`--mesh` and `--microbatches` are forwarded to every run, as the JAX
+runner forwards them. A mesh needs one process per rank, and the runner
+runs under those processes: start it as the train CLI is started for a
+mesh, with `--distributed` (torchrun's environment, or `host:port` with
+`--num-processes` and `--process-id`); it joins the process group once and
+every rank runs every (model, seed) in process on it. The ranks decide
+together: `--skip-existing` reads the coordinator's metrics files and every
+rank takes its answer, and a run that fails on any rank stops the runner
+(its exception propagates, so the peers' collectives fail with it) instead
+of being skipped on that rank alone. The coordinator alone prints and
+writes the aggregates; `--subprocess` and `--ensemble` do not compose with
+`--mesh`.
+
+    torchrun --nproc-per-node 4 -m efficient_rpe_vit_torch.experiments.benchmark \
+        --models performer_favor_most_general --depth 4 --mesh data=2,pipe=2 \
+        --microbatches 4 --distributed
 """
 
 from __future__ import annotations
@@ -65,11 +82,12 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true", default=None,
                    help="forwarded to the train CLI's --remat")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh (not ported)")
+                   help="forwarded to the train CLI's --mesh (one process per rank: "
+                        "run the runner under --distributed)")
     p.add_argument("--depth", type=int, default=None,
                    help="forwarded to the train CLI's --depth")
     p.add_argument("--microbatches", type=int, default=None,
-                   help="GPipe microbatch count (not ported)")
+                   help="forwarded to the train CLI's --microbatches (GPipe)")
     p.add_argument("--output-dir", type=str, default=None,
                    help="default results/benchmark_{dataset}_{timestamp}")
     p.add_argument("--skip-existing", action="store_true",
@@ -84,6 +102,14 @@ def parse_args(argv=None):
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (tests, debugging); the default is the GPU")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--distributed", nargs="?", const="auto", default=None,
+                   metavar="COORD",
+                   help="join the ranks' process group before the runs, as the train "
+                        "CLI's --distributed (bare: torchrun's environment)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count for an explicit --distributed COORD")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank for an explicit --distributed COORD")
     return p.parse_args(argv)
 
 
@@ -120,9 +146,9 @@ def train_cli_args(model: str, seed: int, run_dir: str, args):
         if value is not None:
             cli += [flag, str(value)]
     for flag, on in (("--augmentation", args.augmentation), ("--remat", args.remat),
-                     ("--cpu", args.cpu)):
+                     ("--cpu", args.cpu), ("--distributed", args.distributed is not None)):
         if on:
-            cli.append(flag)
+            cli.append(flag)  # the group is joined already: the run takes it
     return cli
 
 
@@ -305,8 +331,9 @@ ENSEMBLE_NOTE = (
     "of sequential multi-seed runs.")
 
 
-def _aggregate_model(model, model_dir, runs, summary, args):
-    """One model's runs -> aggregated_stats.json and its summary row."""
+def _aggregate_model(model, model_dir, runs, summary, args, write=True):
+    """One model's runs -> aggregated_stats.json (when `write`) and its
+    summary row."""
     from ..train import compute_aggregated_statistics, print_model_summary, save_run_metrics
 
     flat_runs = [{
@@ -319,16 +346,17 @@ def _aggregate_model(model, model_dir, runs, summary, args):
     } for r in runs]
     agg = compute_aggregated_statistics(flat_runs)
     agg["measurement_note"] = MEASUREMENT_NOTE + (ENSEMBLE_NOTE if args.ensemble else "")
-    save_run_metrics(os.path.join(model_dir, "aggregated_stats.json"), agg)
+    if write:
+        save_run_metrics(os.path.join(model_dir, "aggregated_stats.json"), agg)
     summary[model] = agg
     if not args.quiet:
         print_model_summary(model, agg)
 
 
 def _refuse(args) -> None:
-    """What the port does not run: --ensemble with what its step does not
-    compose with, and the multi-device flags."""
-    from .train import NOT_PORTED
+    """What the runner does not run: --ensemble with what its step does not
+    compose with, and a mesh without its processes."""
+    from .train import MICROBATCHES_NEED_PIPE, _mesh_axes
 
     if args.ensemble:
         for on, name in ((args.subprocess, "--subprocess"), (args.mesh, "--mesh"),
@@ -338,9 +366,27 @@ def _refuse(args) -> None:
                 raise SystemExit(f"--ensemble does not compose with {name}: the ensemble "
                                  "step trains every member on one GPU, one plain step "
                                  "each")
-    for flag, value in (("--mesh", args.mesh), ("--microbatches", args.microbatches)):
-        if value is not None:
-            raise SystemExit(f"{flag} {NOT_PORTED}")
+    if args.microbatches and not args.mesh:
+        raise SystemExit(MICROBATCHES_NEED_PIPE)
+    explicit = args.distributed not in (None, "auto")
+    for flag, value in (("--num-processes", args.num_processes),
+                        ("--process-id", args.process_id)):
+        if value is not None and not explicit:
+            raise SystemExit(f"{flag} only applies to an explicit --distributed host:port")
+    if not args.mesh:
+        return
+    if args.subprocess:
+        raise SystemExit("--subprocess does not compose with --mesh: the ranks run every "
+                         "seed in process on the process group the runner joined")
+    need = 1
+    for n in _mesh_axes(args).values():
+        need *= n
+    have = args.num_processes if explicit else (
+        int(os.environ.get("WORLD_SIZE", "1")) if args.distributed else 1)
+    if need != have:
+        raise SystemExit(f"--mesh {args.mesh} needs {need} processes, the runner has {have}: "
+                         f"start {need} ranks with --distributed (torchrun --nproc-per-node "
+                         f"{need} ... --distributed)")
 
 
 def main(argv=None):
@@ -357,25 +403,43 @@ def main(argv=None):
         except ValueError as e:
             raise SystemExit(str(e))
     _refuse(args)
+    joined = False
+    if args.distributed is not None:
+        from ..parallel import multihost
+        from .train import _join
+
+        joined = _join(args)  # quiets every rank but the coordinator
+    coordinator = args.distributed is None or multihost.is_coordinator()
+    say = print if coordinator else (lambda *a, **k: None)
+
+    def existing(path):
+        """--skip-existing's metrics of a run, the coordinator's on every rank."""
+        if args.distributed is None:
+            return load_run_metrics(path)
+        return multihost.broadcast_scalar(load_run_metrics(path) if coordinator else None)
 
     seeds = args.seeds if args.seeds else [42 + 111 * i for i in range(args.num_runs)]
+    if args.distributed is not None and not args.output_dir:  # one timestamp for all ranks
+        args.output_dir = multihost.broadcast_scalar(
+            setup_benchmark_directory(args) if coordinator else None)
     out_dir = setup_benchmark_directory(args)
-    save_benchmark_config(out_dir, {
-        "models": args.models, "dataset": args.dataset, "seeds": seeds,
-        "epochs": args.epochs, "batch_size": args.batch_size,
-        "augmentation": args.augmentation,
-        "compute_dtype": args.compute_dtype,
-        "mlp_type": args.mlp_type, "num_experts": args.num_experts,
-        "num_features": args.num_features,
-        "grad_accum": args.grad_accum, "ema_decay": args.ema_decay,
-        "fused_steps": args.fused_steps,
-        "label_smoothing": args.label_smoothing, "remat": args.remat,
-        "mesh": args.mesh, "depth": args.depth,
-        "microbatches": args.microbatches,
-        "ensemble": args.ensemble,
-        "timestamp": datetime.now().isoformat(),
-    })
-    print(f"Benchmark -> {out_dir} (models={args.models}, seeds={seeds})")
+    if coordinator:
+        save_benchmark_config(out_dir, {
+            "models": args.models, "dataset": args.dataset, "seeds": seeds,
+            "epochs": args.epochs, "batch_size": args.batch_size,
+            "augmentation": args.augmentation,
+            "compute_dtype": args.compute_dtype,
+            "mlp_type": args.mlp_type, "num_experts": args.num_experts,
+            "num_features": args.num_features,
+            "grad_accum": args.grad_accum, "ema_decay": args.ema_decay,
+            "fused_steps": args.fused_steps,
+            "label_smoothing": args.label_smoothing, "remat": args.remat,
+            "mesh": args.mesh, "depth": args.depth,
+            "microbatches": args.microbatches,
+            "ensemble": args.ensemble,
+            "timestamp": datetime.now().isoformat(),
+        })
+    say(f"Benchmark -> {out_dir} (models={args.models}, seeds={seeds})")
 
     summary = {}
     for model in args.models:
@@ -385,54 +449,62 @@ def main(argv=None):
         runs = []
         if args.ensemble:
             # all seeds train together, so --skip-existing is all or nothing
-            existing = [load_run_metrics(p) for p in paths]
-            if args.skip_existing and all(e is not None for e in existing):
-                print(f"[skip-existing] {model} (ensemble, all seeds)")
-                runs = existing
+            kept = [existing(p) for p in paths] if args.skip_existing else [None]
+            if all(e is not None for e in kept):
+                say(f"[skip-existing] {model} (ensemble, all seeds)")
+                runs = kept
             else:
                 t0 = time.perf_counter()
                 try:
                     runs = run_ensemble_benchmark(model, seeds, model_dir, args)
                 except Exception as e:  # one model's failure does not stop the others
-                    print(f"[ERROR] {model} ensemble: {e}")
+                    say(f"[ERROR] {model} ensemble: {e}")
+                    if args.distributed is not None:
+                        raise
                     continue
-                print(f"{model} ensemble x{len(seeds)}: "
+                say(f"{model} ensemble x{len(seeds)}: "
                       f"{time.perf_counter() - t0:.0f}s total")
-            _aggregate_model(model, model_dir, runs, summary, args)
+            _aggregate_model(model, model_dir, runs, summary, args, coordinator)
             continue
         shared = {}  # one model's datasets, state and graphs, across its seeds
         for run_idx, (seed, path) in enumerate(zip(seeds, paths)):
             if args.skip_existing:
-                existing = load_run_metrics(path)
-                if existing is not None:
-                    print(f"[skip-existing] {model} seed {seed}")
-                    runs.append(existing)
+                kept = existing(path)
+                if kept is not None:
+                    say(f"[skip-existing] {model} seed {seed}")
+                    runs.append(kept)
                     continue
             t0 = time.perf_counter()
             try:
                 metrics = run_single_training(model, seed, os.path.dirname(path), args,
                                               shared=shared)
             except Exception as e:  # one run's failure does not stop the others
-                print(f"[ERROR] {model} seed {seed}: {e}")
+                say(f"[ERROR] {model} seed {seed}: {e}")
+                if args.distributed is not None:  # unless the ranks run it together
+                    raise
                 continue
-            print(f"{model} seed {seed}: "
+            say(f"{model} seed {seed}: "
                   f"acc {metrics['aggregate']['final_test_accuracy']:.2f}% "
                   f"({time.perf_counter() - t0:.0f}s)")
             runs.append(metrics)
-        _aggregate_model(model, model_dir, runs, summary, args)
+        _aggregate_model(model, model_dir, runs, summary, args, coordinator)
 
-    print("\n===== SUMMARY =====")
+    say("\n===== SUMMARY =====")
     header = f"{'model':<36} {'test acc':<16} {'img/s':<12} {'train s':<10}"
-    print(header)
-    print("-" * len(header))
+    say(header)
+    say("-" * len(header))
     for model, agg in summary.items():
         acc = agg.get("test_accuracy") or {}
         thr = agg.get("throughput_images_per_sec") or {}
         tt = agg.get("train_time") or {}
-        print(f"{model:<36} "
+        say(f"{model:<36} "
               f"{acc.get('mean', float('nan')):6.2f}±{acc.get('std', 0):<7.2f} "
               f"{thr.get('mean', float('nan')):<12.1f} "
               f"{tt.get('mean', float('nan')):<10.1f}")
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return summary
 
 

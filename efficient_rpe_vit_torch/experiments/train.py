@@ -17,17 +17,19 @@ steps per call, one CUDA graph replay on the GPU.
 
 Sharded training runs one process per rank, joined by `--distributed`
 (bare: torchrun's environment; or `host:port` with `--num-processes` and
-`--process-id`), over a `--mesh` of 'data', 'model', 'seq' and 'expert'
-axes (`efficient_rpe_vit_torch.parallel`):
+`--process-id`), over a `--mesh` of 'data', 'model', 'seq', 'expert' and
+'pipe' axes (`efficient_rpe_vit_torch.parallel`):
 
-    torchrun --nproc-per-node 2 -m efficient_rpe_vit_torch.experiments.train \
-        --mesh data=2 --distributed
+    torchrun --nproc-per-node 4 -m efficient_rpe_vit_torch.experiments.train \
+        --mesh data=2,pipe=2 --depth 4 --microbatches 4 --distributed
 
 Each data rank trains on its rows of every batch, evaluation sums the
 ranks' counts, and only the coordinator prints, writes the metrics and
-saves checkpoints. A 'pipe' axis, `--microbatches` and
-`--checkpoint-backend orbax` are refused: GPipe and sharded checkpoint
-directories are not ported.
+saves checkpoints. A 'pipe' axis trains through the GPipe step
+(`parallel/pipeline.py`; `--microbatches` M, default the pipe size): each
+pipe rank holds depth / pipe blocks, and evaluation and the inference
+benchmark run through the pipeline too. `--checkpoint-backend orbax` is
+refused: sharded checkpoint directories are not ported.
 """
 
 from __future__ import annotations
@@ -39,9 +41,8 @@ import time
 
 import torch
 
-NOT_PORTED = ("is not ported: the GPipe pipeline, the benchmark runner's mesh "
-              "and sharded checkpoint directories are later work (ROADMAP.md "
-              "Queue A #7)")
+NOT_PORTED = ("is not ported: sharded checkpoint directories are later work "
+              "(ROADMAP.md Queue A #7.5)")
 
 
 def parse_args(argv=None):
@@ -115,7 +116,7 @@ def parse_args(argv=None):
                    help="override the config's transformer depth")
     p.add_argument("--microbatches", type=int, default=None, metavar="M",
                    help="GPipe microbatch count for a --mesh 'pipe' axis "
-                        "(not ported)")
+                        "(default: the pipe size)")
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing: recompute each block's "
                         "activations in the backward")
@@ -134,7 +135,8 @@ def parse_args(argv=None):
                    help="mesh of the run's processes for sharded training, e.g. "
                         "'data=2' (DP), 'data=2,model=2' (DP x TP), 'data=2,seq=2' "
                         "(DP x CP: sequence split inside attention), 'expert=2' "
-                        "(with --mlp-type moe); needs --distributed and as many "
+                        "(with --mlp-type moe), 'data=2,pipe=2' (DP x PP: GPipe "
+                        "over the blocks); needs --distributed and as many "
                         "processes as the sizes' product")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--distributed", nargs="?", const="auto", default=None,
@@ -152,8 +154,6 @@ def parse_args(argv=None):
 
 def _refuse(args) -> None:
     """The flags the port refuses, before anything runs."""
-    if args.microbatches is not None:
-        raise SystemExit(f"--microbatches {NOT_PORTED}")
     if args.checkpoint_backend == "orbax":
         raise SystemExit(f"--checkpoint-backend orbax {NOT_PORTED}")
     explicit = args.distributed not in (None, "auto")
@@ -168,6 +168,31 @@ def _refuse(args) -> None:
             "--fused-steps composes with the plain single-chip step only "
             "(not --mesh or --grad-accum); the sharded / accumulated steps "
             "have their own structure")
+
+
+MICROBATCHES_NEED_PIPE = ("--microbatches only applies to a --mesh with a 'pipe' axis "
+                          "(use --grad-accum for non-pipelined microbatching)")
+
+
+def _refuse_pipe(args, axes, config) -> None:
+    """The JAX CLI's refusals of `--microbatches` without a 'pipe' axis and
+    of what a 'pipe' axis does not run, from the mesh spec's `axes` and the
+    config alone."""
+    if "pipe" not in axes:
+        if args.microbatches:
+            raise SystemExit(MICROBATCHES_NEED_PIPE)
+        return
+    if args.grad_accum > 1 or args.label_smoothing > 0:
+        raise SystemExit("--mesh with a 'pipe' axis does not compose with --grad-accum "
+                         "or --label-smoothing (the GPipe step schedules its own "
+                         "microbatches)")
+    n_pipe, depth = axes["pipe"], args.depth or config.model.depth
+    if depth % n_pipe:
+        raise SystemExit(f"model depth {depth} not divisible by pipe={n_pipe} stages")
+    n_micro = args.microbatches or n_pipe
+    if config.train.batch_size % n_micro:
+        raise SystemExit(f"batch size {config.train.batch_size} not divisible by the "
+                         f"{n_micro}-microbatch GPipe schedule")
 
 
 def _join(args) -> bool:
@@ -189,17 +214,20 @@ def _join(args) -> bool:
     return made
 
 
-def _build_mesh(args, device: torch.device):
-    """--mesh over the run's processes, or a refusal."""
-    from ..parallel import Mesh
+def _mesh_axes(args):
     from ..parallel.mesh import parse_mesh_spec
 
     try:
-        axes = parse_mesh_spec(args.mesh)
+        return parse_mesh_spec(args.mesh)
     except ValueError as e:
         raise SystemExit(f"--mesh: {e}") from None
-    if "pipe" in axes:
-        raise SystemExit(f"--mesh with a 'pipe' axis {NOT_PORTED}")
+
+
+def _build_mesh(args, device: torch.device):
+    """--mesh over the run's processes, or a refusal."""
+    from ..parallel import Mesh
+
+    axes = _mesh_axes(args)
     need = 1
     for n in axes.values():
         need *= n
@@ -286,14 +314,6 @@ def main(argv=None, shared=None):
     from ..train.metrics import compute_information_criteria
     from ..utils.device import resolve_device
 
-    if args.distributed is not None:
-        from ..parallel.multihost import local_device
-
-        device = local_device(args.cpu)
-    else:
-        device = resolve_device("cpu" if args.cpu else None)
-    mesh = _build_mesh(args, device) if args.mesh else None
-    set_random_seeds(args.seed)
     config = get_dataset_config(
         args.dataset,
         batch_size=args.batch_size,
@@ -308,6 +328,17 @@ def main(argv=None, shared=None):
         seed=args.seed,
         compute_dtype=args.compute_dtype,
     )
+    _refuse_pipe(args, _mesh_axes(args) if args.mesh else {}, config)
+    if args.distributed is not None:
+        from ..parallel.multihost import local_device
+
+        device = local_device(args.cpu)
+    else:
+        device = resolve_device("cpu" if args.cpu else None)
+    mesh = _build_mesh(args, device) if args.mesh else None
+    pipe = mesh is not None and "pipe" in mesh
+    n_micro = (args.microbatches or mesh.size("pipe")) if pipe else None
+    set_random_seeds(args.seed)
     info = (get_model_info(args.model) if args.model in MODEL_VARIANTS
             else {"name": args.model})
     if not args.quiet:
@@ -353,12 +384,12 @@ def main(argv=None, shared=None):
         state = reset_train_state(shared["state"], model)
         model = state.model
     elif mesh is not None:
-        from ..parallel import create_sharded_train_state
+        from ..parallel import create_pipeline_train_state, create_sharded_train_state
         from ..parallel.train_parallel import parameter_count
 
-        state = create_sharded_train_state(model, config, mesh,
-                                           steps_per_epoch=len(train_ds),
-                                           ema_decay=args.ema_decay)
+        make_state = create_pipeline_train_state if pipe else create_sharded_train_state
+        state = make_state(model, config, mesh, steps_per_epoch=len(train_ds),
+                           ema_decay=args.ema_decay)
     else:
         state = create_train_state(model, config, steps_per_epoch=len(train_ds),
                                    ema_decay=args.ema_decay)
@@ -380,6 +411,12 @@ def main(argv=None, shared=None):
 
     if reuse:
         train_step, eval_step, multi_step, gather_step, gather_eval = shared["steps"]
+    elif pipe:
+        from ..parallel import make_pipeline_eval_step, make_pipeline_train_step
+
+        train_step = make_pipeline_train_step(model, mesh, state, n_microbatches=n_micro)
+        eval_step = make_pipeline_eval_step(state.eval_view(), mesh, n_micro)
+        multi_step = gather_step = gather_eval = None
     elif mesh is not None:
         from ..parallel import make_parallel_eval_step, make_parallel_train_step
 
@@ -479,9 +516,15 @@ def main(argv=None, shared=None):
     bench_images, _ = next(iter(test_ds))
     # on a mesh the ranks' forwards meet in collectives, so every rank runs
     # chains of one fixed length (no length search by each rank's clock)
+    if pipe:
+        from ..parallel.pipeline import make_pipeline_inference_chain
+
+        chain = make_pipeline_inference_chain(model, mesh, n_micro)
+    else:
+        chain = make_inference_chain(model)
     inference = benchmark_inference(
         model, bench_images, num_warmup=args.bench_warmup,
-        num_iterations=args.bench_iters, chain_fn=make_inference_chain(model),
+        num_iterations=args.bench_iters, chain_fn=chain,
         target_chain_time=0 if mesh is not None else None)
     if not args.quiet:
         print(f"Inference: {inference['throughput_images_per_sec']:.1f} img/s, "
@@ -496,6 +539,7 @@ def main(argv=None, shared=None):
             "seed": args.seed,
             "num_parameters": n_params["total"],
             "backend": device_name(device),
+            **({"mesh": args.mesh} if args.mesh else {}),
             **({"mlp_type": args.mlp_type, "num_experts": args.num_experts}
                if args.mlp_type == "moe" else {}),
             "synthetic_data": bool(getattr(train_ds, "synthetic", False)),

@@ -156,17 +156,13 @@ class ViT(nn.Module):
         live; eval mode never draws. With return_attention (softmax
         attention only), returns (logits, [per-block [B, H, N, N]
         probabilities])."""
-        B = x.shape[0]
         if tuple(x.shape[1:]) != (self.image_size, self.image_size,
                                   self.in_channels):
             raise ValueError(
                 f"expected input [B, {self.image_size}, {self.image_size}, "
                 f"{self.in_channels}], got {tuple(x.shape)}"
             )
-        dt = self.compute_dtype
-        x = self.patch_embedding(patchify(x, self.patch_size).to(dt))
-        cls = self.cls_token.to(dt).expand(B, -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
+        x = self.embed(x)
         attention_maps = []
         remat = (self.remat and not return_attention and self.training
                  and torch.is_grad_enabled())
@@ -178,5 +174,18 @@ class ViT(nn.Module):
             if return_attention:
                 x, weights = x
                 attention_maps.append(weights)
-        logits = self.mlp_head(x[:, 0].float())  # head in fp32
+        logits = self.head(x)
         return (logits, attention_maps) if return_attention else logits
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, C] images -> [B, N + 1, dim] tokens in the compute
+        dtype: patchify, Dense, the CLS token, + the position embedding."""
+        dt = self.compute_dtype
+        h = self.patch_embedding(patchify(x, self.patch_size).to(dt))
+        cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
+        return torch.cat([cls, h], dim=1) + self.pos_embedding.to(dt)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """[B, N + 1, dim] tokens -> [B, num_classes] logits: the fp32 head
+        on the CLS row."""
+        return self.mlp_head(h[:, 0].float())

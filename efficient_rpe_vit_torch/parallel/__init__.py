@@ -1,6 +1,8 @@
-"""Data, tensor (Megatron), FSDP, context and expert parallelism on
-`torch.distributed`: the counterpart of `efficient_rpe_vit_tpu/parallel/`
-without its GPipe pipeline (`pipeline.py`), which is not ported."""
+"""Data, tensor (Megatron), FSDP, context, expert and GPipe pipeline
+parallelism on `torch.distributed`: the counterpart of
+`efficient_rpe_vit_tpu/parallel/`. `python -m
+efficient_rpe_vit_torch.parallel.dryrun N` runs one step of each kind on an
+N-rank CPU world."""
 
 from .mesh import (
     Mesh,
@@ -17,6 +19,16 @@ from .multihost import (
     host_batch_slice,
     initialize as initialize_multihost,
     is_coordinator,
+)
+from .pipeline import (
+    create_pipeline_train_state,
+    make_pipeline_eval_step,
+    make_pipeline_train_step,
+    pipeline_blocks,
+    pipeline_vit_forward,
+    reduce_pipeline_grads,
+    stage_model,
+    stage_state_dict,
 )
 from .seq_parallel import (
     ring_kerple_attention,
@@ -54,4 +66,12 @@ __all__ = [
     "make_mesh_from_spec",
     "make_parallel_eval_step",
     "shard_model",
+    "stage_model",
+    "stage_state_dict",
+    "create_pipeline_train_state",
+    "pipeline_blocks",
+    "pipeline_vit_forward",
+    "make_pipeline_train_step",
+    "make_pipeline_eval_step",
+    "reduce_pipeline_grads",
 ]

@@ -16,14 +16,17 @@ each one is written out as a `torch.autograd.Function` over a
     (forward: all-gather; backward: this rank's slice of the gradient,
     without a sum, because every rank computes the same loss downstream);
   * `ring_exchange`: send to rank + 1 and receive from rank - 1 in one
-    `batch_isend_irecv`.
+    `batch_isend_irecv`;
+  * `send_to` / `recv_from`: one point-to-point message to or from a
+    neighbour (the GPipe stages' activations and their gradients).
 
 Backends: NCCL when each rank owns a card, gloo on the CPU and for several
 ranks that share one card. gloo takes CUDA tensors itself for the
 collectives in `GLOO_CUDA_OPS` (its CUDA work copies through host memory
 inside the op); its point-to-point ops refuse them (torch 2.11: "Bad
-address"), so `ring_exchange` copies a CUDA tensor to host memory, sends
-it and copies the received one back, which is logged once. That is chosen
+address"), so `ring_exchange`, `send_to` and `recv_from` copy a CUDA
+tensor to host memory, send it and copy the received one back, which is
+logged once per op. That is chosen
 by the backend, never as a fallback: NCCL never stages.
 """
 
@@ -123,6 +126,34 @@ def ring_exchange(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [r.to(t.device) for r, t in zip(recvs, tensors)] if staged else recvs
+
+
+def send_to(t: torch.Tensor, peer: int, group):
+    """Post the send of `t` to global rank `peer`; returns the pending
+    (work, buffer) for `wait`, which keeps the buffer alive until then."""
+    t = t.contiguous()
+    if _via_host(t, group, "send"):
+        t = t.cpu()
+    return dist.isend(t, peer, group=group), t
+
+
+def recv_from(shape, dtype: torch.dtype, device: torch.device, peer: int,
+              group) -> torch.Tensor:
+    """Receive a tensor of `shape` and `dtype` from global rank `peer`,
+    onto `device`."""
+    buf = torch.empty(shape, dtype=dtype, device=device)
+    if _via_host(buf, group, "recv"):
+        host = torch.empty(shape, dtype=dtype)
+        dist.recv(host, peer, group=group)
+        return host.to(device)
+    dist.recv(buf, peer, group=group)
+    return buf
+
+
+def wait(pending) -> None:
+    """Wait for the sends `send_to` posted."""
+    for work, _ in pending:
+        work.wait()
 
 
 def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -124,8 +124,9 @@ def global_batch(local_tree, mesh, axis: str = "data"):
 
 
 def broadcast_scalar(value, root: int = 0):
-    """Agree on one Python scalar across processes (an epoch's seed, a
-    resume epoch read from disk by the coordinator)."""
+    """Agree on one picklable Python value across processes (an epoch's
+    seed, a resume epoch or a run's metrics read from disk by the
+    coordinator)."""
     box = [value]
     dist.broadcast_object_list(box, src=root)
     return box[0]

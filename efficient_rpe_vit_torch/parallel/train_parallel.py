@@ -177,6 +177,19 @@ class ParallelTrainState(TrainState):
     def param_names(self):
         return [name for name, _ in self.model.named_parameters()]
 
+    def batch_rows(self, batch: int) -> slice:
+        """The rows of a global batch that this rank's step takes."""
+        return host_batch_slice(batch, self.mesh)
+
+    def _whole_count(self, counts: Dict[str, int]) -> int:
+        return sum(counts.values())
+
+    def _join(self, payload: Dict) -> Dict:
+        return payload
+
+    def _select(self, payload: Dict) -> Dict:
+        return payload
+
 
 def create_sharded_train_state(model: nn.Module, config, mesh: Mesh,
                                steps_per_epoch: int = 100, ema_decay: float = 0.0,
@@ -312,8 +325,10 @@ def parallel_train_epoch(state: ParallelTrainState, train_step: Callable, datase
                          epoch: int = 0, log_interval_frac: float = 0.02,
                          verbose: bool = True) -> Tuple[ParallelTrainState, Dict[str, float]]:
     """One epoch with the sharded step: every rank iterates the same
-    dataset order (the same seed), keeps its data rank's rows of each
-    batch (`host_batch_slice`) and sums the global batch's loss and count.
+    dataset order (the same seed), keeps the rows of each batch that its
+    step takes (`state.batch_rows`: its data rank's, `host_batch_slice`; a
+    pipeline stage's step takes the whole batch) and sums the global
+    batch's loss and count.
     With `multi_step` and `fused_steps` = K > 1 the rows are stacked K
     batches per call (a shorter chunk where the batch shape changes or
     the epoch ends). Returns (state, {loss, accuracy (%), time, samples}),
@@ -333,7 +348,7 @@ def parallel_train_epoch(state: ParallelTrainState, train_step: Callable, datase
             buf_y.clear()
 
     for images, labels in dataset:
-        rows = host_batch_slice(images.shape[0], mesh)
+        rows = state.batch_rows(images.shape[0])
         x, y = images[rows], labels[rows]
         if not fused:
             state, loss, correct = train_step(state, x, y, generator)
@@ -377,10 +392,11 @@ def parameter_count(state: ParallelTrainState) -> Dict[str, int]:
     """`models.count_parameters` of the whole model a sharded state holds a
     part of (every parameter trains)."""
     layouts = param_layouts(state.model)
-    total = 0
+    counts = {}
     for name, p in state.model.named_parameters():
         n = state.fsdp.meta[name][1] if state.fsdp is not None else p.numel()
-        total += n * (layouts[name][0].count if name in layouts else 1)
+        counts[name] = n * (layouts[name][0].count if name in layouts else 1)
+    total = state._whole_count(counts)
     return {"total": total, "trainable": total, "non_trainable": 0}
 
 
@@ -421,14 +437,15 @@ def full_payload(state: ParallelTrainState) -> Dict:
     if state.ema_params is not None:
         payload["ema_params"] = {n: _full(state, n, e, layouts)
                                  for n, e in state.ema_params.items()}
-    return payload
+    return state._join(payload)
 
 
 @torch.no_grad()
 def local_payload(state: ParallelTrainState, payload: Dict) -> Dict:
     """This rank's part of a single-device checkpoint payload, in the
     layout of `state` (model tensors under their own names, FSDP
-    parameters as their flat shards)."""
+    parameters as their flat shards, a pipeline stage's blocks alone)."""
+    payload = state._select(payload)
     layouts = param_layouts(state.model)
     out = dict(payload)
     out["model"] = {n: _local(state, n, t, layouts) for n, t in payload["model"].items()}

@@ -171,8 +171,10 @@ def test_ensemble_skip_existing_is_all_or_nothing(ens, tmp_path, capsys):
     (["--ensemble", "--remat"], "--remat"),
     (["--ensemble", "--mesh", "data=2"], "--mesh"),
     (["--ensemble", "--microbatches", "2"], "--microbatches"),
-    (["--mesh", "data=2"], "not ported"),
-    (["--microbatches", "2"], "not ported"),
+    (["--mesh", "data=2"], "--mesh data=2 needs 2 processes, the runner has 1"),
+    (["--mesh", "data=2,pipe=2", "--subprocess"], "--subprocess does not compose with --mesh"),
+    (["--microbatches", "2"], "--microbatches only applies to a --mesh with a 'pipe' axis"),
+    (["--num-processes", "2"], "--num-processes only applies to an explicit --distributed"),
 ])
 def test_refusals(flags, message, tmp_path):
     with pytest.raises(SystemExit, match=message):

@@ -175,13 +175,20 @@ def test_train_cli_options(tmp_path, flags, check):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "data=2"], "--mesh data=2 needs 2 processes in a process group, have 1"),
-    (["--mesh", "data=2,pipe=2"], "--mesh with a 'pipe' axis is not ported"),
+    (["--mesh", "data=2,pipe=2", "--grad-accum", "2", "--depth", "4"], "--mesh with a 'pipe' "
+     "axis does not compose with --grad-accum"),
+    (["--mesh", "data=2,pipe=2", "--label-smoothing", "0.1", "--depth", "4"], "--label-smoothing"),
+    (["--mesh", "data=2,pipe=2"], "model depth 3 not divisible by pipe=2 stages"),
+    (["--mesh", "pipe=2", "--depth", "4", "--microbatches", "3", "--batch-size", "256"],
+     "batch size 256 not divisible by the 3-microbatch GPipe schedule"),
+    (["--mesh", "data=2", "--microbatches", "4"], "--microbatches only applies to a --mesh "
+     "with a 'pipe' axis"),
     (["--mesh", "data=2", "--fused-steps", "2"], "--fused-steps composes"),
     (["--distributed"], "--distributed: initialize.. without an address reads torchrun"),
     (["--num-processes", "2"], "--num-processes only applies to an explicit --distributed"),
     (["--process-id", "1"], "--process-id only applies to an explicit --distributed"),
     (["--distributed", "--num-processes", "2"], "--num-processes only applies"),
-    (["--microbatches", "2"], "--microbatches"),
+    (["--microbatches", "2"], "--microbatches only applies to a --mesh with a 'pipe' axis"),
     (["--checkpoint-backend", "orbax"], "orbax"),
     (["--fused-steps", "2", "--grad-accum", "2"], "--fused-steps"),
     (["--model", "baseline", "--num-features", "64"], "--num-features"),
@@ -359,9 +366,25 @@ def test_inference_chain_runs_length_forwards(tiny_model):
     hook.remove()
 
 
-def test_benchmark_inference_calibrates_the_chain(tiny_model):
+def test_benchmark_inference_calibrates_the_chain(tiny_model, monkeypatch):
+    """The chain grows from its base length (6 // 3 = 2) until a chain
+    takes the 20 ms target. The clock is the calibration's own: each
+    forward of the model's chain advances it by 1 ms, so the base chain's
+    probe (2 ms) falls below the target however loaded the machine is."""
+    from efficient_rpe_vit_torch.train import training
+
+    forward_us = 1000
+    now_us = [0]
+    chain = make_inference_chain(tiny_model)
+
+    def counted_chain(images, length):
+        out = chain(images, length)
+        now_us[0] += forward_us * int(length)
+        return out
+
+    monkeypatch.setattr(training.time, "perf_counter", lambda: now_us[0] * 1e-6)
     res = benchmark_inference(tiny_model, torch.zeros(8, 28, 28, 1), num_iterations=6,
-                              num_chains=3, target_chain_time=0.02)
+                              num_chains=3, chain_fn=counted_chain, target_chain_time=0.02)
     assert res["chain_length"] > 2
     assert res["num_iterations"] == 3 * res["chain_length"]
 

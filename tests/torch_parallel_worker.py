@@ -407,3 +407,198 @@ def refusals(name):
             state, torch.zeros(2, 28, 28, 1), torch.zeros(2, dtype=torch.long),
             torch.Generator()))
     return out
+
+
+# ─── the GPipe pipeline ─────────────────────────────────────────────────
+
+def _whole_grads(model, mesh):
+    """{name: whole gradient} of this rank's parameters (split ones
+    gathered over their axis)."""
+    from efficient_rpe_vit_torch.parallel.mesh import gather_full, param_layouts
+
+    layouts = param_layouts(model)
+    return {n: _np(gather_full(p.grad, layouts[n]) if n in layouts else p.grad)
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def pipe_forward(spec, name, x, variables, depth, microbatches, grads=False, moe=None):
+    """Eval-mode GPipe logits of the global batch on this rank, the
+    sequential model's logits from the same weights, and with `grads` the
+    whole gradients of sum(logits ** 2) that this rank holds."""
+    from efficient_rpe_vit_torch.parallel import (
+        pipeline_vit_forward,
+        reduce_pipeline_grads,
+        stage_model,
+    )
+
+    mesh = _mesh(spec)
+    model = _model(name, None, depth, moe, None, variables)
+    model.eval()
+    with torch.no_grad():
+        sequential = model(torch.from_numpy(x))
+    stage_model(model, mesh)
+    logits = pipeline_vit_forward(model, torch.from_numpy(x), mesh, microbatches)
+    out = {"logits": _np(logits), "sequential": _np(sequential),
+           "stage": (model.stage.lo, model.stage.hi)}
+    if grads:
+        (logits ** 2).sum().backward()
+        reduce_pipeline_grads(model)
+        out["grads"] = _whole_grads(model, mesh)
+    return out
+
+
+def pipe_step(spec, name, x, y, variables=None, depth=2, microbatches=None, accum=1,
+              steps=1, gen_seed=0, full=True, **cfg):
+    """Pipelined train steps on the global batch, the stage's part of the
+    flax variables loaded into it; the global losses and counts, and the
+    whole model after them."""
+    from efficient_rpe_vit_torch.parallel import (
+        create_pipeline_train_state,
+        make_pipeline_train_step,
+    )
+    from efficient_rpe_vit_torch.parallel.train_parallel import parameter_count
+    from efficient_rpe_vit_torch.utils.import_flax import flax_to_state_dict
+
+    mesh = _mesh(spec)
+    model = _model(name, None, depth, **cfg)
+    state = create_pipeline_train_state(
+        model, _cfg(depth, **cfg), mesh, steps_per_epoch=10,
+        state_dict=flax_to_state_dict(*variables) if variables is not None else None)
+    train_step = make_pipeline_train_step(model, mesh, state, n_microbatches=microbatches,
+                                          grad_accum=accum)
+    gen = torch.Generator().manual_seed(gen_seed)
+    losses, corrects = [], []
+    for i in range(steps):
+        state, loss, correct = train_step(state, torch.from_numpy(x[i % len(x)]),
+                                          torch.from_numpy(y[i % len(y)]), gen)
+        losses.append(float(loss))
+        corrects.append(int(correct))
+    out = {"loss": losses, "correct": corrects, "count": parameter_count(state)["total"],
+           "names": sorted(n for n, _ in model.named_parameters())}
+    if full:
+        out["params"] = _full_params(state)
+    return out
+
+
+def pipe_checkpoint(spec, name, path, x, y, depth=2, microbatches=None):
+    """A pipelined step, a save (every rank calls it) and a second step;
+    then a fresh stage loads the file and takes that second step too."""
+    from efficient_rpe_vit_torch.parallel import (
+        create_pipeline_train_state,
+        make_pipeline_train_step,
+    )
+    from efficient_rpe_vit_torch.train import load_checkpoint, save_checkpoint
+
+    mesh = _mesh(spec)
+    out = {}
+    for load in (False, True):
+        model = _model(name, None, depth)
+        state = create_pipeline_train_state(model, _cfg(depth), mesh, steps_per_epoch=10,
+                                            ema_decay=0.9)
+        step = make_pipeline_train_step(model, mesh, state, n_microbatches=microbatches)
+        args = (torch.from_numpy(x), torch.from_numpy(y))
+        if load:
+            state, _ = load_checkpoint(path, state)
+        else:
+            state, _, _ = step(state, *args, torch.Generator())
+            save_checkpoint(path, state, epoch=1, metrics={"test_accuracy": 1.0})
+            out["saved"] = _full_params(state)
+        state, loss, _ = step(state, *args, torch.Generator())
+        out["resumed" if load else "continued"] = {
+            "loss": float(loss), "params": _full_params(state), "step": state.step}
+    return out
+
+
+def pipe_refusals(name):
+    """What the pipeline refuses on this world, each as its message."""
+    from efficient_rpe_vit_torch.parallel import (
+        create_pipeline_train_state,
+        make_pipeline_train_step,
+        pipeline_vit_forward,
+        stage_model,
+    )
+
+    out = {}
+
+    def refused(key, fn):
+        try:
+            fn()
+            out[key] = None
+        except (ValueError, TypeError, RuntimeError) as e:
+            out[key] = f"{type(e).__name__}: {e}"
+
+    world = dist.get_world_size()
+    mesh = _mesh(f"pipe={world}")
+    refused("depth", lambda: stage_model(_model(name, depth=world + 1), mesh))
+    staged = stage_model(_model(name, depth=world), mesh)
+    refused("batch", lambda: pipeline_vit_forward(staged, torch.zeros(world + 1, 28, 28, 1),
+                                                  mesh))
+    refused("unstaged", lambda: pipeline_vit_forward(_model(name, depth=world),
+                                                     torch.zeros(world, 28, 28, 1), mesh))
+    refused("remote", lambda: staged(torch.zeros(world, 28, 28, 1)))
+    refused("no_pipe", lambda: stage_model(_model(name, depth=world), _mesh(f"data={world}")))
+    refused("seq", lambda: stage_model(_model(name, depth=world), _mesh(
+        f"pipe={world // 2},seq=2")))
+    model = _model(name, depth=world)
+    state = create_pipeline_train_state(model, _cfg(world), mesh)
+    step = make_pipeline_train_step(model, mesh, state, grad_accum=3)
+    refused("accum", lambda: step(state, torch.zeros(8, 28, 28, 1),
+                                  torch.zeros(8, dtype=torch.long), torch.Generator()))
+    return out
+
+
+
+def pipe_shared_masks(spec, name, x, depth=2):
+    """Train-mode GPipe logits at dropout 0.1 over two microbatches, and
+    the eval-mode logits of the same weights."""
+    from efficient_rpe_vit_torch.parallel import pipeline_vit_forward, stage_model
+
+    mesh = _mesh(spec)
+    model = stage_model(_model(name, None, depth, dropout=0.1), mesh)
+    model.train()
+    with torch.no_grad():
+        train = pipeline_vit_forward(model, torch.from_numpy(x), mesh, 2,
+                                     torch.Generator().manual_seed(4))
+        model.eval()
+        evaluated = pipeline_vit_forward(model, torch.from_numpy(x), mesh, 2)
+    return {"train": _np(train), "eval": _np(evaluated)}
+
+
+def runner_ranks(out, fail_rank=None, skip_existing=False):
+    """The benchmark runner on a data=2 mesh over this world, its runs
+    faked: each run takes part in one all-reduce, as a mesh run's steps
+    do, and raises on `fail_rank`; with `skip_existing` only the
+    coordinator finds seed 42's metrics. Returns the seeds this rank ran
+    and what the runner raised or returned."""
+    from efficient_rpe_vit_torch import train as port_train
+    from efficient_rpe_vit_torch.experiments import benchmark
+
+    rank = dist.get_rank()
+    metrics = {"aggregate": {"final_test_accuracy": 50.0, "best_test_accuracy": 50.0,
+                             "final_test_loss": 1.0, "total_train_time": 1.0},
+               "inference": {"throughput_images_per_sec": 1.0, "latency_mean_ms": 1.0}}
+    calls = []
+
+    def run(model, seed, out_dir, args, shared=None):
+        calls.append(seed)
+        if rank == fail_rank:
+            raise ValueError(f"rank {rank} failed")
+        dist.all_reduce(torch.ones(1))
+        return metrics
+
+    def load(path):
+        return metrics if rank == 0 and "seed_42" in path else None
+
+    plain_run, plain_load = benchmark.run_single_training, port_train.load_run_metrics
+    benchmark.run_single_training, port_train.load_run_metrics = run, load
+    argv = ["--models", "performer_favor_most_general", "--num-runs", "2", "--mesh", "data=2",
+            "--cpu", "--quiet", "--output-dir", out, "--distributed", "127.0.0.1:1",
+            "--num-processes", str(dist.get_world_size()), "--process-id", str(rank)]
+    try:
+        summary = benchmark.main(argv + (["--skip-existing"] if skip_existing else []))
+        result = {"num_runs": summary["performer_favor_most_general"]["num_runs"]}
+    except Exception as e:
+        result = {"raised": f"{type(e).__name__}: {e}"}
+    finally:
+        benchmark.run_single_training, port_train.load_run_metrics = plain_run, plain_load
+    return dict(result, calls=calls)
