@@ -117,8 +117,8 @@ Phases, each printed as it runs; any failure exits non-zero:
  17. K steps per CUDA-graph replay (`make_multi_step`): #1 and #2 at the
      JAX bench_headline row's shape (256, 2, 197, 44, 16) against their plain
      versions, timed; dropout masks drawn in a replayed graph equal the eager
-     draws from the same generator, and a second replay draws new ones; feature
-     redraw refused on the card (NotImplementedError); the card's
+     draws from the same generator, and a second replay draws new ones (feature
+     redraw inside a graph: phase 23 e); the card's
      capturable adam, adamw and sgd against the CPU's optax-equal path
      (6 updates, warmup-cosine, weight decay); the headline model
      (mnist_config at patch 2, batch 256, bf16, dropout 0.1, depth 3) at
@@ -220,6 +220,45 @@ Phases, each printed as it runs; any failure exits non-zero:
         peak memory logged;
      d. with more than one card, b and c again over NCCL, one card per
         rank; with one, a line saying it was not run and why.
+ 23. the rest of the port's modules, mnist_config widths (N=17, D=16,
+     F=44) unless said otherwise:
+     a. the ensemble over a mesh: two spawned ranks share the card over
+        gloo, S = 4 flagship members sharded over data=2 (bf16, batch 32,
+        dropout 0.1, members from seeds 100..103): three calls of
+        make_ensemble_train_step(mesh=) (the warm-up and capture, two
+        replays), each rank's members and every call's gathered losses and
+        corrects bit for bit those of the single-process 4-member step on
+        the card; each rank's graph holds 2 members' launches (6 of #1 and
+        of each #2 kernel, counted at capture); replay ms;
+     b. sharded checkpoints (`save_checkpoint_sharded`) of the phase 22
+        flagship (ViT-B, batch 64) after one step: on one NCCL rank
+        (data=1) and on the two gloo ranks of a (data=2, FSDP): a fresh
+        state of another seed restores it bit for bit (parameters or
+        shards, Adam moments, step); the bytes each rank writes beside the
+        single gathered file, save and load seconds; on the NCCL rank also
+        make_parallel_multi_step (K=4) of the flagship with feature redraw
+        every 2 calls, two replays bitwise against 8 eager parallel steps;
+     c. the importer: a reference-format file (`torch.save` of a port
+        model's state_dict, fp32) imported on the card, then `predict
+        --input` serves it: #1 launched 3 times, predictions the source
+        model's; the imported model's logits bit for bit the source's on
+        the card;
+     d. the 11-variant throughput sweep at cifar10 and mnist, batch 256,
+        bf16, SWEEP_STEPS chained steps a run: every row finite and
+        positive; #1 / #2 (KERPLE variants), #6 / 7a (softmax) and #8 / #9
+        (circulant) launched; #1, #2, #6, 7a, #8 and #9 checked and timed
+        at the sweep's shapes;
+     e. feature redraw inside CUDA graphs: the headline model (phase 17)
+        with feature_redraw_interval 2 and 3, make_multi_step at K=4,
+        called until two calls have replayed (one graph per pattern of
+        redraw positions: 1 capture at interval 2, 3 at interval 3), every
+        call bitwise against 4 eager steps of a twin (losses, corrects,
+        parameters, Adam moments, Omega, redraw counters, generators), #1
+        and #2 launches counted at each capture; one make_gather_multi_step
+        chunk and one 2-member make_ensemble_gather_multi_step chunk with
+        redraw, captured then replayed, bitwise against eager steps;
+     then `parallel.dryrun.dryrun_multichip(8)`: every part of the JAX dry
+     run on 8 CPU ranks.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -548,6 +587,24 @@ SERVE_MNIST_BATCH = 32
 SERVE_SHAPE = (SERVE_MNIST_BATCH, 2, 17, 16, 44)
 SERVE_FIT_STEPS = 10
 SERVE_BYTES_FACTOR = {"artifact_bf16": 0.75, "artifact_int8": 0.6}
+
+# phase 23: the rest of Queue A. QA is the mnist_config width (phase 19's
+# CLI_SHAPE at batch 32) in bf16; the ensemble has QA_S members over 2
+# ranks. QA_CKPT is phase 22's flagship. The sweep runs SWEEP_STEPS steps a
+# run (the JAX default is 60; cut so that the phase stays near 90 s); its
+# KERPLE kernels are checked at SWEEP_SHAPE, its flash and rotation kernels
+# at SWEEP_FLASH_SHAPE.
+QA = dict(compute_dtype="bfloat16", dropout=0.1)
+QA_S = 4
+QA_CALLS = 3  # the warm-up and capture, then two replays
+QA_CKPT = PAR
+SWEEP_BATCH = 256
+SWEEP_STEPS = 20
+SWEEP_SHAPE = (SWEEP_BATCH, 2, 17, 44, 16)
+SWEEP_FLASH_SHAPE = (SWEEP_BATCH, 2, 17, 16)
+REDRAW_K = 4
+REDRAW_INTERVALS = (2, 3)
+REDRAW_REPLAYS = 2
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
@@ -2200,27 +2257,6 @@ def check_replayed_masks() -> None:
         raise AssertionError("replayed dropout masks do not follow the generator")
 
 
-def check_graph_refusals() -> None:
-    """The K-step programs refuse, on the card, what a CUDA graph cannot
-    hold: feature redraw (the host reads the redraw counter)."""
-    from efficient_rpe_vit_torch.configs import mnist_config
-    from efficient_rpe_vit_torch.models import create_model
-    from efficient_rpe_vit_torch.train import create_train_state, make_multi_step
-
-    x = torch.zeros(2, 2, 28, 28, 1, device="cuda")
-    y = torch.zeros(2, 2, dtype=torch.long, device="cuda")
-    cfg = mnist_config()
-    model = create_model("performer_favor_most_general", cfg, device="cuda",
-                         attention_config={"feature_redraw_interval": 2})
-    try:
-        make_multi_step(model)(create_train_state(model, cfg), x, y,
-                               torch.Generator(device="cuda"))
-    except NotImplementedError as e:
-        log("multistep", f"feature redraw refused on the card: {e}")
-    else:
-        raise AssertionError("make_multi_step ran feature redraw on the card")
-
-
 def check_capturable_optimizer() -> None:
     """The card's adam, adamw and sgd (`create_optimizer` builds them capturable,
     with a device fp32 lr, the update every card train step and replay
@@ -2800,12 +2836,13 @@ def ensemble_capture_check(wrappers, card: str) -> None:
                                  f"expected {want}")
 
 
-def bench_flash_check(fa, card: str):
+def bench_flash_check(fa, card: str, flash_shape=BENCH_FLASH_SHAPE):
     """Phase 20 c: #6 and 7a against their plain versions at the
-    benchmark baseline's shape (bf16, dropout 0.1), each one's launch_info
-    logged, timed beside its bound and SDPA (dropout 0; the kernels also at
-    dropout 0, `ms_dropout0`). Returns {kernel: row}."""
-    B, H, N, D = BENCH_FLASH_SHAPE
+    benchmark baseline's shape (bf16, dropout 0.1; phase 23 d: the sweep's),
+    each one's launch_info logged, timed beside its bound and SDPA (dropout
+    0; the kernels also at dropout 0, `ms_dropout0`). Returns {kernel:
+    row}."""
+    B, H, N, D = flash_shape
     rate, dtype, name = BENCH_FLASH_RATE, torch.bfloat16, "bfloat16"
     q, k, v, cot, _, seed = _flash_inputs(B, H, N, D, None, rate, dtype)
     scale = D ** -0.5
@@ -2857,7 +2894,7 @@ def bench_flash_check(fa, card: str):
             f"({bound_by}), kernel/bound {ms / bound_ms:.1f}x, on {card}")
         rows[kname] = dict(max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms, ms_dropout0=ms0,
-                           launch=infos[kname], shape=list(BENCH_FLASH_SHAPE))
+                           launch=infos[kname], shape=list(flash_shape))
     return rows
 
 
@@ -3496,6 +3533,602 @@ def parallel_phase(mlc, kerple, card: str):
             "card, so the multi-rank cases ran over gloo on the one card (22 b)")
     return world1, rows, two
 
+# ─── phase 23: the rest of Queue A ──────────────────────────────────────
+
+def _qa_member(cfg, i):
+    from efficient_rpe_vit_torch.models import create_model
+
+    return create_model(PAR_FLAGSHIP, cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(100 + i))
+
+
+def _qa_batch(cfg, seed: int = 9):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = cfg.model
+    batch = cfg.train.batch_size
+    x = torch.randn(batch, m.image_size, m.image_size, m.in_channels, generator=g,
+                    device="cuda")
+    return x, torch.randint(0, m.num_classes, (batch,), generator=g, device="cuda")
+
+
+def _cpu_state(model):
+    return {n: t.detach().cpu() for n, t in model.state_dict().items()}
+
+
+def _ckpt_tensors(state):
+    """This rank's own tensors of a train state by name: the model's (or its
+    FSDP shards), the optimiser's state and the step."""
+    owned = dict(state._stepped())
+    out = {f"model.{n}": owned.get(n, t) for n, t in state.model.state_dict().items()}
+    for n, p in owned.items():
+        out.update((f"optimizer.{n}.{k}", v) for k, v in state.optimizer.state[p].items())
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def _sharded_round_trip(label, build, x, y, out_dir: str):
+    """Phase 23 b on one layout: `build(seed)` -> (state, step); one step,
+    then the sharded directory and the single gathered file of that state,
+    each timed; a fresh state of another seed loads the directory (timed)
+    and must hold this rank's tensors bit for bit. Returns a dict of bytes
+    and seconds."""
+    import os
+
+    import torch.distributed as dist
+
+    from efficient_rpe_vit_torch.train import (load_checkpoint_sharded, save_checkpoint,
+                                               save_checkpoint_sharded)
+
+    rank = dist.get_rank()
+    state, step = build(0)
+    state, _, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    path = os.path.join(out_dir, f"{label}_orbax")
+    t0 = time.perf_counter()
+    save_checkpoint_sharded(path, state, epoch=1)
+    save_s = time.perf_counter() - t0
+    single = os.path.join(out_dir, f"{label}.pt")
+    t0 = time.perf_counter()
+    save_checkpoint(single, state, epoch=1)
+    dist.barrier()
+    single_s = time.perf_counter() - t0
+    want = {k: t.detach().clone() for k, t in _ckpt_tensors(state).items()}
+    del state, step
+    fresh, _ = build(7)  # a fresh Adam makes its moments on the load
+    t0 = time.perf_counter()
+    fresh, _ = load_checkpoint_sharded(path, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = _ckpt_tensors(fresh)
+    differ = sorted(k for k in set(want) | set(got)
+                    if k not in got or k not in want or not torch.equal(want[k], got[k]))
+    files = sorted(f for f in os.listdir(path) if f.endswith(".distcp"))
+    result = {"rank_bytes": os.path.getsize(os.path.join(path, f"__{rank}_0.distcp")),
+              "files": files, "single_bytes": os.path.getsize(single),
+              "save_s": save_s, "single_s": single_s, "load_s": load_s, "differ": differ}
+    del fresh
+    torch.cuda.empty_cache()
+    return result
+
+
+def _qa_ckpt_states(mesh, fsdp: bool):
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.parallel import (create_sharded_train_state,
+                                                  make_parallel_train_step)
+
+    cfg = mnist_config(**QA_CKPT)
+
+    def build(seed):
+        model = create_model(PAR_FLAGSHIP, cfg, device="cuda",
+                             generator=torch.Generator().manual_seed(seed))
+        state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=100, fsdp=fsdp)
+        return state, make_parallel_train_step(model, mesh, state)
+
+    return build
+
+
+def _qa_rank(rank: int, tmp: str) -> None:
+    """A rank of phase 23 a and b: two processes share the card over gloo.
+    a) this rank's members of the S = 4 ensemble through three calls of
+    make_ensemble_train_step(mesh=); b) the FSDP flagship's sharded
+    checkpoint."""
+    import os
+
+    import torch.distributed as dist
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.ops.kernels import masked_linear_coeffs as mlc
+    from efficient_rpe_vit_torch.parallel import host_batch_slice, make_mesh_from_spec
+    from efficient_rpe_vit_torch.train import (create_ensemble_train_state, ensemble_members,
+                                               make_ensemble_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 2),
+                            rank=rank, world_size=2)
+    mesh = make_mesh_from_spec("data=2", device="cuda")
+    wrappers = kerple_wrappers(mlc)
+    cfg = mnist_config(**QA)
+    mine = list(ensemble_members(QA_S, mesh))
+    models = [_qa_member(cfg, i) for i in mine]
+    state = create_ensemble_train_state(models, cfg, steps_per_epoch=100)
+    step = make_ensemble_train_step(models, mesh=mesh)
+    x, y = _qa_batch(cfg)
+    gens = [torch.Generator(device="cuda").manual_seed(200 + i) for i in mine]
+    step.replays.before_capture = lambda: zero_counts(wrappers)
+    calls, captured = [], None
+    for call in range(QA_CALLS):
+        state, losses, corrects = step(state, x, y, gens)
+        if call == 0:
+            captured = counts(wrappers)
+        calls.append((losses.cpu(), corrects.cpu()))
+    members = {i: _cpu_state(m.model) for i, m in zip(mine, state.members)}
+    replay_ms = time_ms(lambda: step(state, x, y, gens), iters=5, warmup=1)
+    del state, step, models
+    torch.cuda.empty_cache()
+
+    ckpt_x, ckpt_y = _par_batch(QA_CKPT)
+    rows = host_batch_slice(ckpt_x.shape[0], mesh)
+    ckpt = _sharded_round_trip("fsdp2", _qa_ckpt_states(mesh, fsdp=True), ckpt_x[rows],
+                               ckpt_y[rows], tmp)
+    torch.save({"mine": mine, "calls": calls, "members": members, "captured": captured,
+                "replay_ms": replay_ms, "ckpt": ckpt}, os.path.join(tmp, f"qa{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def qa_two_ranks(per_member, card: str):
+    """Phase 23 a and the gloo half of b: spawn the two ranks, then hold
+    their ensemble members and results to the single-process ensemble on
+    the card. Returns the launches a rank's graph holds."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.train import create_ensemble_train_state, make_ensemble_train_step
+
+    cfg = mnist_config(**QA)
+    models = [_qa_member(cfg, i) for i in range(QA_S)]
+    state = create_ensemble_train_state(models, cfg, steps_per_epoch=100)
+    step = make_ensemble_train_step(models)
+    x, y = _qa_batch(cfg)
+    gens = [torch.Generator(device="cuda").manual_seed(200 + i) for i in range(QA_S)]
+    single = []
+    for _ in range(QA_CALLS):
+        state, losses, corrects = step(state, x, y, gens)
+        single.append((losses.cpu(), corrects.cpu()))
+    single_members = [_cpu_state(m) for m in models]
+    single_ms = time_ms(lambda: step(state, x, y, gens), iters=5, warmup=1)
+    del state, step, models
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_qa_rank, args=(rank, tmp)) for rank in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"the two phase-23 ranks exited with {codes}")
+    ranks = [torch.load(os.path.join(tmp, f"qa{r}.pt")) for r in range(2)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("qa-ensemble", f"two gloo ranks on the card: {time.perf_counter() - t0:.1f} s "
+        "including the spawn")
+    want = {n: 2 * c for n, c in per_member.items()}
+    for r, res in enumerate(ranks):
+        same_calls = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                      for a, b in zip(res["calls"], single)]
+        differ = {i: [n for n, t in res["members"][i].items()
+                      if not torch.equal(t, single_members[i][n])] for i in res["mine"]}
+        log("qa-ensemble", f"rank {r}: members {res['mine']}, {QA_CALLS} calls' gathered "
+            f"losses and corrects bitwise the single-process step's {same_calls} (last "
+            f"losses {res['calls'][-1][0].tolist()}), members' tensors differing {differ}, "
+            f"launches its graph holds {res['captured']} (want {want}: 2 members x "
+            f"{per_member}), replay {res['replay_ms']:.3f} ms a step of its 2 members against "
+            f"{single_ms:.3f} ms for the single process's 4 (CUDA events, host-staged "
+            f"all-gather included; on {card})")
+        if not all(same_calls) or any(differ.values()) or res["captured"] != want:
+            raise AssertionError(f"phase 23 a rank {r}: the sharded ensemble differs")
+    if sorted(i for res in ranks for i in res["mine"]) != list(range(QA_S)):
+        raise AssertionError("the ranks do not hold the S members between them")
+    for r, res in enumerate(ranks):
+        c = res["ckpt"]
+        log("qa-checkpoint", f"data=2 FSDP over gloo, rank {r}: files {c['files']}, this "
+            f"rank's {c['rank_bytes']} bytes against the single gathered file's "
+            f"{c['single_bytes']} ({c['rank_bytes'] / c['single_bytes']:.3f}x); sharded save "
+            f"{c['save_s']:.3f} s, gathered save {c['single_s']:.3f} s, sharded load "
+            f"{c['load_s']:.3f} s; tensors differing after the load {c['differ']} (on {card})")
+        if c["differ"] or c["files"] != ["__0_0.distcp", "__1_0.distcp"]:
+            raise AssertionError(f"phase 23 b rank {r}: the FSDP restore differs")
+    return ranks[0]["captured"]
+
+
+def qa_world1(per_step, card: str):
+    """Phase 23 b on one NCCL rank (in process): the flagship's sharded
+    checkpoint on data=1, then make_parallel_multi_step of the headline
+    model with feature redraw every 2 calls. Returns the redraw graph's
+    launches counted at capture."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.ops.kernels import masked_linear_coeffs as mlc
+    from efficient_rpe_vit_torch.parallel import (create_sharded_train_state,
+                                                  make_mesh_from_spec, make_parallel_multi_step,
+                                                  make_parallel_train_step)
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh_from_spec("data=1", device="cuda")
+        x, y = _par_batch(QA_CKPT)
+        c = _sharded_round_trip("data1", _qa_ckpt_states(mesh, fsdp=False), x, y, tmp)
+        log("qa-checkpoint", f"data=1 on NCCL: {c['files']}, {c['rank_bytes']} bytes against "
+            f"the single file's {c['single_bytes']} "
+            f"({c['rank_bytes'] / c['single_bytes']:.3f}x); sharded save {c['save_s']:.3f} s, "
+            f"single-file save {c['single_s']:.3f} s, sharded load {c['load_s']:.3f} s; "
+            f"tensors differing after the load {c['differ']} (on {card})")
+        if c["differ"]:
+            raise AssertionError("phase 23 b: the data=1 restore differs")
+
+        cfg = mnist_config(**HEADLINE)
+        wrappers = kerple_wrappers(mlc)
+        twins = []
+        for _ in range(2):
+            model = create_model(PAR_FLAGSHIP, cfg, device="cuda",
+                                 attention_config={"feature_redraw_interval": 2},
+                                 generator=torch.Generator().manual_seed(0))
+            state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=100)
+            twins.append((model, state))
+        multi = make_parallel_multi_step(twins[0][0], mesh, twins[0][1])
+        eager = make_parallel_train_step(twins[1][0], mesh, twins[1][1])
+        g = torch.Generator(device="cuda").manual_seed(7)
+        size, batch = cfg.model.image_size, cfg.train.batch_size
+        xs = torch.randn(REDRAW_K, batch, size, size, 1, generator=g, device="cuda")
+        ys = torch.randint(0, 10, (REDRAW_K, batch), generator=g, device="cuda")
+        gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
+        multi.replays.before_capture = lambda: zero_counts(wrappers)
+        results = []
+        for call in range(1 + REDRAW_REPLAYS):
+            _, losses, corrects = multi(twins[0][1], xs, ys, gens[0])
+            if call == 0:
+                captured = counts(wrappers)
+            want = [eager(twins[1][1], xs[i], ys[i], gens[1])[1:] for i in range(REDRAW_K)]
+            torch.cuda.synchronize()
+            differ = _params_differ(twins[0][0], twins[1][0])
+            results.append(torch.equal(losses, torch.stack([w[0] for w in want]))
+                           and torch.equal(corrects, torch.stack([w[1] for w in want]))
+                           and not differ and torch.equal(gens[0].get_state(),
+                                                          gens[1].get_state()))
+        want_launches = {n: REDRAW_K * c for n, c in per_step.items()}
+        log("qa-redraw", f"make_parallel_multi_step K={REDRAW_K} on NCCL, headline model with "
+            f"feature redraw every 2 calls: graphs {len(multi.replays.graphs)}, calls bitwise "
+            f"against eager parallel steps (Omega and counters included) {results}, launches "
+            f"at capture {captured} (want {want_launches}), on {card}")
+        if not all(results) or len(multi.replays.graphs) != 1 or captured != want_launches:
+            raise AssertionError("phase 23 b: the parallel redraw graph differs")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return captured
+
+
+def qa_importer(mlc, card: str):
+    """Phase 23 c: a reference-format file from a port model, imported on
+    the card and served by predict. Returns (launches, #1's row at the
+    served shape, fp32)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from efficient_rpe_vit_torch.configs import get_dataset_config
+    from efficient_rpe_vit_torch.experiments import import_checkpoint, predict
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import create_train_state, load_checkpoint
+
+    tmp = tempfile.mkdtemp()
+    cfg = get_dataset_config("mnist")
+    source = create_model(PAR_FLAGSHIP, cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(11))
+    ref = os.path.join(tmp, "ref.pt")
+    torch.save({"model_state_dict": source.state_dict(), "epoch": 5,
+                "metrics": {"test_accuracy": 93.0}}, ref)
+    out = os.path.join(tmp, "imported.pt")
+    t0 = time.perf_counter()
+    import_checkpoint.main(["--torch-checkpoint", ref, "--model", PAR_FLAGSHIP,
+                            "--dataset", "mnist", "--output", out])
+    import_s = time.perf_counter() - t0
+    x = np.random.default_rng(0).normal(size=(CLI_SHAPE[0], 28, 28, 1)).astype(np.float32)
+    np.save(os.path.join(tmp, "x.npy"), x)
+    wrappers = kerple_wrappers(mlc)
+    zero_counts(wrappers)
+    preds = predict.main(["--checkpoint", out, "--input", os.path.join(tmp, "x.npy")])
+    torch.cuda.synchronize()
+    launches = counts(wrappers)
+    source = source.to("cuda").eval()
+    imported = create_model(PAR_FLAGSHIP, cfg, device="cuda",
+                            generator=torch.Generator().manual_seed(3))
+    state, meta = load_checkpoint(out, create_train_state(imported, cfg))
+    data = cfg.data
+    xn = torch.from_numpy(predict._normalise(x, np.asarray(data.mean, np.float32),
+                                             np.asarray(data.std, np.float32))).cuda()
+    with torch.inference_mode():
+        want, got = source(xn), state.model.eval()(xn)
+    same = torch.equal(want, got)
+    agree = preds.tolist() == want.argmax(-1).tolist()
+    per_forward = {n: cfg.model.depth if n == "masked_linear_coeffs_fwd" else 0
+                   for n in wrappers}
+    log("qa-import", f"imported in {import_s:.2f} s on the card (metadata {meta['metadata']}); "
+        f"predict --input: launches {launches} (want {per_forward}), predictions the source "
+        f"model's {agree}; imported logits bitwise the source model's {same} (on {card})")
+    if not (same and agree) or launches != per_forward:
+        raise AssertionError("phase 23 c: the imported checkpoint does not serve the source model")
+    row = check_kernels(mlc, [CLI_SHAPE], DTYPES[1:], timed=[CLI_SHAPE])[("float32", CLI_SHAPE[0])]
+    return launches, row
+
+
+def sweep_rotation_check(cr, card: str):
+    """Phase 23 d: the rotation kernels (#8, #9) at the sweep's shape
+    SWEEP_FLASH_SHAPE in bf16 with keep_cls, on q and k as the circulant
+    variants give them (views of the fused qkv's head split): launch_info
+    (the mma.sync kernels, no spills), the results against the plain
+    versions, and times beside rotation_bounds. Returns {kernel: row}."""
+    B, H, N, D = SWEEP_FLASH_SHAPE
+    shape = f"B{B} H{H} N{N} D{D} bfloat16"
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    x, cot = (t.reshape(B, N, H, D).transpose(1, 2) for t in qkv.chunk(3, dim=-1)[:2])
+    theta = torch.randn(H, N, D // 2 + 1, generator=gen, device="cuda") * 0.3
+    ct, st = theta.cos(), theta.sin()
+    infos = check_rotation_launch_info(cr, N, D, torch.bfloat16, x.stride()[:3], main_path=True)
+    fns = {
+        "circulant_rotate_fwd": (lambda: cr.circulant_rotate_fwd(x, ct, st, True),
+                                 lambda: cr.circulant_rotate_fwd_reference(x, ct, st, True)),
+        "circulant_rotate_bwd": (lambda: cr.circulant_rotate_bwd(cot, x, ct, st, True),
+                                 lambda: cr.circulant_rotate_bwd_reference(cot, x, ct, st, True)),
+    }
+    got = (fns["circulant_rotate_fwd"][0](), *fns["circulant_rotate_bwd"][0]())
+    want = (fns["circulant_rotate_fwd"][1](), *fns["circulant_rotate_bwd"][1]())
+    torch.cuda.synchronize()
+    rels = [_max_rel(a, b) for a, b in zip(got, want)]
+    tols = (ROT_TOL["bfloat16"],) * 2 + (ROT_ANGLE_TOL,) * 2
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    log("kernel", f"circulant_rotate {shape} keep_cls, strides {tuple(x.stride())}: (out, dx, "
+        f"dct, dst) max|err|/max|plain| {', '.join(f'{r:.3e}' for r in rels)} (tol {tols[0]}, "
+        f"{tols[2]}), finite {finite}")
+    if not (finite and all(r <= t for r, t in zip(rels, tols))):
+        raise AssertionError(f"phase 23 d: circulant_rotate disagrees with its plain version "
+                             f"at {shape}")
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+    errs = {"circulant_rotate_fwd": errs[0], "circulant_rotate_bwd": max(errs[1:])}
+    bounds = rotation_bounds(B, H, N, D, "bfloat16")
+    rows = {}
+    for kname, (kernel_fn, plain_fn) in fns.items():
+        ms = kernel_ms(kernel_fn)
+        plain_ms = time_ms(plain_fn, iters=5, warmup=1)
+        bound_ms, bound_by = bounds[kname]
+        log("kernel", f"{kname} {shape} keep_cls: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}), kernel/bound {ms / bound_ms:.2f}x, on {card}")
+        rows[kname] = dict(max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None, launch=infos[kname])
+    return rows
+
+
+def qa_sweep(mlc, fa, cr, wrappers, card: str):
+    """Phase 23 d: the throughput sweep at cifar10 and mnist. Returns
+    ({path: launches}, {kernel: row at the sweep's shapes})."""
+    import math
+
+    from efficient_rpe_vit_torch.experiments import throughput_sweep
+
+    out = {}
+    for dataset in ("cifar10", "mnist"):
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        results = throughput_sweep.sweep(dataset, SWEEP_BATCH, SWEEP_STEPS, card, verbose=False)
+        torch.cuda.synchronize()
+        launched = counts(wrappers)
+        for name, row in results["variants"].items():
+            log("qa-sweep", f"{dataset} bs {SWEEP_BATCH} bf16 {name}: "
+                f"{row['images_per_sec']} images/s, {row['ms_per_step']} ms/step "
+                f"({results['protocol']}, on {card})")
+            if not all(math.isfinite(v) and v > 0 for v in row.values()):
+                raise AssertionError(f"phase 23 d: {dataset} {name} row {row}")
+        log("qa-sweep", f"{dataset}: {len(results['variants'])} variants in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launched}")
+        if not all(launched[n] for n in (*KERPLE_FORWARDS[:1], *BWD_KERNELS, "flash_fwd",
+                                         "flash_bwd_fused", "circulant_rotate_fwd",
+                                         "circulant_rotate_bwd")):
+            raise AssertionError(f"phase 23 d: a kernel of the sweep was not launched: {launched}")
+        out[f"sweep_{dataset}"] = launched
+    fwd_row = check_kernels(mlc, [SWEEP_SHAPE], BF16_ONLY, timed=[SWEEP_SHAPE])[
+        ("bfloat16", SWEEP_BATCH)]
+    bwd_rows = check_bwd_kernels(mlc, [SWEEP_SHAPE], BF16_ONLY, timed=SWEEP_SHAPE)
+    flash_rows = bench_flash_check(fa, card, SWEEP_FLASH_SHAPE)
+    return out, (fwd_row, bwd_rows, flash_rows, sweep_rotation_check(cr, card))
+
+
+def redraw_multistep_check(interval: int, wrappers, per_step, card: str):
+    """Phase 23 e: make_multi_step of the headline model with feature redraw
+    every `interval` calls at K = REDRAW_K, called until REDRAW_REPLAYS
+    calls have replayed; every call against REDRAW_K eager steps of a twin.
+    Returns the launches of the first capture."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import create_train_state, make_multi_step, make_train_step
+
+    cfg = mnist_config(**HEADLINE)
+    models = [create_model(PAR_FLAGSHIP, cfg, device="cuda",
+                           attention_config={"feature_redraw_interval": interval},
+                           generator=torch.Generator().manual_seed(0)) for _ in range(2)]
+    states = [create_train_state(m, cfg, steps_per_epoch=100) for m in models]
+    multi, step = make_multi_step(models[0]), make_train_step(models[1])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    size, batch = cfg.model.image_size, cfg.train.batch_size
+    xs = torch.randn(REDRAW_K, batch, size, size, 1, generator=g, device="cuda")
+    ys = torch.randint(0, 10, (REDRAW_K, batch), generator=g, device="cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
+    captures = []
+    multi.replays.before_capture = lambda: zero_counts(wrappers)
+    replayed, calls, log_calls = 0, 0, []
+    want_launches = {n: REDRAW_K * c for n, c in per_step.items()}
+    while replayed < REDRAW_REPLAYS:
+        graphs = len(multi.replays.graphs)
+        zero_counts(wrappers)
+        _, losses, corrects = multi(states[0], xs, ys, gens[0])
+        captured = len(multi.replays.graphs) > graphs
+        if captured:
+            captures.append(counts(wrappers))
+        else:
+            replayed += 1
+            if any(counts(wrappers).values()):
+                raise AssertionError(f"a replay counted launches: {counts(wrappers)}")
+        out = [step(states[1], xs[i], ys[i], gens[1])[1:] for i in range(REDRAW_K)]
+        torch.cuda.synchronize()
+        differ = _params_differ(models[0], models[1])  # Omega and counters included
+        moments = sorted({key for a, b in zip(states[0].optimizer.state.values(),
+                                              states[1].optimizer.state.values())
+                          for key, t in a.items() if not torch.equal(t, b[key])})
+        ok = (torch.equal(losses, torch.stack([o[0] for o in out]))
+              and torch.equal(corrects, torch.stack([o[1] for o in out])) and not differ
+              and not moments and torch.equal(gens[0].get_state(), gens[1].get_state()))
+        calls += 1
+        log_calls.append(("capture" if captured else "replay", ok))
+        if not ok:
+            raise AssertionError(f"redraw interval {interval}, call {calls}: differs from "
+                                 f"{REDRAW_K} eager steps: {differ[:3]} {moments}")
+        if calls > 2 + interval * 2:
+            raise AssertionError(f"redraw interval {interval}: no replay after {calls} calls")
+    counter = int(models[0].transformer_blocks[0].attention.redraw_counter)
+    t = time_ms(lambda: multi(states[0], xs, ys, gens[0]), iters=3, warmup=0) / REDRAW_K
+    log("qa-redraw", f"headline model, feature_redraw_interval {interval}, K={REDRAW_K}: "
+        f"calls {log_calls} each bitwise against {REDRAW_K} eager steps (losses, corrects, "
+        f"parameters, Omega, counters, Adam moments, generators); graphs "
+        f"{len(multi.replays.graphs)} (one per pattern of redraw positions), counter after "
+        f"the checked calls {counter}; launches at each capture {captures} (want "
+        f"{want_launches}); replayed {t:.3f} ms/step (CUDA events over 3 calls, on {card})")
+    if any(c != want_launches for c in captures) or len(multi.replays.graphs) != len(captures):
+        raise AssertionError(f"redraw interval {interval}: captures {captures}")
+    return captures[0]
+
+
+def redraw_gather_check(card: str) -> None:
+    """Phase 23 e: one make_gather_multi_step chunk and one 2-member
+    make_ensemble_gather_multi_step chunk with feature redraw (interval 2),
+    each called twice (the capture, then a replay), bitwise against each
+    model's eager make_train_step steps on the same gathered batches."""
+    import numpy as np
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.data import DeviceDataset
+    from efficient_rpe_vit_torch.data.datasets import _synthetic
+    from efficient_rpe_vit_torch.data.pipeline import _gather_batch
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import (create_ensemble_train_state, create_train_state,
+                                               make_ensemble_gather_multi_step,
+                                               make_gather_multi_step, make_train_step)
+
+    cfg = mnist_config(**QA)
+    batch = cfg.train.batch_size
+    raw = _synthetic(REDRAW_K * batch * 2, 0, 28, 1)
+    ds = DeviceDataset(raw["train_images"], raw["train_labels"], cfg.data.mean, cfg.data.std,
+                       batch, device="cuda", synthetic=True)
+    data = (ds.images, ds.labels, ds.mean, ds.std)
+    idx = np.stack([np.random.default_rng(s).permutation(ds.n)[:REDRAW_K * batch]
+                    .reshape(REDRAW_K, batch) for s in range(2)])
+
+    def build(seed):
+        return create_model(PAR_FLAGSHIP, cfg, device="cuda",
+                            attention_config={"feature_redraw_interval": 2},
+                            generator=torch.Generator().manual_seed(seed))
+
+    def eager(model, state, rows, gen):
+        step = make_train_step(model)
+        out = []
+        for r in rows:
+            x, y = _gather_batch(*data[:2], torch.from_numpy(r).cuda(), *data[2:], None, None)
+            out.append(step(state, x, y, gen)[1:])
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+    single = [build(0), build(0)]
+    sstates = [create_train_state(m, cfg) for m in single]
+    gather = make_gather_multi_step(single[0])
+    members = [build(1), build(2)]
+    twins = [build(1), build(2)]
+    ens_state = create_ensemble_train_state(members, cfg)
+    tstates = [create_train_state(m, cfg) for m in twins]
+    ens = make_ensemble_gather_multi_step(members, per_member_order=True)
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in (5, 5, 6, 6, 7, 7)]
+    results = []
+    for call in ("capture", "replay"):
+        _, losses, corrects = gather(sstates[0], *data, idx[0], gens[0])
+        want = eager(single[1], sstates[1], idx[0], gens[1])
+        torch.cuda.synchronize()
+        results.append(("gather", call, torch.equal(losses, want[0])
+                        and torch.equal(corrects, want[1])
+                        and not _params_differ(single[0], single[1])
+                        and torch.equal(gens[0].get_state(), gens[1].get_state())))
+        _, losses, corrects = ens(ens_state, *data, idx, [gens[2], gens[4]])
+        for i, (twin, tstate, gen, mgen) in enumerate(zip(twins, tstates, (gens[3], gens[5]),
+                                                          (gens[2], gens[4]))):
+            want = eager(twin, tstate, idx[i], gen)
+            torch.cuda.synchronize()
+            results.append((f"ensemble member {i}", call, torch.equal(losses[i], want[0])
+                            and torch.equal(corrects[i], want[1])
+                            and not _params_differ(members[i], twin)
+                            and torch.equal(mgen.get_state(), gen.get_state())))
+    log("qa-redraw", f"gather-fused chunk and 2-member ensemble chunk (K={REDRAW_K} x "
+        f"B={batch}, redraw every 2 calls): bitwise against eager steps {results}, graphs "
+        f"{len(gather.replays.graphs)} and {len(ens.replays.graphs)} (on {card})")
+    if not all(r[2] for r in results) or len(gather.replays.graphs) != 1 \
+            or len(ens.replays.graphs) != 1:
+        raise AssertionError("phase 23 e: a gather-fused redraw chunk differs")
+
+
+def qa_phase(mlc, fa, cr, card: str):
+    """Phase 23: the rest of Queue A. Returns {path: (launches, forward
+    row, backward rows, flash rows)} for the kernels line."""
+    from efficient_rpe_vit_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    kerple = kerple_wrappers(mlc)
+    per_member = {n: 0 if n == "kerple_fused_phi_fwd" else 3 for n in kerple}
+    out = {}
+    out["parallel_multistep_redraw"] = qa_world1(per_member, card)
+    out["ensemble_mesh"] = qa_two_ranks(per_member, card)
+    out["import_predict"], import_row = qa_importer(mlc, card)
+    rotation = {"circulant_rotate_fwd": cr.circulant_rotate_fwd,
+                "circulant_rotate_bwd": cr.circulant_rotate_bwd}
+    sweep_launches, sweep_rows = qa_sweep(mlc, fa, cr,
+                                          {**kerple, **flash_wrappers(fa), **rotation}, card)
+    for interval in REDRAW_INTERVALS:
+        out[f"redraw_multistep_i{interval}"] = redraw_multistep_check(interval, kerple,
+                                                                      per_member, card)
+    redraw_gather_check(card)
+    t0 = time.perf_counter()
+    dryrun_multichip(8, timeout=400)
+    log("qa-dryrun", f"dryrun_multichip(8) on the CPU: every part of the JAX dry run passed "
+        f"in {time.perf_counter() - t0:.1f} s")
+    log("qa", f"phase 23 in {time.perf_counter() - t_phase:.1f} s")
+    return out, import_row, sweep_launches, sweep_rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3639,7 +4272,6 @@ def main() -> int:
     head_fwd = head_fwd[("bfloat16", HEADLINE_SHAPE[0])]
     head_bwd = check_bwd_kernels(mlc, [HEADLINE_SHAPE], BF16_ONLY, timed=HEADLINE_SHAPE)
     check_replayed_masks()
-    check_graph_refusals()
     check_capturable_optimizer()
     head_depth = 3  # mnist_config's
     head_step = {n: 0 if n == "kerple_fused_phi_fwd" else head_depth for n in kerple}
@@ -3678,6 +4310,11 @@ def main() -> int:
     # the card over gloo (DP, FSDP, TP, CP, EP, PP against the single-process
     # step), CP at N=4097
     par_world1, par_rows, par_two = parallel_phase(mlc, kerple, card)
+
+    # 23. the rest of Queue A: the ensemble over a mesh, sharded checkpoints,
+    # the importer, the 11-variant sweep, feature redraw inside CUDA graphs,
+    # then the 8-rank CPU dry run
+    qa_launches, import_row, sweep_launches, sweep_rows = qa_phase(mlc, fa, cr, card)
 
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
@@ -3788,6 +4425,33 @@ def main() -> int:
         for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
             rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
                          path, bwd_rows[name], launches[name]))
+    # phase 23's paths: the sharded ensemble at the CLI's shape (phase 19's
+    # rows), the redraw graphs at the headline's (phase 17's), the imported
+    # model's predict (fp32), the sweep's KERPLE, flash and rotation kernels at
+    # its shapes
+    for path, fwd_row, bwd_rows in (
+            ("ensemble_mesh", cli_fwd, cli_bwd),
+            ("parallel_multistep_redraw", head_fwd, head_bwd),
+            *((f"redraw_multistep_i{i}", head_fwd, head_bwd) for i in REDRAW_INTERVALS)):
+        launches = qa_launches[path]
+        rows.append((*fwd, path, fwd_row, launches["masked_linear_coeffs_fwd"]))
+        for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+            rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
+                         path, bwd_rows[name], launches[name]))
+    rows.append((*fwd, "import_predict", import_row,
+                 qa_launches["import_predict"]["masked_linear_coeffs_fwd"]))
+    sweep_fwd, sweep_bwd, sweep_flash, sweep_rot = sweep_rows
+    for path, launches in sweep_launches.items():
+        rows.append((*fwd, path, sweep_fwd, launches["masked_linear_coeffs_fwd"]))
+        for name, line in zip(BWD_KERNELS, (227, 258, 301, 343)):
+            rows.append((name, f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}",
+                         path, sweep_bwd[name], launches[name]))
+        for name, (source, replaces) in flash_tpu.items():
+            rows.append((name, f"{src}/{source}", f"{pallas}/{replaces}", path,
+                         sweep_flash[name], launches[name]))
+        for name, line in (("circulant_rotate_fwd", 107), ("circulant_rotate_bwd", 128)):
+            rows.append((name, rot_src, f"{rot_tpu}:{line}", path, sweep_rot[name],
+                         launches[name]))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -28,8 +28,12 @@ ranks' counts, and only the coordinator prints, writes the metrics and
 saves checkpoints. A 'pipe' axis trains through the GPipe step
 (`parallel/pipeline.py`; `--microbatches` M, default the pipe size): each
 pipe rank holds depth / pipe blocks, and evaluation and the inference
-benchmark run through the pipeline too. `--checkpoint-backend orbax` is
-refused: sharded checkpoint directories are not ported.
+benchmark run through the pipeline too. `--checkpoint-backend orbax`
+saves the best checkpoint as a sharded directory,
+`<model>_<dataset>_best_orbax` (`train.checkpoint.save_checkpoint_sharded`,
+on `torch.distributed.checkpoint`): under a mesh every rank writes its own
+parts. `--resume auto` finds the backend's checkpoint, and `--resume DIR`
+on a directory takes the sharded loader.
 """
 
 from __future__ import annotations
@@ -40,10 +44,6 @@ import os
 import time
 
 import torch
-
-NOT_PORTED = ("is not ported: sharded checkpoint directories are later work "
-              "(ROADMAP.md Queue A #7.5)")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a ViT variant (PyTorch port)")
@@ -98,8 +98,11 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-backend", default="msgpack",
                    choices=["msgpack", "orbax"],
                    help="msgpack: the single-file checkpoint (a torch.save "
-                        "file here); orbax (sharded directories) is not "
-                        "ported")
+                        "file here; under a mesh gathered and written by the "
+                        "coordinator); orbax: a sharded directory of "
+                        "torch.distributed.checkpoint files in which each "
+                        "rank writes its own parts, restored on any layout "
+                        "without a gather")
     p.add_argument("--label-smoothing", type=float, default=0.0,
                    metavar="S", help="uniform label smoothing on the "
                                      "training loss (eval stays unsmoothed)")
@@ -154,8 +157,6 @@ def parse_args(argv=None):
 
 def _refuse(args) -> None:
     """The flags the port refuses, before anything runs."""
-    if args.checkpoint_backend == "orbax":
-        raise SystemExit(f"--checkpoint-backend orbax {NOT_PORTED}")
     explicit = args.distributed not in (None, "auto")
     for flag, value in (("--num-processes", args.num_processes),
                         ("--process-id", args.process_id)):
@@ -299,6 +300,7 @@ def main(argv=None, shared=None):
         create_train_state,
         evaluate,
         load_checkpoint,
+        load_checkpoint_sharded,
         make_eval_step,
         make_gather_multi_eval,
         make_gather_multi_step,
@@ -307,6 +309,7 @@ def main(argv=None, shared=None):
         make_train_step,
         reset_train_state,
         save_checkpoint,
+        save_checkpoint_sharded,
         save_run_metrics,
         set_random_seeds,
         train_epoch,
@@ -398,13 +401,18 @@ def main(argv=None, shared=None):
         print(f"Parameters: {n_params['total']:,}")
 
     start_epoch = 1
-    ckpt_path = os.path.join(args.output_dir, f"{args.model}_{args.dataset}_best.pt")
+    sharded = args.checkpoint_backend == "orbax"
+    ckpt_path = os.path.join(args.output_dir, f"{args.model}_{args.dataset}_best"
+                             + ("_orbax" if sharded else ".pt"))
+    save_ckpt = save_checkpoint_sharded if sharded else save_checkpoint
     if args.resume == "auto":
         args.resume = ckpt_path if os.path.exists(ckpt_path) else None
         if args.resume is None and not args.quiet:
             print("[resume auto] no checkpoint found; starting fresh")
     if args.resume:
-        state, meta = load_checkpoint(args.resume, state)
+        # sharded checkpoints are directories
+        load = load_checkpoint_sharded if os.path.isdir(args.resume) else load_checkpoint
+        state, meta = load(args.resume, state)
         start_epoch = int(meta.get("epoch", 0)) + 1
         if not args.quiet:
             print(f"Resumed from {args.resume} at epoch {start_epoch}")
@@ -481,8 +489,8 @@ def main(argv=None, shared=None):
                   f"test {em['accuracy']:.2f}% ({tm['time']:.1f}s)")
         if em["accuracy"] > best_acc:
             best_acc = em["accuracy"]
-            if args.save_model:
-                save_checkpoint(
+            if args.save_model:  # under a mesh every rank takes part
+                save_ckpt(
                     ckpt_path, state, epoch,
                     metrics={"test_accuracy": em["accuracy"]},
                     metadata={"model_name": args.model,

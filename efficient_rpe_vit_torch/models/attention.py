@@ -253,6 +253,10 @@ class _KernelAttention(_Attention):
         if feature_redraw_interval is not None:
             self.register_buffer("redraw_counter",
                                  torch.zeros((), dtype=torch.int32))
+        # the count `redraw_counter` holds, when the host knows it: set by a
+        # K-step CUDA-graph program (`train.training._HostCounts`) for the
+        # calls it runs, so that no call reads the card
+        self.host_count: Optional[int] = None
 
     @property
     def m(self) -> int:
@@ -291,9 +295,15 @@ class _KernelAttention(_Attention):
         if generator is None:
             raise ValueError("feature redraw in train mode needs a generator: "
                              "pass one to the model's forward")
-        # the host reads the counter (on the GPU, a sync per block and call)
-        # so that the QR draw runs only on the redraw calls
-        if int(self.redraw_counter) % self.feature_redraw_interval == 0:
+        # the host decides, so that the QR draw runs only on the redraw
+        # calls: from the count a graphed program gave it, else by reading
+        # the counter (on the GPU, a sync per block and call)
+        if self.host_count is None:
+            count = int(self.redraw_counter)
+        else:
+            count = self.host_count
+            self.host_count += 1
+        if count % self.feature_redraw_interval == 0:
             self.omega.copy_(self.draw_omega(generator))
         self.redraw_counter += 1
 

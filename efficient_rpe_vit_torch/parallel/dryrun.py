@@ -1,12 +1,31 @@
 """A multi-rank dry run of the parallel layer on the CPU.
 
 Counterpart of `__graft_entry__.py::dryrun_multichip`: `dryrun_multichip(n)`
-starts a child process that runs an n-rank gloo world on the CPU and, on
-the flagship at `mnist_config(dropout=0.1)`, takes one sharded train step
-with `grad_accum=2` (data x model, model = 2 when n is even, an EMA
-shadow), one `make_parallel_multi_step` call of two steps and, with n >= 4,
-one GPipe step on data = n / 2, pipe = 2 (depth 2, M = 4). Every loss must
-be finite; any failure, on any rank, makes the child and the call fail.
+starts a child process that runs an n-rank gloo world on the CPU and takes
+every part of the JAX dry run, each gated on n as the JAX one gates it,
+on `mnist_config(dropout=0.1)`:
+
+  * the flagship's sharded train step with `grad_accum=2` (data x model,
+    model = 2 when n is even, an EMA shadow), then one
+    `make_parallel_multi_step` call of two steps;
+  * the sequence-parallel ops over 'data': context-sharded linear
+    attention, ring KERPLE and ring softmax attention at N = 8 x data;
+  * the DP x CP train step through the model's `seq_mesh` (seq = 2 when n
+    is even);
+  * with n even, GPipe over n_pipe stages (4 when 4 divides n, else 2) of
+    a depth-n_pipe model with soft-MoE MLPs: the pipelined forward and its
+    gradients;
+  * with 8 dividing n, DP x PP x TP at 2 x 2 x 2: one GPipe train step of
+    6 microbatches with `grad_accum=2`;
+  * with n even, expert-parallel MoE (n_pipe experts over 'expert'):
+    forward and gradients;
+  * FSDP over 'data': the largest parameter's local shard times the data
+    size is at most its full size, then one step;
+  * ensemble x DP: n members sharded over 'data', one member a rank, one
+    `make_ensemble_train_step(mesh=)` step.
+
+Every loss must be finite; any failure, on any rank, makes the child and
+the call fail.
 
     python -m efficient_rpe_vit_torch.parallel.dryrun 4
 
@@ -63,15 +82,20 @@ def _steps(n: int):
 
     from ..configs import mnist_config
     from ..models import create_model
+    from ..train import create_ensemble_train_state, ensemble_members, make_ensemble_train_step
     from . import (
         create_pipeline_train_state,
         create_sharded_train_state,
         host_batch_slice,
         make_mesh,
+        make_mesh_from_spec,
         make_parallel_multi_step,
         make_parallel_train_step,
         make_pipeline_train_step,
-        make_mesh_from_spec,
+        pipeline_vit_forward,
+        ring_kerple_attention,
+        ring_softmax_attention,
+        seq_parallel_linear_attention,
     )
 
     cfg = mnist_config(dropout=0.1)
@@ -79,35 +103,117 @@ def _steps(n: int):
     g = torch.Generator().manual_seed(0)
     losses = {}
 
+    def seeded(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def build(model_name, mesh=None, seed=1, **kwargs):
+        return create_model(model_name, cfg, device="cpu", generator=seeded(seed), **kwargs)
+
+    # the sharded step with grad_accum, then the fused multi-step
     mesh = make_mesh(n_model=2 if n % 2 == 0 and n > 1 else 1, device="cpu")
     batch = max(8, 2 * mesh.size("data"))
     batch -= batch % mesh.size("data")
     images = torch.randn(batch, 28, 28, 1, generator=g)
     labels = torch.arange(batch) % 10
     rows = host_batch_slice(batch, mesh)
-    model = create_model(name, cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    model = build(name)
     state = create_sharded_train_state(model, cfg, mesh, steps_per_epoch=10, ema_decay=0.99)
     step = make_parallel_train_step(model, mesh, state, grad_accum=2)
-    state, loss, _ = step(state, images[rows], labels[rows], torch.Generator().manual_seed(2))
+    state, loss, _ = step(state, images[rows], labels[rows], seeded(2))
     losses["sharded_grad_accum2"] = [float(loss)]
 
     multi = make_parallel_multi_step(model, mesh, state)
     xs = torch.stack([images[rows], images[rows]])
     ys = torch.stack([labels[rows], labels[rows]])
-    state, mlosses, _ = multi(state, xs, ys, torch.Generator().manual_seed(3))
+    state, mlosses, _ = multi(state, xs, ys, seeded(3))
     losses["multi_step"] = [float(v) for v in mlosses]
 
-    if n >= 4 and n % 2 == 0:
-        pp_mesh = make_mesh_from_spec(f"data={n // 2},pipe=2", device="cpu")
-        pp_model = create_model(name, cfg, depth=2, device="cpu",
-                                generator=torch.Generator().manual_seed(4))
-        pp_state = create_pipeline_train_state(pp_model, cfg, pp_mesh, steps_per_epoch=10)
-        pp_step = make_pipeline_train_step(pp_model, pp_mesh, pp_state, n_microbatches=4)
-        pp_batch = 4 * n
-        pp_state, pp_loss, _ = pp_step(pp_state, torch.randn(pp_batch, 28, 28, 1, generator=g),
-                                       torch.arange(pp_batch) % 10,
-                                       torch.Generator().manual_seed(5))
-        losses["pipeline_data_pipe"] = [float(pp_loss)]
+    # the sequence-parallel ops over 'data'
+    group = mesh.get_group("data")
+    p = mesh.size("data")
+    N, (B, H, F, D) = 8 * p, (2, 2, 12, 16)
+    qp = torch.randn(B, H, N, F, generator=g).abs() * 0.2
+    kp = torch.randn(B, H, N, F, generator=g).abs() * 0.2
+    v = torch.randn(B, H, N, D, generator=g)
+    coeffs = torch.exp(torch.randn(H, 2 * N - 1, generator=g) * 0.05)
+    qd = torch.randn(B, H, N, D, generator=g)
+    ops = (seq_parallel_linear_attention(qp, kp, v, group),
+           ring_kerple_attention(qp, kp, v, coeffs, group),
+           ring_softmax_attention(qd, qd, v, D ** -0.5, group))
+    losses["seq_parallel_ops"] = [float(o.abs().sum()) for o in ops]
+
+    # DP x CP: the sequence split over 'seq' inside the model's attention
+    cp_mesh = make_mesh(n_model=2 if n % 2 == 0 else 1, axis_names=("data", "seq"),
+                        device="cpu")
+    cp_model = build(name, attention_config={"seq_mesh": cp_mesh, "seq_axis": "seq"})
+    cp_state = create_sharded_train_state(cp_model, cfg, cp_mesh, steps_per_epoch=10)
+    cp_step = make_parallel_train_step(cp_model, cp_mesh, cp_state)
+    cp_batch = max(8, 2 * cp_mesh.size("data"))
+    cp_batch -= cp_batch % cp_mesh.size("data")
+    cp_rows = host_batch_slice(cp_batch, cp_mesh)
+    cp_state, cp_loss, _ = cp_step(cp_state, images[:cp_batch][cp_rows],
+                                   labels[:cp_batch][cp_rows], seeded(4))
+    losses["cp_train_step"] = [float(cp_loss)]
+
+    # GPipe with soft-MoE inside the staged blocks: forward and gradients
+    n_pipe = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+    if n_pipe > 1:
+        pp_mesh = make_mesh(n_model=n_pipe, axis_names=("data", "pipe"), device="cpu")
+        pp_model = build(name, seed=5, depth=n_pipe,
+                         mlp_config={"mlp_type": "moe", "num_experts": 2})
+        create_pipeline_train_state(pp_model, cfg, pp_mesh, steps_per_epoch=10)
+        pp_x = torch.randn(8, 28, 28, 1, generator=g)
+        pp_val = (pipeline_vit_forward(pp_model, pp_x, pp_mesh) ** 2).sum()
+        pp_val.backward()
+        grads = [p.grad for p in pp_model.parameters() if p.grad is not None]
+        losses["pipeline_moe"] = [float(pp_val.detach()),
+                                  float(sum(t.abs().sum() for t in grads))]
+
+    # DP x PP x TP at 2 x 2 x 2: 6 microbatches over 2 stages, grad_accum 2
+    if n % 8 == 0:
+        m3_mesh = make_mesh_from_spec(f"data={n // 4},pipe=2,model=2", device="cpu")
+        m3_model = build(name, seed=6, depth=2)
+        m3_state = create_pipeline_train_state(m3_model, cfg, m3_mesh, steps_per_epoch=10)
+        m3_step = make_pipeline_train_step(m3_model, m3_mesh, m3_state, n_microbatches=6,
+                                           grad_accum=2)
+        m3_state, m3_loss, _ = m3_step(m3_state, torch.randn(24, 28, 28, 1, generator=g),
+                                       torch.arange(24) % 10, seeded(7))
+        losses["dp_pp_tp_step"] = [float(m3_loss)]
+
+    # expert parallelism: the soft-MoE experts split over 'expert'
+    if n_pipe > 1:
+        ep_mesh = make_mesh(n_model=n_pipe, axis_names=("data", "expert"), device="cpu")
+        ep_model = build("performer_favor", seed=8,
+                         mlp_config={"mlp_type": "moe", "num_experts": n_pipe,
+                                     "expert_mesh": ep_mesh, "expert_axis": "expert"})
+        ep_val = (ep_model(torch.randn(8, 28, 28, 1, generator=g)) ** 2).sum()
+        ep_val.backward()
+        losses["expert_moe"] = [float(ep_val.detach())]
+
+    # FSDP: parameters and moments scattered over 'data'
+    fsdp_model = build(name, seed=1)
+    fsdp_state = create_sharded_train_state(fsdp_model, cfg, mesh, steps_per_epoch=10,
+                                            fsdp=True)
+    big = max(fsdp_state.fsdp.meta, key=lambda k: fsdp_state.fsdp.meta[k][1])
+    full_size = fsdp_state.fsdp.meta[big][1]
+    if fsdp_state.fsdp.shards[big].numel() * mesh.size("data") > full_size:
+        raise AssertionError(f"fsdp leaf {big} not scattered over 'data'")
+    fsdp_step = make_parallel_train_step(fsdp_model, mesh, fsdp_state)
+    fsdp_state, fsdp_loss, _ = fsdp_step(fsdp_state, images[rows], labels[rows], seeded(9))
+    losses["fsdp_step"] = [float(fsdp_loss)]
+
+    # ensemble x DP: n members sharded over 'data', no collective in the step
+    ens_mesh = make_mesh(n_model=1, device="cpu")
+    mine = ensemble_members(n, ens_mesh)
+    ens_models = [build("performer_relu_rope", seed=100 + i) for i in mine]
+    ens_state = create_ensemble_train_state(ens_models, cfg, steps_per_epoch=10)
+    ens_step = make_ensemble_train_step(ens_models, mesh=ens_mesh)
+    ens_state, ens_losses, _ = ens_step(ens_state, images[:8], labels[:8],
+                                        [seeded(200 + i) for i in mine])
+    if ens_losses.shape != (n,):
+        raise AssertionError(f"ensemble losses of shape {tuple(ens_losses.shape)}, "
+                             f"expected ({n},)")
+    losses["ensemble_dp"] = [float(v) for v in ens_losses]
     return losses
 
 

@@ -10,13 +10,15 @@ accumulation over microbatches, `make_multi_step` and the gather-fused
 `train_epoch` / `evaluate` with their fused loops, the ensemble engine
 (`create_ensemble_train_state`, the `make_ensemble_*` programs,
 `ensemble_train_epoch` / `ensemble_evaluate`: S seeds trained together,
-each member its own model, optimiser and generator), and
+each member its own model, optimiser and generator, or sharded over a
+mesh's member axis), and
 `make_inference_chain` / `benchmark_inference`. The JAX package
 jits one program per step or scans K of them; here a step runs eagerly on
 the model's device, updating the model and optimiser in place, and on the
 GPU the K-step programs are CUDA graphs (`_Replays`): K full steps
-captured once per input shape and replayed by one call (an ensemble's S
-members' steps in one graph). Dropout masks and augmentation draws come
+captured once per input shape (and pattern of feature redraws,
+`_HostCounts`) and replayed by one call (an ensemble's S members' steps in
+one graph). Dropout masks and augmentation draws come
 from the generator each call is given, one per member in an ensemble.
 """
 
@@ -420,6 +422,49 @@ def make_train_step(model: nn.Module, grad_accum: int = 1,
 
 # ─── K steps per call: CUDA graphs on the GPU ───────────────────────────
 
+class _HostCounts:
+    """The feature-redraw counters of `models`' attention modules, as the
+    host sees them before a graphed call.
+
+    Which of a call's steps redraw Omega follows from each counter at the
+    call's start: call i of a module redraws where (count + i) % interval
+    == 0. So the host reads the counters once a call (`read`), keys the
+    call's graph by each count modulo its interval (`key`: one graph per
+    pattern of redraw positions), and runs the call's body with each
+    module's `host_count` set (`wrap`), so that the warm-up and the capture
+    choose the redraws without reading the card and the captured graph
+    holds the QR draws of exactly those steps (`_Replays` does this for
+    the models it is given). A replay advances the counters on the card
+    as the eager steps do."""
+
+    def __init__(self, models: Sequence[nn.Module]):
+        self.modules = [m for model in models for m in model.modules()
+                        if getattr(m, "feature_redraw_interval", None) is not None]
+
+    def read(self) -> Tuple[int, ...]:
+        if not self.modules:
+            return ()
+        return tuple(torch.stack([m.redraw_counter for m in self.modules]).tolist())
+
+    def key(self, counts: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(c % m.feature_redraw_interval for c, m in zip(counts, self.modules))
+
+    def wrap(self, body: Callable, counts: Tuple[int, ...]) -> Callable:
+        if not self.modules:
+            return body
+
+        def counted(*args):
+            for m, c in zip(self.modules, counts):
+                m.host_count = c
+            try:
+                return body(*args)
+            finally:
+                for m in self.modules:
+                    m.host_count = None
+
+        return counted
+
+
 class _Replays:
     """Calls of a K-step body replayed from CUDA graphs, one graph per key.
 
@@ -445,12 +490,16 @@ class _Replays:
     caller gave its own. `before_capture`, when set, is called
     between a key's warm-up and its capture (a caller that counts
     launches reads the warm-up's there and zeroes them, so that what it
-    reads after the call is the graph's own).
+    reads after the call is the graph's own). With `redraw` (the models
+    a body trains), the key also holds the pattern of feature redraws the
+    call makes (`_HostCounts`), and the body runs with it.
     """
 
-    def __init__(self, device: torch.device, inference: bool = False):
+    def __init__(self, device: torch.device, inference: bool = False,
+                 redraw: Sequence[nn.Module] = ()):
         self.device = device
         self.inference = inference
+        self.host = _HostCounts(redraw)
         self.graphs: Dict[tuple, tuple] = {}
         self.before_capture: Optional[Callable[[], None]] = None
 
@@ -463,6 +512,8 @@ class _Replays:
                  pins=()):
         callers = (() if generator is None else (generator,)
                    if isinstance(generator, torch.Generator) else tuple(generator))
+        counts = self.host.read()
+        key, body = (*key, self.host.key(counts)), self.host.wrap(body, counts)
         entry = self.graphs.get(key)
         if entry is None:
             current = torch.cuda.current_stream(self.device)
@@ -502,15 +553,9 @@ def _lr_table(schedule: Schedule, step: int, k: int) -> np.ndarray:
     return np.asarray([schedule(step + i) for i in range(k)], np.float32)
 
 
-def _graph_blocker(model: nn.Module, optimizer: torch.optim.Optimizer) -> Optional[str]:
-    """Why K steps of `model` under `optimizer` cannot be captured in a CUDA
-    graph, or None."""
-    redraw = [n for n, m in model.named_modules()
-              if getattr(m, "feature_redraw_interval", None) is not None]
-    if redraw:
-        return ("feature redraw reads its counter on the host to decide which "
-                "calls redraw Omega, which a CUDA graph cannot do; "
-                f"{redraw[0]} sets feature_redraw_interval")
+def _graph_blocker(optimizer: torch.optim.Optimizer) -> Optional[str]:
+    """Why K steps under `optimizer` cannot be captured in a CUDA graph, or
+    None."""
     if not all(g.get("capturable", False) for g in optimizer.param_groups):
         return (f"{type(optimizer).__name__} is not capturable: its update "
                 "reads the learning rate on the host")
@@ -572,11 +617,13 @@ def make_multi_step(model: nn.Module, label_smoothing: float = 0.0,
     by every later call: a new shape, such as an epoch's tail chunk,
     captures its own graph, as JAX compiles a second program. Each replay
     reads its K learning rates schedule(step + i) from a table the host
-    fills, and `state.step` advances by K on the host. A step that cannot
-    be captured raises NotImplementedError on the GPU: feature redraw
-    (`feature_redraw_interval`), and an optimiser that is not capturable
-    (one not built by `create_optimizer` for the card). On the CPU the K
-    steps run as a loop of the train step.
+    fills, and `state.step` advances by K on the host. A model that redraws
+    its features (`feature_redraw_interval`) gets one graph for each
+    pattern of redraw positions among the K steps (`_HostCounts`): the
+    redraws, QR included, are captured with the steps. An optimiser that
+    is not capturable (one not built by `create_optimizer` for the card)
+    raises NotImplementedError on the GPU. On the CPU the K steps run as a
+    loop of the train step.
     """
     device = resolve_device(device)
     train_step = make_train_step(model, label_smoothing=label_smoothing,
@@ -593,11 +640,11 @@ def _graphed_steps(model: nn.Module, run, device: torch.device, what: str,
     """The GPU's K-step program over the step body `run`: one CUDA graph per
     input shape (`_Replays`), refused where `_graph_blocker` or `blocker()`
     names a reason."""
-    replays = _Replays(device)
+    replays = _Replays(device, redraw=[model])
 
     def graphed_multi_step(state: TrainState, images, labels, generator):
         _check_call(state, model, generator, device)
-        reason = _graph_blocker(model, state.optimizer) or blocker()
+        reason = _graph_blocker(state.optimizer) or blocker()
         if reason:
             raise NotImplementedError(f"{what} on the GPU: {reason}")
         images = torch.as_tensor(images, device=device)
@@ -635,7 +682,7 @@ def make_gather_multi_step(model: nn.Module, label_smoothing: float = 0.0,
     train_step = make_train_step(model, label_smoothing=label_smoothing,
                                  device=device)
     run = _step_body(model, 1, label_smoothing)
-    replays = _Replays(device)
+    replays = _Replays(device, redraw=[model])
 
     def gather_step(state: TrainState, images_u8, labels_all, mean, std, idx,
                     generator: torch.Generator):
@@ -649,7 +696,7 @@ def make_gather_multi_step(model: nn.Module, label_smoothing: float = 0.0,
             return _loop(train_step, state,
                          (gather(torch.from_numpy(r), generator) for r in idx),
                          generator)
-        blocker = _graph_blocker(model, state.optimizer)
+        blocker = _graph_blocker(state.optimizer)
         if blocker:
             raise NotImplementedError(f"make_gather_multi_step on the GPU: {blocker}")
         k = idx.shape[0]
@@ -927,7 +974,9 @@ class EnsembleTrainState:
     update count and EMA shadow. The JAX package stacks the members' arrays
     and vmaps one member's program over them; here each member keeps its
     module and runs its own steps, and on the GPU the `make_ensemble_*`
-    programs capture all members' steps in one CUDA graph."""
+    programs capture all members' steps in one CUDA graph. Over a mesh
+    (`make_ensemble_train_step(mesh=)`), `members` are this rank's
+    (`ensemble_members`)."""
 
     members: List[TrainState]
 
@@ -945,6 +994,19 @@ def _structure(model: nn.Module):
                           [*model.named_parameters(), *model.named_buffers()]])
 
 
+def ensemble_members(n_members: int, mesh, member_axis: str = "data") -> range:
+    """The members of an `n_members` ensemble that this rank holds when they
+    are sharded over `mesh`'s `member_axis` (P ranks): members r * S / P ..
+    (r + 1) * S / P - 1 for the rank at index r on the axis. S must divide
+    by P, as the JAX sharding of the member axis requires."""
+    p, r = mesh.size(member_axis), mesh.index(member_axis)
+    if n_members < 1 or n_members % p:
+        raise ValueError(f"{n_members} ensemble members do not divide over the "
+                         f"{member_axis!r} axis of {p} ranks")
+    per = n_members // p
+    return range(r * per, (r + 1) * per)
+
+
 def create_ensemble_train_state(models: Sequence[nn.Module], config,
                                 steps_per_epoch: int = 100,
                                 ema_decay: float = 0.0) -> EnsembleTrainState:
@@ -953,7 +1015,9 @@ def create_ensemble_train_state(models: Sequence[nn.Module], config,
     train CLI builds its one model. The members share one optimiser
     configuration and one step program, so models that differ in structure
     (class, parameter or buffer names, shapes, dtypes or devices) are
-    refused, as is one model passed twice."""
+    refused, as is one model passed twice. Over a mesh, `models` are this
+    rank's only, in order: those of `ensemble_members(S, mesh)`, each built
+    from its member's seed as a single-process ensemble builds it."""
     models = list(models)
     if not models:
         raise ValueError("an ensemble needs at least one member")
@@ -986,7 +1050,7 @@ def _check_ensemble(state: EnsembleTrainState, models: List[nn.Module],
         _check_call(member, models[i], generators[i], device)
     if device.type == "cuda":
         for i, member in enumerate(state.members):
-            blocker = _graph_blocker(member.model, member.optimizer)
+            blocker = _graph_blocker(member.optimizer)
             if blocker:
                 raise NotImplementedError(f"{step} on the GPU: member {i}: {blocker}")
 
@@ -1011,19 +1075,25 @@ def make_ensemble_train_step(models: Sequence[nn.Module], label_smoothing: float
     images, labels, generators) -> (state, losses [S], corrects [S])`,
     member i's step `make_train_step`'s with `generators[i]` (its dropout
     masks and redrawn features). On the GPU all S steps are one CUDA graph
-    per batch shape (`_Replays`, one registered generator per member); on
-    the CPU they run one after the other. `mesh` (members sharded over
-    `member_axis`) is not ported."""
+    per batch shape and pattern of feature redraws (`_Replays`, one
+    registered generator per member); on the CPU they run one after the
+    other.
+
+    With `mesh` (counterpart of the JAX step's `mesh=`, members sharded
+    over `member_axis`, the batch replicated): `models`, the state and
+    `generators` are this rank's members' (`ensemble_members`), `device`
+    is the mesh's. The step body is the one
+    above on those members, with no collective; after it one all-gather
+    over the axis gives every rank the whole ensemble's losses [S] and
+    corrects [S], in member order, as the JAX step returns them."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"make_ensemble_train_step over a mesh ({member_axis!r} axis) is not ported: "
-            "the multi-device paths come with the parallelism slice (ROADMAP.md Queue A #7)")
+        device = mesh.device
     device = resolve_device(device)
     models = list(models)
     steps = [make_train_step(m, label_smoothing=label_smoothing, device=device)
              for m in models]
     runs = [_step_body(m, 1, label_smoothing) for m in models]
-    replays = _Replays(device)
+    replays = _Replays(device, redraw=models)
 
     def ensemble_step(state: EnsembleTrainState, images, labels, generators):
         _check_ensemble(state, models, generators, device, "make_ensemble_train_step")
@@ -1046,7 +1116,23 @@ def make_ensemble_train_step(models: Sequence[nn.Module], label_smoothing: float
             member.step += 1
         return state, losses, corrects
 
-    return ensemble_step
+    ensemble_step.replays = replays
+    if mesh is None:
+        return ensemble_step
+    from ..parallel import comm
+
+    group = mesh.get_group(member_axis) if member_axis in mesh else None
+
+    def sharded_ensemble_step(state: EnsembleTrainState, images, labels, generators):
+        state, losses, corrects = ensemble_step(state, images, labels, generators)
+        if group is None:
+            return state, losses, corrects
+        # one collective: fp32 losses and integer counts are exact in fp64
+        both = comm.all_gather(torch.stack([losses.double(), corrects.double()], 1), group)
+        return state, both[:, 0].to(losses.dtype), both[:, 1].to(corrects.dtype)
+
+    sharded_ensemble_step.replays = replays
+    return sharded_ensemble_step
 
 
 def make_ensemble_gather_multi_step(models: Sequence[nn.Module], label_smoothing: float = 0.0,
@@ -1071,7 +1157,7 @@ def make_ensemble_gather_multi_step(models: Sequence[nn.Module], label_smoothing
     models = list(models)
     singles = [make_gather_multi_step(m, label_smoothing, augment, device) for m in models]
     runs = [_step_body(m, 1, label_smoothing) for m in models]
-    replays = _Replays(device)
+    replays = _Replays(device, redraw=models)
     order_dims = 3 if per_member_order else 2
 
     def ens_gather_step(state: EnsembleTrainState, images_u8, labels_all, mean, std, idx,

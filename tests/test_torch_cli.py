@@ -189,7 +189,6 @@ def test_train_cli_options(tmp_path, flags, check):
     (["--process-id", "1"], "--process-id only applies to an explicit --distributed"),
     (["--distributed", "--num-processes", "2"], "--num-processes only applies"),
     (["--microbatches", "2"], "--microbatches only applies to a --mesh with a 'pipe' axis"),
-    (["--checkpoint-backend", "orbax"], "orbax"),
     (["--fused-steps", "2", "--grad-accum", "2"], "--fused-steps"),
     (["--model", "baseline", "--num-features", "64"], "--num-features"),
 ])

@@ -177,8 +177,9 @@ def test_lr_table_is_the_schedule(scheduler, warmup):
 
 def test_multi_step_advances_redraw_counters_by_k_as_jax():
     """Feature redraw on the CPU: K steps advance each counter by K, as the
-    JAX scan threads it; on the GPU a graph cannot redraw, and the K-step
-    programs refuse such a model."""
+    JAX scan threads it; the host reads the counters a GPU graph is keyed
+    by (`_HostCounts`: each count modulo its interval) and no blocker
+    refuses the model."""
     attn = {"feature_redraw_interval": 2}
     jmodel, jstate, _, tmodel, state = _pair(attention_config=attn)
     xs, ys = _data(0, k=4, b=4, seed=3)
@@ -191,8 +192,11 @@ def test_multi_step_advances_redraw_counters_by_k_as_jax():
     for i, blk in enumerate(tmodel.transformer_blocks):
         want = int(jcounters[f"block_{i}"]["attention"]["redraw_counter"])
         assert int(blk.attention.redraw_counter) == want == 4
-    reason = port_training._graph_blocker(tmodel, state.optimizer)
-    assert "feature_redraw_interval" in reason
+    host = port_training._HostCounts([tmodel])
+    assert host.read() == (4,) * len(tmodel.transformer_blocks)
+    assert host.key(host.read()) == (0,) * len(tmodel.transformer_blocks)
+    capturable = torch.optim.Adam(tmodel.parameters(), lr=torch.tensor(0.1), capturable=True)
+    assert port_training._graph_blocker(capturable) is None
 
 
 def test_graph_blockers_and_the_gpu_default():
@@ -200,9 +204,9 @@ def test_graph_blockers_and_the_gpu_default():
     params = list(model.parameters())
     schedule = lambda c: 0.1  # noqa: E731
     sgd = create_optimizer("sgd", params, schedule)
-    assert "SGD is not capturable" in port_training._graph_blocker(model, sgd)
+    assert "SGD is not capturable" in port_training._graph_blocker(sgd)
     capturable = torch.optim.Adam(params, lr=torch.tensor(0.1), capturable=True)
-    assert port_training._graph_blocker(model, capturable) is None
+    assert port_training._graph_blocker(capturable) is None
     # off the card the optimiser keeps a float lr
     adam = create_optimizer("adam", params, schedule)
     assert adam.param_groups[0]["lr"] == 0.1 and not adam.param_groups[0]["capturable"]

@@ -346,7 +346,3 @@ def test_structure_mismatch_and_misuse_are_refused():
             [torch.Generator(), torch.Generator()])
 
 
-def test_mesh_is_not_ported():
-    a = create_model(KERPLE, mnist_config(depth=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A #7"):
-        make_ensemble_train_step([a], mesh=object(), device="cpu")

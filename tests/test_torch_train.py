@@ -254,9 +254,8 @@ def test_sgd_with_a_device_style_lr_equals_the_float_one():
     assert torch.equal(layers[0].weight, layers[1].weight)
     traces = [s.optimizer.state[l.weight]["momentum_buffer"] for s, l in zip(states, layers)]
     assert torch.equal(*traces)
-    assert port_training._graph_blocker(layers[1], states[1].optimizer) is None
-    assert "SGD is not capturable" in port_training._graph_blocker(layers[0],
-                                                                   states[0].optimizer)
+    assert port_training._graph_blocker(states[1].optimizer) is None
+    assert "SGD is not capturable" in port_training._graph_blocker(states[0].optimizer)
 
 
 # ─── train steps ────────────────────────────────────────────────────────

@@ -602,3 +602,216 @@ def runner_ranks(out, fail_rank=None, skip_existing=False):
     finally:
         benchmark.run_single_training, port_train.load_run_metrics = plain_run, plain_load
     return dict(result, calls=calls)
+
+
+# ─── the ensemble over a mesh ───────────────────────────────────────────
+
+def _counting_collectives():
+    """Patch the torch.distributed collectives this world can call to count
+    their calls; returns (counts, undo)."""
+    names = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast", "send", "recv", "isend", "irecv", "batch_isend_irecv",
+             "all_gather_object", "broadcast_object_list", "barrier")
+    counts = {}
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(n):
+        def call(*args, **kwargs):
+            counts[n] = counts.get(n, 0) + 1
+            return saved[n](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+
+    def undo():
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+    return counts, undo
+
+
+def ensemble_mesh(name, members, x, y, n_members):
+    """One `make_ensemble_train_step(mesh=)` step of `n_members` members
+    (flax variables `members`) sharded over 'data', the collectives it
+    calls counted; then the single-process ensemble of all members on
+    this rank, for this rank's members to be held to bit for bit."""
+    from efficient_rpe_vit_torch.train import (
+        create_ensemble_train_state,
+        ensemble_members,
+        make_ensemble_train_step,
+    )
+
+    mesh = _mesh("data=2")
+    mine = list(ensemble_members(n_members, mesh))
+    models = [_model(name, depth=1, variables=members[i]) for i in mine]
+    state = create_ensemble_train_state(models, _cfg(1), steps_per_epoch=10)
+    step = make_ensemble_train_step(models, mesh=mesh)
+    gens = [torch.Generator().manual_seed(100 + i) for i in mine]
+    counts, undo = _counting_collectives()
+    try:
+        state, losses, corrects = step(state, torch.from_numpy(x), torch.from_numpy(y), gens)
+    finally:
+        undo()
+    params = [{n: p.detach().clone() for n, p in m.model.named_parameters()}
+              for m in state.members]
+    alone = [_model(name, depth=1, variables=v) for v in members]
+    single = create_ensemble_train_state(alone, _cfg(1), steps_per_epoch=10)
+    single, single_losses, single_corrects = make_ensemble_train_step(alone, device="cpu")(
+        single, torch.from_numpy(x), torch.from_numpy(y),
+        [torch.Generator().manual_seed(100 + i) for i in range(n_members)])
+    same = all(torch.equal(params[j][n], p.detach())
+               for j, i in enumerate(mine)
+               for n, p in single.members[i].model.named_parameters())
+    return {"mine": mine, "losses": _np(losses), "corrects": corrects.numpy(),
+            "collectives": counts, "dtypes": (str(losses.dtype), str(corrects.dtype)),
+            "params": [{n: _np(t) for n, t in p.items()} for p in params],
+            "bitwise_single": same,
+            "single_losses": _np(single_losses), "single_corrects": single_corrects.numpy()}
+
+
+def ensemble_mesh_refusals():
+    """S = 3 members over a 'data' axis of 2 ranks, as its message."""
+    from efficient_rpe_vit_torch.train import ensemble_members
+
+    mesh = _mesh("data=2")
+    out = {}
+    try:
+        ensemble_members(3, mesh)
+    except ValueError as e:
+        out["members"] = str(e)
+    return out
+
+
+# ─── sharded checkpoints ────────────────────────────────────────────────
+
+def _ckpt_state(spec, name, seed, fsdp=False, pipe=False, ema=0.9, depth=2):
+    """A fresh train state of `spec` from weights drawn from `seed`, its
+    step, and the rows of a global batch it takes."""
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.parallel import (
+        create_pipeline_train_state,
+        create_sharded_train_state,
+        host_batch_slice,
+        make_parallel_train_step,
+        make_pipeline_train_step,
+    )
+
+    mesh = _mesh(spec)
+    model = create_model(name, _cfg(depth), device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+    if pipe:
+        state = create_pipeline_train_state(model, _cfg(depth), mesh, steps_per_epoch=10,
+                                            ema_decay=ema)
+        return state, make_pipeline_train_step(model, mesh, state), lambda b: slice(None)
+    state = create_sharded_train_state(model, _cfg(depth), mesh, steps_per_epoch=10,
+                                       ema_decay=ema, fsdp=fsdp)
+    return (state, make_parallel_train_step(model, mesh, state),
+            lambda b: host_batch_slice(b, mesh))
+
+
+def whole_payload(state):
+    """The whole payload of a state as numpy arrays by key (`model.<name>`,
+    `optimizer.<index>.<key>`, `ema.<name>`, `step`): for single-device
+    states their own tensors, for sharded ones `full_payload`."""
+    if getattr(state, "mesh", None) is not None:
+        from efficient_rpe_vit_torch.parallel.train_parallel import full_payload
+
+        p = full_payload(state)
+    else:
+        p = {"step": state.step, "model": state.model.state_dict(),
+             "optimizer": state.optimizer.state_dict(), "ema_params": state.ema_params}
+    out = {f"model.{n}": _np(t) for n, t in p["model"].items()}
+    for i, per in p["optimizer"]["state"].items():
+        out.update((f"optimizer.{int(i)}.{k}", _np(v)) for k, v in per.items())
+    if p.get("ema_params") is not None:
+        out.update((f"ema.{n}", _np(t)) for n, t in p["ema_params"].items())
+    out["step"] = int(p["step"])
+    return out
+
+
+def _differ(a, b):
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not np.array_equal(a[k], b[k]))
+
+
+def _no_gather():
+    """Make the whole-model views raise while a sharded save or load runs."""
+    from efficient_rpe_vit_torch.parallel import pipeline, train_parallel
+
+    saved = (train_parallel.full_payload, train_parallel.local_payload,
+             pipeline.join_stages, pipeline.select_stage)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a sharded checkpoint assembled the whole model")
+
+    train_parallel.full_payload = train_parallel.local_payload = refuse
+    pipeline.join_stages = pipeline.select_stage = refuse
+
+    def undo():
+        (train_parallel.full_payload, train_parallel.local_payload,
+         pipeline.join_stages, pipeline.select_stage) = saved
+
+    return undo
+
+
+def sharded_checkpoint(spec, name, path, single_path, x, y, fsdp=False, pipe=False):
+    """A step, a sharded save (and the single file of the same state), a
+    second step; then a fresh state of another seed loads the directory
+    and takes that second step too."""
+    from efficient_rpe_vit_torch.train import (
+        load_checkpoint_sharded,
+        save_checkpoint,
+        save_checkpoint_sharded,
+    )
+    from efficient_rpe_vit_torch.train.checkpoint import _sharded_items
+
+    state, step, rows = _ckpt_state(spec, name, 1, fsdp, pipe)
+    r = rows(x.shape[1])
+    batch = [(torch.from_numpy(x[i][r]), torch.from_numpy(y[i][r])) for i in range(2)]
+    state, _, _ = step(state, *batch[0], torch.Generator().manual_seed(0))
+    undo = _no_gather()
+    try:
+        save_checkpoint_sharded(path, state, epoch=1, metrics={"test_accuracy": 1.0},
+                                metadata={"spec": spec})
+    finally:
+        undo()
+    pieces = sorted((key, tuple(int(o) for o in off))
+                    for key, (ps, _) in _sharded_items(state, True, saving=True).items()
+                    for _, off in ps)
+    held = sum(v.numel() * v.element_size()
+               for ps, _ in _sharded_items(state, True, saving=True).values() for v, _ in ps)
+    saved = whole_payload(state)
+    save_checkpoint(single_path, state, epoch=1, metrics={"test_accuracy": 1.0})
+    state, loss, _ = step(state, *batch[1], torch.Generator().manual_seed(1))
+    after = whole_payload(state)
+
+    fresh, fresh_step, _ = _ckpt_state(spec, name, 7, fsdp, pipe)
+    undo = _no_gather()
+    try:
+        fresh, meta = load_checkpoint_sharded(path, fresh)
+    finally:
+        undo()
+    loaded = whole_payload(fresh)
+    fresh, resumed_loss, _ = fresh_step(fresh, *batch[1], torch.Generator().manual_seed(1))
+    return {"pieces": pieces, "held_bytes": held, "meta": meta,
+            "restore_differs": _differ(saved, loaded), "loss": float(loss),
+            "resumed_loss": float(resumed_loss),
+            "resume_differs": _differ(after, whole_payload(fresh))}
+
+
+def sharded_load(spec, name, path, single_path, fsdp=False, pipe=False):
+    """Load a sharded directory and the single file of the same state into
+    two fresh states of this layout; the keys whose whole values differ."""
+    from efficient_rpe_vit_torch.train import load_checkpoint, load_checkpoint_sharded
+
+    a, _, _ = _ckpt_state(spec, name, 3, fsdp, pipe)
+    undo = _no_gather()
+    try:
+        a, meta = load_checkpoint_sharded(path, a)
+    finally:
+        undo()
+    b, _, _ = _ckpt_state(spec, name, 4, fsdp, pipe)
+    b, _ = load_checkpoint(single_path, b)
+    return {"meta": meta, "differs": _differ(whole_payload(a), whole_payload(b)),
+            "step": a.step}
