@@ -258,7 +258,30 @@ Phases, each printed as it runs; any failure exits non-zero:
         chunk and one 2-member make_ensemble_gather_multi_step chunk with
         redraw, captured then replayed, bitwise against eager steps;
      then `parallel.dryrun.dryrun_multichip(8)`: every part of the JAX dry
-     run on 8 CPU ranks.
+     run on 8 CPU ranks;
+ 24. the `auto` dispatch (constants from the H100 rows of PERF.md §6):
+     a. the flagship, `baseline` and performer_favor_circulant with every
+        auto default, ViT-B/16 widths at depth 2, batch 8, at N = 17, 197
+        and 1025, and `baseline` / baseline_circulant with return_attention
+        at N = 197 and N = 4097: each eval forward from counts of 0 launches
+        what the arms its rules name launch (#1, #6, #8 or nothing), its
+        logits (and maps) bit for bit those of a twin on the named explicit
+        arms; return_attention past SOFTMAX_DENSE_MEMORY_BUDGET refused;
+     b. performer_favor_circulant exported under a symbolic batch (auto's
+        rotation on the kernels, as at a concrete batch) served against its
+        twin on the named arms, bitwise;
+     c. fused_masked_linear_attention(bwd_mode="auto") below and past
+        KERPLE_DENSE_MEMORY_BUDGET: the launches of the mode the rule names
+        (#5's dq and dkv past MASKED_LINEAR_BWD_CROSSOVER_N), gradients
+        bitwise the named mode's; toeplitz_matmul's auto on either side of
+        FFT_MIN_N and FFT_MAX_D, bitwise its named arm;
+     d. each kernel that a-c launched, against its plain version and timed
+        (bound, SDPA for flash) at each shape it was launched at: the
+        `dispatch_auto_<shape>` / `dispatch_auto_bwd_<shape>` rows;
+     e. the dense KERPLE and dense softmax arms captured in make_multi_step
+        graphs at the headline's shape, bitwise against eager steps;
+     f. the nine dispatch experiments in process at small settings: every
+        row finite, both arms present.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -605,6 +628,34 @@ SWEEP_FLASH_SHAPE = (SWEEP_BATCH, 2, 17, 16)
 REDRAW_K = 4
 REDRAW_INTERVALS = (2, 3)
 REDRAW_REPLAYS = 2
+
+# phase 24: the `auto` dispatch. DISPATCH is ViT-B/16 at depth 2 and batch 8;
+# each rule is read at every image of DISPATCH_IMAGES (N = 17, 197, 1025)
+# and return_attention also at DISPATCH_LONG (N = 4097, past the softmax
+# budget); the materialised-T backward below and past the KERPLE budget at
+# DISPATCH_BWD (B, H, N, F, D); the Toeplitz product's auto at
+# DISPATCH_TOEPLITZ [B, H, N, d] (either side of FFT_MIN_N and FFT_MAX_D);
+# the dense arms captured in K-step graphs at the headline's shape; each
+# dispatch experiment at DISPATCH_EXPERIMENTS' small settings
+DISPATCH = dict(VITB, depth=2, batch_size=8)
+DISPATCH_IMAGES = (64, 224, 512)
+DISPATCH_LONG = dict(DISPATCH, image_size=1024, batch_size=4)
+DISPATCH_BWD = [(256, 2, 197, 44, 16), (7, 12, 4097, 266, 64)]
+DISPATCH_TOEPLITZ = [(8, 2, 1024, 44), (8, 2, 2048, 44), (2, 12, 2048, 266), (2, 12, 2048, 272)]
+DISPATCH_CAPTURE_K = 2
+_AB_MODEL = ["--width", "768", "2", "12", "3072", "--shape", "28", "2", "8", "--steps", "2"]
+DISPATCH_EXPERIMENTS = {
+    "crossover_ab": ["--sizes", "197", "--steps", "3", "--toeplitz", "8", "2", "44"],
+    "flash_ab": ["--sizes", "197", "--steps", "3"],
+    "flash_crossover": _AB_MODEL,
+    "kerple_pallas_ab": _AB_MODEL,
+    "rotation_kernel_ab": _AB_MODEL,
+    "rot_isolated_ab": ["--steps", "3"],
+    "fused_phi_ab": _AB_MODEL,
+    "chain_dtype_ab": _AB_MODEL,
+    "scaling_ab": ["--sizes", "256", "--steps", "3", "--wall-images", "16", "--wall-max", "2",
+                   "--width", "768", "2", "12", "3072"],
+}
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
@@ -2326,7 +2377,8 @@ def check_capturable_optimizer() -> None:
 
 
 def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_step,
-                    card: str, profile: bool = False, timed: int = 0):
+                    card: str, profile: bool = False, timed: int = 0,
+                    name: str = "performer_favor_most_general", model_kw=None):
     """`make_multi_step` on the card: twin models from one seed, one through
     K-step calls, the other through K eager `make_train_step` steps per
     call, with generators of one seed. The first call runs K eager steps (the
@@ -2336,22 +2388,23 @@ def multistep_check(phase: str, cfg_fields, k: int, replays: int, wrappers, per_
     launches nothing through a wrapper, so launches are counted at capture:
     the counts are read and zeroed between the warm-up and the capture
     (`_Replays.before_capture`), and read again after the capture. Returns
-    the capture's counts as read (expected: K times `per_step`)."""
+    the capture's counts as read (expected: K times `per_step`). `name` and
+    `model_kw` (create_model keyword arguments) choose the model."""
     from efficient_rpe_vit_torch.configs import mnist_config
     from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.train import create_train_state, make_multi_step, make_train_step
 
     cfg = mnist_config(**cfg_fields)
     batch, size = cfg_fields["batch_size"], cfg.model.image_size
-    models = [create_model("performer_favor_most_general", cfg, device="cuda",
-                           generator=torch.Generator().manual_seed(0)) for _ in range(2)]
+    models = [create_model(name, cfg, device="cuda", generator=torch.Generator().manual_seed(0),
+                           **(model_kw or {})) for _ in range(2)]
     states = [create_train_state(m, cfg, steps_per_epoch=100) for m in models]
     multi, step = make_multi_step(models[0]), make_train_step(models[1])
     g = torch.Generator(device="cuda").manual_seed(7)
     xs = torch.randn(k, batch, size, size, 1, generator=g, device="cuda")
     ys = torch.randint(0, 10, (k, batch), generator=g, device="cuda")
     gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
-    log(phase, f"performer_favor_most_general dim {cfg.model.dim} depth {cfg.model.depth} "
+    log(phase, f"{name} {model_kw or ''} dim {cfg.model.dim} depth {cfg.model.depth} "
         f"heads {cfg.model.heads}, N={cfg.model.seq_len}, batch {batch}, bf16, dropout "
         f"{cfg.model.dropout}, {cfg.train.optimizer}, K={k} steps per call")
 
@@ -2898,6 +2951,36 @@ def bench_flash_check(fa, card: str, flash_shape=BENCH_FLASH_SHAPE):
     return rows
 
 
+def timed_against_plain(phase: str, label: str, kernel_fn, plain_fn, agrees, bound,
+                        library_fn, shape, card: str, plain_iters: int = 5) -> dict:
+    """One kernel row: the kernel's outputs against its plain version's
+    (`agrees(got, want)` on each pair, all finite; raises otherwise), then
+    the kernel timed in a CUDA graph (kernel_ms), its plain version
+    (time_ms), and the library call if there is one, beside `bound`
+    (bound_ms, bound_by)."""
+    def outputs(fn):
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    got, want = outputs(kernel_fn), outputs(plain_fn)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    ok = all(agrees(a, b) and bool(torch.isfinite(a.float()).all()) for a, b in zip(got, want))
+    del got, want
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version: max|err| {err:.3e}")
+    ms = kernel_ms(kernel_fn)
+    plain_ms = time_ms(plain_fn, iters=plain_iters, warmup=1)
+    library_ms = kernel_ms(library_fn) if library_fn is not None else None
+    bound_ms, bound_by = bound
+    log(phase, f"{label}: max|err| {err:.3e}, agrees with its plain version; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{'' if library_ms is None else f'SDPA {library_ms:.4f} ms, '}bound "
+        f"{bound_ms:.5f} ms ({bound_by}), kernel/bound {ms / bound_ms:.1f}x, on {card}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, shape=list(shape))
+
+
 def served_kernel_rows(mlc, fa, cr, card: str):
     """Phase 21: #6, #3 and #8 against their plain versions at the
     mnist-width artifacts' shape (SERVE_SHAPE, bf16, no mask, dropout 0, the
@@ -2931,25 +3014,9 @@ def served_kernel_rows(mlc, fa, cr, card: str):
             lambda got, want: _max_rel(got, want) <= ROT_TOL[name],
             rotation_bounds(B, H, N, D, name)["circulant_rotate_fwd"], None),
     }
-    rows = {}
-    for kname, (kernel_fn, plain_fn, agrees, (bound_ms, bound_by), library_fn) in cases.items():
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = agrees(got, want) and bool(torch.isfinite(got.float()).all())
-        ms = kernel_ms(kernel_fn)
-        plain_ms = time_ms(plain_fn, iters=5, warmup=1)
-        library_ms = kernel_ms(library_fn) if library_fn is not None else None
-        log("serve-export", f"{kname} B{B} H{H} N{N} D{D}{f' F{F_}' if 'phi' in kname else ''} "
-            f"{name}: max|err| {err:.3e}, agrees with its plain version {ok}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"{'' if library_ms is None else f'SDPA {library_ms:.4f} ms, '}bound "
-            f"{bound_ms:.5f} ms ({bound_by}), kernel/bound {ms / bound_ms:.1f}x, on {card}")
-        if not ok:
-            raise AssertionError(f"{kname} disagrees with its plain version at {SERVE_SHAPE}")
-        rows[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms, shape=list(SERVE_SHAPE))
-    return rows
+    return {kname: timed_against_plain(
+        "serve-export", f"{kname} B{B} H{H} N{N} D{D}{f' F{F_}' if 'phi' in kname else ''} "
+        f"{name}", *case, SERVE_SHAPE, card) for kname, case in cases.items()}
 
 
 def serve_artifact(label: str, model, live, wrappers, per_forward, batches, out_dir: str,
@@ -4129,6 +4196,363 @@ def qa_phase(mlc, fa, cr, card: str):
     return out, import_row, sweep_launches, sweep_rows
 
 
+def _named_arms(name: str, cfg, return_attention: bool = False):
+    """The arm each `auto` rule names for `name` at cfg's shape: {rule: arm}
+    for softmax ('flash' / 'dense' / 'refused'), KERPLE and the rotation."""
+    from efficient_rpe_vit_torch.models.attention import rotation_prefers_kernel
+    from efficient_rpe_vit_torch.ops import attention_core, rotations
+
+    m = cfg.model
+    b, h, n = cfg.train.batch_size, m.heads, m.seq_len
+    arms = {}
+    softmax = name.startswith("baseline")
+    if softmax:
+        try:
+            arms["softmax"] = attention_core.softmax_arm("auto", b, h, n, return_attention)
+        except NotImplementedError:
+            return {"softmax": "refused"}
+    if name.endswith("most_general"):
+        arms["kerple"] = attention_core.kerple_arm(b, h, n)
+    if name.endswith("circulant"):
+        consumer = arms["softmax"] == "flash" if softmax else rotations.KERNEL_BEFORE_PHI
+        arms["rotation"] = "pallas" if rotation_prefers_kernel(None, consumer) else "chain"
+    return arms
+
+
+def _arm_kwargs(arms) -> dict:
+    kw = {}
+    if "softmax" in arms:
+        kw["attention_config"] = {"method": arms["softmax"]}
+    if "kerple" in arms or "rotation" in arms:
+        kw["rpe_config"] = {"method": arms.get("kerple", arms.get("rotation"))}
+    return kw
+
+
+def _arm_launches(arms, depth: int, wrappers) -> dict:
+    """The launches one eval forward makes on the arms `arms` name."""
+    want = {n: 0 for n in wrappers}
+    if arms.get("softmax") == "flash":
+        want["flash_fwd"] = depth
+    if arms.get("kerple") == "pallas":
+        want["masked_linear_coeffs_fwd"] = depth
+    if arms.get("rotation") == "pallas":
+        want["circulant_rotate_fwd"] = 2 * depth
+    return want
+
+
+def dispatch_models(wrappers, card: str):
+    """Phase 24 a/b: the flagship, `baseline`, and the circulant variants
+    built with every `auto` default on each image of DISPATCH_IMAGES (and
+    with return_attention): each eval forward from counts of 0 must launch
+    what the arms its rules name launch, and its logits (and attention maps)
+    must equal bit for bit those of a twin built on the named explicit arms
+    from the same seed; return_attention past the softmax budget must be
+    refused. Then performer_favor_circulant exported under a symbolic batch
+    (the rotation's auto on the kernels, as with a concrete batch) served
+    against its twin on the named arms. Returns ({rule: arms seen},
+    {(kernel, shape): launches} of the auto forwards: [B, H, N, F, D] for
+    #1, [B, H, N, D] for #6 and #8)."""
+    import tempfile
+
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.models.attention import _KernelAttention
+
+    seen, total = {}, {}
+    cases = [(name, dict(DISPATCH, image_size=image), False)
+             for name in ("performer_favor_most_general", "baseline", "performer_favor_circulant")
+             for image in DISPATCH_IMAGES]
+    cases += [("baseline", DISPATCH, True), ("baseline_circulant", DISPATCH, True),
+              ("baseline", DISPATCH_LONG, True)]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for name, fields, ra in cases:
+        cfg = mnist_config(**fields)
+        arms = _named_arms(name, cfg, ra)
+        for rule, arm in arms.items():
+            seen.setdefault(rule, set()).add(arm)
+        seed = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+        auto = create_model(name, cfg, device="cuda", generator=seed())
+        x = torch.randn(fields["batch_size"], fields["image_size"], fields["image_size"],
+                        fields["in_channels"], generator=g, device="cuda")
+        label = f"{name} N={cfg.model.seq_len} B={fields['batch_size']}" + (
+            " return_attention" if ra else "")
+        if arms.get("softmax") == "refused":
+            try:
+                with torch.inference_mode():
+                    auto(x, return_attention=True)
+            except NotImplementedError as e:
+                log("dispatch", f"{label}: refused past SOFTMAX_DENSE_MEMORY_BUDGET ({e})")
+                continue
+            raise AssertionError(f"{label}: return_attention past the budget was not refused")
+        named = create_model(name, cfg, device="cuda", generator=seed(), **_arm_kwargs(arms))
+        with torch.inference_mode():
+            zero_counts(wrappers)
+            got = auto(x, return_attention=True) if ra else auto(x)
+            torch.cuda.synchronize()
+            launches = counts(wrappers)
+            want = named(x, return_attention=True) if ra else named(x)
+        want_launches = _arm_launches(arms, cfg.model.depth, wrappers)
+        got_t = [got[0], *got[1]] if ra else [got]
+        want_t = [want[0], *want[1]] if ra else [want]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+        log("dispatch", f"{label}: the rules name {arms}; auto launched "
+            f"{ {k: v for k, v in launches.items() if v} } (expected "
+            f"{ {k: v for k, v in want_launches.items() if v} }); logits"
+            f"{' and maps' if ra else ''} bitwise the named arms' {bitwise}")
+        if launches != want_launches or not bitwise or not torch.isfinite(got_t[0]).all():
+            raise AssertionError(f"{label}: auto did not take the arms {arms}")
+        m = cfg.model
+        bhn = (fields["batch_size"], m.heads, m.seq_len)
+        features = [mod.m for mod in auto.modules() if isinstance(mod, _KernelAttention)]
+        for k, n in launches.items():
+            if n:
+                shape = bhn + ((features[0],) if k == "masked_linear_coeffs_fwd" else ()) + (
+                    m.head_dim,)
+                total[(k, shape)] = total.get((k, shape), 0) + n
+        del auto, named
+    # under a symbolic batch the rules name what they name for a concrete one
+    cfg = mnist_config(**dict(DISPATCH, image_size=224))
+    arms = _named_arms("performer_favor_circulant", cfg)
+    auto = create_model("performer_favor_circulant", cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    named = create_model("performer_favor_circulant", cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0), **_arm_kwargs(arms))
+    with tempfile.TemporaryDirectory() as tmp:
+        served = serve_artifact("dispatch_circulant_symbolic", auto, named, wrappers,
+                                _arm_launches(arms, cfg.model.depth, wrappers),
+                                (DISPATCH["batch_size"],), tmp, "cuda", card)
+    log("dispatch", f"performer_favor_circulant exported under a symbolic batch: the rules "
+        f"name {arms}; launches {served}")
+    log("dispatch", f"arms taken by rule: {seen}")
+    return seen, total
+
+
+def dispatch_bwd_and_toeplitz(ml, card: str):
+    """Phase 24 c: `fused_masked_linear_attention(bwd_mode="auto")` below
+    and past KERPLE_DENSE_MEMORY_BUDGET (DISPATCH_BWD): the launches of the
+    backward kernels and gradients bit for bit those of the named mode; the
+    Toeplitz product's auto at DISPATCH_TOEPLITZ bit for bit its named arm.
+    Returns ({rule: arms seen}, {(kernel, [B, H, N, F, D]): launches} of the
+    auto backwards)."""
+    from efficient_rpe_vit_torch.experiments.pallas_ab import make_inputs
+    from efficient_rpe_vit_torch.ops import fft_toeplitz
+    from efficient_rpe_vit_torch.ops.fft_toeplitz import toeplitz_from_coeffs
+
+    bwd = {"masked_linear_bwd_dq": ml.masked_linear_bwd_dq,
+           "masked_linear_bwd_dkv": ml.masked_linear_bwd_dkv,
+           "masked_linear_bwd_dt": ml.masked_linear_bwd_dt}
+    seen, launched = {}, {}
+    for B, H, N, F, D in DISPATCH_BWD:
+        mode = ml.masked_linear_bwd_mode(B, H, N)
+        seen.setdefault("bwd_mode", set()).add(mode)
+        qp, kp, v, c = make_inputs(B, H, N, F, D, torch.device("cuda"))
+        t = toeplitz_from_coeffs(c, N)
+
+        def grads(m):
+            leaves = [x.detach().requires_grad_() for x in (qp, kp, v)]
+            out = ml.fused_masked_linear_attention(*leaves, t, bwd_mode=m)
+            return torch.autograd.grad((out.float() ** 2).sum(), leaves)
+
+        zero_counts(bwd)
+        got = grads("auto")
+        torch.cuda.synchronize()
+        launches = counts(bwd)
+        want = grads(mode)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+        kernels = mode == "pallas"
+        expected = {"masked_linear_bwd_dq": int(kernels), "masked_linear_bwd_dkv": int(kernels),
+                    "masked_linear_bwd_dt": 0}
+        log("dispatch", f"fused_masked_linear_attention {(B, H, N, F, D)} bf16: 5 B H N^2 4 = "
+            f"{5 * B * H * N * N * 4} B against KERPLE_DENSE_MEMORY_BUDGET; auto's backward "
+            f"{mode}, launches {launches} (expected {expected}), gradients bitwise the named "
+            f"mode's {bitwise}")
+        if launches != expected or not bitwise:
+            raise AssertionError(f"the materialised-T auto backward did not take {mode}")
+        for k, n in launches.items():
+            if n:
+                launched[(k, (B, H, N, F, D))] = n
+        del got, want, qp, kp, v, t
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for B, H, N, d in DISPATCH_TOEPLITZ:
+        arm = "fft" if fft_toeplitz.fft_window(N, d) else "dense"
+        seen.setdefault("toeplitz", set()).add(arm)
+        x = torch.randn(B, H, N, d, generator=g, device="cuda").to(torch.bfloat16)
+        c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.05)
+        same = torch.equal(fft_toeplitz.toeplitz_matmul(c, x),
+                           fft_toeplitz.toeplitz_matmul(c, x, method=arm))
+        log("dispatch", f"toeplitz_matmul [{B}, {H}, {N}, {d}] bf16: auto is {arm} "
+            f"(window [{fft_toeplitz.FFT_MIN_N}, {fft_toeplitz.FFT_MAX_N}), d < "
+            f"{fft_toeplitz.FFT_MAX_D}), bitwise the named arm {same}")
+        if not same:
+            raise AssertionError(f"toeplitz_matmul auto differs from its {arm} arm")
+    return seen, launched
+
+
+def dispatch_kernel_rows(mlc, fa, cr, ml, launched, card: str) -> dict:
+    """Phase 24's kernel rows: each kernel that the auto forwards and
+    backwards launched, against its plain version and timed (with its bound,
+    and SDPA for flash) at each shape it was launched at, in bf16 on fresh
+    inputs. Returns {(kernel, shape): row}."""
+    rows = {}
+    for kname, shape in sorted(launched):
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        dt, name = torch.bfloat16, "bfloat16"
+        label = f"{kname} {list(shape)} {name}"
+        rtol, atol = OUT_TOL[name]
+
+        def close(got, want):
+            return bool(((got.float() - want.float()).abs()
+                         <= atol + rtol * want.float().abs()).all())
+
+        if kname == "masked_linear_coeffs_fwd":
+            B, H, N, F_, D = shape
+            q, k = ((torch.randn(B, H, N, F_, generator=g, device="cuda").abs() * 0.1).to(dt)
+                    for _ in range(2))
+            v = torch.randn(B, H, N, D, generator=g, device="cuda").to(dt)
+            c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
+            case = (lambda: mlc.masked_linear_attention_coeffs_fwd(q, k, v, c)[0],
+                    lambda: mlc.masked_linear_attention_coeffs_reference(q, k, v, c)[0],
+                    close, kerple_bound(B, H, N, F_, D, name), None)
+        elif kname == "flash_fwd":
+            B, H, N, D = shape
+            q, k, v, _, _, _ = _flash_inputs(B, H, N, D, None, 0.0, dt)
+            case = (lambda: fa.flash_attention_fwd(q, k, v, D ** -0.5)[0],
+                    lambda: fa.flash_softmax_attention_reference(q, k, v, D ** -0.5)[0],
+                    lambda got, want: _max_rel(got, want) <= FLASH_TOL[name],
+                    flash_bound(B, H, N, D, name), lambda: F.scaled_dot_product_attention(q, k, v))
+        elif kname == "circulant_rotate_fwd":
+            B, H, N, D = shape
+            x = torch.randn(B, H, N, D, generator=g, device="cuda").to(dt)
+            theta = torch.randn(H, N, D // 2 + 1, generator=g, device="cuda")
+            ct, st = theta.cos().contiguous(), theta.sin().contiguous()
+            case = (lambda: cr.circulant_rotate_fwd(x, ct, st, True),
+                    lambda: cr.circulant_rotate_fwd_reference(x, ct, st, True),
+                    lambda got, want: _max_rel(got, want) <= ROT_TOL[name],
+                    rotation_bounds(B, H, N, D, name)["circulant_rotate_fwd"], None)
+        else:  # the materialised-T backward kernels, on a Toeplitz T
+            from efficient_rpe_vit_torch.ops.fft_toeplitz import toeplitz_from_coeffs
+
+            B, H, N, F_, D = shape
+            q, k = ((torch.randn(B, H, N, F_, generator=g, device="cuda").abs() * 0.1).to(dt)
+                    for _ in range(2))
+            v, cot = (torch.randn(B, H, N, D, generator=g, device="cuda").to(dt)
+                      for _ in range(2))
+            c = torch.exp(torch.randn(H, 2 * N - 1, generator=g, device="cuda") * 0.02)
+            t = toeplitz_from_coeffs(c, N)
+            out, den = ml.masked_linear_fwd(q, k, v, t)
+            gn, s = mlc.kerple_bwd_residuals(den, out, cot)
+            pair = {"masked_linear_bwd_dq": (lambda: ml.masked_linear_bwd_dq(gn, s, v, k, t),
+                                             lambda: mlc.kerple_dense_bwd_dq(gn, s, v, k, t)),
+                    "masked_linear_bwd_dkv": (
+                        lambda: ml.masked_linear_bwd_dkv(gn, s, v, q, k, t),
+                        lambda: mlc.kerple_dense_bwd_dkv(gn, s, v, q, k, t))}[kname]
+            case = (*pair, lambda got, want: _max_rel(got, want) <= BWD_TOL[name],
+                    masked_linear_bounds(B, H, N, F_, D, name)[kname], None)
+        rows[(kname, shape)] = timed_against_plain(
+            "dispatch", label, *case, shape, card, plain_iters=1 if shape[2] > 2048 else 5)
+        del case
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dispatch_experiments(card: str) -> None:
+    """Phase 24 f: each dispatch experiment in process at its small
+    DISPATCH_EXPERIMENTS settings on the card: its first line the card's
+    label, every number of its JSON finite, both arms of every row present."""
+    import contextlib
+    import importlib
+    import io
+
+    def finite(value):
+        if isinstance(value, dict):
+            return all(finite(v) for v in value.values())
+        if isinstance(value, list):
+            return all(finite(v) for v in value)
+        return not isinstance(value, float) or math.isfinite(value)
+
+    for name, argv in DISPATCH_EXPERIMENTS.items():
+        module = importlib.import_module(f"efficient_rpe_vit_torch.experiments.{name}")
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        result = json.loads(lines[-1])
+        rows = result.get("rows") or result.get("kerple")
+        arms = [sorted(r[key]) for r in rows for key in ("fwd_ms", "grad_ms") if key in r]
+        arms += [sorted(k for k, v in r.items() if isinstance(v, dict)
+                        and "step_ms" in v) for r in rows if "variant" in r]
+        if name == "crossover_ab":
+            arms += [sorted(r["ms"]) for r in result["toeplitz"]]
+        if name == "scaling_ab":
+            arms += [[w["rule"]] for w in result["walls"]]
+        log("dispatch-ab", f"{name} {' '.join(argv)}: {len(rows)} row(s), arms {arms}, in "
+            f"{time.perf_counter() - t0:.1f} s; first line {lines[0]!r}")
+        if lines[0] != card or not finite(result) or not arms or any(
+                len(a) < 2 for a in arms if name != "scaling_ab"):
+            raise AssertionError(f"{name}: a row is not finite or lacks an arm: {lines[-1][:400]}")
+
+
+def dispatch_phase(mlc, fa, cr, ml, card: str):
+    """Phase 24: the `auto` dispatch on the card (models, the materialised-T
+    backward and the Toeplitz product on each side of each constant, the
+    dense arms captured in K-step graphs, the nine dispatch experiments).
+    Returns {(kernel, shape): (launches, row)}: each kernel the auto
+    forwards and backwards launched, its launches at that shape and its row
+    timed there."""
+    from efficient_rpe_vit_torch.ops import attention_core, rotations
+
+    t_phase = time.perf_counter()
+    log("dispatch", f"FLASH_MIN_N {attention_core.FLASH_MIN_N}, SOFTMAX_DENSE_MEMORY_BUDGET "
+        f"{attention_core.SOFTMAX_DENSE_MEMORY_BUDGET}, KERPLE_DENSE_CROSSOVER_N "
+        f"{attention_core.KERPLE_DENSE_CROSSOVER_N}, KERPLE_DENSE_MEMORY_BUDGET "
+        f"{attention_core.KERPLE_DENSE_MEMORY_BUDGET}, MASKED_LINEAR_BWD_CROSSOVER_N "
+        f"{ml.MASKED_LINEAR_BWD_CROSSOVER_N}, KERNEL_BEFORE_PHI "
+        f"{rotations.KERNEL_BEFORE_PHI} (PERF.md §6, Dispatch on the H100)")
+    wrappers = {**kerple_wrappers(mlc), **flash_wrappers(fa),
+                "circulant_rotate_fwd": cr.circulant_rotate_fwd,
+                "circulant_rotate_bwd": cr.circulant_rotate_bwd}
+    seen, forwards = dispatch_models(wrappers, card)
+    more, backward = dispatch_bwd_and_toeplitz(ml, card)
+    seen.update(more)
+    # every rule showed each arm its constants leave a shape for: both arms
+    # of the rotation and the Toeplitz product; softmax flash, dense
+    # (return_attention) and the refusal; KERPLE's dense arm and the
+    # residual backward only where a shape lies below their crossovers
+    want = {"softmax": {"flash", "dense", "refused"}, "rotation": {"pallas", "chain"},
+            "toeplitz": {"fft", "dense"},
+            "bwd_mode": {"pallas"} | ({"jnp_residual"} if ml.MASKED_LINEAR_BWD_CROSSOVER_N
+                                      > DISPATCH_BWD[0][2] else set()),
+            "kerple": {"pallas"} | ({"dense"} if attention_core.KERPLE_DENSE_CROSSOVER_N > 17
+                                    else set())}
+    if attention_core.FLASH_MIN_N == 0:
+        log("dispatch", "FLASH_MIN_N is 0: no N lies below it, softmax's dense arm is "
+            "reached through return_attention")
+    if attention_core.KERPLE_DENSE_CROSSOVER_N <= 17:
+        log("dispatch", "KERPLE_DENSE_CROSSOVER_N is at or below the shortest N here: the "
+            "kernel at every N, no shape on the dense side")
+    if ml.MASKED_LINEAR_BWD_CROSSOVER_N <= DISPATCH_BWD[0][2]:
+        log("dispatch", "MASKED_LINEAR_BWD_CROSSOVER_N is at or below the shortest N here: "
+            "the backward kernels on both sides of KERPLE_DENSE_MEMORY_BUDGET")
+    for rule, arms in want.items():
+        if not arms <= seen.get(rule, set()):
+            raise AssertionError(f"phase 24: rule {rule} showed {seen.get(rule)}, expected {arms}")
+    launched = {**forwards, **backward}
+    rows = dispatch_kernel_rows(mlc, fa, cr, ml, launched, card)
+    # the dense arms capture: K-step graphs at the headline's shape, bitwise
+    # against eager steps, no kernel launched
+    for label, name, kw, wr in (
+            ("dispatch-capture-kerple", "performer_favor_most_general",
+             {"rpe_config": {"method": "dense"}}, kerple_wrappers(mlc)),
+            ("dispatch-capture-softmax", "baseline", {"attention_config": {"method": "dense"}},
+             flash_wrappers(fa))):
+        multistep_check(label, HEADLINE, DISPATCH_CAPTURE_K, 1, wr, {n: 0 for n in wr}, card,
+                        name=name, model_kw=kw)
+    dispatch_experiments(card)
+    log("dispatch", f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+    return {key: (n, rows[key]) for key, n in launched.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4316,6 +4740,11 @@ def main() -> int:
     # then the 8-rank CPU dry run
     qa_launches, import_row, sweep_launches, sweep_rows = qa_phase(mlc, fa, cr, card)
 
+    # 24. the auto dispatch: the rules' arms on each side of each constant,
+    # through the launches and bit for bit against the named arms; the dense
+    # arms in K-step graphs; the nine dispatch experiments at small settings
+    dispatch = dispatch_phase(mlc, fa, cr, ml, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -4452,6 +4881,15 @@ def main() -> int:
         for name, line in (("circulant_rotate_fwd", 107), ("circulant_rotate_bwd", 128)):
             rows.append((name, rot_src, f"{rot_tpu}:{line}", path, sweep_rot[name],
                          launches[name]))
+    # phase 24's auto forwards (#1, #6 and #8) and the materialised-T auto
+    # backwards (#5): one row per kernel and shape, launches and times there
+    origin = {fwd[0]: fwd[1:], flash_fwd[0]: flash_fwd[1:],
+              "circulant_rotate_fwd": (rot_src, f"{rot_tpu}:107"),
+              **{name: (f"{src}/masked_linear_bwd.cu", f"{pallas}/masked_linear_bwd.py:{line}")
+                 for name, line in (("masked_linear_bwd_dq", 54), ("masked_linear_bwd_dkv", 82))}}
+    for (name, shape), (n, row) in sorted(dispatch.items()):
+        path = ("dispatch_auto_bwd" if name.startswith("masked_linear_bwd") else "dispatch_auto")
+        rows.append((name, *origin[name], f"{path}_{'x'.join(map(str, shape))}", row, n))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

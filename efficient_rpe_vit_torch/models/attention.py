@@ -5,8 +5,10 @@ Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
   * softmax: scale d^-1/2, mask and return_attention, KERPLE rejected,
     RoPE / RoPE2D / Circulant-STRING rotate q and k before the core,
     attention-probability dropout in train mode from a seed drawn from the
-    caller's generator, the core arm from `method` ('auto' = the flash
-    kernels, 'dense' = the plain [B, H, N, N] formula),
+    caller's generator, the core arm from `method` ('flash', 'dense' = the
+    plain [B, H, N, N] formula, or 'auto' = `ops.attention_core.softmax_arm`),
+  * the Circulant-STRING rotation's `prefer_kernel` from
+    `rotation_prefers_kernel`,
   * linear-attention scale d^-1/4 on both q and k (after the rotation
     under RoPE / RoPE2D / Circulant-STRING), except under KERPLE, which
     L2-normalises q and k instead (clamp inside the sqrt),
@@ -54,6 +56,8 @@ from ..ops import (
     phi_relu,
     softmax_attention,
 )
+from ..ops import rotations
+from ..ops.attention_core import softmax_arm
 from ..ops.feature_maps import mxu_num_features
 from .dense import Dense, Dropout, batch_part, draw, replaying
 from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D
@@ -150,16 +154,32 @@ class _Attention(nn.Module):
         return self.drop(y + self.proj.bias.to(dt), generator)
 
 
-def _rotate(q: torch.Tensor, k: torch.Tensor, rpe: Optional[nn.Module]):
+def _rotate(q: torch.Tensor, k: torch.Tensor, rpe: Optional[nn.Module],
+            prefer_kernel: bool = False):
     """q and k rotated by a RoPE, RoPE2D or Circulant-STRING rpe; unchanged
-    for None and KERPLE, which the caller handles; any other module raises."""
+    for None and KERPLE, which the caller handles; any other module raises.
+    `prefer_kernel` goes to the Circulant-STRING rotation
+    (`rotation_prefers_kernel`)."""
     if isinstance(rpe, (RoPE, RoPE2D)):
         return rpe.apply_rotary(q, k)
     if isinstance(rpe, CirculantStringRPE):
-        return rpe.rotate(q, k)
+        return rpe.rotate(q, k, prefer_kernel=prefer_kernel)
     if rpe is not None and not isinstance(rpe, KerpleRPE):
         raise TypeError(f"unsupported RPE module {type(rpe).__name__}")
     return q, k
+
+
+def rotation_prefers_kernel(seq_mesh, consumer_is_kernel: bool) -> bool:
+    """The `prefer_kernel` an attention module passes to its rotation: no
+    context parallelism (the rings run plain code) and a consumer of the
+    rotated q and k that is a kernel. Softmax's consumer is a kernel where
+    its arm is 'flash' (JAX: `softmax_needs_flash` without
+    return_attention); linear attention's is the phi projections, which ask
+    for the kernels only under `ops.rotations.KERNEL_BEFORE_PHI`. The JAX
+    package also asks for a concrete batch, because a Pallas grid must be
+    static; the port's rotation op exports at any batch, so a symbolic
+    batch under `torch.export` keeps the kernels."""
+    return seq_mesh is None and consumer_is_kernel
 
 
 _KERPLE_REJECTION = (
@@ -205,7 +225,9 @@ class SoftmaxAttention(_Attention):
                     "attention-probability dropout; set dropout=0 or train "
                     "without seq_mesh")
         q, k, v = self._qkv(x)
-        q, k = _rotate(q, k, rpe)
+        B, H, N, _ = q.shape
+        flash = softmax_arm(self.method, B, H, N, return_attention) == "flash"
+        q, k = _rotate(q, k, rpe, rotation_prefers_kernel(self.seq_mesh, flash))
         if self.seq_mesh is not None:
             from ..parallel.seq_parallel import ring_softmax_attention
 
@@ -324,7 +346,8 @@ class _KernelAttention(_Attention):
             self._maybe_redraw(generator)
         q, k, v = self._qkv(x)
 
-        q, k = _rotate(q, k, rpe)
+        q, k = _rotate(q, k, rpe, rotation_prefers_kernel(self.seq_mesh,
+                                                          rotations.KERNEL_BEFORE_PHI))
         use_kerple = isinstance(rpe, KerpleRPE)
         if use_kerple:
             # L2 normalisation for stability (Luo et al. 2021 §3.3, Thm 3);

@@ -182,11 +182,15 @@ class CirculantStringRPE(nn.Module):
     def get_eigenvalues(self) -> torch.Tensor:
         return circulant_eigenvalues(self.circulant_coeffs)
 
-    def rotate(self, q: torch.Tensor, k: torch.Tensor):
-        """Rotate the patch tokens of q and k; CLS passes through."""
+    def rotate(self, q: torch.Tensor, k: torch.Tensor, prefer_kernel: bool = False):
+        """Rotate the patch tokens of q and k; CLS passes through.
+
+        `prefer_kernel`: the caller's word that the rotated q and k feed a
+        kernel, which the 'auto' method turns into the kernel arm
+        (`ops/rotations.py::_resolve`)."""
         if not self.blocked:
             return apply_circulant_string(q, k, self.positions, self.circulant_coeffs,
-                                          method=self.method)
+                                          method=self.method, prefer_kernel=prefer_kernel)
         if q.shape[2] <= 1:
             return q, k
         return tuple(_rotate_keep_cls(apply_block_circulant_rotation, t, self.positions,

@@ -4,16 +4,34 @@ products by a dense matmul or by FFT.
 Counterpart of `efficient_rpe_vit_tpu/ops/fft_toeplitz.py`. Coefficients
 are ordered ``[c_{-(n-1)}, ..., c_0, ..., c_{n-1}]`` and the Toeplitz
 matrix is ``T[i, j] = c[(j - i) + (n - 1)]``. The FFT product uses the JAX
-package's circulant embedding of length 2n-1 through `torch.fft`. The JAX
-dense-vs-FFT window (`FFT_MIN_N`, `FFT_MAX_N`, `FFT_MAX_D`) was measured on
-its own accelerator and is not inherited: `toeplitz_matmul`'s "auto" means
-"dense" until measurements on the GPU set a window.
+package's circulant embedding of length 2n-1 through `torch.fft`.
+`toeplitz_matmul`'s "auto" takes the FFT product inside the JAX package's
+window form (`fft_window`: `FFT_MIN_N`, `FFT_MAX_N`, `FFT_MAX_D`), whose
+values here come from the H100 rows of PERF.md §6, not from JAX's.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+# 'auto' takes the FFT product for FFT_MIN_N <= n < FFT_MAX_N at a trailing
+# dim below FFT_MAX_D, and the dense product elsewhere (the JAX package's
+# window). The window is the rows of PERF.md §6 "Dispatch on the H100"
+# (experiments/crossover_ab.py, rows T; NVIDIA H100 80GB HBM3, 700.00 W):
+# at [8, 2, N, 44] and [2, 12, N, 266] bf16 dense wins at every N up to
+# 1024 and fft from 2048 (1.50x / 1.46x), by more at 4096 (2.54x / 1.46x).
+# It has no upper edge: fft's lead holds or grows with N. Its widest row is
+# d = 266, so wider inputs keep the dense product.
+FFT_MIN_N = 2048
+FFT_MAX_N = 1 << 62
+FFT_MAX_D = 267
+
+
+def fft_window(n: int, d: int) -> bool:
+    """Whether `toeplitz_matmul`'s 'auto' takes the FFT product for an
+    [..., n, d] input."""
+    return FFT_MIN_N <= n < FFT_MAX_N and d < FFT_MAX_D
 
 
 def toeplitz_from_coeffs(c: torch.Tensor, n: int | None = None) -> torch.Tensor:
@@ -106,7 +124,8 @@ def toeplitz_matmul(c: torch.Tensor, x: torch.Tensor,
     Args:
         c: [..., 2n-1] coefficients.
         x: [..., n, d] (also [..., n], treated as d = 1).
-        method: 'dense' | 'fft' | 'auto' (= 'dense').
+        method: 'dense' | 'fft' | 'auto' ('fft' inside `fft_window`, else
+            'dense').
     """
     squeeze = x.dim() == c.dim()  # vector input [..., n]
     if squeeze:
@@ -114,7 +133,9 @@ def toeplitz_matmul(c: torch.Tensor, x: torch.Tensor,
     n = x.shape[-2]
     if c.shape[-1] != 2 * n - 1:
         raise ValueError(f"coefficient length {c.shape[-1]} != 2n-1={2 * n - 1} for n={n}")
-    if method in ("auto", "dense"):
+    if method == "auto":
+        method = "fft" if fft_window(n, x.shape[-1]) else "dense"
+    if method == "dense":
         y = toeplitz_matmul_dense(c, x)
     elif method == "fft":
         y = toeplitz_matmul_fft(c, x)

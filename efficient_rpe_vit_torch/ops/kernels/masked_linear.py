@@ -57,9 +57,18 @@ from .masked_linear_coeffs import (
 _FWD_SOURCE = "masked_linear_fwd"
 _BWD_SOURCE = "masked_linear_bwd"
 # the backward of `fused_masked_linear_attention`: the kernels, or the
-# residual formula in PyTorch; 'auto' means 'pallas' (the JAX package's
-# byte budget for this choice was set from its own accelerator's memory)
+# residual formula in PyTorch; 'auto' is `masked_linear_bwd_mode`'s choice
 BWD_MODES = ("pallas", "jnp_residual", "auto")
+# 'auto' keeps the residual backward only below this N (and the byte
+# budget). The backward kernels win every row measured (PERF.md §6
+# "Dispatch on the H100", rows M; NVIDIA H100 80GB HBM3, 700.00 W): the
+# dq + dkv kernels against the residual backward 3.5x at B=256 H=2 N=197
+# F=44 D=16, 5.8x at B=8 H=2 N=1024, 4.2x at B=32 H=4 N=512 F=128 D=64,
+# 4.2x at B=4 H=12 N=4097 F=266 D=64 (chip_smoke.py phase 3f), and whole
+# gradients through `fused_masked_linear_attention` 1.43x / 1.66x / 1.51x
+# at the first three (experiments/pallas_ab.py). No row has the residual
+# backward ahead, so the kernels take every N.
+MASKED_LINEAR_BWD_CROSSOVER_N = 0
 _T_DTYPES = (torch.float32, torch.bfloat16)
 
 # dT's batch groups, as `dt_groups` in csrc/masked_linear_bwd.cu computes
@@ -383,6 +392,22 @@ class _FusedMaskedLinear(torch.autograd.Function):
         return (*masked_linear_bwd(*saved, need_dt=need_dt), None)
 
 
+def masked_linear_bwd_mode(b, h, n) -> str:
+    """The backward 'auto' takes at [b, h, n, *]: the kernels ('pallas') at
+    n >= MASKED_LINEAR_BWD_CROSSOVER_N (the time crossover) or once the
+    residual backward's ~5 live [b, h, n, n] fp32 temporaries pass
+    `attention_core.KERPLE_DENSE_MEMORY_BUDGET`, the residual formula
+    ('jnp_residual') below both. The byte form is the JAX package's
+    `_masked_linear_bwd_wants_pallas`, which has no time crossover (the
+    residual backward below the budget at every N); under a symbolic batch
+    (`torch.export`) the count is inconclusive and counts as below budget,
+    as in JAX."""
+    from ..attention_core import KERPLE_DENSE_MEMORY_BUDGET, _concrete_bytes
+
+    past = _concrete_bytes(5 * b * h * n * n * 4, 0) > KERPLE_DENSE_MEMORY_BUDGET
+    return "pallas" if n >= MASKED_LINEAR_BWD_CROSSOVER_N or past else "jnp_residual"
+
+
 def fused_masked_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
                                   v: torch.Tensor, t: torch.Tensor,
                                   bwd_mode: str = "auto") -> torch.Tensor:
@@ -393,13 +418,14 @@ def fused_masked_linear_attention(q_prime: torch.Tensor, k_prime: torch.Tensor,
         q_prime, k_prime: [B, H, N, F]; v: [B, H, N, D]; t: [H, N, N].
         bwd_mode: 'pallas' runs the backward kernels (dT only when T needs
             a gradient); 'jnp_residual' the residual formula in PyTorch
-            (`masked_linear_vjp_residual`, on any device); 'auto' means
-            'pallas'. The JAX package takes this choice from its module
-            global `MASKED_LINEAR_BWD_MODE`.
+            (`masked_linear_vjp_residual`, on any device); 'auto' the
+            choice of `masked_linear_bwd_mode`. The JAX package takes this
+            choice from its module global `MASKED_LINEAR_BWD_MODE`.
     Returns:
         [B, H, N, D] in v's dtype.
     """
     if bwd_mode not in BWD_MODES:
         raise ValueError(f"bwd_mode must be one of {BWD_MODES}, got {bwd_mode!r}")
-    return _FusedMaskedLinear.apply(q_prime, k_prime, v, t,
-                                    "pallas" if bwd_mode == "auto" else bwd_mode)
+    if bwd_mode == "auto":
+        bwd_mode = masked_linear_bwd_mode(*q_prime.shape[:3])
+    return _FusedMaskedLinear.apply(q_prime, k_prime, v, t, bwd_mode)

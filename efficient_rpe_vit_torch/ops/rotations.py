@@ -14,8 +14,7 @@ x' = irfft(exp(i theta) * rfft(x)) along head_dim over the real half
 spectrum; CLS (token 0) is not rotated.
 
 Dispatch. The JAX package's tri-state `USE_PALLAS_ROTATION` (an
-environment variable set from TPU measurements) is not inherited: the
-rotation takes an explicit `method`:
+environment variable) is replaced by an explicit `method`:
   * 'pallas' runs the hand-written rotation kernels
     (`ops/kernels/circulant_rotate.py`; their plain version for CPU
     tensors), fp32 spectra inside;
@@ -23,7 +22,13 @@ rotation takes an explicit `method`:
     package's `CHAIN_INPUT_DTYPE` semantics: the spectra are rounded to the
     input dtype between products, the sums are fp32 (about 1% apart from
     the kernel arm in bf16; ROADMAP Queue C);
-  * 'auto' means 'pallas' until measurements on the GPU set a dispatch.
+  * 'auto' is the JAX package's `rotation_kernel_enabled` under "auto"
+    (`_resolve`): the kernels when the caller says the rotated q and k feed
+    a kernel (`prefer_kernel`), the chain otherwise. The attention modules
+    pass it as JAX computes it, except that a symbolic batch under
+    `torch.export` does not turn it off (the kernel op exports at any
+    batch), and the linear ones also under KERNEL_BEFORE_PHI, which the
+    H100 rows of PERF.md §6 set.
 Block-circulant rotation runs the chain only, as in the JAX package.
 """
 
@@ -41,10 +46,23 @@ from .kernels.circulant_rotate import circulant_rotate, rdft_matrices
 METHODS = ("auto", "pallas", "chain")
 
 
-def _resolve(method: str) -> str:
+# Whether the linear-attention modules ask for the rotation kernels, whose
+# rotated q and k feed the phi projections (plain PyTorch) and not a kernel.
+# The JAX package never does (its XLA chain fused into the projections);
+# on the card the kernels win full ViT-B train steps there too
+# (experiments/rotation_kernel_ab.py, rows R of PERF.md §6 "Dispatch on
+# the H100", NVIDIA H100 80GB HBM3, 700.00 W): performer_favor_circulant
+# 1.28x at N=197, 1.30x at N=4097; performer_relu_circulant 1.34x, 1.38x
+# (baseline_circulant, before flash: 1.79x, 1.47x).
+KERNEL_BEFORE_PHI = True
+
+
+def _resolve(method: str, prefer_kernel: bool = False) -> str:
     if method not in METHODS:
         raise ValueError(f"unknown rotation method {method!r}: one of {METHODS}")
-    return "pallas" if method == "auto" else method
+    if method == "auto":  # the JAX rule under USE_PALLAS_ROTATION = "auto"
+        return "pallas" if prefer_kernel else "chain"
+    return method
 
 
 # ─── RoPE ───────────────────────────────────────────────────────────────
@@ -268,14 +286,17 @@ def _rotate_keep_cls(rotate_fn: Callable, x: torch.Tensor, positions: torch.Tens
 
 
 def apply_circulant_string(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
-                           coeffs: torch.Tensor, method: str = "auto"):
+                           coeffs: torch.Tensor, method: str = "auto",
+                           prefer_kernel: bool = False):
     """Rotate the patch tokens of q and k; CLS (index 0) passes through.
 
-    On the kernel arm the angle tables are computed once and shared by q
-    and k, and the kernel keeps CLS itself (`keep_cls`)."""
+    `prefer_kernel`: the caller's word that the rotated q and k feed a
+    kernel, which 'auto' turns into the kernel arm (`_resolve`). On the
+    kernel arm the angle tables are computed once and shared by q and k,
+    and the kernel keeps CLS itself (`keep_cls`)."""
     if q.shape[2] <= 1:
         return q, k
-    if _resolve(method) == "pallas":
+    if _resolve(method, prefer_kernel) == "pallas":
         theta = _circulant_theta(_with_cls_position(positions), coeffs, q.shape[-1])
         ct, st = torch.cos(theta), torch.sin(theta)
         return (circulant_rotate(q, ct, st, keep_cls=True),

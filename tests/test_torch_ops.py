@@ -134,9 +134,11 @@ def test_kerple_dense_matches_jax(n, dtype):
 
 
 def test_kerple_methods_on_cpu():
-    """On CPU tensors 'pallas' (and 'auto') take the kernel's plain version,
-    the same formula as 'dense'; 'fft' computes it by FFT (fp32 FFT
-    roundoff, rtol 1e-5)."""
+    """On CPU tensors 'pallas' takes the kernel's plain version, the same
+    formula as 'dense'; 'auto' is the arm `kerple_arm` names, bit for bit;
+    'fft' computes it by FFT (fp32 FFT roundoff, rtol 1e-5)."""
+    from efficient_rpe_vit_torch.ops.attention_core import kerple_arm
+
     rng = np.random.default_rng(3)
     qp, kp, v, coeffs = (torch.from_numpy(a) for a in
                          _kerple_inputs(rng, 1, 2, 17, 8, 4))
@@ -144,6 +146,8 @@ def test_kerple_methods_on_cpu():
     for method in ("pallas", "auto"):
         torch.testing.assert_close(
             kerple_linear_attention(qp, kp, v, coeffs, method=method), dense)
+    assert torch.equal(kerple_linear_attention(qp, kp, v, coeffs, method="auto"),
+                       kerple_linear_attention(qp, kp, v, coeffs, method=kerple_arm(1, 2, 17)))
     torch.testing.assert_close(kerple_linear_attention(qp, kp, v, coeffs, method="fft"),
                                dense, rtol=1e-5, atol=1e-5 * dense.abs().max().item())
     with pytest.raises(ValueError):

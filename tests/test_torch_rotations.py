@@ -388,11 +388,15 @@ def test_constants_cached_under_inference_mode_serve_autograd(method):
 
 
 def test_rotation_methods():
+    """'auto' takes the arm `_resolve` names from the caller's
+    `prefer_kernel`: the kernel when the rotated q and k feed a kernel, the
+    chain otherwise, bit for bit."""
     q, k, _, _, pos, coeffs = _t(*_circulant_inputs(10, 1, 2, 17, 16))
-    auto = rotations.apply_circulant_string(q, k, pos, coeffs)
-    pallas = rotations.apply_circulant_string(q, k, pos, coeffs, method="pallas")
-    for a, b in zip(auto, pallas):
-        assert torch.equal(a, b)
+    for prefer, named in ((True, "pallas"), (False, "chain")):
+        auto = rotations.apply_circulant_string(q, k, pos, coeffs, prefer_kernel=prefer)
+        want = rotations.apply_circulant_string(q, k, pos, coeffs, method=named)
+        for a, b in zip(auto, want):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unknown rotation method"):
         rotations.apply_circulant_string(q, k, pos, coeffs, method="fft")
     # a lone CLS token is returned as it is

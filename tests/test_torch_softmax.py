@@ -38,6 +38,7 @@ from efficient_rpe_vit_tpu.utils.import_torch import state_dict_to_params
 from efficient_rpe_vit_torch.configs import mnist_config
 from efficient_rpe_vit_torch.models import SoftmaxAttention, create_model
 from efficient_rpe_vit_torch.models.rpe import KerpleRPE
+from efficient_rpe_vit_torch.ops import attention_core as torch_core
 from efficient_rpe_vit_torch.ops import softmax_attention
 from efficient_rpe_vit_torch.ops.kernels import _build
 from efficient_rpe_vit_torch.ops.kernels import flash_attention as fa
@@ -202,6 +203,8 @@ def test_softmax_attention_returns_the_probabilities(method):
                                   mask=torch.from_numpy(mask), return_attention=True,
                                   method=method)
     assert attn.shape == (2, 2, 30, 30) and attn.dtype == torch.float32
+    # 'auto' with return_attention is the dense arm below the byte budget
+    assert torch_core.softmax_arm(method, 2, 2, 30, return_attention=True) == "dense"
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **KERNEL_TOL)
     np.testing.assert_allclose(attn.numpy(), np.asarray(j_attn), **KERNEL_TOL)
     with pytest.raises(ValueError, match="dense"):
