@@ -17,7 +17,8 @@ The rows of the JAX package's `bench.py`, on the port:
     at F = 266 and at num_features="mxu" (F = 256).
 FLOPs per step are counted from the shapes (`train_flops_per_step`: no
 profiler sees the ctypes kernels) and MFU divides them by the dense bf16
-peak of the card that ran, chosen by its name (`PEAK_BF16`). Every row
+peak of the card that ran, chosen by its name (`PEAK_BF16` of
+`efficient_rpe_vit_torch/utils/timing.py`). Every row
 carries the card's name and power limit as nvidia-smi prints them.
 
 Output contract: exactly one JSON line on stdout, on every exit path
@@ -43,10 +44,6 @@ WARMUP_CALLS = 2
 TIMED_CALLS = 8
 EAGER_WARMUP, EAGER_STEPS = 3, 25
 VITB_BATCH, VITB_WARMUP, VITB_STEPS = 64, 3, 20
-# dense bf16 tensor-core peak (NVIDIA data sheet) by the name
-# torch.cuda.get_device_name() prints: the H100 SXM part is "80GB HBM3";
-# any other card gets no peak and a null MFU
-PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 WATCHDOG_S = 1500
 
 # the line printed on exit, filled in as measurements land
@@ -215,7 +212,7 @@ def main() -> None:
                            "fallback")
         log(RESULT["error"])
         emit_and_exit(0)
-    from efficient_rpe_vit_torch.utils.timing import device_label
+    from efficient_rpe_vit_torch.utils.timing import PEAK_BF16, device_label
 
     name = torch.cuda.get_device_name(0)
     label = device_label(torch.device("cuda"))

@@ -282,6 +282,37 @@ Phases, each printed as it runs; any failure exits non-zero:
         graphs at the headline's shape, bitwise against eager steps;
      f. the nine dispatch experiments in process at small settings: every
         row finite, both arms present.
+ 25. the JAX package's last experiments, ported:
+     a. experiments/vitbase_bench.py at full ViT-B width, a quarter of its
+        timed steps: baseline, performer_favor and the flagship at N = 197 /
+        1025 / 4097 (batch 64 / 16 / 4); no row failed, 0 < MFU < 1 against
+        the card's dense bf16 peak, each row's launches per step those of
+        the auto rules (#6 + 7a at N=197, #6 + 7b past it, #1 + #2 at every
+        N, none for performer_favor), the flagship's N=197 FLOPs within 10%
+        of bench_torch.py's count; #1 / #2 and #6 / 7b first checked and
+        timed at the 1025 row's shapes;
+     b. experiments/vitb_batch_sweep.py at batch 64 and 128 (#1 / #2 checked
+        and timed at 128 first), then K=8 steps a CUDA-graph replay at the
+        best: finite rows, #1 / #2 12 launches a step, at the fused row 12 x
+        (1 + 2 x 8) (the counted step, the first call's eager steps and its
+        capture) and none in the replays;
+     c. experiments/longn_train.py at its defaults (ViT-B, N=4097, batch 4,
+        dropout 0.1, lr 1e-4, 120 steps) for baseline (#6 + 7b) and the
+        flagship (#1 + #2): finite, the mean of the last five losses below
+        the first five's, every launch counted; the baseline's loss falls to
+        chance (ln 10), which a model learns with its head alone, so its
+        model cut to depth 2 then takes one step on the flash kernels and
+        one on the dense arm (the plain formula, the same hash-dropout
+        cells) from the same weights, inputs and seed: every gradient
+        within GRAD_REL_TOL in norm;
+     d. experiments/flash_tune.py and coeffs_tune.py at N=4097 with the
+        backward, on reduced grids (the shipped kernels and points at which
+        every kernel runs another tile): every variant held against the
+        plain versions, then timed; its launch_info logged (the flash
+        variants' shared memory equal to the sweep's count); both sweeps'
+        variants start their nvcc together at the start of d.
+     Each experiment's call starts from launch counts of 0; its rows' own
+     launch counts add up to the counters read after it.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -656,6 +687,29 @@ DISPATCH_EXPERIMENTS = {
     "scaling_ab": ["--sizes", "256", "--steps", "3", "--wall-images", "16", "--wall-max", "2",
                    "--width", "768", "2", "12", "3072"],
 }
+
+# phase 25: the JAX package's last experiments, ported. vitbase_bench at
+# full ViT-B width with a quarter of its timed steps (3-5); the batch sweep
+# at batches 64 and 128, then K=8 at the best; longn_train at its defaults
+# (both variants, N=4097, 120 steps); the tile sweeps at their default
+# shapes (N=4097) on a reduced grid: the shipped kernels plus points at
+# which every kernel runs a tile other than its shipped one, all built in
+# parallel
+EXP_VITBASE = ["--steps-scale", "0.25"]
+EXP_BATCHES = ["--batches", "64", "128"]
+TUNE_FLASH_POINTS = [(64, 64)]
+TUNE_COEFFS_POINTS = [(64, 32), (32, 32)]
+TUNE_STEPS = 4
+# longn_train's baseline model (ViT-B widths, 128x128 images at patch 2:
+# N=4097, batch 4, dropout 0.1) cut to depth 2, whose step-1 gradients on
+# the flash kernels are held to the dense arm's
+EXP_LONGN_GRADS = dict(VITB, image_size=128, patch_size=2, in_channels=1, num_classes=10,
+                       depth=2, dropout=0.1, batch_size=4)
+# a row's flops_per_step against bench_torch.train_flops_per_step at the
+# flagship's N=197 row (the two count the same products but for the
+# backward of phi's fixed projection and phi's recompute past
+# PHI_CHECKPOINT_BYTES)
+EXP_FLOPS_RTOL = 0.10
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
@@ -4553,6 +4607,261 @@ def dispatch_phase(mlc, fa, cr, ml, card: str):
     return {key: (n, rows[key]) for key, n in launched.items()}
 
 
+def flash_two_pass_rows(fa, shape, card: str) -> dict:
+    """#6 and 7b (dq, dkv) against their plain versions at `shape` (B, H, N,
+    D), bf16, dropout 0, each timed beside its bound and SDPA's forward or
+    backward. Returns {kernel: row}."""
+    B, H, N, D = shape
+    q, k, v, cot, _, _ = _flash_inputs(B, H, N, D, None, 0.0, torch.bfloat16)
+    scale = D ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, scale)
+    args = (q, k, v, cot, lse, fa.flash_delta(out, cot), scale)
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, cot)
+    bounds = flash_bwd_bounds(B, H, N, D, "bfloat16")
+    label = f"B{B} H{H} N{N} D{D} bfloat16"
+
+    def close(got, want):
+        return _max_rel(got, want) <= FLASH_TOL["bfloat16"]
+
+    rows = {}
+    for kname, kernel_fn, plain_fn, bound, library_ms in (
+            ("flash_fwd", lambda: fa.flash_attention_fwd(q, k, v, scale)[0],
+             lambda: fa.flash_softmax_attention_reference(q, k, v, scale)[0],
+             flash_bound(B, H, N, D, "bfloat16"), lib_fwd),
+            ("flash_bwd_dq", lambda: fa.flash_attention_bwd_dq(*args),
+             lambda: fa.flash_bwd_reference(*args)[0], bounds["flash_bwd_dq"], lib_bwd),
+            ("flash_bwd_dkv", lambda: fa.flash_attention_bwd_dkv(*args),
+             lambda: fa.flash_bwd_reference(*args)[1:], bounds["flash_bwd_dkv"], lib_bwd)):
+        rows[kname] = timed_against_plain("experiments", f"{kname} {label}", kernel_fn, plain_fn,
+                                          close, bound, None, shape, card)
+        rows[kname]["library_ms"] = library_ms
+    return rows
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output kept off this script's (whose
+    last two lines are the kernels and ok lines): (result, its lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue().strip().splitlines()
+
+
+def _summed(launch_dicts) -> dict:
+    out = {}
+    for launches in launch_dicts:
+        for name, n in launches.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def _check_launch_total(what: str, rows_launches, total: dict) -> None:
+    """The rows' own launch counts add up to the counters read around the
+    experiment's call."""
+    summed = _summed(rows_launches)
+    nonzero = {k: n for k, n in total.items() if n}
+    if summed != nonzero:
+        raise AssertionError(f"{what}: the rows' launches {summed} are not the counters' "
+                             f"{nonzero}")
+
+
+def experiments_phase(mlc, fa, kerple_rows, flash_rows, card: str):
+    """Phase 25: the JAX package's last experiments, ported, on the card.
+    `kerple_rows` {(B, N): {kernel: row}} and `flash_rows` hold the kernel
+    rows earlier phases timed at these experiments' shapes; this phase
+    checks and times the rest. Returns [(kernel, path, row, launches)] for
+    the kernels line."""
+    import tempfile
+
+    import bench_torch
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.experiments import (ab_steps, coeffs_tune, flash_tune,
+                                                     longn_train, tile_trial, vitb_batch_sweep,
+                                                     vitbase_bench)
+
+    t_phase = time.perf_counter()
+    depth = VITB["depth"]
+    kerple, flash_k = kerple_wrappers(mlc), flash_wrappers(fa)
+    wrappers = {**kerple, **flash_k}
+    kerple_step = {n: depth for n in kerple if n != "kerple_fused_phi_fwd"}
+    out = []
+
+    def rows_for(launches: dict, B: int, N: int, path: str) -> None:
+        """Kernel-line rows of `path` (launches by kernel) at (B, N)."""
+        timed = {**kerple_rows.get((B, N), {}), **flash_rows.get((B, N), {})}
+        for name, n in launches.items():
+            if n and name not in timed:
+                raise AssertionError(f"{path}: {name} launched at B={B} N={N}, no timed row")
+            if n:
+                row = dict(timed[name])
+                row.setdefault("shape", [B, 12, N])
+                out.append((name, path, row, n))
+
+    # the shapes no earlier phase timed: #1 / #2 at the 1025 row and at batch
+    # 128, #6 / 7b at the 1025 row
+    for B, N in ((16, 1025), (128, 197)):
+        shape = (B, 12, N, 266, 64)
+        fwd = check_kernels(mlc, [shape], BF16_ONLY, timed=[shape])[("bfloat16", B)]
+        kerple_rows[(B, N)] = {"masked_linear_coeffs_fwd": fwd,
+                               **check_bwd_kernels(mlc, [shape], BF16_ONLY, timed=shape)}
+    flash_rows[(16, 1025)] = flash_two_pass_rows(fa, (16, 12, 1025, 64), card)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. vitbase_bench: 9 rows at full ViT-B width
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        result, lines = _quiet(vitbase_bench.main,
+                               [*EXP_VITBASE, "--out", f"{tmp}/vitbase_bench.json"])
+        total = counts(wrappers)
+        for line in lines[1:-1]:
+            log("exp-vitbase", line)
+        if lines[0] != card:
+            raise AssertionError(f"vitbase_bench's first line {lines[0]!r} is not the card's")
+        log("exp-vitbase", f"{len(result['rows'])} rows in {time.perf_counter() - t0:.1f} s; "
+            f"launches {total}")
+        _check_launch_total("vitbase_bench", [r.get("launches", {}) for r in result["rows"]],
+                            total)
+        for r in result["rows"]:
+            if "error" in r:
+                raise AssertionError(f"vitbase_bench row failed: {r}")
+            N, B = r["N"], r["batch"]
+            if r["variant"] == "performer_favor":
+                want = {}
+            elif r["variant"] == "baseline":
+                bwd = (("flash_bwd_fused",) if fa.fused_fits(N, 64, torch.bfloat16)
+                       else ("flash_bwd_dq", "flash_bwd_dkv"))
+                want = {n: depth for n in ("flash_fwd", *bwd)}
+            else:
+                want = kerple_step
+            calls = 1 + vitbase_bench.WARMUP + r["timed_steps"]
+            if r["launches_per_step"] != want or r["launches"] != {
+                    n: c * calls for n, c in want.items()}:
+                raise AssertionError(f"vitbase_bench {r['variant']} N={N}: launches "
+                                     f"{r['launches_per_step']} a step, {r['launches']} in "
+                                     f"all; expected {want} a step")
+            if not (r["mfu"] is not None and 0 < r["mfu_counted"] <= r["mfu"] < 1):
+                raise AssertionError(f"vitbase_bench {r['variant']} N={N}: MFU {r['mfu']} "
+                                     f"(counted {r['mfu_counted']}) out of (0, 1)")
+            if r["variant"] == "performer_favor_most_general" and N == 197:
+                cfg = mnist_config(image_size=28, patch_size=2, batch_size=B,
+                                   **ab_steps.VITB_WIDTHS)
+                analytic = bench_torch.train_flops_per_step(cfg.model, 266, B)
+                rel = abs(r["flops_per_step"] - analytic) / analytic
+                log("exp-vitbase", f"flagship N=197 B={B}: flops_per_step "
+                    f"{r['flops_per_step']:.6e} (counted {r['flops_per_step_counted']:.6e} + "
+                    f"kernels {r['pallas_attention_flops']:.6e}) against bench_torch's "
+                    f"{analytic:.6e}: {rel:.4f} apart (tol {EXP_FLOPS_RTOL})")
+                if rel > EXP_FLOPS_RTOL:
+                    raise AssertionError("vitbase_bench's FLOPs disagree with bench_torch's")
+        for label, _, _, N, B, _ in vitbase_bench.SHAPES:
+            rows_for(_summed(r["launches"] for r in result["rows"] if r["N"] == N), B, N,
+                     f"vitbase_bench_n{N}")
+
+        # b. the batch sweep at 64 and 128, then K=8 at the best
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        result, lines = _quiet(vitb_batch_sweep.main,
+                               [*EXP_BATCHES, "--out", f"{tmp}/vitb_batch_sweep.json"])
+        total = counts(wrappers)
+        log("exp-batch-sweep", f"{len(result['rows'])} rows in "
+            f"{time.perf_counter() - t0:.1f} s; launches {total}")
+        _check_launch_total("vitb_batch_sweep", [r.get("launches", {}) for r in result["rows"]],
+                            total)
+        for r in result["rows"]:
+            log("exp-batch-sweep", json.dumps(r))
+            if "error" in r or not (math.isfinite(r["step_ms"]) and 0 < r["mfu"] < 1):
+                raise AssertionError(f"vitb_batch_sweep row not finite: {r}")
+            K = r["fused_k"]
+            # fused: the counted eager step, then the first call's K eager
+            # steps and its capture; replays launch nothing
+            want_total = {n: c * ((1 + 2 * K) if K else (1 + vitb_batch_sweep.WARMUP
+                                                         + r["timed_steps"]))
+                          for n, c in kerple_step.items()}
+            if r["launches"] != want_total or r["launches_per_step"] != (
+                    {} if K else kerple_step):
+                raise AssertionError(f"vitb_batch_sweep B={r['batch']} K={K}: launches "
+                                     f"{r['launches']} ({r['launches_per_step']} a timed "
+                                     f"step), expected {want_total}")
+            path = (f"vitb_batch_sweep_k{K}_b{r['batch']}" if K
+                    else f"vitb_batch_sweep_b{r['batch']}")
+            rows_for(r["launches"], r["batch"], 197, path)
+        if [r["fused_k"] for r in result["rows"]] != [None, None, vitb_batch_sweep.FUSED_K]:
+            raise AssertionError("vitb_batch_sweep: no K=8 row after the two batches")
+
+        # c. long-N training, both variants, 120 steps
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        result, lines = _quiet(longn_train.main, ["--out", f"{tmp}/longn_train.json"])
+        total = counts(wrappers)
+        _check_launch_total("longn_train", [r["launches"] for r in result["runs"]], total)
+        for r in result["runs"]:
+            log("exp-longn", f"{r['variant']} N={result['N']}: loss first5 "
+                f"{r['loss_first5_mean']:.4f}, last5 {r['loss_last5_mean']:.4f}, decreased "
+                f"{r['decreased']}, finite {r['finite']}, accuracy (last) {r['accuracies'][-1]}, "
+                f"wall {r['wall_s']:.1f} s; launches {r['launches']}; losses "
+                f"{[round(x, 4) for x in r['losses']]}")
+            kernel = r["variant"] != "baseline"
+            want = ({n: c * r["steps"] for n, c in kerple_step.items()} if kernel else
+                    {n: depth * r["steps"] for n in ("flash_fwd", "flash_bwd_dq",
+                                                      "flash_bwd_dkv")})
+            if not (r["finite"] and r["decreased"]) or r["launches"] != want:
+                raise AssertionError(f"longn_train {r['variant']}: finite {r['finite']}, "
+                                     f"decreased {r['decreased']}, launches {r['launches']} "
+                                     f"(expected {want})")
+            rows_for(r["launches"], 4, LONGN_N,
+                     f"longn_train_{'kerple' if kernel else 'baseline'}")
+        log("exp-longn", f"both runs in {time.perf_counter() - t0:.1f} s")
+        # the baseline's fall to chance needs no attention gradient: its
+        # flash step's gradients against the dense arm's, at depth 2
+        train("exp-longn-grads", "baseline", EXP_LONGN_GRADS,
+              {arm: {"attention_config": {"method": method}}
+               for arm, method in (("kernel", "flash"), ("dense", "dense"))}, flash_k,
+              {"flash_fwd": 2, "flash_bwd_fused": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+              1, 1, card, False)
+
+    # d. the tile sweeps on their reduced grids, every variant's nvcc
+    # started together: each variant against its plain versions, then timed
+    sweeps = (("flash", flash_tune, TUNE_FLASH_POINTS, (4, 12, LONGN_N, 64)),
+              ("coeffs", coeffs_tune, TUNE_COEFFS_POINTS, (4, 12, LONGN_N, 266, 64)))
+    t_build = time.perf_counter()
+    running = {what: module.start_builds(points) for what, module, points, _ in sweeps}
+    for what, module, points, shape in sweeps:
+        built = tile_trial.finish_copies(running[what])
+        log(f"exp-{what}-tune", f"variants {points} built {time.perf_counter() - t_build:.1f} "
+            "s after the sweeps' builds started")
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        result = module.sweep(points, built, *shape, TUNE_STEPS, True,
+                              torch.device("cuda"), card)
+        total = counts(wrappers)
+        for line in (module.report(result, True) if module is flash_tune
+                     else module.report(result)):
+            log(f"exp-{what}-tune", line)
+        log(f"exp-{what}-tune", f"{len(result['rows'])} rows in "
+            f"{time.perf_counter() - t0:.1f} s; launches {total}")
+        failed = [r for r in result["rows"] if "failed" in r]
+        if failed:
+            raise AssertionError(f"{what}_tune: {failed[0]['label']}: {failed[0]['failed']}")
+        for r in result["rows"][1:]:
+            log(f"exp-{what}-tune", f"{r['label']}: launch_info {r['launch_info']}; "
+                f"max rel err {r['max_rel_err']}")
+            for kname, info in r["launch_info"].items():
+                if "smem_bytes" in r and info["smem_bytes"] != r["smem_bytes"][kname]:
+                    raise AssertionError(f"flash_tune {r['label']} {kname}: launch_info "
+                                         f"{info['smem_bytes']} B of shared memory, the "
+                                         f"sweep's count {r['smem_bytes'][kname]}")
+        for kname in module.KERNELS:
+            if all(kname in r["shipped"] for r in result["rows"]):
+                raise AssertionError(f"{what}_tune ran no tile of {kname} but the shipped one")
+        rows_for(total, shape[0], shape[2], f"{what}_tune")
+    log("experiments", f"phase 25 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4745,6 +5054,21 @@ def main() -> int:
     # arms in K-step graphs; the nine dispatch experiments at small settings
     dispatch = dispatch_phase(mlc, fa, cr, ml, card)
 
+    # 25. the JAX package's last experiments, ported: vitbase_bench, the
+    # batch sweep, long-N training, the flash and KERPLE tile sweeps; the
+    # kernel rows earlier phases timed at their shapes
+    kerple_rows = {
+        (TRAIN_BATCH, 197): {"masked_linear_coeffs_fwd": kernel[("bfloat16", TRAIN_BATCH)],
+                             **kernel_bwd},
+        (KERPLE_LONGN[0], LONGN_N): {
+            "masked_linear_coeffs_fwd": longn_fwd[("bfloat16", KERPLE_LONGN[0])], **longn_bwd}}
+    flash_rows = {
+        (TRAIN_BATCH, 197): {name: flash[(name, "baseline_train")]
+                             for name in ("flash_fwd", "flash_bwd_fused")},
+        (FLASH_LONGN[0], LONGN_N): {name: flash[(name, "baseline_longn_train")]
+                                    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
+    experiment_rows = experiments_phase(mlc, fa, kerple_rows, flash_rows, card)
+
     # one row per kernel and main path: its launches in that path's run, its
     # times at that path's shape
     pallas = "efficient_rpe_vit_tpu/ops/pallas"
@@ -4890,6 +5214,16 @@ def main() -> int:
     for (name, shape), (n, row) in sorted(dispatch.items()):
         path = ("dispatch_auto_bwd" if name.startswith("masked_linear_bwd") else "dispatch_auto")
         rows.append((name, *origin[name], f"{path}_{'x'.join(map(str, shape))}", row, n))
+    # phase 25's experiments: #1 / #2 and #6 / 7a / 7b at each path's shape
+    exp_origin = {
+        fwd[0]: fwd[1:], flash_fwd[0]: flash_fwd[1:],
+        **{name: (f"{src}/masked_linear_coeffs_bwd.cu", f"{mlc_tpu}:{line}")
+           for name, line in zip(BWD_KERNELS, (227, 258, 301, 343))},
+        **{name: (f"{src}/flash_attention_bwd.cu", f"{pallas}/flash_bwd.py:{line}")
+           for name, line in (("flash_bwd_fused", 197), ("flash_bwd_dq", 71),
+                              ("flash_bwd_dkv", 129))}}
+    for name, path, row, n in experiment_rows:
+        rows.append((name, *exp_origin[name], path, row, n))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

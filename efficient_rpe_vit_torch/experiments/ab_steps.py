@@ -52,6 +52,7 @@ def wrappers() -> Dict[str, Callable]:
         "masked_linear_coeffs_bwd_dq": mlc.masked_linear_attention_coeffs_bwd_dq,
         "masked_linear_coeffs_bwd_dkv": mlc.masked_linear_attention_coeffs_bwd_dkv,
         "masked_linear_coeffs_bwd_dc": mlc.masked_linear_attention_coeffs_bwd_dc,
+        "masked_linear_coeffs_bwd_dc_reduce": mlc.masked_linear_attention_coeffs_bwd_dc_reduce,
         "kerple_fused_phi_fwd": mlc.kerple_attention_fused_phi_fwd,
         "flash_fwd": fa.flash_attention_fwd,
         "flash_bwd_fused": fa.flash_attention_bwd_fused,
@@ -86,12 +87,17 @@ def parser(doc: str, steps: int) -> argparse.ArgumentParser:
     return ap
 
 
-def width_flags(ap: argparse.ArgumentParser) -> None:
-    """--width DIM DEPTH HEADS MLP (default ViT-B's) and --shape IMAGE PATCH
-    BATCH (repeatable, replacing the experiment's shapes), for the
-    model-level experiments."""
+def width_flag(ap: argparse.ArgumentParser) -> None:
+    """--width DIM DEPTH HEADS MLP (default ViT-B's), for the model-level
+    experiments' CPU tests."""
     ap.add_argument("--width", type=int, nargs=4, metavar=("DIM", "DEPTH", "HEADS", "MLP"),
                     default=None, help="model widths (default: ViT-B's)")
+
+
+def width_flags(ap: argparse.ArgumentParser) -> None:
+    """--width (`width_flag`) and --shape IMAGE PATCH BATCH (repeatable,
+    replacing the experiment's shapes), for the model-level experiments."""
+    width_flag(ap)
     ap.add_argument("--shape", type=int, nargs=3, action="append",
                     metavar=("IMAGE", "PATCH", "BATCH"),
                     help="a shape to run (repeatable); default: the experiment's")
@@ -121,6 +127,13 @@ def emit(result: dict, out: Optional[str]) -> dict:
         with open(out, "w") as f:
             json.dump(result, f, indent=1)
     return result
+
+
+def chain_barrier(state, loss) -> float:
+    """A host read of the loss that also depends on a parameter: it waits
+    for the last step's backward and update, not only its forward."""
+    leaf = next(state.model.parameters())
+    return float(loss.float().sum() + 0.0 * leaf.detach().float().sum())
 
 
 def seq_len(image: int, patch: int) -> int:
@@ -167,8 +180,7 @@ class StepArm:
             for _ in range(steps):
                 self.state, loss, _ = self.step(self.state, self.images, self.labels,
                                                 self.generator)
-            leaf = next(self.state.model.parameters())
-            value = float(loss + 0.0 * leaf.detach().float().sum())
+            value = chain_barrier(self.state, loss)
             seconds = (time.perf_counter() - t0) / steps
             for k, n in launches_since(before).items():
                 self.launches[k] = self.launches.get(k, 0) + n

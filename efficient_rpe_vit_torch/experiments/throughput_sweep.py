@@ -47,6 +47,7 @@ def bench_variant(name: str, dataset: str, batch: int, steps: int, device=None):
     from ..models import create_model
     from ..train import create_train_state, make_train_step
     from ..utils.device import resolve_device
+    from .ab_steps import chain_barrier
 
     device = resolve_device(device)
     cfg = (mnist_config if dataset == "mnist" else cifar10_config)(
@@ -60,10 +61,6 @@ def bench_variant(name: str, dataset: str, batch: int, steps: int, device=None):
                          device=device)
     labels = torch.arange(batch, device=device) % m.num_classes
     generator = torch.Generator(device).manual_seed(1)
-
-    def chain_barrier(state, loss) -> float:
-        leaf = next(state.model.parameters())
-        return float(loss + 0.0 * leaf.detach().float().sum())
 
     for _ in range(WARMUP):
         state, loss, _ = step(state, images, labels, generator)

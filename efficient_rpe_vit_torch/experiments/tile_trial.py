@@ -78,9 +78,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import shutil
 import subprocess
-from typing import Callable, Dict, List, Tuple
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
@@ -304,34 +308,70 @@ def kernel_ms(fn: Callable, iters: int = 20) -> float:
     return start.elapsed_time(end) / (5 * iters)
 
 
+def write_copy(tree: Path, sources: Dict[str, List[Tuple[str, str]]]) -> Dict[str, Path]:
+    """Copy `csrc/` to `tree` and apply each listed source's swaps (shipped
+    text, swapped text) there. Returns {source: path of its swapped copy}.
+    Raises if a shipped text is no longer in its source."""
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(_build.CSRC, tree)
+    paths = {}
+    for source, swaps in sources.items():
+        path = tree / f"{source}.cu"
+        text = path.read_text()
+        for shipped, swapped in swaps:
+            if shipped not in text:
+                raise RuntimeError(f"{source}.cu no longer has {shipped!r}")
+            text = text.replace(shipped, swapped)
+        path.write_text(text)
+        paths[source] = path
+    return paths
+
+
+def start_copies(jobs: Dict[Hashable, Tuple[Path, Dict[str, List[Tuple[str, str]]]]]) -> dict:
+    """Start building each job's copy of `csrc/`: job key -> (tree, {source:
+    [(shipped text, swapped text)]}); `write_copy` makes the copy and each
+    listed source is compiled into `tree/<source>.so`, every nvcc at once.
+    Returns the running builds for `finish_copies`."""
+    running = {}
+    for key, (tree, sources) in jobs.items():
+        for source, path in write_copy(tree, sources).items():
+            lib, log = tree / f"{source}.so", tree / f"{source}.log"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(path)]
+            # nvcc writes to a file: a pipe nobody reads until the build is
+            # collected could fill and stall it
+            with open(log, "w") as out:
+                proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+            running[(key, source)] = (proc, str(lib), log)
+    return running
+
+
+def finish_copies(running: dict) -> Dict[Hashable, Tuple[Dict[str, str], Optional[str]]]:
+    """Wait for `start_copies`' builds: job key -> ({source: library path},
+    None) where every source built, else ({}, the failing nvcc's output)."""
+    out: Dict[Hashable, Tuple[Dict[str, str], Optional[str]]] = {}
+    for (key, source), (proc, lib, log) in running.items():
+        proc.wait()
+        libs, failure = out.setdefault(key, ({}, None))
+        if proc.returncode:
+            out[key] = ({}, failure or f"{source}.cu: {log.read_text()[-3000:]}")
+        elif failure is None:
+            libs[source] = lib
+    return out
+
+
 def build_variants(kernels: List[str]) -> Dict[Tuple[str, str], str]:
     """{(kernel, variant): library path} of `kernels`, every variant
-    compiled at once."""
-    TRIAL_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
+    compiled at once; raises if one fails to build."""
+    jobs = {}
     for kernel in kernels:
         source, _, _, variants = VARIANTS[kernel]
         for i, (variant, swaps) in enumerate(variants.items()):
-            tree = TRIAL_DIR / f"{kernel}_{i}"
-            shutil.rmtree(tree, ignore_errors=True)
-            shutil.copytree(_build.CSRC, tree)
-            path = tree / f"{source}.cu"
-            text = path.read_text()
-            for shipped, swapped in swaps:
-                if shipped not in text:
-                    raise RuntimeError(f"{source}.cu no longer has {shipped!r}")
-                text = text.replace(shipped, swapped)
-            path.write_text(text)
-            lib = tree / f"{source}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(path)]
-            running[(kernel, variant)] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), str(lib))
+            jobs[(kernel, variant)] = (TRIAL_DIR / f"{kernel}_{i}", {source: swaps})
     libs = {}
-    for key, (proc, lib) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{key} failed to build:\n{log[-3000:]}")
-        libs[key] = lib
+    for key, (paths, failure) in finish_copies(start_copies(jobs)).items():
+        if failure:
+            raise RuntimeError(f"{key} failed to build:\n{failure}")
+        libs[key] = paths[VARIANTS[key[0]][0]]
     return libs
 
 
@@ -347,7 +387,70 @@ def use_library(module, loader: str, path: str, originals: dict) -> None:
     setattr(module, loader, lambda: lib)
 
 
-def _max_rel(got, want) -> float:
+def restore_libraries(originals: dict) -> None:
+    """Point every loader that `use_library` redirected back at its own
+    (the shipped) library."""
+    for (module_name, loader), original in originals.items():
+        setattr(sys.modules[module_name], loader, original)
+    originals.clear()
+
+
+def sweep_points(points: list, built: dict, loaders, point_row: Callable,
+                 measure: Callable) -> List[dict]:
+    """The tile sweeps' rows, one per grid point: `point_row(point)`, then
+    the point's build failure from `built` (`finish_copies`' result), or
+    `measure()`'s fields with the point's libraries loaded in place of the
+    shipped ones (`loaders`: [(wrapper module, loader, source)]), or the
+    launch the card refused. The shipped libraries are restored at the end."""
+    rows, originals = [], {}
+    try:
+        for point in points:
+            row = point_row(point)
+            libs, failure = built[point]
+            if failure:
+                row["failed"] = f"build: {failure[-600:]}"
+            else:
+                for module, loader, source in loaders:
+                    use_library(module, loader, libs[source], originals)
+                try:
+                    row.update(measure())
+                except RuntimeError as e:  # a launch the card refuses
+                    row["failed"] = f"{type(e).__name__}: {str(e)[:600]}"
+            rows.append(row)
+    finally:
+        restore_libraries(originals)
+    return rows
+
+
+def run_sweep(device_arg, start: Callable, sweep: Callable) -> dict:
+    """The tile sweeps' command line around `sweep(built, device, card)`:
+    the GPU only (the sweeps build and time CUDA kernels), the card's name
+    and power limit printed first, then `start()`'s builds (`start_copies`)
+    waited for, their seconds kept in the result as `build_s`."""
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device_arg)
+    if device.type != "cuda":
+        raise RuntimeError("the tile sweep builds and times CUDA kernels: it needs the GPU")
+    card = device_label(device)
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    built = finish_copies(start())
+    build_s = time.perf_counter() - t0  # every point's nvcc, all at once
+    result = sweep(built, device, card)
+    result["build_s"] = build_s
+    return result
+
+
+def write_json(path, result: dict) -> None:
+    """Write `result` to `path` (its directory made) if a path is given."""
+    if path:
+        Path(path).resolve().parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(json.dumps(result, indent=1))
+        print(f"wrote {path}")
+
+
+def max_rel(got, want) -> float:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -373,7 +476,7 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
         first = tuple(t[:1] for t in args[:6]) + (0.125,)
         out["flash_bwd_fused"].append((
             "(64, 12, 197, 64)", lambda: fa.flash_attention_bwd_fused(*args),
-            lambda got, first=first: _max_rel(_first(got), fa.flash_bwd_reference(*first))))
+            lambda got, first=first: max_rel(_first(got), fa.flash_bwd_reference(*first))))
     for B, N in ((64, 197), (4, 4097)) if any(k.startswith("mlc_") for k in kernels) else ():
         qp, kp = ((torch.randn(B, 12, N, 266, generator=g, device="cuda").abs() * 0.1)
                   .bfloat16() for _ in range(2))
@@ -388,25 +491,25 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
         first = tuple(t[:1] for t in a[:5]) + (c,)
         out["mlc_bwd_dkv"].append((
             shape, lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dkv(*a),
-            lambda got, first=first: _max_rel(
+            lambda got, first=first: max_rel(
                 _first(got), mlc.masked_linear_attention_coeffs_bwd_dkv_reference(*first))))
         dq_args = (gn, s, vv, kp, c)
         dq_first = tuple(t[:1] for t in dq_args[:4]) + (c,)
         out["mlc_bwd_dq"].append((
             shape, lambda a=dq_args: mlc.masked_linear_attention_coeffs_bwd_dq(*a),
-            lambda got, first=dq_first: _max_rel(
+            lambda got, first=dq_first: max_rel(
                 _first(got), mlc.masked_linear_attention_coeffs_bwd_dq_reference(*first))))
         # dc's windows sum over the batch: the plain version of all of it,
         # computed once
         want = mlc.masked_linear_attention_coeffs_bwd_dc_reference(*a[:5])
         out["mlc_bwd_dc"].append((
             shape, lambda a=a: mlc.masked_linear_attention_coeffs_bwd_dc(*a[:5]),
-            lambda got, want=want: _max_rel(got, want)))
+            lambda got, want=want: max_rel(got, want)))
         fwd_args = (qp, kp, vv, c)
         fwd_first = tuple(t[:1] for t in fwd_args[:3]) + (c,)
         out["mlc_fwd"].append((
             shape, lambda a=fwd_args: mlc.masked_linear_attention_coeffs_fwd(*a),
-            lambda got, first=fwd_first: _max_rel(
+            lambda got, first=fwd_first: max_rel(
                 _first(got), mlc.masked_linear_attention_coeffs_reference(*first))))
     for B in (32, 64) if "kfp_fwd" in kernels else ():
         q, k = (torch.randn(B, 12, 197, 64, generator=g, device="cuda") for _ in range(2))
@@ -418,7 +521,7 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
         first = tuple(t[:1] for t in a[:3]) + (om, c)
         out["kfp_fwd"].append((
             f"({B}, 12, 197, 64, 266)", lambda a=a: mlc.kerple_attention_fused_phi_fwd(*a),
-            lambda got, first=first: _max_rel(
+            lambda got, first=first: max_rel(
                 _first(got), mlc.kerple_attention_fused_phi_fwd_reference(*first))))
     for B, N in ((32, 197), (64, 197), (4, 4097)) if any(
             k.startswith("rot_") for k in kernels) else ():
@@ -430,13 +533,13 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
         want = cr.circulant_rotate_fwd_reference(x, ct, st, True)
         out["rot_fwd"].append((
             shape, lambda a=(x, ct, st): cr.circulant_rotate_fwd(*a, True),
-            lambda got, want=want: _max_rel(got, want)))
+            lambda got, want=want: max_rel(got, want)))
         if B == 32:
             continue  # serving runs no backward
         want_bwd = cr.circulant_rotate_bwd_reference(cot, x, ct, st, True)
         out["rot_bwd"].append((
             shape, lambda a=(cot, x, ct, st): cr.circulant_rotate_bwd(*a, True),
-            lambda got, want=want_bwd: _max_rel(got, want)))
+            lambda got, want=want_bwd: max_rel(got, want)))
     for B, H, N, F, D in T_SHAPES if any(k.startswith("mlt_") for k in kernels) else ():
         qp, kp = ((torch.randn(B, H, N, F, generator=g, device="cuda").abs() * 0.1).bfloat16()
                   for _ in range(2))
@@ -450,21 +553,21 @@ def cases(kernels: List[str]) -> Dict[str, List[Tuple[str, Callable, Callable]]]
         q1, k1, v1, gn1, s1 = first
         out["mlt_fwd"].append((
             shape, lambda a=(qp, kp, vv, t): ml.masked_linear_fwd(*a),
-            lambda got, a=(q1, k1, v1, t): _max_rel(_first(got),
+            lambda got, a=(q1, k1, v1, t): max_rel(_first(got),
                                                     ml.masked_linear_fwd_reference(*a))))
         out["mlt_bwd_dq"].append((
             shape, lambda a=(gn, s, vv, kp, t): ml.masked_linear_bwd_dq(*a),
-            lambda got, a=(gn1, s1, v1, k1, t): _max_rel(_first(got),
+            lambda got, a=(gn1, s1, v1, k1, t): max_rel(_first(got),
                                                          mlc.kerple_dense_bwd_dq(*a))))
         out["mlt_bwd_dkv"].append((
             shape, lambda a=(gn, s, vv, qp, kp, t): ml.masked_linear_bwd_dkv(*a),
-            lambda got, a=(gn1, s1, v1, q1, k1, t): _max_rel(_first(got),
+            lambda got, a=(gn1, s1, v1, q1, k1, t): max_rel(_first(got),
                                                              mlc.kerple_dense_bwd_dkv(*a))))
         # dT sums over the batch: the plain version of all of it, computed once
         want = mlc.kerple_dense_bwd_dt(gn, s, vv, qp, kp) if "mlt_bwd_dt" in kernels else None
         out["mlt_bwd_dt"].append((
             shape, lambda a=(gn, s, vv, qp, kp): ml.masked_linear_bwd_dt(*a),
-            lambda got, want=want: _max_rel(got, want)))
+            lambda got, want=want: max_rel(got, want)))
         del o, den
     return out
 

@@ -12,9 +12,14 @@ from __future__ import annotations
 
 import subprocess
 import time
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+
+# dense bf16 tensor-core peak (NVIDIA data sheet) by the name
+# torch.cuda.get_device_name() prints: the H100 SXM part is "80GB HBM3";
+# any other card gets no peak and a null MFU
+PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 
 
 def _tensors(value):
@@ -116,6 +121,14 @@ def device_label(device: torch.device) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def peak_bf16(device: torch.device) -> Optional[float]:
+    """The dense bf16 peak (FLOP/s) of the card `device` names, by its name
+    (`PEAK_BF16`); None for the CPU and for a card not in the table."""
+    if device.type != "cuda":
+        return None
+    return PEAK_BF16.get(torch.cuda.get_device_name(device))
 
 
 def format_time(seconds: float) -> str:
