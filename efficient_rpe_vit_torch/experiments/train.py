@@ -45,6 +45,9 @@ import time
 
 import torch
 
+from ..utils import tracing
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a ViT variant (PyTorch port)")
     p.add_argument("--model", type=str, default="baseline",
@@ -92,7 +95,8 @@ def parse_args(argv=None):
     p.add_argument("--bench-iters", type=int, default=100)
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="trace the first epoch with torch.profiler into DIR "
-                        "(a Chrome trace and a table of operator times)")
+                        "(a Chrome trace and a table of operator times), with "
+                        "the train step's rpe.* spans (utils/tracing.py)")
     p.add_argument("--compute-dtype", type=str, default=None,
                    choices=["float32", "bfloat16"])
     p.add_argument("--checkpoint-backend", default="msgpack",
@@ -456,21 +460,26 @@ def main(argv=None, shared=None):
     t_train0 = time.perf_counter()
     for epoch in range(start_epoch, config.train.epochs + 1):
         profiling = bool(args.profile) and epoch == start_epoch
-        with _profiler(device) if profiling else contextlib.nullcontext() as profiler:
-            if mesh is not None:
-                from ..parallel import parallel_train_epoch
+        tracing.enable(profiling)
+        try:
+            with _profiler(device) if profiling else contextlib.nullcontext() as profiler:
+                if mesh is not None:
+                    from ..parallel import parallel_train_epoch
 
-                state, tm = parallel_train_epoch(
-                    state, train_step, train_ds, generator, mesh, epoch=epoch,
-                    log_interval_frac=args.log_interval, verbose=not args.quiet)
-            else:
-                state, tm = train_epoch(
-                    state, train_step, train_ds, generator, epoch=epoch,
-                    log_interval_frac=args.log_interval, verbose=not args.quiet,
-                    multi_step=multi_step, gather_step=gather_step,
-                    fused_steps=args.fused_steps)
-            if profiling and device.type == "cuda":
-                torch.cuda.synchronize(device)
+                    state, tm = parallel_train_epoch(
+                        state, train_step, train_ds, generator, mesh, epoch=epoch,
+                        log_interval_frac=args.log_interval, verbose=not args.quiet)
+                else:
+                    state, tm = train_epoch(
+                        state, train_step, train_ds, generator, epoch=epoch,
+                        log_interval_frac=args.log_interval, verbose=not args.quiet,
+                        multi_step=multi_step, gather_step=gather_step,
+                        fused_steps=args.fused_steps)
+                if profiling and device.type == "cuda":
+                    torch.cuda.synchronize(device)
+        finally:
+            tracing.enable(False)
+            tracing.clear()
         if profiling:
             _write_profile(profiler, args.profile, device, args.quiet)
         state.eval_view()
@@ -592,14 +601,22 @@ def _profiler(device: torch.device):
 
 def _write_profile(profiler, out_dir: str, device: torch.device, quiet: bool) -> None:
     """The first epoch's trace: a Chrome trace and a table of operator
-    times sorted by device (else host) time."""
+    times sorted by device (else host) time, then one of the train step's
+    spans and marker kernels (`utils/tracing.py`)."""
+    from torch.autograd.profiler_util import EventList
+
     os.makedirs(out_dir, exist_ok=True)
     trace = os.path.join(out_dir, "trace.json")
     profiler.export_chrome_trace(trace)
     sort = "self_cuda_time_total" if device.type == "cuda" else "self_cpu_time_total"
     table = os.path.join(out_dir, "key_averages.txt")
+    averages = profiler.key_averages()
+    spans = EventList([e for e in averages
+                       if e.key.startswith((tracing.PREFIX, "rpe_mark_"))])
     with open(table, "w") as f:
-        f.write(profiler.key_averages().table(sort_by=sort, row_limit=40))
+        f.write(averages.table(sort_by=sort, row_limit=40))
+        if spans:
+            f.write("\n" + spans.table(sort_by=sort, row_limit=-1))
     if not quiet:
         print(f"Profiler trace written to {trace} and {table}")
 

@@ -59,6 +59,7 @@ from ..ops import (
 from ..ops import rotations
 from ..ops.attention_core import softmax_arm
 from ..ops.feature_maps import mxu_num_features
+from ..utils import tracing
 from .dense import Dense, Dropout, batch_part, draw, replaying
 from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D
 
@@ -308,7 +309,9 @@ class _KernelAttention(_Attention):
 
     def _phi_pair(self, q: torch.Tensor, k: torch.Tensor,
                   omega: torch.Tensor):
-        return self._phi(q, omega), self._phi(k, omega)
+        with tracing.device_span("rpe.phi", q.device) as span:
+            q, k = span.inputs(q, k)
+            return span.outputs(self._phi(q, omega), self._phi(k, omega))
 
     @torch.no_grad()
     def _maybe_redraw(self, generator: Optional[torch.Generator]) -> None:

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..data.pipeline import _gather_batch
+from ..utils import tracing
 from ..utils.device import resolve_device
 
 Schedule = Callable[[int], float]
@@ -361,15 +362,18 @@ def _step_body(model: nn.Module, grad_accum: int, label_smoothing: float):
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum, correct = 0.0, 0
         for x, y in zip(images.chunk(grad_accum), labels.chunk(grad_accum)):
-            loss, c = micro_loss(x, y, generator)
-            loss.backward()  # .grad accumulates the sum over microbatches
+            with tracing.device_span("rpe.forward", x.device):
+                loss, c = micro_loss(x, y, generator)
+            with tracing.device_span("rpe.backward", x.device):
+                loss.backward()  # .grad accumulates the sum over microbatches
             loss_sum = loss_sum + loss.detach()
             correct = correct + c
         if grad_accum > 1:
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(grad_accum)
-        state._update(lr)
+        with tracing.device_span("rpe.optimizer", images.device):
+            state._update(lr)
         return loss_sum / grad_accum, correct
 
     return run
@@ -516,34 +520,42 @@ class _Replays:
         key, body = (*key, self.host.key(counts)), self.host.wrap(body, counts)
         entry = self.graphs.get(key)
         if entry is None:
-            current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                out = self._run(body, copied, generator)
-            current.wait_stream(side)
-            if self.before_capture is not None:
-                self.before_capture()
-            static = tuple(t.clone() for t in copied)
-            owns = tuple(torch.Generator(self.device) for _ in callers)
-            graph = torch.cuda.CUDAGraph()
-            for own in owns:
-                graph.register_generator_state(own)
-            given = (None if generator is None else owns[0]
-                     if isinstance(generator, torch.Generator) else owns)
-            with torch.cuda.graph(graph):
-                static_out = self._run(body, static, given)
-            self.graphs[key] = (graph, static, static_out, owns, pins)
-            return out
+            with tracing.span("rpe.first_call"):
+                return self._first(key, body, copied, generator, callers, pins)
         graph, static, static_out, owns, _ = entry
-        for dst, src in zip(static, copied):
-            dst.copy_(src)
-        for own, caller in zip(owns, callers):
-            own.set_state(caller.get_state())
-        graph.replay()
-        for own, caller in zip(owns, callers):
-            caller.set_state(own.get_state())
-        return tuple(t.clone() for t in static_out)
+        with tracing.span("rpe.call.replay"):
+            for dst, src in zip(static, copied):
+                dst.copy_(src)
+            for own, caller in zip(owns, callers):
+                own.set_state(caller.get_state())
+            graph.replay()
+            for own, caller in zip(owns, callers):
+                caller.set_state(own.get_state())
+        with tracing.span("rpe.call.outputs"):
+            return tuple(t.clone() for t in static_out)
+
+    def _first(self, key, body, copied, generator, callers, pins):
+        """A key's first call: the eager run on a side stream, then the
+        capture."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._run(body, copied, generator)
+        current.wait_stream(side)
+        if self.before_capture is not None:
+            self.before_capture()
+        static = tuple(t.clone() for t in copied)
+        owns = tuple(torch.Generator(self.device) for _ in callers)
+        graph = torch.cuda.CUDAGraph()
+        for own in owns:
+            graph.register_generator_state(own)
+        given = (None if generator is None else owns[0]
+                 if isinstance(generator, torch.Generator) else owns)
+        with torch.cuda.graph(graph):
+            static_out = self._run(body, static, given)
+        self.graphs[key] = (graph, static, static_out, owns, pins)
+        return out
 
 
 def _lr_table(schedule: Schedule, step: int, k: int) -> np.ndarray:
@@ -647,14 +659,16 @@ def _graphed_steps(model: nn.Module, run, device: torch.device, what: str,
         reason = _graph_blocker(state.optimizer) or blocker()
         if reason:
             raise NotImplementedError(f"{what} on the GPU: {reason}")
-        images = torch.as_tensor(images, device=device)
-        labels = torch.as_tensor(labels, device=device)
-        k = images.shape[0]
-        lrs = _to_card(_lr_table(state.schedule, state.step, k), device)
-        key = (id(state), tuple(images.shape), images.dtype, tuple(labels.shape),
-               labels.dtype)
-        losses, corrects = replays(key, _k_step_body(run, state, k),
-                                   (images, labels, lrs), generator, pins=(state,))
+        with tracing.span("rpe.call"):
+            with tracing.span("rpe.call.pack"):
+                images = torch.as_tensor(images, device=device)
+                labels = torch.as_tensor(labels, device=device)
+                k = images.shape[0]
+                lrs = _to_card(_lr_table(state.schedule, state.step, k), device)
+            key = (id(state), tuple(images.shape), images.dtype, tuple(labels.shape),
+                   labels.dtype)
+            losses, corrects = replays(key, _k_step_body(run, state, k),
+                                       (images, labels, lrs), generator, pins=(state,))
         state.step += k
         return state, losses, corrects
 
@@ -689,23 +703,28 @@ def make_gather_multi_step(model: nn.Module, label_smoothing: float = 0.0,
         _check_call(state, model, generator, device)
 
         def gather(rows, gen):
-            return _gather_batch(images_u8, labels_all, rows, mean, std, augment, gen)
+            with tracing.device_span("rpe.gather", rows.device):
+                return _gather_batch(images_u8, labels_all, rows, mean, std, augment, gen)
 
         idx = np.asarray(idx, dtype=np.int32)
         if device.type != "cuda":
-            return _loop(train_step, state,
-                         (gather(torch.from_numpy(r), generator) for r in idx),
-                         generator)
+            with tracing.span("rpe.call"):
+                return _loop(train_step, state,
+                             (gather(torch.from_numpy(r), generator) for r in idx),
+                             generator)
         blocker = _graph_blocker(state.optimizer)
         if blocker:
             raise NotImplementedError(f"make_gather_multi_step on the GPU: {blocker}")
         k = idx.shape[0]
-        lrs = _lr_table(state.schedule, state.step, k)
-        packed = _to_card(np.concatenate([idx.reshape(-1), lrs.view(np.int32)]), device)
-        data = (images_u8, labels_all, mean, std)
-        losses, corrects = replays((id(state), idx.shape, *map(id, data)),
-                                   _k_step_body(run, state, k, gather), (packed,),
-                                   generator, pins=(state, *data))
+        with tracing.span("rpe.call"):
+            with tracing.span("rpe.call.pack"):
+                lrs = _lr_table(state.schedule, state.step, k)
+                packed = _to_card(np.concatenate([idx.reshape(-1), lrs.view(np.int32)]),
+                                  device)
+            data = (images_u8, labels_all, mean, std)
+            losses, corrects = replays((id(state), idx.shape, *map(id, data)),
+                                       _k_step_body(run, state, k, gather), (packed,),
+                                       generator, pins=(state, *data))
         state.step += k
         return state, losses, corrects
 
