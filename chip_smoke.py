@@ -63,7 +63,8 @@ Phases, each printed as it runs; any failure exits non-zero:
   4. serve KERPLE: ViT-B/16 performer_favor_most_general (bf16, random
      weights from a seed) answers 4 requests of 32 images through
      `make_eval_step`; launch counts, logits against the same model on the
-     plain (dense) KERPLE path, bitwise run to run, ms per batch;
+     plain (dense) KERPLE path (top-1 agreement arbitrated in fp32, as in
+     phases 9 and 13), bitwise run to run, ms per batch;
   5. train KERPLE: the same model takes 5 steps of batch 64 through
      `create_train_state` / `make_train_step`; launch counts per step,
      finite gradients for every parameter, step-1 gradients against the
@@ -313,6 +314,22 @@ Phases, each printed as it runs; any failure exits non-zero:
         variants start their nvcc together at the start of d.
      Each experiment's call starts from launch counts of 0; its rows' own
      launch counts add up to the counters read after it.
+ 26. the phi+ kernels (csrc/phi_positive.cu; run after phase 3e):
+     a. launch_info of the forward and backward at (F, D) = (266, 64) and
+        (44, 16), no spills at F=266; the built (D, F) rule equal to
+        `phi_kernel_takes` on a grid;
+     b. at both flagship cells' shapes, (128, 12, 197, 64, 266) and (4, 12,
+        4097, 64, 266), and at PHI_EDGE_SHAPES, x in the head split's
+        layout: phi within one bf16 step of the plain chain and bitwise on
+        a rerun; the kernels' products u = x Omega and dz Omega^T against
+        fp64 within PHI_PRODUCT_RATIO of cuBLAS fp32's error; dx within
+        PHI_DX_TOL of the plain chain's backward, in x's strides, bitwise on
+        a rerun; at the two cells' shapes timed beside phi_bounds and the
+        plain chain (the `phi_<shape>` rows);
+     c. a flagship train step at ViT-B/16, batch 128: 24 phi+ forwards and
+        24 backwards, the plain chain never on a CUDA tensor, loss and
+        gradients against a twin on the plain chain, ms/step and peak of
+        both; the FAVOR+ variants without KERPLE at depth 2: 4 of each.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -454,6 +471,28 @@ FUSED_EDGE_SHAPES = [(2, 12, 31, 64, 266), (2, 12, 33, 64, 266), (2, 12, 63, 64,
                      (2, 12, 64, 64, 266), (2, 12, 65, 64, 266), (2, 3, 127, 64, 266),
                      (2, 3, 128, 64, 266), (2, 3, 129, 64, 266), (1, 12, 197, 64, 266),
                      (3, 12, 129, 64, 266)]
+# phase 26, the phi+ kernels (csrc/phi_positive.cu), shapes (B, H, N, D, F):
+# the two flagship cells' (batch 128 at N=197, batch 4 at N=4097), then
+# groups of 16 rows across several batches (N < 16), narrow and mid F, head
+# dims that are not multiples of 16, the smallest F and D the rule takes
+PHI_SHAPES = [(128, 12, 197, 64, 266), (4, 12, 4097, 64, 266)]
+PHI_EDGE_SHAPES = [(3, 2, 17, 16, 44), (5, 3, 7, 64, 266), (2, 3, 31, 64, 272),
+                   (4, 2, 33, 48, 128), (3, 2, 19, 40, 64), (2, 1, 5, 8, 2), (2, 12, 197, 24, 266)]
+# the kernels' products (u = x Omega, dz Omega^T) held to an fp64 product:
+# their largest error at most this many times cuBLAS fp32's (TF32 off)
+PHI_PRODUCT_RATIO = 4.0
+# dx against the plain chain's backward: max |dx - plain| / max |plain|. The
+# two differ only in fp32 summation orders (the projection, the feature sum
+# behind ||x||^2's gradient), each of which can move a bf16 rounding of the
+# chain (bf16(dz Omega^T), bf16(-sum dz), the sum) by one step: 2^-7 is one
+# bf16 step at the largest element.
+PHI_DX_TOL = 2.0 ** -7
+# ViT-B/16 at one of the flagship cells' shapes (224 px, batch 128) for the
+# launches of an eager train step, and the FAVOR+ variants without KERPLE at
+# depth 2, batch 8
+PHI_TRAIN = dict(VITB, batch_size=128)
+PHI_VARIANTS = ("performer_favor", "performer_favor_rope", "favor_plus_rope_2d",
+                "performer_favor_circulant")
 # phase 3f, the materialised-T kernels (#4, #5), beside the pallas_ab entry
 # point's own shapes (B, H, N, F, D): the ViT-B/16 training shape, a ragged
 # shape, the JAX package's kernel-test shape; long N in bf16 only
@@ -706,18 +745,22 @@ TUNE_STEPS = 4
 EXP_LONGN_GRADS = dict(VITB, image_size=128, patch_size=2, in_channels=1, num_classes=10,
                        depth=2, dropout=0.1, batch_size=4)
 # a row's flops_per_step against bench_torch.train_flops_per_step at the
-# flagship's N=197 row (the two count the same products but for the
-# backward of phi's fixed projection and phi's recompute past
-# PHI_CHECKPOINT_BYTES)
+# flagship's N=197 row: the two count the same products (phi+'s ops by
+# their FLOP formulas, as the counter saw the checkpointed plain chain) but
+# for the KERPLE kernels' backward (pallas_attention_flops counts four
+# products of the forward's size, bench_torch two: about 6% of the step)
+# and the patch embedding's input gradient, which no step takes
 EXP_FLOPS_RTOL = 0.10
 
 # --profile sums device time by these groups of kernel names, first match wins
 PROFILE_GROUPS = [
     ("KERPLE kernels (this repo)", lambda k: "mlc_" in k or "kfp_" in k),
     ("flash attention kernels (this repo)", lambda k: "flash_fwd" in k or "flash_bwd" in k),
+    ("phi+ kernels (this repo)", lambda k: "phi_pos_" in k),
     ("rotation kernels (this repo)",
      lambda k: "rot_fwd_" in k or "rot_bwd_" in k or "group_sum_kernel" in k),
-    ("fp32 GEMMs (phi projection x@Omega, fwd and bwd)", lambda k: "f32f32" in k or "sgemm" in k),
+    ("fp32 GEMMs (phi projection x@Omega on the plain chain)",
+     lambda k: "f32f32" in k or "sgemm" in k),
     ("bf16 GEMMs (cuBLAS)", lambda k: "nvjet" in k or "gemm" in k),
     ("optimizer (multi-tensor apply)", lambda k: "multi_tensor" in k),
     ("copies and casts", lambda k: "copy" in k),
@@ -1100,6 +1143,253 @@ def check_fused_kernels(mlc):
                                           unfused_ms=unfused_ms,
                                           launch=infos[(name, F)])
     return results
+
+
+def phi_bounds(B, H, N, D, F):
+    """{kernel: (bound_ms, bound_by)} for the phi+ forward (x read, phi
+    written, Omega read once per SM) and backward (x and g read, dx
+    written), bf16 tensors; the products as the kernels run them on bf16
+    tensor cores: three passes of 2 B H N D F forward, three (the
+    recompute) plus six (dz Omega^T) backward."""
+    bhn, flops = B * H * N, 2 * B * H * N * D * F
+    omega_bytes = 4 * H * D * F
+    work = {"phi_positive_fwd": (2 * bhn * (D + F) + omega_bytes, 3 * flops),
+            "phi_positive_bwd": (2 * bhn * (2 * D + F) + omega_bytes, 9 * flops)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["bfloat16"]
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _phi_inputs(B, H, N, D, F):
+    """x as the flagship hands phi q and k (L2-normalised rows, bf16, the
+    head split's [B, N, H, D] layout seen as [B, H, N, D]), orthogonal Omega
+    [H, D, F] (fp32) and a bf16 cotangent."""
+    from efficient_rpe_vit_torch.ops.feature_maps import orthogonal_gaussian_features
+
+    g = torch.Generator(device="cuda").manual_seed(B * 7919 + N * 31 + D + F)
+    x = _unit_rows(torch.randn(B, N, H, D, generator=g, device="cuda")).to(torch.bfloat16)
+    omega = orthogonal_gaussian_features(g, H, D, F)
+    cot = (torch.randn(B, H, N, F, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    return x.transpose(1, 2), omega, cot
+
+
+def _bf16_steps(got, want) -> float:
+    """The largest |got - want| in bf16 steps (ulps) of want."""
+    want = want.float()
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return ((got.float() - want).abs() / step).max().item()
+
+
+def check_phi_kernels(pk, shapes, timed: bool):
+    """Phase 26 a: the phi+ forward and backward kernels against the plain
+    chain on the card. Per shape: phi within one bf16 step of the plain
+    phi, and bitwise on a rerun; the kernels' products u = x Omega and
+    dz Omega^T against fp64 within PHI_PRODUCT_RATIO of cuBLAS fp32's error
+    (dz formed on the host from the kernel's own u, as the backward forms
+    it); dx within PHI_DX_TOL of
+    the plain chain's backward, bitwise on a rerun. Timed (`timed`) beside
+    phi_bounds, the plain forward and the plain forward + backward. Returns
+    {(kernel, shape): row}."""
+    from efficient_rpe_vit_torch.ops.feature_maps import phi_positive_plain
+
+    rows = {}
+    for B, H, N, D, F in shapes:
+        x, omega, cot = _phi_inputs(B, H, N, D, F)
+        shape = f"B{B} H{H} N{N} D{D} F{F}"
+        phi = pk.phi_positive_fwd(x, omega)
+        same = torch.equal(phi, pk.phi_positive_fwd(x, omega))
+        plain = phi_positive_plain(x, omega)
+        steps = _bf16_steps(phi, plain)
+        differ = (phi != plain).float().mean().item()
+        log("phi", f"phi_positive_fwd {shape}: {steps:.2f} bf16 steps at most from the plain "
+            f"chain, {100 * differ:.4f}% of elements differ, bitwise on a rerun: {same}")
+        if steps > 1.0 or not same or not bool(torch.isfinite(phi.float()).all()):
+            raise AssertionError(f"phi_positive_fwd disagrees with the plain chain at {shape}")
+        del plain
+        # the products: the kernel's against fp64 beside cuBLAS fp32's
+        u = pk.kernel_products(x, omega)
+        want = torch.matmul(x.double(), omega.double())
+        err_k = (u.double() - want).abs().max().item()
+        err_32 = (torch.matmul(x.float(), omega).double() - want).abs().max().item()
+        del want
+        nh = (x * x).sum(dim=-1, keepdim=True) / 2.0
+        mx = u.amax(dim=-1, keepdim=True)
+        dz = (cot.float() * pk.scale_of(F)) * torch.exp(u - mx - nh)
+        del u, mx
+        p = pk.kernel_products(x, omega, dz)
+        want = torch.matmul(dz.double(), omega.double().transpose(-1, -2))
+        berr_k = (p.double() - want).abs().max().item()
+        berr_32 = (torch.matmul(dz, omega.transpose(-1, -2)).double() - want).abs().max().item()
+        del want, dz, p
+        log("phi", f"products {shape}: u = x Omega max err vs fp64 {err_k:.3e} (cuBLAS fp32 "
+            f"{err_32:.3e}, {err_k / err_32:.2f}x); dz Omega^T {berr_k:.3e} (cuBLAS fp32 "
+            f"{berr_32:.3e}, {berr_k / berr_32:.2f}x; tol {PHI_PRODUCT_RATIO}x)")
+        if err_k > PHI_PRODUCT_RATIO * err_32 or berr_k > PHI_PRODUCT_RATIO * berr_32:
+            raise AssertionError(f"the phi+ kernels' products lose fp32 accuracy at {shape}")
+        dx = pk.phi_positive_bwd(cot, x, omega)
+        same = torch.equal(dx, pk.phi_positive_bwd(cot, x, omega))
+        ref = pk.phi_positive_bwd_reference(cot, x, omega)
+        rel = _max_rel(dx, ref)
+        differ = (dx != ref).float().mean().item()
+        log("phi", f"phi_positive_bwd {shape}: max|dx - plain| / max|plain| {rel:.3e} (tol "
+            f"{PHI_DX_TOL:.3e}), {100 * differ:.4f}% of elements differ, strides "
+            f"{tuple(dx.stride())} (x {tuple(x.stride())}), bitwise on a rerun: {same}")
+        if rel > PHI_DX_TOL or not same or dx.stride() != x.stride():
+            raise AssertionError(f"phi_positive_bwd disagrees with the plain chain at {shape}")
+        del ref
+        if not timed:
+            continue
+        bounds = phi_bounds(B, H, N, D, F)
+        fwd_ms = kernel_ms(lambda: pk.phi_positive_fwd(x, omega))
+        bwd_ms = kernel_ms(lambda: pk.phi_positive_bwd(cot, x, omega))
+        xg = x.detach().requires_grad_(True)
+
+        def plain_step():
+            torch.autograd.backward(phi_positive_plain(xg, omega), cot)
+
+        plain_fwd_ms = time_ms(lambda: phi_positive_plain(x, omega), iters=5, warmup=1)
+        plain_both_ms = time_ms(plain_step, iters=5, warmup=1)
+        for name, ms, plain_ms in (("phi_positive_fwd", fwd_ms, plain_fwd_ms),
+                                   ("phi_positive_bwd", bwd_ms, plain_both_ms - plain_fwd_ms)):
+            bound_ms, bound_by = bounds[name]
+            log("phi", f"{name} {shape}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), kernel/bound {ms / bound_ms:.2f}x; plain chain {plain_ms:.4f} "
+                f"ms ({plain_ms / ms:.1f}x the kernel)")
+            rows[(name, (B, H, N, D, F))] = dict(
+                max_abs_err=(phi.float() - phi_positive_plain(x, omega).float()).abs().max()
+                .item() if name == "phi_positive_fwd" else rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=[B, H, N, D, F], product_err_ratio=(err_k / err_32 if name ==
+                                                          "phi_positive_fwd"
+                                                          else berr_k / berr_32))
+        log("phi", f"phi+ {shape}: forward + backward {fwd_ms + bwd_ms:.4f} ms against the "
+            f"plain chain's {plain_both_ms:.4f} ms; per flagship step (2 x 12 layers) "
+            f"{24 * (fwd_ms + bwd_ms):.2f} ms against {24 * plain_both_ms:.2f} ms")
+        del xg
+    return rows
+
+
+def phi_train_launches(pk, card: str):
+    """Phase 26 b: eager train steps on the card. The flagship at PHI_TRAIN
+    (ViT-B/16, batch 128, N=197) launches 24 phi+ forwards and 24 backwards
+    a step and never runs the plain chain on a CUDA tensor; its loss and
+    gradients agree with a twin whose phi takes the plain chain (GRAD_REL_TOL
+    on each tensor's norm), and its step time is logged beside the twin's.
+    Then each of PHI_VARIANTS at depth 2 launches 4 of each. Returns the
+    flagship's launches a step."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.ops import feature_maps
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    wrappers = {"phi_positive_fwd": pk.phi_positive_fwd, "phi_positive_bwd": pk.phi_positive_bwd}
+    plain = feature_maps.phi_positive_plain
+    on_card = [0]
+
+    def counted_plain(x, omega):
+        on_card[0] += int(x.is_cuda)
+        return plain(x, omega)
+
+    def run(name, fields, force_plain=False, timed=0):
+        cfg = mnist_config(**fields)
+        model = create_model(name, cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        step = make_train_step(model)
+        state = create_train_state(model, cfg, steps_per_epoch=100)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        size, batch = fields["image_size"], fields["batch_size"]
+        x = torch.randn(batch, size, size, fields["in_channels"], generator=g, device="cuda")
+        y = torch.randint(0, fields["num_classes"], (batch,), generator=g, device="cuda")
+        saved = feature_maps.phi_kernel_takes
+        if force_plain:
+            feature_maps.phi_kernel_takes = lambda *a, **k: False  # noqa: E731
+        feature_maps.phi_positive_plain = counted_plain
+        try:
+            zero_counts(wrappers)
+            on_card[0] = 0
+            state, loss, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(3))
+            torch.cuda.synchronize()
+            launches, plain_calls = counts(wrappers), on_card[0]
+            grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+            ms = None
+            if timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(timed):
+                    state, _, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(3))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / timed * 1e3
+        finally:
+            feature_maps.phi_kernel_takes = saved
+            feature_maps.phi_positive_plain = plain
+        del model, state
+        return launches, plain_calls, loss.item(), grads, ms
+
+    depth = PHI_TRAIN["depth"]
+    torch.cuda.reset_peak_memory_stats()
+    launches, plain_calls, loss, grads, ms = run("performer_favor_most_general", PHI_TRAIN,
+                                                 timed=3)
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: 2 * depth for n in wrappers}
+    log("phi", f"flagship train step (batch {PHI_TRAIN['batch_size']}, N=197): launches "
+        f"{launches} (expected {want}), plain chain on CUDA tensors {plain_calls} times, "
+        f"loss {loss:.6f}, {ms:.2f} ms/step eager, peak {peak / 2**30:.3f} GiB")
+    if launches != want or plain_calls:
+        raise AssertionError(f"flagship step: phi+ launches {launches}, plain calls "
+                             f"{plain_calls}; expected {want} and none")
+    torch.cuda.reset_peak_memory_stats()
+    p_launches, p_calls, p_loss, p_grads, p_ms = run("performer_favor_most_general", PHI_TRAIN,
+                                                     force_plain=True, timed=3)
+    p_peak = torch.cuda.max_memory_allocated()
+    rel = {n: ((grads[n] - p_grads[n]).norm() / p_grads[n].norm().clamp_min(1e-30)).item()
+           for n in grads}
+    worst = max(rel, key=rel.get)
+    log("phi", f"plain twin: launches {p_launches}, plain calls {p_calls}, loss {p_loss:.6f} "
+        f"(rel gap {abs(loss - p_loss) / abs(p_loss):.3e}), {p_ms:.2f} ms/step eager, peak "
+        f"{p_peak / 2**30:.3f} GiB; gradients: worst {worst} {rel[worst]:.3e}, median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e} (tol {GRAD_REL_TOL}) on {card}")
+    if rel[worst] > GRAD_REL_TOL or abs(loss - p_loss) > 1e-2 * abs(p_loss) or any(
+            p_launches.values()):
+        raise AssertionError("the flagship's step on the phi+ kernels disagrees with the plain "
+                             "chain's")
+    del grads, p_grads
+    small = dict(PHI_TRAIN, depth=2, batch_size=8)
+    for name in PHI_VARIANTS:
+        got, calls, vloss, _, _ = run(name, small)
+        log("phi", f"{name} depth 2: launches {got}, plain calls on CUDA {calls}, loss "
+            f"{vloss:.6f}")
+        if got != {n: 4 for n in wrappers} or calls or not math.isfinite(vloss):
+            raise AssertionError(f"{name}: phi+ launches {got}, plain calls {calls}")
+    return launches
+
+
+def phi_phase(card: str):
+    """Phase 26: the phi+ kernels. launch_info at the flagship's (F, D) =
+    (266, 64) and the narrow (44, 16) (no spills at F=266), the built rule
+    against `phi_kernel_takes` over a grid of (D, F), the kernels against
+    the plain chain (check_phi_kernels) and in train steps
+    (phi_train_launches). Returns (rows of the kernels line, the flagship
+    step's launches)."""
+    from efficient_rpe_vit_torch.ops.feature_maps import phi_kernel_takes
+    from efficient_rpe_vit_torch.ops.kernels import phi_positive as pk
+
+    for kernel in pk._KINDS:
+        for F, D in ((266, 64), (44, 16)):
+            info = pk.launch_info(kernel, F, D)
+            log("phi", f"{kernel} F={F} D={D}: {info}")
+            if F == 266 and info["spill_bytes"]:
+                raise AssertionError(f"{kernel} spills {info['spill_bytes']} bytes at F=266")
+    for D in (0, 8, 16, 24, 40, 60, 64, 72):
+        for F in (1, 2, 44, 64, 65, 266, 272, 273, 274):
+            x = torch.empty(1, 2, 3, D, dtype=torch.bfloat16, device="cuda")
+            om = torch.empty(2, D, F, device="cuda")
+            if bool(pk.kernel_rule(D, F)) != phi_kernel_takes(x, om):
+                raise AssertionError(f"the built rule and phi_kernel_takes differ at D={D} F={F}")
+    log("phi", "the built (D, F) rule equals phi_kernel_takes on a grid of 72 points")
+    rows = check_phi_kernels(pk, PHI_SHAPES, timed=True)
+    check_phi_kernels(pk, PHI_EDGE_SHAPES, timed=False)
+    return rows, phi_train_launches(pk, card)
 
 
 def flash_bound(B, H, N, D, dtype: str):
@@ -4914,6 +5204,7 @@ def main() -> int:
     flash = check_flash_kernels(fa)
     rotation = check_rotation_kernels(cr)
     fused = check_fused_kernels(mlc)
+    phi_rows, phi_step = phi_phase(card)
     materialised = check_masked_linear_kernels(ml, mlc, pallas_ab.SHAPES)
 
     # 4. serve and 5. train ViT-B/16 with KERPLE
@@ -4923,7 +5214,7 @@ def main() -> int:
                    for arm, method in (("kernel", "pallas"), ("dense", "dense"))}
     serve_launches = serve("serve", "performer_favor_most_general", kerple_arms, kerple,
                            {n: depth if n == "masked_linear_coeffs_fwd" else 0 for n in kerple},
-                           card, args.profile)
+                           card, args.profile, arbiter=True)
     train_launches = train("train", "performer_favor_most_general",
                            dict(VITB, batch_size=TRAIN_BATCH), kerple_arms, kerple,
                            {n: 0 if n == "kerple_fused_phi_fwd" else depth for n in kerple},
@@ -5224,6 +5515,12 @@ def main() -> int:
                               ("flash_bwd_dkv", 129))}}
     for name, path, row, n in experiment_rows:
         rows.append((name, *exp_origin[name], path, row, n))
+    # phase 26's phi+ kernels at the flagship cells' shapes; the train step's
+    # launches on the first
+    for (name, shape), row in sorted(phi_rows.items()):
+        rows.append((name, f"{src}/phi_positive.cu", "none (XLA fused it in JAX)",
+                     f"phi_{'x'.join(map(str, shape))}", row,
+                     phi_step[name] if shape == PHI_SHAPES[0] else 0))
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -9,12 +9,9 @@ widths, batch 64, bf16, dropout 0, on one NCCL rank, in these arms:
     gpipe_m4     make_pipeline_train_step on pipe=1, M = 4: the same four
                  microbatches, all forwards before the backwards
     gpipe_m1     the same at M = 1: the pipeline without the split
-    step_phi_kept, gpipe_m4_phi_recomputed
-                 the step with phi's fp32 intermediates always kept, and
-                 GPipe with them always recomputed in the backward
-                 (`models/attention.py` PHI_CHECKPOINT_BYTES at infinity
-                 and at 0; it is 128 MiB per call, passed at B = 64 and
-                 not at B = 16)
+
+(phi runs on its kernels, which keep no fp32 intermediate, so
+`models/attention.py`'s PHI_CHECKPOINT_BYTES does not bear on any arm.)
 
 For each arm: the first step's peak memory above its start (what
 `chip_smoke.py` phase 22 a logs) and a later step's; ms per step (host
@@ -44,13 +41,11 @@ VITB = dict(image_size=224, patch_size=16, in_channels=3, num_classes=1000, dim=
             depth=12, heads=12, mlp_dim=3072, dropout=0.0, compute_dtype="bfloat16",
             batch_size=64)
 FLAGSHIP = "performer_favor_most_general"
-# (arm, microbatches for GPipe or None, grad_accum, PHI_CHECKPOINT_BYTES or None)
-ARMS = (("step", None, 1, None),
-        ("accum4", None, 4, None),
-        ("gpipe_m4", 4, 1, None),
-        ("gpipe_m1", 1, 1, None),
-        ("step_phi_kept", None, 1, float("inf")),
-        ("gpipe_m4_phi_recomputed", 4, 1, 0))
+# (arm, microbatches for GPipe or None, grad_accum)
+ARMS = (("step", None, 1),
+        ("accum4", None, 4),
+        ("gpipe_m4", 4, 1),
+        ("gpipe_m1", 1, 1))
 GROUPS = (("kerple", ("mlc_",)),
           ("gemm", ("gemm", "xmma", "cutlass", "sm90", "sm80")),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -94,17 +89,14 @@ def _trace(run) -> dict:
                     for d, c, k in sorted(kernels, reverse=True)[:12]]}
 
 
-def run_arm(label, microbatches, accum, phi_bytes, cfg, mesh, x, y, steps: int) -> dict:
-    from efficient_rpe_vit_torch.models import attention, create_model
+def run_arm(label, microbatches, accum, cfg, mesh, x, y, steps: int) -> dict:
+    from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.parallel import (
         create_pipeline_train_state,
         make_pipeline_train_step,
     )
     from efficient_rpe_vit_torch.train import create_train_state, make_train_step
 
-    plain_bytes = attention.PHI_CHECKPOINT_BYTES
-    if phi_bytes is not None:
-        attention.PHI_CHECKPOINT_BYTES = phi_bytes
     try:
         model = create_model(FLAGSHIP, cfg, device="cuda",
                              generator=torch.Generator().manual_seed(0))
@@ -135,14 +127,11 @@ def run_arm(label, microbatches, accum, phi_bytes, cfg, mesh, x, y, steps: int) 
             step(state, x, y, gen)
 
         out = {"arm": label, "microbatches": microbatches, "grad_accum": accum,
-               "phi_checkpoint_bytes": (None if phi_bytes is None else
-                                        ("inf" if phi_bytes == float("inf") else phi_bytes)),
                "ms_per_step": ms, "first_step_peak_gib": peaks[0],
                "second_step_peak_gib": peaks[1], "loss": float(loss), "trace": _trace(one)}
         del model, state, step
         return out
     finally:
-        attention.PHI_CHECKPOINT_BYTES = plain_bytes
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -23,10 +23,12 @@ FLOPs. `flops_per_step_counted` counts one eager `make_train_step` call
 with `torch.utils.flop_counter.FlopCounterMode`, the port's counterpart of
 the JAX `flops_per_step_xla` (XLA's cost analysis; the `_xla` keys are
 renamed `_counted`, every other key is the JAX one). Like XLA's count it
-does not see the hand-written kernels (a ctypes launch or a `torch.library`
-kernel op has no FLOP formula and counts 0), so `pallas_attention_flops`
-adds their analytic FLOPs, gated by the port's own `auto` rules:
-`flops_per_step` is the sum. MFU divides FLOPs per second by the dense
+does not see the hand-written attention kernels (a ctypes launch or a
+`torch.library` kernel op has no FLOP formula and counts 0), so
+`pallas_attention_flops` adds their analytic FLOPs, gated by the port's
+own `auto` rules: `flops_per_step` is the sum. The phi+ kernels' two ops
+are the exception: they carry FLOP formulas (`ops/kernels/phi_positive.py`)
+and are counted, as XLA counts the fused phi of the JAX step. MFU divides FLOPs per second by the dense
 bf16 peak of the card that ran, chosen by its name (`utils/timing.py`
 `PEAK_BF16`); another card or the CPU gets a null MFU. Each row also
 holds its kernel launches (`launches`: the whole row, `launches_per_step`:

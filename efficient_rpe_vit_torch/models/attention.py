@@ -23,7 +23,8 @@ Counterpart of `efficient_rpe_vit_tpu/models/attention.py`:
     calls, counted in the buffer `redraw_counter` (the JAX package's
     'state' collection), Omega drawn from the caller's generator,
   * phi recomputed in the backward (a checkpoint) once the fp32 phi of one
-    of q, k would exceed PHI_CHECKPOINT_BYTES,
+    of q, k would exceed PHI_CHECKPOINT_BYTES, where phi keeps fp32
+    intermediates at all (`ops.feature_maps.phi_keeps_fp32`),
   * dropout on the output, masks from the caller's generator,
   * context parallelism (`seq_mesh`, `seq_axis`): the core runs with the
     sequence split over the mesh axis (`parallel/seq_parallel.py`): ring
@@ -58,7 +59,7 @@ from ..ops import (
 )
 from ..ops import rotations
 from ..ops.attention_core import softmax_arm
-from ..ops.feature_maps import mxu_num_features
+from ..ops.feature_maps import mxu_num_features, phi_keeps_fp32
 from ..utils import tracing
 from .dense import Dense, Dropout, batch_part, draw, replaying
 from .rpe import CirculantStringRPE, KerpleRPE, RoPE, RoPE2D
@@ -370,7 +371,8 @@ class _KernelAttention(_Attention):
             return self._out(out, generator)
 
         B, H, N, _ = q.shape
-        if torch.is_grad_enabled() and 4 * B * H * N * self.m > PHI_CHECKPOINT_BYTES:
+        if (torch.is_grad_enabled() and 4 * B * H * N * self.m > PHI_CHECKPOINT_BYTES
+                and phi_keeps_fp32(self.feature_kind, q, self.omega)):
             # keep only q', k' (the attention core saves them anyway); phi's
             # fp32 intermediates are recomputed in the backward. phi draws
             # no random numbers, so no RNG state needs restoring.

@@ -9,7 +9,9 @@ Counterpart of `efficient_rpe_vit_tpu/ops/feature_maps.py`:
 Omega is drawn from an explicit `torch.Generator`; the projection runs in
 fp32 whatever the input dtype (the JAX version promotes the bf16 input
 against the fp32 Omega the same way) and the features come back in the
-input dtype.
+input dtype. `phi_positive` runs on its two hand-written kernels
+(`ops/kernels/phi_positive.py`) where `phi_kernel_takes` holds, and as the
+plain chain of PyTorch passes (`phi_positive_plain`) everywhere else.
 """
 
 from __future__ import annotations
@@ -63,13 +65,64 @@ def _project(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), omega.float())
 
 
+# the kernels' limits (csrc/phi_positive.cu): head dims, features
+PHI_KERNEL_MAX_D = 64
+PHI_KERNEL_MAX_F = 272
+
+
+def phi_kernel_takes(x: torch.Tensor, omega: torch.Tensor,
+                     device_rule: bool = True) -> bool:
+    """Whether `phi_positive(x, omega)` runs on the phi+ kernels: CUDA
+    tensors, or any while `torch.export` traces (so that an artifact
+    exported on the CPU holds the op and launches the kernel once moved to
+    the card; `device_rule` off: any device), x bf16 [B, H, N, D] with D <=
+    64 and D % 8 == 0, Omega fp32 [H, D, F] without a gradient, F even and
+    <= 272, H and N not empty. Decided from shapes, dtypes and devices
+    alone, before any call; everything else (CPU tensors outside an export,
+    fp32 compute, odd or wide F, an Omega that needs a gradient) takes the
+    plain chain."""
+    if (device_rule and not (x.is_cuda and omega.is_cuda)
+            and not torch.compiler.is_exporting()):
+        return False
+    if x.dim() != 4 or omega.dim() != 3 or x.dtype != torch.bfloat16:
+        return False
+    if omega.dtype != torch.float32 or omega.requires_grad:
+        return False
+    _, H, N, D = x.shape
+    F = omega.shape[-1]
+    return (tuple(omega.shape[:2]) == (H, D) and H > 0 and N > 0
+            and 0 < D <= PHI_KERNEL_MAX_D and D % 8 == 0
+            and 0 < F <= PHI_KERNEL_MAX_F and F % 2 == 0)
+
+
+def phi_keeps_fp32(kind: str, x: torch.Tensor, omega: torch.Tensor) -> bool:
+    """Whether the feature map `kind` ("favor_plus", "favor_hyper" or
+    "relu") keeps fp32 [B, H, N, M] intermediates for its backward on these
+    inputs: every map but phi+ on its kernels, whose backward recomputes the
+    projection and keeps only x."""
+    return not (kind == "favor_plus" and phi_kernel_takes(x, omega))
+
+
+def phi_positive_plain(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
+    """phi+ as the chain of PyTorch passes (see `phi_positive`)."""
+    m = omega.shape[-1]
+    proj = _project(x, omega)
+    proj_max = proj.amax(dim=-1, keepdim=True).detach()
+    x_norm_sq_half = (x * x).sum(dim=-1, keepdim=True) / 2.0
+    phi = torch.exp(proj - proj_max - x_norm_sq_half) / math.sqrt(m)
+    return phi.to(x.dtype)
+
+
 def phi_positive(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """Positive random features for the softmax kernel (FAVOR+).
 
     phi+(x) = exp(x@Omega - rowmax(x@Omega) - ||x||^2 / 2) / sqrt(m)
 
     The per-row max is a detached stabiliser; ||x||^2/2 is taken in the
-    input dtype, as the JAX version does.
+    input dtype, as the JAX version does. Where `phi_kernel_takes(x,
+    omega)` holds, one forward and one backward kernel compute the same
+    function (the projection fp32-exact, Omega never rounded); elsewhere
+    the plain chain (`phi_positive_plain`) runs.
 
     Args:
         x: [B, H, N, D] queries or keys.
@@ -77,12 +130,11 @@ def phi_positive(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     Returns:
         [B, H, N, M] positive features in x's dtype.
     """
-    m = omega.shape[-1]
-    proj = _project(x, omega)
-    proj_max = proj.amax(dim=-1, keepdim=True).detach()
-    x_norm_sq_half = (x * x).sum(dim=-1, keepdim=True) / 2.0
-    phi = torch.exp(proj - proj_max - x_norm_sq_half) / math.sqrt(m)
-    return phi.to(x.dtype)
+    if phi_kernel_takes(x, omega):
+        from .kernels.phi_positive import phi_positive_kernel
+
+        return phi_positive_kernel(x, omega)
+    return phi_positive_plain(x, omega)
 
 
 def phi_hyperbolic(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,12 @@ from .masked_linear_coeffs import (
     masked_linear_attention_coeffs_fwd,
     masked_linear_attention_coeffs_reference,
 )
+from .phi_positive import (
+    phi_positive_bwd,
+    phi_positive_bwd_reference,
+    phi_positive_fwd,
+    phi_positive_kernel,
+)
 
 __all__ = [
     "circulant_rotate_bwd",
@@ -61,4 +67,8 @@ __all__ = [
     "masked_linear_bwd_reference",
     "masked_linear_fwd",
     "masked_linear_fwd_reference",
+    "phi_positive_bwd",
+    "phi_positive_bwd_reference",
+    "phi_positive_fwd",
+    "phi_positive_kernel",
 ]
