@@ -42,15 +42,14 @@ def stand_in_readings(cell, seed: int, device) -> dict:
     program's place."""
     import torch
 
-    from perfbench import check
+    from perfbench import check, spec
     from perfbench.runners.train import CHECKED_STEPS
     from perfbench.reference import train as reference
-    from perfbench.reference.vit import parameter_spec
     from perfbench.weights import chunks, make_images, make_weights
 
     config, mix = cell.config, cell.mix
-    weights = {n: t.to("cpu") for n, t in
-               make_weights(parameter_spec(config, mix), seed, device).items()}
+    leaves = spec.family(config).reference.parameter_spec(config, mix)
+    weights = {n: t.to("cpu") for n, t in make_weights(leaves, seed, device).items()}
     images, labels = make_images(mix["held_images"], mix["image_size"], config["in_channels"],
                                  config["num_classes"], seed, device)
     first = next(chunks(mix["held_images"], mix["batch"], mix["fused_steps"], seed))

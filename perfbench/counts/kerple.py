@@ -32,7 +32,7 @@ def attention_forward_flops_per_image(config: dict, s: dict) -> float:
 
 def train_flops_per_step(config: dict, mix: dict) -> float:
     s = vit.shape(config, mix)
-    return vit.train_flops_per_step(s, attention_forward_flops_per_image(config, s))
+    return vit.step_flops(s, attention_forward_flops_per_image(config, s))
 
 
 def op_least_seconds(config: dict, mix: dict, peak: dict) -> dict:

@@ -4,10 +4,12 @@ Copied from `bench_torch.py::train_flops_per_step` (2 FLOPs per
 multiply-add; the backward counted as twice the forward, so a train step is
 3x the forward; no recompute; elementwise work not counted) and split into
 the shared part, here, and each attention kind's own products
-(`counts/<attention>.py`).
+(`counts/<attention>.py`). The `vit` family's counts (`spec.family`).
 """
 
 from __future__ import annotations
+
+from .. import spec
 
 
 def shape(config: dict, mix: dict) -> dict:
@@ -32,10 +34,16 @@ def shared_forward_flops_per_image(s: dict) -> float:
     return s["L"] * block + 2 * s["patches"] * s["patch_dim"] * d + 2 * d * s["classes"]
 
 
-def train_flops_per_step(s: dict, attention_forward_flops_per_image: float) -> float:
+def step_flops(s: dict, attention_forward_flops_per_image: float) -> float:
     """One train step's model FLOPs: 3x the forward of the batch."""
     return 3.0 * s["B"] * (shared_forward_flops_per_image(s)
                            + attention_forward_flops_per_image)
+
+
+def train_flops_per_step(config: dict, mix: dict) -> float:
+    """The `vit` family's step FLOPs (`step_mfu.train`): its attention
+    kind's count, `counts/<attention>.py`."""
+    return spec.counts(config["attention"]).train_flops_per_step(config, mix)
 
 
 def elt_bytes(config: dict) -> int:

@@ -6,7 +6,9 @@ configuration's cosine schedule, each step's loss and gradient summed over
 blocks of rows so that long sequences fit, torch's AdamW update order
 (decoupled decay, then the bias-corrected moments). It reads each step's
 loss, each leaf's gradient norm at the first step, and each leaf's change
-after the last step.
+after the last step. The model is the configuration's family's plain one
+(`spec.family`); the loss, the cross-entropy with uniform label smoothing
+as a mean over the batch, is the train traffic's own.
 
 `fault` plants what a broken program would do, for the check's own test
 and its upper readings: "half" takes the loss over the first half of each
@@ -20,8 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..counts.vit import shape
-from . import vit
+from .. import spec
 from .precision import Products, float32_products
 
 BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
@@ -39,19 +40,18 @@ def learning_rate(config: dict, mix: dict, step: int) -> float:
     return peak * 0.5 * (1.0 + math.cos(math.pi * min(step, total) / total))
 
 
-def block_rows(config: dict, mix: dict, budget_bytes: float = 16e9) -> int:
-    """Rows per block: what one image keeps for its backward (per layer
-    about three [H, N, N] and twenty [N, dim + mlp] float32 tensors) within
-    `budget_bytes`."""
-    s = shape(config, mix)
-    per_image = s["L"] * 4 * (3 * s["H"] * s["N"] ** 2 + 20 * s["N"] * (s["dim"] + s["mlp"]))
-    return max(1, min(s["B"], int(budget_bytes // per_image)))
-
-
 def normalise(images_u8: torch.Tensor, config: dict) -> torch.Tensor:
     mean = torch.tensor(config["mean"], dtype=torch.float32, device=images_u8.device)
     std = torch.tensor(config["std"], dtype=torch.float32, device=images_u8.device)
     return (images_u8.float() / 255.0 - mean) / std
+
+
+def row_losses(logits: torch.Tensor, labels: torch.Tensor, smoothing: float) -> torch.Tensor:
+    """Per-row cross-entropy with (1 - s) on the label and s / K on every
+    class."""
+    logp = torch.log_softmax(logits, dim=-1)
+    on = logp.gather(1, labels[:, None].long())[:, 0]
+    return -((1.0 - smoothing) * on + (smoothing / logits.shape[-1]) * logp.sum(-1))
 
 
 def run_steps(config: dict, mix: dict, weights: Dict[str, torch.Tensor],
@@ -65,14 +65,15 @@ def run_steps(config: dict, mix: dict, weights: Dict[str, torch.Tensor],
     train.
     """
     prods = Products(precision)
-    spec = vit.parameter_spec(config, mix)
-    w = {n: weights[n].to(device, torch.float32).clone().requires_grad_(vit.trains(init))
-         for n, _, init in spec}
-    train = [n for n, _, init in spec if vit.trains(init)]
+    model = spec.family(config).reference
+    leaves = model.parameter_spec(config, mix)
+    w = {n: weights[n].to(device, torch.float32).clone().requires_grad_(model.trains(init))
+         for n, _, init in leaves}
+    train = [n for n, _, init in leaves if model.trains(init)]
     start = {n: w[n].detach().clone() for n in train}
     m = {n: torch.zeros_like(w[n]) for n in train}
     v = {n: torch.zeros_like(w[n]) for n in train}
-    rows = block_rows(config, mix)
+    rows = model.block_rows(config, mix)
     losses, grad_norms = [], {}
     with float32_products():
         for t, (images, labels) in enumerate(batches):
@@ -85,12 +86,12 @@ def run_steps(config: dict, mix: dict, weights: Dict[str, torch.Tensor],
             for lo in range(0, b, rows):
                 x = normalise(images[lo:lo + rows].to(device), config)
                 y = labels[lo:lo + rows].to(device).long()
-                logits = vit.forward(w, x, config, prods)
+                logits = model.forward(w, x, config, prods)
                 if fault == "answer" and lo == 0:
                     bump = torch.zeros_like(logits)
                     bump[0, y[0]] = 1.0
                     logits = logits + bump
-                part = (vit.row_losses(logits, y, config["label_smoothing"])
+                part = (row_losses(logits, y, config["label_smoothing"])
                         * weight[lo:lo + rows]).sum()
                 part.backward()
                 loss += float(part.detach())

@@ -4,10 +4,10 @@ Pre-norm blocks (Dosovitskiy et al. 2020): patches in the (C, p, p) layout
 of NHWC images, a linear patch embedding, a CLS token and a learned
 position embedding, then per block x + proj(attention(LN(x))) and
 x + fc2(GELU(fc1(LN(x)))), GELU exact, LayerNorm eps 1e-5, the qkv
-projection without bias; the head is LN + linear on the CLS row. The loss
-is the cross-entropy with uniform label smoothing, a mean over the batch.
-Leaf names are the state-dict names the port's ViT uses, so the benchmark
-loads the same weights into both sides by name.
+projection without bias; the head is LN + linear on the CLS row. Leaf names
+are the state-dict names the port's ViT uses, so the benchmark loads the
+same weights into both sides by name. The `vit` family's plain model
+(`spec.family`).
 """
 
 from __future__ import annotations
@@ -57,6 +57,15 @@ def trains(init: str) -> bool:
     return init != "omega"
 
 
+def block_rows(config: dict, mix: dict, budget_bytes: float = 16e9) -> int:
+    """Rows per block: what one image keeps for its backward (per layer
+    about three [H, N, N] and twenty [N, dim + mlp] float32 tensors) within
+    `budget_bytes`."""
+    s = shape(config, mix)
+    per_image = s["L"] * 4 * (3 * s["H"] * s["N"] ** 2 + 20 * s["N"] * (s["dim"] + s["mlp"]))
+    return max(1, min(s["B"], int(budget_bytes // per_image)))
+
+
 def forward(w: dict, x: torch.Tensor, config: dict, prods) -> torch.Tensor:
     """Normalised images x [b, S, S, C] -> logits [b, classes]."""
     attn = attention(config)
@@ -81,11 +90,3 @@ def forward(w: dict, x: torch.Tensor, config: dict, prods) -> torch.Tensor:
         h = h + prods.linear(y, leaves["mlp.3.weight"], leaves["mlp.3.bias"])
     z = F.layer_norm(h[:, 0], (dim,), w["mlp_head.0.weight"], w["mlp_head.0.bias"], LN_EPS)
     return prods.linear(z, w["mlp_head.1.weight"], w["mlp_head.1.bias"])
-
-
-def row_losses(logits: torch.Tensor, labels: torch.Tensor, smoothing: float) -> torch.Tensor:
-    """Per-row cross-entropy with (1 - s) on the label and s / K on every
-    class."""
-    logp = torch.log_softmax(logits, dim=-1)
-    on = logp.gather(1, labels[:, None].long())[:, 0]
-    return -((1.0 - smoothing) * on + (smoothing / logits.shape[-1]) * logp.sum(-1))

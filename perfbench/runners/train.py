@@ -8,7 +8,7 @@ mix outlasts it).
 
 Set-up: the port's kernels built (`ops/kernels/_build.py`, into the fixed
 `build/` of the checkout: only a checkout's first run compiles), the model
-made by the port's `create_model` and given the benchmark's weights by
+built by the family and given the benchmark's weights by
 name, the train state, the held images and labels drawn on the card, then
 the first call on the first chunk (K eager steps, then the capture) and one
 warm replay of that chunk from the same starting state, which must equal
@@ -17,6 +17,10 @@ chunks, epoch after epoch, until `--seconds` have passed, keeping one call
 queued ahead of the host, and ends at a host read that waits for the last
 update. After it, with the program freed, the plain reference follows the
 first call's first three steps from the same weights and batches.
+
+The model is the configuration's family's (`spec.family`): the program's
+from `families/<family>.py`, its leaves, plain reference and step FLOPs
+from `reference/` and `counts/<family>.py`.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import torch
 
 from .. import check, spec
 from ..reference import train as reference
-from ..reference.vit import parameter_spec
 from ..trace import Tracer, reduce_events
 from ..weights import chunks, make_images, make_weights, sub_seed
 
@@ -70,24 +73,6 @@ class Probe:
         return {"losses": [float(x) for x in losses[:CHECKED_STEPS]],
                 "grad_norms": dict(zip(names, self.grad.tolist())),
                 "delta_norms": dict(zip(names, self.delta))}
-
-
-def _experiment_config(config: dict, mix: dict):
-    from efficient_rpe_vit_torch.configs import (DataConfig, ExperimentConfig, ModelConfig,
-                                                 TrainConfig)
-
-    return ExperimentConfig(
-        model=ModelConfig(image_size=mix["image_size"], in_channels=config["in_channels"],
-                          patch_size=config["patch_size"], num_classes=config["num_classes"],
-                          dim=config["dim"], depth=config["depth"], heads=config["heads"],
-                          mlp_dim=config["mlp_dim"], dropout=config["dropout"]),
-        train=TrainConfig(batch_size=mix["batch"],
-                          learning_rate=reference.learning_rate(config, mix, 0),
-                          weight_decay=config["weight_decay"], epochs=config["epochs"],
-                          warmup_epochs=0, optimizer=config["optimizer"],
-                          scheduler=config["scheduler"], compute_dtype=config["compute_dtype"]),
-        data=DataConfig(dataset="synthetic", mean=tuple(config["mean"]),
-                        std=tuple(config["std"])))
 
 
 def _steps_per_epoch(mix: dict) -> int:
@@ -155,11 +140,11 @@ def run(cell, seed: int, seconds: float, trace: bool, clock_start: float,
     "numbers" and "limits" (the check's), "correct", "setup_s",
     "window_s"}."""
     stage = Stages(clock_start)
-    from efficient_rpe_vit_torch.models import create_model
     from efficient_rpe_vit_torch.ops.kernels import _build
     from efficient_rpe_vit_torch.train import create_train_state, make_gather_multi_step
 
     config, mix = cell.config, cell.mix
+    family = spec.family(config)
     k, batch = mix["fused_steps"], mix["batch"]
     if k < CHECKED_STEPS:
         raise ValueError(f"the first call must hold the {CHECKED_STEPS} checked steps, K = {k}")
@@ -168,13 +153,9 @@ def run(cell, seed: int, seconds: float, trace: bool, clock_start: float,
     if on_card:
         _build.build()  # every source at once; a no-op once the checkout has them
     stage("kernel build")
-    exp = _experiment_config(config, mix)
-    attention_config = ({"num_features": config["num_features"]}
-                        if "num_features" in config else None)
-    model = create_model(config["variant"], exp, attention_config=attention_config,
-                         device=device, generator=torch.Generator().manual_seed(0))
+    model, exp = family.program.build(config, mix, device, torch.Generator().manual_seed(0))
     stage("model")
-    weights = make_weights(parameter_spec(config, mix), seed, device)
+    weights = make_weights(family.reference.parameter_spec(config, mix), seed, device)
     _load(model, weights)
     theta0 = {n: t.to("cpu", copy=True) for n, t in weights.items()}
     del weights
@@ -264,7 +245,7 @@ def run(cell, seed: int, seconds: float, trace: bool, clock_start: float,
 
     if trace:
         run_info = {"config": config, "mix": mix, "peak": peak,
-                    "counts": spec.counts(config["attention"])}
+                    "counts": family.counts}
         metrics = {}
         for m in cell.per_layer:
             value = None if traced is None else spec.reader(m["name"]).read(traced, run_info)

@@ -3,9 +3,10 @@
 Everything a cell needs is looked up here from the names in
 `BENCHMARK.json`: its configuration (`configs/<config>.json`), its traffic
 mix (`mixes/<traffic>.json`), its correctness limits
-(`limits/<workload>.json`), the readers of its per-layer metrics
-(`metrics/<metric>.py`) and the kernel-name groups (`kernel_groups/*.json`),
-which the readers name.
+(`limits/<workload>.json`), its model by the configuration's `family`
+(`families/`, `reference/` and `counts/<family>.py`), the readers of its
+per-layer metrics (`metrics/<metric>.py`) and the kernel-name groups
+(`kernel_groups/*.json`), which the readers name.
 """
 
 from __future__ import annotations
@@ -136,6 +137,50 @@ def counts(attention: str) -> ModuleType:
     """The frozen FLOP and roofline arithmetic of an attention kind:
     `counts/<attention>.py`."""
     return importlib.import_module(f"perfbench.counts.{attention}")
+
+
+@dataclass(frozen=True)
+class Family:
+    """The three modules of a model family F, each named after it:
+
+    * `program`, `families/F.py`, the port's side (it may import the port,
+      inside its functions only): `build(config, mix, device, generator) ->
+      (model, experiment_config)`, the port's model for the configuration
+      with its weights still to be loaded by name, and `tiny(config, mix) ->
+      (config, mix)`, the sizes the CPU tests run the family at;
+    * `reference`, `reference/F.py`, the plain model (nothing of the port):
+      `parameter_spec(config, mix) -> [(name, shape, init)]` (the names the
+      program's leaves have), `trains(init) -> bool`, `forward(w, x, config,
+      prods) -> logits` and `block_rows(config, mix, budget_bytes) -> rows`;
+    * `counts`, `counts/F.py`, its frozen arithmetic: `shape(config, mix)`
+      and `train_flops_per_step(config, mix)`.
+    """
+
+    name: str
+    program: ModuleType
+    reference: ModuleType
+    counts: ModuleType
+
+
+def families() -> List[str]:
+    """The families on disk: the files of `families/`."""
+    return sorted(p.stem for p in (HERE / "families").glob("*.py") if p.stem != "__init__")
+
+
+def family(config: dict) -> Family:
+    """The model family the configuration names (its `family`)."""
+    name = config["family"]
+    modules = []
+    for package in ("families", "reference", "counts"):
+        module = f"perfbench.{package}.{name}"
+        try:
+            modules.append(importlib.import_module(module))
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+            raise KeyError(f"no model family {name!r}: {package}/{name}.py is missing; the "
+                           f"families are {families()}") from None
+    return Family(name, *modules)
 
 
 def runner(kind: str) -> ModuleType:

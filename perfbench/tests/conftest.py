@@ -14,19 +14,19 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = ["kerple-b16-train-n4097", "softmax-b16-train-n4097",
-         "kerple-b16-train-n197", "softmax-b16-train-n197"]
+from perfbench import spec  # noqa: E402
+
+# every cell of BENCHMARK.json, in file order: a cell appended later is
+# tested without an edit here
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 CARD = "NVIDIA H100 80GB HBM3"
 
 
 def tiny(cell, compute_dtype="float32"):
-    """The cell at a width a CPU test holds (dim 32, depth 2, N = 17),
-    its limits kept."""
-    cell.config = dict(cell.config, dim=32, depth=2, heads=2, mlp_dim=64, patch_size=4,
-                       num_classes=10, compute_dtype=compute_dtype)
-    if "num_features" in cell.config:
-        cell.config["num_features"] = 12
-    cell.mix = dict(cell.mix, image_size=16, batch=4, fused_steps=3, held_images=24)
+    """The cell at the sizes a CPU test holds (its family's `tiny`), its
+    limits kept."""
+    config, cell.mix = spec.family(cell.config).program.tiny(cell.config, cell.mix)
+    cell.config = dict(config, compute_dtype=compute_dtype)
     return cell
 
 
@@ -35,8 +35,6 @@ def tiny_run():
     """run(workload, compute_dtype, seed) -> the training runner's result on
     the CPU for the tiny cell, with a half-second window."""
     import torch
-
-    from perfbench import spec
 
     def run(workload, compute_dtype="float32", seed=2 ** 31 + 11):
         cell = tiny(spec.load_cell(workload), compute_dtype)

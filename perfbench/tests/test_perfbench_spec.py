@@ -16,6 +16,11 @@ ENTRY_KEYS = {
     "per_layer": {"name", "unit", "better", "source", "layer", "moves"},
 }
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# the cells accepted so far, which later cells follow
+ACCEPTED = ["kerple-b16-train-n4097", "softmax-b16-train-n4097",
+            "kerple-b16-train-n197", "softmax-b16-train-n197"]
+VIT_B16 = [c["name"] for c in spec.load_benchmark()["configs"]
+           if c["name"].startswith("vit-b16-")]
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +84,8 @@ def test_perfbench_names_units_and_lines(bench):
 def test_perfbench_every_config_is_used_and_cells_are_in_order(bench):
     used = {w["config"] for w in bench["workloads"]}
     assert used == {c["name"] for c in bench["configs"]}
-    assert [w["name"] for w in bench["workloads"]] == CELLS
+    assert CELLS == [w["name"] for w in bench["workloads"]]
+    assert CELLS[:len(ACCEPTED)] == ACCEPTED
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -88,11 +94,16 @@ def test_perfbench_cell_finds_everything_by_name(bench, workload):
     assert cell.config["name"] == cell.entry["config"]
     assert cell.mix["name"] == cell.entry["traffic"]
     assert spec.runner(cell.mix["kind"]).run
-    assert spec.counts(cell.config["attention"]).op_least_seconds
-    assert set(cell.limits["limits"]) == {"loss_gap", "grad_gap", "step_gap", "replay_gap"}
-    assert cell.limits["limits"]["replay_gap"] == 0
-    assert {m["name"] for m in cell.end_to_end} == {"train_images_per_s", "peak_mem_gib",
-                                                    "setup_s"}
+    family = spec.family(cell.config)
+    assert family.name == cell.config["family"]
+    assert family.program.build and family.reference.forward
+    assert family.counts.train_flops_per_step(cell.config, cell.mix) > 0
+    if cell.mix["kind"] == "train":
+        assert set(cell.limits["limits"]) == {"loss_gap", "grad_gap", "step_gap",
+                                              "replay_gap"}
+        assert cell.limits["limits"]["replay_gap"] == 0
+        assert {m["name"] for m in cell.end_to_end} == {"train_images_per_s", "peak_mem_gib",
+                                                        "setup_s"}
     for m in cell.per_layer:
         assert callable(spec.reader(m["name"]).read)
     for m in bench["per_layer"]:
@@ -138,7 +149,7 @@ def test_perfbench_overlapping_groups_fail():
         {"name": "rotation", "patterns": ["rot_fwd_"]}]) == "rotation"
 
 
-@pytest.mark.parametrize("name", ["vit-b16-kerple", "vit-b16-softmax"])
+@pytest.mark.parametrize("name", VIT_B16)
 def test_perfbench_configs_keep_vit_b16_widths(name):
     config = spec.load_json(spec.config_file(name))
     assert (config["dim"], config["depth"], config["heads"], config["mlp_dim"],

@@ -34,7 +34,9 @@ def _numel(shape) -> int:
 def make_weights(spec: Spec, seed: int, device) -> Dict[str, torch.Tensor]:
     """{name: float32 tensor} for every leaf of `spec` (name, shape, init):
 
-    * `xavier`: N(0, 2 / (fan_in + fan_out)) for a [out, in] weight;
+    * `xavier`: N(0, 2 / (fan_in + fan_out)) for an [out, in, *kernel]
+      weight of rank 2 or more, with torch's fans: fan_in = in x prod(kernel),
+      fan_out = out x prod(kernel);
     * `small`: N(0, 0.02^2); `one_small`: 1 + N(0, 0.02^2);
     * `kerple_bias` [H, 2N-1]: -a log(1 + |k - N + 1|) + N(0, 0.02^2) with
       a ~ U(0, 0.5) per head, a Toeplitz mask that decays with distance;
@@ -54,7 +56,10 @@ def make_weights(spec: Spec, seed: int, device) -> Dict[str, torch.Tensor]:
         x = z[at:at + _numel(shape)].view(shape)
         at += _numel(shape)
         if kind == "xavier":
-            out[name] = x * math.sqrt(2.0 / (shape[0] + shape[1]))
+            if len(shape) < 2:
+                raise ValueError(f"xavier init of {name} needs a rank of 2 or more: {shape}")
+            receptive = _numel(shape[2:])
+            out[name] = x * math.sqrt(2.0 / (shape[1] * receptive + shape[0] * receptive))
         elif kind == "small":
             out[name] = x * 0.02
         elif kind == "one_small":
