@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # what CI runs: build, check, serve, train
     python3 chip_smoke.py --profile  # also trace one served batch and one train step of each model
+    python3 chip_smoke.py --only 27  # phases 1, 2 and 27 alone (also --only 3c)
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
@@ -330,6 +331,26 @@ Phases, each printed as it runs; any failure exits non-zero:
         24 backwards, the plain chain never on a CUDA tensor, loss and
         gradients against a twin on the plain chain, ms/step and peak of
         both; the FAVOR+ variants without KERPLE at depth 2: 4 of each.
+ 27. SAM ViT-H's attention with the decomposed relative-position bias
+     (#6r, 7r; run after phase 26), at the benchmark cell's two calls
+     (100, 16, 196, 80) on 14 x 14 and (4, 16, 4096, 80) on 64 x 64:
+     a. launch_info of the forward, dq and dkv bias kernels: mma.sync, no
+        spills;
+     b. on the same card tensors, the forward (out, lse) and the backward
+        (dq, dk, dv, d rel_h, d rel_w; dq and dkv launched, not the fused
+        pass; bitwise on a rerun) against the plain versions, within
+        FLASH_TOL, and the plain versions with rel_h or rel_w zeroed
+        outside it (the check sees a dropped term); the same calls without
+        the bias (D = 80: fused where it fits and two-pass) against theirs;
+        each bias kernel timed beside the same kernel without the bias, the
+        plain version, scaled_dot_product_attention with the bias
+        materialised as a float mask (its gradient summed back onto the
+        rows) and counts/sam.py's least time of the call;
+     c. one eager ViT-H train step (batch 4, 1024 x 1024, bf16, tables
+        drawn N(0, 0.02)) with the counts zeroed before it: 28 + 28 + 28
+        windowed and 4 + 4 + 4 global launches of the bias kernels and no
+        other flash launch, loss and gradients finite, every table's
+        gradient nonzero; the `*_rel` rows of the kernels line.
 The line before the last lists every kernel as JSON, one row per kernel and
 main path; the last line is {"ok": true, "device": {...}}. Without a GPU, or
 without the rest of the repository beside it, the script fails before
@@ -517,14 +538,15 @@ FFT_GRAD_SHAPE = (2, 12, 1025, 266, 64)
 F532 = (2, 12, 197, 532, 64)
 # flash cases (B, H, N, D, mask, dropout rate): the serving and training
 # shapes, ragged shapes, the JAX package's kernel-test shape, both mask
-# layouts, dropout alone and with a mask, the largest head dim
+# layouts, dropout alone and with a mask, the largest head dim, and SAM
+# ViT-H's head dim 80 (staged at 80) at its windows' N
 FLASH_CASES = [(VITB["batch_size"], 12, 197, 64, None, 0.0),
                (TRAIN_BATCH, 12, 197, 64, None, 0.0),
                (4, 12, 17, 64, None, 0.0), (4, 12, 130, 64, None, 0.0),
                (2, 2, 197, 16, None, 0.0),
                (4, 12, 197, 64, "B1NN", 0.0), (4, 12, 197, 64, "BHNN", 0.0),
                (4, 12, 197, 64, None, 0.1), (4, 12, 197, 64, "BHNN", 0.1),
-               (2, 2, 197, 128, None, 0.0)]
+               (2, 2, 197, 128, None, 0.0), (4, 16, 196, 80, None, 0.0)]
 FLASH_LONGN = (LONGN["batch_size"], 12, LONGN_N, 64, None, LONGN["dropout"])
 # bf16 cases at the edges of the fused mma.sync kernel's tiles (32-row query
 # tiles, one block holding up to 208 key/value rows): one row short of, at
@@ -534,6 +556,16 @@ FLASH_EDGE_CASES = [(2, 3, 31, 64, None, 0.0), (2, 3, 33, 64, None, 0.1),
                     (2, 3, 209, 64, None, 0.0)]
 # the kernel the fused pass runs at each edge case's N (launch_info's "kernel")
 FUSED_MMA_MAX_N = 208
+# SAM ViT-H's attention calls with the decomposed relative-position bias
+# (B, H, N, D, kh, kw), as the benchmark cell SAM_CELL runs them: the
+# windowed call (4 images x 25 windows of 14 x 14) and the global one (64 x
+# 64); phase 27's train step at the cell's batch
+SAM_CELL = "sam-h-train-n4096"
+SAM_SHAPES = {"sam_window_train": (100, 16, 196, 80, 14, 14),
+              "sam_global_train": (4, 16, 4096, 80, 64, 64)}
+SAM_TRAIN_BATCH = 4
+# the phases `--only` can run alone after phases 1 and 2
+ONLY_PHASES = ("3c", "27")
 # rotation shapes (B, H, N, D): serving, training and long-N (each a main
 # path), the JAX package's kernel-test shapes, a head dim whose column
 # groups leave threads idle (80, ViT-H's) and the largest head dim
@@ -1629,6 +1661,263 @@ def check_flash_kernels(fa):
                                           launch=infos[(kname, N)],
                                           **extra.get(kname, {}))
     return results
+
+
+def sam_bias_inputs(B, H, N, D, kh, kw):
+    """bf16 q, k, v, cotangent and fp32 bias rows (rel_h, rel_w) of unit
+    scale for one of SAM's attention calls: a bias that moves every score
+    by O(1), so that a kernel that drops either term is far off."""
+    g = torch.Generator(device="cuda").manual_seed(N * 100 + D + B)
+    q, k, v, cot = (torch.randn(B, H, N, D, generator=g, device="cuda").to(torch.bfloat16)
+                    for _ in range(4))
+    rel_h = torch.randn(B, H, N, kh, generator=g, device="cuda")
+    rel_w = torch.randn(B, H, N, kw, generator=g, device="cuda")
+    return q, k, v, cot, (rel_h, rel_w)
+
+
+def _sdpa_bias_ms(q, k, v, cot, rel, scale):
+    """(forward ms, backward ms) of the library route to the same function:
+    the bias materialised as a [B, H, N, N] bf16 mask from the two row
+    blocks, then scaled_dot_product_attention; the backward's gradient of
+    the mask summed back onto the rows. Timed eagerly (CUDA events), as
+    the plain versions are; (None, None) where the library refuses it."""
+    B, H, N, _ = q.shape
+    kh, kw = rel[0].shape[-1], rel[1].shape[-1]
+
+    def bias(rel_h, rel_w):
+        return (rel_h[..., :, None] + rel_w[..., None, :]).view(B, H, N, N).to(q.dtype)
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, *rel)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=bias(*leaves[3:]),
+                                             scale=scale)
+        return torch.autograd.grad(out, leaves, cot)
+
+    try:
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias(*rel), scale=scale), iters=10, warmup=2)
+        return fwd_ms, time_ms(fwd_bwd, iters=10, warmup=2) - fwd_ms
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+        log("sam", f"scaled_dot_product_attention with a float mask at {tuple(q.shape)}: "
+            f"refused ({str(err).splitlines()[0][:200]})")
+        return None, None
+
+
+def check_sam_bias_kernels(fa):
+    """Phase 27 a-b: the bias kernels (#6r, 7r) at SAM_SHAPES against the
+    plain versions on the same card tensors; the no-bias kernels at the same
+    (B, H, N, D = 80) too. Returns {(kernel, path): row}."""
+    from perfbench import spec
+    from perfbench.counts import sam as sam_counts
+
+    cell = spec.load_cell(SAM_CELL)
+    peak = {"bfloat16_flops_per_s": PEAK_OPS_PER_S["bfloat16"],
+            "float32_flops_per_s": PEAK_OPS_PER_S["float32"],
+            "hbm_bytes_per_s": HBM_BYTES_PER_S}
+    least = sam_counts.op_least_seconds(cell.config, cell.mix, peak)
+    wrappers = flash_wrappers(fa)
+    tol = FLASH_TOL["bfloat16"]
+    rows = {}
+    for path, (B, H, N, D, kh, kw) in SAM_SHAPES.items():
+        shape = f"B{B} H{H} N{N} D{D} grid {kh}x{kw} bfloat16"
+        infos = {}
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            infos[kname] = info = fa.launch_info(kname, N, D, torch.bfloat16, (kh, kw))
+            log("sam", f"{kname} with the bias at {shape}: " + ", ".join(
+                f"{key} {value}" for key, value in info.items()))
+            if info["kernel"] != "mma.sync" or info["spill_bytes"]:
+                raise AssertionError(f"{kname} with the bias at {shape} runs the "
+                                     f"{info['kernel']} kernel, {info['spill_bytes']} B spilled")
+        q, k, v, cot, rel = sam_bias_inputs(B, H, N, D, kh, kw)
+        scale = D ** -0.5
+        zero_h, zero_w = (torch.zeros_like(rel[0]), rel[1]), (rel[0], torch.zeros_like(rel[1]))
+
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, rel_pos=rel)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_softmax_attention_reference(q, k, v, scale, rel_pos=rel)
+        rel_out = _max_rel(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        dropped = {name: _max_rel(out, fa.flash_softmax_attention_reference(
+            q, k, v, scale, rel_pos=r)[0]) for name, r in (("rel_h", zero_h), ("rel_w", zero_w))}
+        log("sam", f"flash_fwd with the bias {shape}: out max|err|/max|plain| {rel_out:.3e} "
+            f"(tol {tol}), lse max|err| {lse_err:.3e} (tol {LSE_ATOL}); against the plain "
+            f"version without rel_h {dropped['rel_h']:.3e}, without rel_w {dropped['rel_w']:.3e}")
+        if not (rel_out <= tol and lse_err <= LSE_ATOL):
+            raise AssertionError(f"flash_fwd with the bias disagrees with its plain version "
+                                 f"at {shape}")
+        if min(dropped.values()) <= tol:
+            raise AssertionError(f"the forward check at {shape} would pass a kernel that "
+                                 f"drops a bias term")
+        fwd_err = (out.float() - ref_out.float()).abs().max().item()
+
+        delta = fa.flash_delta(out, cot)
+        zero_counts(wrappers)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, cot, scale, rel_pos=rel)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, cot, scale, rel_pos=rel)
+        torch.cuda.synchronize()
+        ran = counts(wrappers)
+        names = ("dq", "dk", "dv", "d rel_h", "d rel_w")
+        want = fa.flash_bwd_reference(q, k, v, cot, lse, delta, scale, rel_pos=rel)
+        rels = [_max_rel(a, b) for a, b in zip(got, want)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        log("sam", f"flash backward with the bias {shape} (launched {ran}): "
+            + ", ".join(f"{n} {r:.3e}" for n, r in zip(names, rels))
+            + f" max|err|/max|plain| (tol {tol}); bitwise on a rerun {bitwise}")
+        if max(rels) > tol or not bitwise or ran != {
+                "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}:
+            raise AssertionError(f"the backward with the bias disagrees with its plain "
+                                 f"version at {shape}, or ran {ran}")
+        for name, r in (("rel_h", zero_h), ("rel_w", zero_w)):
+            off = [_max_rel(a, b) for a, b in zip(got[:3], fa.flash_bwd_reference(
+                q, k, v, cot, lse, delta, scale, rel_pos=r)[:3])]
+            log("sam", f"  (dq, dk, dv) against the plain backward without {name}: "
+                + ", ".join(f"{x:.3e}" for x in off))
+            if max(off) <= tol:
+                raise AssertionError(f"the backward check at {shape} would pass a kernel "
+                                     f"that drops {name}")
+        bwd_errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+        del again, want
+
+        # the same call without the bias, D = 80 (fused where it fits, then
+        # the two passes), against its plain version
+        base_out, base_lse = fa.flash_attention_fwd(q, k, v, scale)
+        base_ref = fa.flash_softmax_attention_reference(q, k, v, scale)[0]
+        base_want = fa.flash_attention_bwd_reference(q, k, v, base_out, base_lse, cot, scale)
+        fits = fa.fused_fits(N, D, torch.bfloat16)
+        for fused in ((True, False) if fits else (False,)):
+            base = fa.flash_attention_bwd(q, k, v, base_out, base_lse, cot, scale, fused=fused)
+            errs = [_max_rel(a, b) for a, b in zip(base, base_want)]
+            log("sam", f"without the bias {shape}: out {_max_rel(base_out, base_ref):.3e}, "
+                f"(dq, dk, dv) fused={fused} " + ", ".join(f"{e:.3e}" for e in errs))
+            if max(errs + [_max_rel(base_out, base_ref)]) > tol:
+                raise AssertionError(f"the no-bias kernels disagree at {shape}")
+        del base_ref, base_want, base
+
+        plain_iters, warmup = (1, 0) if N > 1024 else (5, 1)
+        args = (q, k, v, cot, lse, delta, scale)
+        base_delta = fa.flash_delta(base_out, cot)
+        base_args = (q, k, v, cot, base_lse, base_delta, scale)
+        lib_fwd, lib_bwd = _sdpa_bias_ms(q, k, v, cot, rel, scale)
+        call = least["window" if path == "sam_window_train" else "global"]
+        bounds = {"flash_fwd": (call["forward"] * 1e3, "the call's forward"),
+                  "flash_bwd_dq": (call["backward"] * 1e3, "the call's backward (dq + dkv)"),
+                  "flash_bwd_dkv": (call["backward"] * 1e3, "the call's backward (dq + dkv)")}
+        timed = {
+            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale, rel_pos=rel),
+                          lambda: fa.flash_softmax_attention_reference(q, k, v, scale,
+                                                                       rel_pos=rel),
+                          lambda: fa.flash_attention_fwd(q, k, v, scale), lib_fwd, fwd_err),
+            "flash_bwd_dq": (lambda: fa.flash_attention_bwd_dq(*args, rel_pos=rel),
+                             lambda: fa.flash_bwd_reference(*args, rel_pos=rel),
+                             lambda: fa.flash_attention_bwd_dq(*base_args), lib_bwd,
+                             max(bwd_errs[:1] + bwd_errs[3:])),
+            "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(*args, rel_pos=rel),
+                              lambda: fa.flash_bwd_reference(*args, rel_pos=rel),
+                              lambda: fa.flash_attention_bwd_dkv(*base_args), lib_bwd,
+                              max(bwd_errs[1:3]))}
+        for kname, (kernel_fn, plain_fn, base_fn, library_ms, err) in timed.items():
+            ms, base_ms = kernel_ms(kernel_fn), kernel_ms(base_fn)
+            plain_ms = time_ms(plain_fn, iters=plain_iters, warmup=warmup)
+            bound_ms, bound_of = bounds[kname]
+            lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+            log("sam", f"{kname} with the bias {shape}: kernel {ms:.4f} ms (without the bias "
+                f"{base_ms:.4f}), plain {plain_ms:.4f} ms, SDPA with a float mask {lib}, "
+                f"bound {bound_ms:.4f} ms ({bound_of}, counts/sam.py)")
+            rows[(kname, path)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_of, library_ms=library_ms, no_bias_ms=base_ms,
+                shape=[B, H, N, D, kh, kw], launch=infos[kname])
+        del q, k, v, cot, rel, out, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sam_train_launches(fa, card: str):
+    """Phase 27 c: one eager train step of SAM's ViT-H (`create_model(
+    "sam_vit_h")`, bf16, batch SAM_TRAIN_BATCH at 1024 x 1024) with the
+    flash wrappers' counts zeroed just before it: 28 windowed and 4 global
+    launches each of the forward, dq and dkv bias kernels, and no other
+    flash launch; a finite loss and finite gradients, the tables' nonzero.
+    Returns the step's launches by wrapper, and by kernel and N."""
+    from efficient_rpe_vit_torch.configs import mnist_config
+    from efficient_rpe_vit_torch.models import create_model
+    from efficient_rpe_vit_torch.train import create_train_state, make_train_step
+
+    cfg = mnist_config(image_size=1024, patch_size=16, in_channels=3, num_classes=1000,
+                       batch_size=SAM_TRAIN_BATCH, compute_dtype="bfloat16", dropout=0.0)
+    model = create_model("sam_vit_h", cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # SAM's zero tables would keep the bias rows at 0
+        for name, p in model.named_parameters():
+            if "rel_pos" in name:
+                p.normal_(0.0, 0.02)
+    step = make_train_step(model)
+    state = create_train_state(model, cfg, steps_per_epoch=100)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(SAM_TRAIN_BATCH, 1024, 1024, 3, generator=g, device="cuda")
+    y = torch.randint(0, 1000, (SAM_TRAIN_BATCH,), generator=g, device="cuda")
+    wrappers = flash_wrappers(fa)
+    by_kernel = {}
+    real_launch = fa.launch
+
+    def recording(errors, name, fn, device, *args):
+        key = f"{name} N={args[0].shape[2]}"
+        by_kernel[key] = by_kernel.get(key, 0) + 1
+        return real_launch(errors, name, fn, device, *args)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch = recording
+    try:
+        zero_counts(wrappers)
+        state, loss, _ = step(state, x, y, torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        launches = counts(wrappers)
+    finally:
+        fa.launch = real_launch
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    tables = min(float(p.grad.abs().max()) for n, p in model.named_parameters()
+                 if "rel_pos" in n)
+    blocks = len(model.blocks)
+    n_global = len(model.global_attn_indexes)
+    want = {"flash_fwd": blocks, "flash_bwd_fused": 0, "flash_bwd_dq": blocks,
+            "flash_bwd_dkv": blocks}
+    want_by_kernel = {f"{name}_rel N={n}": count
+                      for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                      for n, count in ((SAM_SHAPES["sam_window_train"][2], blocks - n_global),
+                                       (SAM_SHAPES["sam_global_train"][2], n_global))}
+    log("sam", f"ViT-H train step (batch {SAM_TRAIN_BATCH}, 1024 x 1024, bf16): launches "
+        f"{launches} (expected {want}), by kernel {by_kernel}, loss {loss.item():.6f}, "
+        f"gradients finite {finite}, least max|d table| {tables:.3e}, peak "
+        f"{peak / 2**30:.3f} GiB on {card}")
+    if launches != want or by_kernel != want_by_kernel:
+        raise AssertionError(f"the SAM step launched {launches} / {by_kernel}, expected "
+                             f"{want} / {want_by_kernel}")
+    if not (finite and math.isfinite(loss.item()) and tables > 0):
+        raise AssertionError("the SAM step's loss or gradients are not finite, or a table "
+                             "got no gradient")
+    del model, state, step, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_kernel
+
+
+def sam_phase(fa, card: str):
+    """Phase 27: SAM's attention on the bias kernels. Returns the kernels
+    line's rows (name, source, replaces, path, row, launches)."""
+    rows = check_sam_bias_kernels(fa)
+    _, by_kernel = sam_train_launches(fa, card)
+    src = "efficient_rpe_vit_torch/csrc"
+    out = []
+    for (name, path), row in rows.items():
+        n = SAM_SHAPES[path][2]
+        source = "flash_attention_fwd.cu" if name == "flash_fwd" else "flash_attention_bwd.cu"
+        out.append((f"{name}_rel", f"{src}/{source}",
+                    "none (the JAX package's flash kernels take no score bias)", path, row,
+                    by_kernel[f"{name}_rel N={n}"]))
+    return out
 
 
 def rotation_bounds(B, H, N, D, dtype: str):
@@ -5152,11 +5441,39 @@ def experiments_phase(mlc, fa, kerple_rows, flash_rows, card: str):
     return out
 
 
+def print_results(rows) -> None:
+    """The last two lines: the kernels line (one JSON row per kernel and
+    main path: (name, source, replaces, path, row, launches)) and ok."""
+    print(json.dumps({"kernels": [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "path": path,
+        "launches": launches,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row.get("library_ms"),
+        # the row's own further numbers (shape, the routes it was timed beside)
+        **{key: value for key, value in row.items() if key not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for name, source, replaces, path, row, launches in rows]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="trace one served batch and one train step of each "
                              "model with torch.profiler")
+    parser.add_argument("--only", action="append", choices=ONLY_PHASES,
+                        help="run phases 1 and 2, then this phase alone (repeatable); the "
+                             "kernels line holds phase 27's rows")
     args = parser.parse_args()
     started = time.perf_counter()
 
@@ -5196,6 +5513,15 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log("build", f"{name}: {entry}: {line.strip()}")
 
+    if args.only:
+        if "3c" in args.only:
+            check_flash_kernels(fa)
+        rows = sam_phase(fa, card) if "27" in args.only else []
+        log("done", f"phases 1, 2 and {', '.join(args.only)} passed in "
+            f"{time.perf_counter() - started:.1f} s of command time")
+        print_results(rows)
+        return 0
+
     # 3. kernels against their plain versions
     kernel = check_kernels(mlc)
     check_kernels(mlc, KERPLE_EDGE_SHAPES, BF16_ONLY, timed=[])
@@ -5205,6 +5531,7 @@ def main() -> int:
     rotation = check_rotation_kernels(cr)
     fused = check_fused_kernels(mlc)
     phi_rows, phi_step = phi_phase(card)
+    sam_rows = sam_phase(fa, card)
     materialised = check_masked_linear_kernels(ml, mlc, pallas_ab.SHAPES)
 
     # 4. serve and 5. train ViT-B/16 with KERPLE
@@ -5521,27 +5848,9 @@ def main() -> int:
         rows.append((name, f"{src}/phi_positive.cu", "none (XLA fused it in JAX)",
                      f"phi_{'x'.join(map(str, shape))}", row,
                      phi_step[name] if shape == PHI_SHAPES[0] else 0))
+    rows += sam_rows
     log("done", f"all phases passed in {time.perf_counter() - started:.1f} s of command time")
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "path": path,
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row.get("library_ms"),
-        # the row's own further numbers (shape, the routes it was timed beside)
-        **{key: value for key, value in row.items() if key not in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    } for name, source, replaces, path, row, launches in rows]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print_results(rows)
     return 0
 
 

@@ -72,6 +72,21 @@
 // the first version's, the split's and SDPA's is in PERF.md
 // (chip_smoke.py phase 3c).
 //
+// With the decomposed relative-position bias (flash_bwd_dq_rel_mma_kernel,
+// flash_bwd_dkv_rel_mma_kernel, bf16 only; the fused pass has none): the
+// dq and dkv kernels built with REL recompute P from the score plus
+// h[i, j / kw] + w[i, j % kw] (Rel in flash_attention_common.cuh), and
+// the dq pass also sums dS, rounded to bf16 as the products take it, into
+// dh [N, kh] and dw [N, kw] per query row, without atomics: each query row
+// lives in one block. REL_ROWS (kw = 64, the global blocks' 64 x 64 grid):
+// a 32-key tile lies in one grid row, so its dS row sum, reduced over a
+// quad, is half of dh[i, j0 / 64], written once after the second half;
+// dw[i, 0..63] stays in 32 accumulator registers per thread across the
+// sweep. REL_SMALL (kh, kw <= 16, the 14 x 14 windows): dh += dS E_h and
+// dw += dS E_w on mma.sync, E the one-hot [keys, 16] matrices of the keys'
+// grid rows and columns built in registers, four more products per 16
+// keys. Both write dh and dw once, from registers, in a fixed order.
+//
 // The staged fused pass and the fp32 dq / dkv passes are the first, simple
 // version: tiles staged by cp.async, WMMA bf16 or fp32 FMA products, scores
 // and accumulators in shared memory, one warp per 8 rows for the
@@ -355,11 +370,12 @@ struct DqMma {
 // lse, delta (registers) stay resident; K and V tiles arrive through the
 // two-stage cp.async ring. Per warp and tile, S = q k^T and dP = g v^T in
 // registers, dS rounded to bf16 in registers as the A operand of
-// dq += dS k; dq scaled once at the end.
-template <int DP, int WARPS, int BN_, int MINB>
-__global__ void __launch_bounds__(32 * WARPS, MINB)
-flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
+// dq += dS k; dq scaled once at the end. REL (REL_ROWS or REL_SMALL) adds
+// the relative-position bias and writes its gradient.
+template <int DP, int WARPS, int BN_, int MINB, int REL>
+__device__ __forceinline__ void dq_mma_body(const Operands& o, const Params& p, const Rel& rel) {
   using C = DqMma<DP, WARPS, BN_, MINB>;
+  static_assert(REL != REL_ROWS || C::BN == 32, "REL_ROWS: two key tiles per grid row of 64");
   using namespace mma;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -413,6 +429,24 @@ flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
   }
   float dq[C::NB_O][4];
   zero_acc(dq);
+  // the bias: this thread's rows of it (rows past N read row N - 1), and
+  // its gradient's accumulators: REL_ROWS dw over the 64 grid columns and
+  // a row sum per grid row, REL_SMALL dh and dw over 16 columns each
+  constexpr int NB_DW = REL == REL_ROWS ? 8 : 2;
+  const float* hrow[C::R];
+  const float* wrow[C::R];
+  float dwa[NB_DW][4], dha[2][4], hsum[C::R];
+  if constexpr (REL != 0) {
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) {
+      const size_t at = bh * N + min(row0 + lane / 4 + 8 * r, N - 1);
+      hrow[r] = rel.h + at * rel.kh;
+      wrow[r] = rel.w + at * rel.kw;
+      hsum[r] = 0.f;
+    }
+    zero_acc(dwa);
+    zero_acc(dha);
+  }
 
   const int n_kv = (N + C::BN - 1) / C::BN;
   for (int jt = 0; jt < n_kv; ++jt) {
@@ -434,6 +468,12 @@ flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
     mma_a_rows(s, af, Kt, C::LD);  // q k^T
     load_a_rows(af, Gs, C::LD, row0 - i0);
     mma_a_rows(dp, af, Vt, C::LD);  // g v^T
+    // REL_ROWS: the tile's grid row and its bias value per row
+    float hv[C::R];
+    if constexpr (REL == REL_ROWS) {
+#pragma unroll
+      for (int r = 0; r < C::R; ++r) hv[r] = __ldg(hrow[r] + j0 / 64);
+    }
     // dS per cell; the bounds and mask tests only on edge tiles
     const auto cells = [&](auto edge) {
 #pragma unroll
@@ -445,7 +485,16 @@ flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
           float ds = 0.f;
           if (!decltype(edge)::value ||
               (ok[r] && j < N && (mrow[r] == nullptr || mrow[r][j] != 0))) {
-            const float prob = ex2(fmaf(s[nb][e], sl2, -lse2[r]));
+            float arg = -lse2[r];
+            if constexpr (REL == REL_ROWS) {
+              const float2 wv = __ldg(reinterpret_cast<const float2*>(wrow[r] + (j & 62)));
+              arg = fmaf(hv[r] + ((e & 1) ? wv.y : wv.x), LOG2E, arg);
+            } else if constexpr (REL == REL_SMALL) {
+              int kr, kc;
+              key_cell(rel, min(j, N - 1), kr, kc);
+              arg = fmaf(__ldg(hrow[r] + kr) + __ldg(wrow[r] + kc), LOG2E, arg);
+            }
+            const float prob = ex2(fmaf(s[nb][e], sl2, arg));
             float dpv = dp[nb][e];
             if (p.has_dropout)
               dpv = keep_cell(rh[r], j, p.threshold) ? dpv * p.inv_keep : 0.f;
@@ -462,11 +511,96 @@ flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
     uint32_t dsf[C::NB_S / 2][4];
     to_a(dsf, s);                    // dS rounded to bf16
     mma_a_cols(dq, dsf, Kt, C::LD);  // dq += dS k
+    if constexpr (REL == REL_ROWS) {
+      // dw[i, j0 % 64 + c] += dS, this half of the grid row's dS into hsum
+      const auto add = [&](auto half) {
+#pragma unroll
+        for (int nb = 0; nb < C::NB_S; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = round_bf16(s[nb][e]);
+            dwa[decltype(half)::value * C::NB_S + nb][e] += x;
+            hsum[e / 2] += x;
+          }
+      };
+      if (jt & 1) {
+        add(std::integral_constant<int, 1>());
+      } else {
+        add(std::integral_constant<int, 0>());
+      }
+      if (jt & 1) {  // the grid row j0 / 64 is complete: its dh, once
+#pragma unroll
+        for (int r = 0; r < C::R; ++r) {
+          float x = hsum[r];
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          x += __shfl_xor_sync(0xffffffffu, x, 2);
+          hsum[r] = 0.f;
+          const int row = row0 + lane / 4 + 8 * r;
+          if (lane % 4 == 0 && row < N) rel.dh[(bh * N + row) * rel.kh + j0 / 64] = x;
+        }
+      }
+    } else if constexpr (REL == REL_SMALL) {
+      // dh += dS E_h, dw += dS E_w: E's B fragments hold keys 2 (lane % 4)
+      // + {0, 1} (first register) and + {8, 9} (second) of each 16, column
+      // lane / 4 of each 8-column block
+#pragma unroll
+      for (int kk = 0; kk < C::NB_S / 2; ++kk) {
+        int kr[4], kc[4];
+        bool kv[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + kk * 16 + 2 * (lane % 4) + (t & 1) + 8 * (t >> 1);
+          kv[t] = j < N;
+          key_cell(rel, min(j, N - 1), kr[t], kc[t]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const int c = nb * 8 + lane / 4;
+          mma_bf16(dha[nb], dsf[kk], one_hot_pair(kv[0] && kr[0] == c, kv[1] && kr[1] == c),
+                   one_hot_pair(kv[2] && kr[2] == c, kv[3] && kr[3] == c));
+          mma_bf16(dwa[nb], dsf[kk], one_hot_pair(kv[0] && kc[0] == c, kv[1] && kc[1] == c),
+                   one_hot_pair(kv[2] && kc[2] == c, kv[3] && kc[3] == c));
+        }
+      }
+    }
   }
   float factor[C::R];
 #pragma unroll
   for (int r = 0; r < C::R; ++r) factor[r] = p.scale;
   store_rows(static_cast<bf16*>(o.dq) + bh * N * D, D, N, row0, dq, factor);
+  if constexpr (REL != 0) {
+    // dh (REL_SMALL) and dw from the accumulators: rows lane / 4 (+ 8),
+    // columns 2 (lane % 4) + {0, 1} of each 8-column block
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + lane / 4 + 8 * half;
+      if (row >= N) continue;
+      float* dw = rel.dw + (bh * N + row) * rel.kw;
+      float* dh = rel.dh + (bh * N + row) * rel.kh;
+#pragma unroll
+      for (int nb = 0; nb < NB_DW; ++nb) {
+        const int c = nb * 8 + 2 * (lane % 4);
+        if (c < rel.kw) dw[c] = dwa[nb][2 * half];
+        if (c + 1 < rel.kw) dw[c + 1] = dwa[nb][2 * half + 1];
+        if constexpr (REL == REL_SMALL) {
+          if (c < rel.kh) dh[c] = dha[nb][2 * half];
+          if (c + 1 < rel.kh) dh[c + 1] = dha[nb][2 * half + 1];
+        }
+      }
+    }
+  }
+}
+
+template <int DP, int WARPS, int BN_, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_dq_mma_kernel(const Operands o, const Params p) {
+  dq_mma_body<DP, WARPS, BN_, MINB, 0>(o, p, Rel{});
+}
+
+template <int DP, int WARPS, int BN_, int MINB, int REL>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_dq_rel_mma_kernel(const Operands o, const Params p, const Rel rel) {
+  dq_mma_body<DP, WARPS, BN_, MINB, REL>(o, p, rel);
 }
 
 // Geometry of flash_bwd_dkv_mma_kernel: WARPS warps of 16 key/value rows
@@ -490,9 +624,12 @@ struct DkvMma {
 // two-stage cp.async ring. Per warp and tile, S^T = k q^T and dP^T = v g^T
 // in registers; P'^T and dS^T rounded to bf16 in registers as the A
 // operands of dv += P'^T g and dk += dS^T q; dk scaled once at the end.
-template <int DP, int WARPS, int BN_, int MINB>
-__global__ void __launch_bounds__(32 * WARPS, MINB)
-flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
+// REL adds the relative-position bias to the recomputed scores; on a grid
+// of 64-key rows (REL_ROWS) the block's 64 keys are one grid row, so h is
+// read once per query row of the tile for both of the thread's keys.
+template <int DP, int WARPS, int BN_, int MINB, int REL>
+__device__ __forceinline__ void dkv_mma_body(const Operands& o, const Params& p,
+                                             const Rel& rel) {
   using C = DkvMma<DP, WARPS, BN_, MINB>;
   using namespace mma;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -547,6 +684,17 @@ flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
     col[r] = row0 + lane / 4 + 8 * r;
     ok[r] = col[r] < N;
   }
+  // the bias: this thread's keys' grid cells, the head's bias rows
+  int key_row[C::R], key_col[C::R];
+  const float* hh = nullptr;
+  const float* wh = nullptr;
+  if constexpr (REL != 0) {
+    static_assert(REL != REL_ROWS || C::BM == 64, "REL_ROWS: a block's keys are one grid row");
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) key_cell(rel, min(col[r], N - 1), key_row[r], key_col[r]);
+    hh = rel.h + bh * N * rel.kh;
+    wh = rel.w + bh * N * rel.kw;
+  }
   float dk[C::NB_O][4], dv[C::NB_O][4];
   zero_acc(dk);
   zero_acc(dv);
@@ -591,7 +739,17 @@ flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
           if (!decltype(edge)::value ||
               (ok[r] && i < N &&
                (mask == nullptr || mask_row(mask, p, b, h, i)[col[r]] != 0))) {
-            const float prob = ex2(fmaf(s[nb][e], sl2, nl2[e & 1]));
+            float arg = nl2[e & 1];
+            if constexpr (REL == REL_ROWS) {
+              const size_t ii = min(i, N - 1);
+              arg = fmaf(__ldg(hh + ii * rel.kh + j0 / 64) + __ldg(wh + ii * 64 + key_col[r]),
+                         LOG2E, arg);
+            } else if constexpr (REL == REL_SMALL) {
+              const size_t ii = min(i, N - 1);
+              arg = fmaf(__ldg(hh + ii * rel.kh + key_row[r]) + __ldg(wh + ii * rel.kw + key_col[r]),
+                         LOG2E, arg);
+            }
+            const float prob = ex2(fmaf(s[nb][e], sl2, arg));
             float dpv = dp[nb][e];
             pe = prob;
             if (p.has_dropout) {
@@ -625,6 +783,18 @@ flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
   }
   store_rows(static_cast<bf16*>(o.dk) + bh * N * D, D, N, row0, dk, dk_factor);
   store_rows(static_cast<bf16*>(o.dv) + bh * N * D, D, N, row0, dv, dv_factor);
+}
+
+template <int DP, int WARPS, int BN_, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_dkv_mma_kernel(const Operands o, const Params p) {
+  dkv_mma_body<DP, WARPS, BN_, MINB, 0>(o, p, Rel{});
+}
+
+template <int DP, int WARPS, int BN_, int MINB, int REL>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_dkv_rel_mma_kernel(const Operands o, const Params p, const Rel rel) {
+  dkv_mma_body<DP, WARPS, BN_, MINB, REL>(o, p, rel);
 }
 
 // Geometry of flash_bwd_fused_mma_kernel: one block per (head, batch) of
@@ -884,13 +1054,15 @@ struct BwdChoice {
   int (*launch)(const Operands&, const Params&, void*);
 };
 
-template <typename Kernel>
+// The kernel over a grid of (rows-row tiles, heads, batch); `extra` are
+// the arguments after (o, p), the bias kernels' Rel.
+template <typename Kernel, typename... Extra>
 int launch_grid(Kernel kernel, int rows, int threads, size_t bytes, const Operands& o,
-                const Params& p, void* stream) {
+                const Params& p, void* stream, const Extra&... extra) {
   const int err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + rows - 1) / rows, p.H, p.B);
-  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(o, p);
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(o, p, extra...);
   return cudaGetLastError();
 }
 
@@ -924,8 +1096,8 @@ BwdChoice dkv_choice() {
 
 // Tiles chosen by timing on an H100, at every N: 64-row blocks of 4 warps
 // (16 rows a warp) against 32-row streamed tiles, registers capped for 4
-// (dq) or 3 (dkv, which holds dk and dv) resident blocks per SM; DP = 128
-// caps less, so that its wider accumulators stay in registers.
+// (dq) or 3 (dkv, which holds dk and dv) resident blocks per SM; DP = 80
+// and 128 cap less, so that their wider accumulators stay in registers.
 template <int DP>
 BwdChoice dq_choice_n() {
   return dq_choice<DP, 4, 32, DP <= 64 ? 4 : 2>();
@@ -933,7 +1105,7 @@ BwdChoice dq_choice_n() {
 
 template <int DP>
 BwdChoice dkv_choice_n() {
-  return dkv_choice<DP, 4, 32, DP <= 64 ? 3 : 1>();
+  return dkv_choice<DP, 4, 32, DP <= 64 ? 3 : DP <= 80 ? 2 : 1>();
 }
 
 template <int DP>
@@ -947,8 +1119,60 @@ BwdChoice bwd_choice_bf16(int kind, int D) {
     case 16: return bwd_choice_dp<16>(kind);
     case 32: return bwd_choice_dp<32>(kind);
     case 64: return bwd_choice_dp<64>(kind);
+    case 80: return bwd_choice_dp<80>(kind);
     default: return bwd_choice_dp<128>(kind);
   }
+}
+
+// The bias kernels: dq and dkv per REL mode, for head dims staged to 80,
+// at the dq and dkv tiles above with registers capped for 2
+// resident blocks per SM (the bias rows, the grid cells and REL_ROWS's 32
+// dw accumulators besides).
+struct RelChoice {
+  const void* kernel;
+  int rows, threads;
+  size_t bytes;
+  int (*launch)(const Operands&, const Params&, const Rel&, void*);
+};
+
+template <int DP, int MODE>
+int launch_dq_rel(const Operands& o, const Params& p, const Rel& rel, void* stream) {
+  using C = DqMma<DP, 4, 32, 2>;
+  return launch_grid(flash_bwd_dq_rel_mma_kernel<DP, 4, 32, 2, MODE>, C::BM, C::NT, C::BYTES,
+                     o, p, stream, rel);
+}
+
+template <int DP, int MODE>
+int launch_dkv_rel(const Operands& o, const Params& p, const Rel& rel, void* stream) {
+  using C = DkvMma<DP, 4, 32, 2>;
+  return launch_grid(flash_bwd_dkv_rel_mma_kernel<DP, 4, 32, 2, MODE>, C::BM, C::NT, C::BYTES,
+                     o, p, stream, rel);
+}
+
+template <int DP>
+RelChoice rel_choice_dp(int kind, int mode) {
+  using Q = DqMma<DP, 4, 32, 2>;
+  using K = DkvMma<DP, 4, 32, 2>;
+  if (kind == 1 && mode == REL_ROWS)
+    return {reinterpret_cast<const void*>(flash_bwd_dkv_rel_mma_kernel<DP, 4, 32, 2, REL_ROWS>),
+            K::BM, K::NT, K::BYTES, launch_dkv_rel<DP, REL_ROWS>};
+  if (kind == 1)
+    return {reinterpret_cast<const void*>(flash_bwd_dkv_rel_mma_kernel<DP, 4, 32, 2, REL_SMALL>),
+            K::BM, K::NT, K::BYTES, launch_dkv_rel<DP, REL_SMALL>};
+  if (mode == REL_ROWS)
+    return {reinterpret_cast<const void*>(flash_bwd_dq_rel_mma_kernel<DP, 4, 32, 2, REL_ROWS>),
+            Q::BM, Q::NT, Q::BYTES, launch_dq_rel<DP, REL_ROWS>};
+  return {reinterpret_cast<const void*>(flash_bwd_dq_rel_mma_kernel<DP, 4, 32, 2, REL_SMALL>),
+          Q::BM, Q::NT, Q::BYTES, launch_dq_rel<DP, REL_SMALL>};
+}
+
+bool rel_takes(int N, int D, int Kh, int Kw) {
+  return D > 0 && D <= MAX_D && mma::staged_dim(D) == 80 && rel_mode(N, Kh, Kw) != 0;
+}
+
+// kind 0: dq, 1: dkv; where rel_takes.
+RelChoice rel_choice(int kind, int N, int D, int Kh, int Kw) {
+  return rel_choice_dp<80>(kind, rel_mode(N, Kh, Kw));
 }
 
 template <typename T>
@@ -1038,6 +1262,54 @@ FLASH_BWD_LAUNCHER(flash_bwd_fused_bf16, bf16, 2, true, true, true)
 FLASH_BWD_LAUNCHER(flash_bwd_fused_f32, float, 2, true, true, true)
 
 #undef FLASH_BWD_LAUNCHER
+
+// The bf16 dq and dkv passes with the decomposed relative-position bias:
+// as flash_bwd_dq_bf16 / flash_bwd_dkv_bf16, plus rel_h [B, H, N, Kh] and
+// rel_w [B, H, N, Kw] fp32, contiguous, N = Kh Kw on a grid that
+// flash_rel_mode takes, head dims staged to 80; the dq pass also
+// writes drel_h and drel_w (fp32, rel_h's and rel_w's shapes), every
+// element once.
+int flash_bwd_dq_rel_bf16(const void* q, const void* k, const void* v, const void* g,
+                          const void* lse, const void* delta, const void* rel_h,
+                          const void* rel_w, const void* mask, const void* seed, void* dq,
+                          void* drel_h, void* drel_w, int B, int H, int N, int D, int Kh,
+                          int Kw, int mask_heads, float scale, int has_dropout,
+                          unsigned threshold, float inv_keep, void* stream) {
+  const Operands o{q, k, v, g, lse, delta, mask, seed, dq, nullptr, nullptr};
+  const Params p{B, H, N, D, mask_heads, scale, has_dropout, threshold, inv_keep};
+  if (bad_params(p) || (has_dropout && seed == nullptr) || !rel_takes(N, D, Kh, Kw) ||
+      dq == nullptr || rel_h == nullptr || rel_w == nullptr || drel_h == nullptr ||
+      drel_w == nullptr)
+    return cudaErrorInvalidValue;
+  const Rel rel{static_cast<const float*>(rel_h), static_cast<const float*>(rel_w),
+                static_cast<float*>(drel_h), static_cast<float*>(drel_w), Kh, Kw,
+                1.f / static_cast<float>(Kw)};
+  return rel_choice(0, N, D, Kh, Kw).launch(o, p, rel, stream);
+}
+
+int flash_bwd_dkv_rel_bf16(const void* q, const void* k, const void* v, const void* g,
+                           const void* lse, const void* delta, const void* rel_h,
+                           const void* rel_w, const void* mask, const void* seed, void* dk,
+                           void* dv, int B, int H, int N, int D, int Kh, int Kw,
+                           int mask_heads, float scale, int has_dropout, unsigned threshold,
+                           float inv_keep, void* stream) {
+  const Operands o{q, k, v, g, lse, delta, mask, seed, nullptr, dk, dv};
+  const Params p{B, H, N, D, mask_heads, scale, has_dropout, threshold, inv_keep};
+  if (bad_params(p) || (has_dropout && seed == nullptr) || !rel_takes(N, D, Kh, Kw) ||
+      dk == nullptr || dv == nullptr || rel_h == nullptr || rel_w == nullptr)
+    return cudaErrorInvalidValue;
+  const Rel rel{static_cast<const float*>(rel_h), static_cast<const float*>(rel_w), nullptr,
+                nullptr, Kh, Kw, 1.f / static_cast<float>(Kw)};
+  return rel_choice(1, N, D, Kh, Kw).launch(o, p, rel, stream);
+}
+
+// flash_bwd_launch_info of the bias kernel of kind 0 (dq) or 1 (dkv) on a
+// Kh x Kw grid of N keys.
+int flash_bwd_rel_launch_info(int kind, int N, int D, int Kh, int Kw, int* info) {
+  if ((kind != 0 && kind != 1) || !rel_takes(N, D, Kh, Kw)) return cudaErrorInvalidValue;
+  const RelChoice c = rel_choice(kind, N, D, Kh, Kw);
+  return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, true, info);
+}
 
 // What a launch of kind 0 (dq), 1 (dkv) or 2 (fused) at (N, D) runs, in
 // info[0..6]: rows per block (the fused pass: 0, one block per head),

@@ -314,6 +314,42 @@ struct Params {
   float inv_keep;       // 1 / (1 - rate)
 };
 
+// The decomposed relative-position bias of the flash_*_rel_* launches: the
+// keys form a kh x kw grid (key j in grid row j / kw, column j % kw, and
+// N = kh kw), and score (i, j) gains h[i, j / kw] + w[i, j % kw] from the
+// fp32 rows h [B, H, N, kh] and w [B, H, N, kw], added in fp32 after the
+// scale. The dq pass also writes their gradients dh [B, H, N, kh] and
+// dw [B, H, N, kw]: the sums of dS (rounded as the products take it) over
+// each grid row and each grid column of the keys.
+struct Rel {
+  const float* h;
+  const float* w;
+  float* dh;
+  float* dw;
+  int kh, kw;
+  float inv_kw;  // 1 / kw
+};
+
+// How the dq pass sums dS into dh and dw: REL_ROWS where a grid row is one
+// 64-key span (kw = 64; a key tile lies in one grid row, dh a row sum per
+// tile, dw held in registers), REL_SMALL where both grid sides are at most
+// 16 (products with the one-hot [keys, side] matrices); 0 where neither
+// holds, which the kernels refuse.
+constexpr int REL_ROWS = 1, REL_SMALL = 2;
+
+__host__ __device__ inline int rel_mode(int N, int kh, int kw) {
+  if (kh <= 0 || kw <= 0 || (long long)kh * kw != N || N >= (1 << 22)) return 0;
+  if (kw == 64) return REL_ROWS;
+  return kh <= 16 && kw <= 16 ? REL_SMALL : 0;
+}
+
+// Grid row and column of key j: floor((j + 1/2) / kw) in fp32 is exact for
+// j < 2^22, as rel_mode asks.
+__device__ __forceinline__ void key_cell(const Rel& rel, int j, int& row, int& col) {
+  row = __float2int_rz((static_cast<float>(j) + 0.5f) * rel.inv_kw);
+  col = j - row * rel.kw;
+}
+
 __host__ inline bool bad_params(const Params& p) {
   return p.B <= 0 || p.H <= 0 || p.N <= 0 || p.D <= 0 || p.D > MAX_D ||
          (p.mask_heads != 1 && p.mask_heads != p.H);

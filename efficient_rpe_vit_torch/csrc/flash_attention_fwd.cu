@@ -35,6 +35,15 @@
 // cp.async: tile j + 1 is copied while tile j is computed, one barrier per
 // tile.
 //
+// With the decomposed relative-position bias (flash_fwd_rel_mma_kernel, bf16
+// only): the same kernel built with REL, each score plus h[i, j / kw] +
+// w[i, j % kw] from the fp32 rows (Rel in flash_attention_common.cuh), read
+// through the read-only cache after the scale and before the mask; the
+// kernels without it compile as before. On a grid of 64-key rows
+// (REL_ROWS, the global blocks) a key tile is one grid row: one h value per
+// row and tile, and w's pairs of columns as 8-byte loads, the same values
+// the general path (REL_SMALL) reads key by key.
+//
 // fp32 (flash_fwd_kernel, a parity path): one block per (64-row query tile,
 // head, batch) looping over 64-row key/value tiles staged by cp.async; FMA
 // products; scores and the output accumulator in shared memory, one warp
@@ -197,13 +206,16 @@ struct FwdMma {
 // whole sweep; K and V tiles arrive through the two-stage cp.async ring,
 // tile jt + 1 copied while tile jt is computed. S, P' and the output
 // accumulator stay in registers; row maxima and sums reduce over the four
-// threads of a quad.
-template <int DP, int WARPS, int BN_, int MINB>
-__global__ void __launch_bounds__(32 * WARPS, MINB)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     const int* __restrict__ seed, bf16* __restrict__ out,
-                     float* __restrict__ lse, const Params p) {
+// threads of a quad. REL (REL_ROWS or REL_SMALL) adds the
+// relative-position bias to the scores.
+template <int DP, int WARPS, int BN_, int MINB, int REL>
+__device__ __forceinline__ void fwd_mma_body(const bf16* __restrict__ q,
+                                             const bf16* __restrict__ k,
+                                             const bf16* __restrict__ v,
+                                             const uint8_t* __restrict__ mask,
+                                             const int* __restrict__ seed,
+                                             bf16* __restrict__ out, float* __restrict__ lse,
+                                             const Params& p, const Rel& rel) {
   using C = FwdMma<DP, WARPS, BN_, MINB>;
   using namespace mma;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -242,6 +254,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mrow[r] = row[r] < N ? mask_row(mask, p, b, h, row[r]) : nullptr;
     rh[r] = p.has_dropout ? row_hash(hb, row[r]) : 0u;
   }
+  // this thread's rows of the bias (rows past N read row N - 1)
+  const float* hrow[C::R];
+  const float* wrow[C::R];
+  if constexpr (REL != 0) {
+#pragma unroll
+    for (int r = 0; r < C::R; ++r) {
+      const size_t at = bh * N + min(row[r], N - 1);
+      hrow[r] = rel.h + at * rel.kh;
+      wrow[r] = rel.w + at * rel.kw;
+    }
+  }
   // the JAX kernel's arithmetic: expf(scale s - m) in natural units
   float o[C::NB_O][4];
   zero_acc(o);
@@ -273,13 +296,32 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < C::R; ++r) mx[r] = m[r];
     const bool masked = mask != nullptr || j0 + C::BN > N;
+    float hv[C::R];  // REL_ROWS: the tile's grid row's h
+    if constexpr (REL == REL_ROWS) {
+      static_assert(C::BN == 64, "REL_ROWS: a key tile is one grid row of 64");
 #pragma unroll
-    for (int nb = 0; nb < C::NB_S; ++nb)
+      for (int r = 0; r < C::R; ++r) hv[r] = __ldg(hrow[r] + jt);
+    }
+#pragma unroll
+    for (int nb = 0; nb < C::NB_S; ++nb) {
+      float2 wv[C::R];  // REL_ROWS: w at this thread's two columns of the block
+      if constexpr (REL == REL_ROWS) {
+#pragma unroll
+        for (int r = 0; r < C::R; ++r)
+          wv[r] = __ldg(reinterpret_cast<const float2*>(wrow[r] + nb * 8 + 2 * (lane % 4)));
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e / 2;
         // rounded where the JAX kernel rounds: scale s, then scale s - m
         float x = __fmul_rn(s[nb][e], p.scale);
+        if constexpr (REL == REL_ROWS) {
+          x = __fadd_rn(__fadd_rn(x, hv[r]), (e & 1) ? wv[r].y : wv[r].x);
+        } else if constexpr (REL == REL_SMALL) {
+          int kr, kc;
+          key_cell(rel, min(j0 + nb * 8 + 2 * (lane % 4) + (e & 1), N - 1), kr, kc);
+          x = __fadd_rn(__fadd_rn(x, __ldg(hrow[r] + kr)), __ldg(wrow[r] + kc));
+        }
         if (masked) {
           const int j = j0 + nb * 8 + 2 * (lane % 4) + (e & 1);
           if (j >= N || (mrow[r] != nullptr && mrow[r][j] == 0)) x = MASK_VALUE;
@@ -287,6 +329,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[nb][e] = x;
         mx[r] = fmaxf(mx[r], x);
       }
+    }
     float alpha[C::R];
 #pragma unroll
     for (int r = 0; r < C::R; ++r) {
@@ -345,6 +388,24 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int DP, int WARPS, int BN_, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     const int* __restrict__ seed, bf16* __restrict__ out,
+                     float* __restrict__ lse, const Params p) {
+  fwd_mma_body<DP, WARPS, BN_, MINB, 0>(q, k, v, mask, seed, out, lse, p, Rel{});
+}
+
+template <int DP, int WARPS, int BN_, int MINB, int REL>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_fwd_rel_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                         const int* __restrict__ seed, bf16* __restrict__ out,
+                         float* __restrict__ lse, const Params p, const Rel rel) {
+  fwd_mma_body<DP, WARPS, BN_, MINB, REL>(q, k, v, mask, seed, out, lse, p, rel);
+}
+
 // The bf16 kernel instantiation for (N, D) as a function pointer, its
 // geometry and its launcher: what launches and what flash_fwd_launch_info
 // reports.
@@ -353,29 +414,46 @@ struct FwdChoice {
   int rows, threads;
   size_t bytes;
   int (*launch)(const void*, const void*, const void*, const void*, const void*, void*, void*,
-                const Params&, void*);
+                const Params&, const Rel&, void*);
 };
 
-template <int DP, int WARPS, int BN, int MINB>
+template <int DP, int WARPS, int BN, int MINB, int REL>
 int launch_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
-                   const void* seed, void* out, void* lse, const Params& p, void* stream) {
+                   const void* seed, void* out, void* lse, const Params& p, const Rel& rel,
+                   void* stream) {
   using C = FwdMma<DP, WARPS, BN, MINB>;
-  const auto kernel = flash_fwd_mma_kernel<DP, WARPS, BN, MINB>;
-  const int err = prepare(kernel, C::BYTES);
-  if (err != cudaSuccess) return err;
   const dim3 grid((p.N + C::BM - 1) / C::BM, p.H, p.B);
-  kernel<<<grid, C::NT, C::BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed),
-      static_cast<bf16*>(out), static_cast<float*>(lse), p);
+  const auto qp = static_cast<const bf16*>(q), kp = static_cast<const bf16*>(k),
+             vp = static_cast<const bf16*>(v);
+  const auto mp = static_cast<const uint8_t*>(mask);
+  const auto sp = static_cast<const int*>(seed);
+  const auto op = static_cast<bf16*>(out);
+  const auto lp = static_cast<float*>(lse);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (REL != 0) {
+    const auto kernel = flash_fwd_rel_mma_kernel<DP, WARPS, BN, MINB, REL>;
+    const int err = prepare(kernel, C::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::NT, C::BYTES, st>>>(qp, kp, vp, mp, sp, op, lp, p, rel);
+  } else {
+    const auto kernel = flash_fwd_mma_kernel<DP, WARPS, BN, MINB>;
+    const int err = prepare(kernel, C::BYTES);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::NT, C::BYTES, st>>>(qp, kp, vp, mp, sp, op, lp, p);
+  }
   return cudaGetLastError();
 }
 
-template <int DP, int WARPS, int BN, int MINB>
+template <int DP, int WARPS, int BN, int MINB, int REL = 0>
 FwdChoice fwd_choice() {
   using C = FwdMma<DP, WARPS, BN, MINB>;
-  return {reinterpret_cast<const void*>(flash_fwd_mma_kernel<DP, WARPS, BN, MINB>), C::BM,
-          C::NT, C::BYTES, launch_fwd_mma<DP, WARPS, BN, MINB>};
+  const void* kernel;
+  if constexpr (REL != 0) {
+    kernel = reinterpret_cast<const void*>(flash_fwd_rel_mma_kernel<DP, WARPS, BN, MINB, REL>);
+  } else {
+    kernel = reinterpret_cast<const void*>(flash_fwd_mma_kernel<DP, WARPS, BN, MINB>);
+  }
+  return {kernel, C::BM, C::NT, C::BYTES, launch_fwd_mma<DP, WARPS, BN, MINB, REL>};
 }
 
 // Tiles by sequence length, chosen by timing on an H100. Key/value tiles
@@ -384,16 +462,29 @@ FwdChoice fwd_choice() {
 // blocks of 8 warps (half the blocks' K and V traffic of 64-row blocks),
 // registers capped for 2 resident blocks per SM; below, 64-row blocks of 4
 // warps (N = 197 wastes less of a ragged tile), capped for 4. DP = 128
-// caps less, so that its wider accumulators stay in registers.
+// caps less, so that its wider accumulators stay in registers; DP = 80 and
+// the kernels with the bias (which hold the bias rows' addresses and the
+// keys' grid cells besides) cap at one 8-warp block per SM from N = 512.
 template <int DP>
 FwdChoice fwd_choice_n(int N) {
   if constexpr (DP <= 64) {
     if (N >= 512) return fwd_choice<DP, 8, 64, 2>();
     return fwd_choice<DP, 4, 64, 4>();
+  } else if constexpr (DP == 80) {
+    if (N >= 512) return fwd_choice<DP, 8, 64, 1>();
+    return fwd_choice<DP, 4, 64, 2>();
   } else {
     if (N >= 512) return fwd_choice<DP, 4, 64, 1>();
     return fwd_choice<DP, 4, 64, 2>();
   }
+}
+
+// From N = 512 only REL_ROWS grids occur (REL_SMALL holds at most 256 keys).
+template <int DP>
+FwdChoice fwd_rel_choice_n(int N, int mode) {
+  if (N >= 512) return fwd_choice<DP, 8, 64, 1, REL_ROWS>();
+  if (mode == REL_ROWS) return fwd_choice<DP, 4, 64, 2, REL_ROWS>();
+  return fwd_choice<DP, 4, 64, 2, REL_SMALL>();
 }
 
 FwdChoice fwd_choice_bf16(int N, int D) {
@@ -401,9 +492,16 @@ FwdChoice fwd_choice_bf16(int N, int D) {
     case 16: return fwd_choice_n<16>(N);
     case 32: return fwd_choice_n<32>(N);
     case 64: return fwd_choice_n<64>(N);
+    case 80: return fwd_choice_n<80>(N);
     default: return fwd_choice_n<128>(N);
   }
 }
+
+// The bias kernels are built for head dims staged to 80 (SAM ViT-H's);
+// false elsewhere.
+bool fwd_rel_takes(int D) { return D <= MAX_D && mma::staged_dim(D) == 80; }
+
+FwdChoice fwd_rel_choice_bf16(int N, int mode) { return fwd_rel_choice_n<80>(N, mode); }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
@@ -435,7 +533,25 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* mask
                    float inv_keep, void* stream) {
   const Params p{B, H, N, D, mask_heads, scale, has_dropout, threshold, inv_keep};
   if (bad_params(p) || (has_dropout && seed == nullptr)) return cudaErrorInvalidValue;
-  return fwd_choice_bf16(N, D).launch(q, k, v, mask, seed, out, lse, p, stream);
+  return fwd_choice_bf16(N, D).launch(q, k, v, mask, seed, out, lse, p, Rel{}, stream);
+}
+
+// flash_fwd_bf16 with the decomposed relative-position bias: rel_h
+// [B, H, N, Kh] and rel_w [B, H, N, Kw] fp32, contiguous, with N = Kh Kw
+// and the grid one that flash_rel_mode takes; head dims staged to 80.
+int flash_fwd_rel_bf16(const void* q, const void* k, const void* v, const void* rel_h,
+                       const void* rel_w, const void* mask, const void* seed, void* out,
+                       void* lse, int B, int H, int N, int D, int Kh, int Kw, int mask_heads,
+                       float scale, int has_dropout, unsigned threshold, float inv_keep,
+                       void* stream) {
+  const Params p{B, H, N, D, mask_heads, scale, has_dropout, threshold, inv_keep};
+  if (bad_params(p) || (has_dropout && seed == nullptr) || rel_mode(N, Kh, Kw) == 0 ||
+      !fwd_rel_takes(D) || rel_h == nullptr || rel_w == nullptr)
+    return cudaErrorInvalidValue;
+  const Rel rel{static_cast<const float*>(rel_h), static_cast<const float*>(rel_w), nullptr,
+                nullptr, Kh, Kw, 1.f / static_cast<float>(Kw)};
+  return fwd_rel_choice_bf16(N, rel_mode(N, Kh, Kw))
+      .launch(q, k, v, mask, seed, out, lse, p, rel, stream);
 }
 
 int flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask,
@@ -459,6 +575,20 @@ int flash_fwd_launch_info(int N, int D, int is_bf16, int* info) {
   const FwdLayout<float> L{Geometry<float>(D)};
   return mma::launch_info(reinterpret_cast<const void*>(flash_fwd_kernel<float>), TILE, THREADS,
                           L.bytes, false, info);
+}
+
+// flash_fwd_launch_info of the bias kernel at (N, D) on a Kh x Kw grid.
+int flash_fwd_rel_launch_info(int N, int D, int Kh, int Kw, int* info) {
+  if (N <= 0 || D <= 0 || !fwd_rel_takes(D) || rel_mode(N, Kh, Kw) == 0)
+    return cudaErrorInvalidValue;
+  const FwdChoice c = fwd_rel_choice_bf16(N, rel_mode(N, Kh, Kw));
+  return mma::launch_info(c.kernel, c.rows, c.threads, c.bytes, true, info);
+}
+
+// 1 (REL_ROWS) or 2 (REL_SMALL) where the bias kernels take a grid of
+// Kh x Kw keys at (N, D), else 0.
+int flash_rel_mode(int N, int D, int Kh, int Kw) {
+  return D > 0 && fwd_rel_takes(D) ? rel_mode(N, Kh, Kw) : 0;
 }
 
 const char* flash_fwd_error_string(int err) {

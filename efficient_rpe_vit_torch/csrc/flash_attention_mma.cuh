@@ -246,9 +246,21 @@ __device__ __forceinline__ void store_rows(bf16* out, int D, int rows, int row0,
   }
 }
 
-// Padded head dims the bf16 kernels are built for.
+// Padded head dims the bf16 kernels are built for: 80 (SAM's ViT-H heads)
+// is five 16-wide steps, whose rows of 88 elements keep eight ldmatrix row
+// addresses on distinct banks.
 __host__ __device__ constexpr int staged_dim(int D) {
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 80 ? 80 : 128;
+}
+
+// v rounded to bf16 and back, as a product's operand takes it.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Two one-hot bf16 values, the lower column in the low half.
+__device__ __forceinline__ uint32_t one_hot_pair(bool lo, bool hi) {
+  return (lo ? 0x3F80u : 0u) | (hi ? 0x3F800000u : 0u);
 }
 
 // info[0..6] of a kernel launched with `threads` threads and `bytes` of

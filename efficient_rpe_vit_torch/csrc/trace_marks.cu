@@ -8,7 +8,7 @@
 #include <cuda_runtime.h>
 
 // the spans, in the order of tracing.DEVICE_SPANS
-#define RPE_SPANS(X) X(gather) X(forward) X(backward) X(optimizer) X(phi) X(phi_bwd)
+#define RPE_SPANS(X) X(gather) X(forward) X(backward) X(optimizer) X(phi) X(phi_bwd) X(window) X(window_bwd) X(relpos) X(relpos_bwd) X(attn_window) X(attn_window_bwd) X(attn_global) X(attn_global_bwd)
 
 #define RPE_DEFINE(span)                                    \
   extern "C" __global__ void rpe_mark_begin_##span() {}     \

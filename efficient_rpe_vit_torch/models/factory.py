@@ -7,7 +7,9 @@ variants, the aliases and the custom names (`favor_plus_rope_2d`,
 `favor_hyper_circulant`, ...) all build; softmax with KERPLE raises. The
 soft-MoE MLP (`mlp_config`) and per-block checkpointing (`remat`) are
 taken as in JAX; `list_available_models`, `get_model_info` and
-`count_parameters` are the JAX lookups.
+`count_parameters` are the JAX lookups. The port's own architecture
+`sam_vit_h` (SAM's image encoder with a pooled head, `models/sam.py`)
+builds by name too and stays out of the JAX lookups.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..configs import ExperimentConfig
 from ..utils.device import resolve_device
 from .attention import ATTENTION_REGISTRY
 from .rpe import RPE_REGISTRY
+from .sam import SAM_VIT_H, SamImageEncoder
 from .vit import ViT
 
 # name -> (attention_type, rpe_type)
@@ -106,10 +109,27 @@ def create_model(
             one from the config's `seed`.
         **overrides: architecture field overrides (dim, depth, dropout, ...).
 
+        For `sam_vit_h` the architecture is `models/sam.py::SAM_VIT_H`
+        (SAM's published widths, windows and global blocks), the config
+        gives the image size, channels, classes and compute dtype,
+        `overrides` may replace any architecture field, and the mechanism,
+        MLP and remat arguments do not apply.
+
     Raises:
         NotImplementedError: for the rejected softmax+KERPLE combination.
     """
     device = resolve_device(device)
+    if model_name == "sam_vit_h":
+        if attention_config or rpe_config or mlp_config or remat:
+            raise ValueError(f"{model_name} takes no attention, rpe or mlp config and no remat")
+        cfg = config.to_dict() if isinstance(config, ExperimentConfig) else dict(config)
+        model = SamImageEncoder(cfg["image_size"], cfg["in_channels"], cfg["num_classes"],
+                                dtype=cfg.get("compute_dtype", "float32"),
+                                **{**SAM_VIT_H, **overrides})
+        if generator is None:
+            generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+        model.reset_parameters(generator)
+        return model.to(device).eval()
     attention_type, rpe_type = _resolve_variant(model_name)
     if attention_type in ("softmax", "baseline") and rpe_type in (
             "most_general", "kerple"):

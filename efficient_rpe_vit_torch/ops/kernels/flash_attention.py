@@ -16,6 +16,20 @@ Both take an optional keep-mask and apply
 attention-probability dropout inside the kernel, from a counter hash of
 (seed, b, h, i, j) that is the JAX package's bit for bit.
 
+They also take SAM's decomposed relative-position bias (`rel_pos`): the
+keys lie on a kh x kw grid (key j in grid row j // kw, column j % kw, N =
+kh kw), and with rows rel_h [B, H, N, kh], rel_w [B, H, N, kw] (fp32) the
+scores are
+
+    S[i, j] = scale * q_i . k_j + rel_h[i, j // kw] + rel_w[i, j % kw]
+
+summed in fp32 in that order. The backward then also returns d rel_h and
+d rel_w, the sums of dS (rounded to the input dtype, as the products take
+it) over each grid row and each grid column of the keys. On the card the
+bias runs in bf16 on the forward and the dq / dkv kernels built with it
+(never the fused pass), at head dims staged to 80 (SAM ViT-H's), on grids
+with kw = 64 or with both sides at most 16 (`rel_mode`).
+
 Every kernel has a wrapper that checks its inputs, takes the plain version
 (`*_reference`) for CPU tensors and launches the kernel for CUDA tensors
 (never falling back), and counts its launches in `<wrapper>.launches`.
@@ -224,19 +238,50 @@ def _keep_b(seed_bits, b: int, H: int, N: int, rate: float) -> torch.Tensor:
                         ar(N)[None, None, :], rate)
 
 
+def _check_rel(q, rel_pos):
+    """(rel_h, rel_w) as the kernels take them, or None: [B, H, N, kh] and
+    [B, H, N, kw] fp32, contiguous, on q's device, with kh kw = N."""
+    if rel_pos is None:
+        return None
+    rel_h, rel_w = rel_pos
+    B, H, N, _ = q.shape
+    for name, t in (("rel_h", rel_h), ("rel_w", rel_w)):
+        if t.dim() != 4 or tuple(t.shape[:3]) != (B, H, N):
+            raise ValueError(f"{name} must be [B, H, N, side] = [{B}, {H}, {N}, side], "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
+    if rel_h.shape[-1] * rel_w.shape[-1] != N:
+        raise ValueError(f"the key grid {rel_h.shape[-1]} x {rel_w.shape[-1]} does not "
+                         f"hold N = {N} keys")
+    return rel_h, rel_w
+
+
+def _add_rel(s: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor) -> torch.Tensor:
+    """[H, N, N] scores plus rel_h [H, N, kh] on each key's grid row, then
+    rel_w [H, N, kw] on its grid column."""
+    H, N, _ = s.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    s = s.view(H, N, kh, kw) + rel_h[..., :, None]
+    return (s + rel_w[..., None, :]).view(H, N, N)
+
+
 def flash_softmax_attention_reference(q, k, v, scale: float, mask=None,
                                       dropout_rate: float = 0.0,
-                                      dropout_seed=None):
+                                      dropout_seed=None, rel_pos=None):
     """Plain version of the forward kernel.
 
     Returns:
         (out [B, H, N, D] in v's dtype, lse [B, H, N] fp32).
     """
     mask, _, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
+    rel = _check_rel(q, rel_pos)
     B, H, N, _ = q.shape
     outs, lses = [], []
     for b in range(B):
         s = torch.einsum("hnd,hmd->hnm", q[b].float(), k[b].float()) * scale
+        if rel is not None:
+            s = _add_rel(s, rel[0][b], rel[1][b])
         if mask is not None:
             s = s.masked_fill(~mask[b], MASK_VALUE)
         m = s.amax(dim=-1)
@@ -254,14 +299,16 @@ def flash_softmax_attention_reference(q, k, v, scale: float, mask=None,
 
 
 def flash_bwd_reference(q, k, v, g, lse, delta, scale: float, mask=None,
-                        dropout_rate: float = 0.0, dropout_seed=None):
+                        dropout_rate: float = 0.0, dropout_seed=None, rel_pos=None):
     """Plain version of the backward kernels, from lse and delta =
     sum(g * out) (fp32, [B, H, N]).
 
     Returns:
-        (dq, dk, dv) in q's dtype.
+        (dq, dk, dv) in q's dtype; with rel_pos also d rel_h, d rel_w
+        (fp32).
     """
     mask, _, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
+    rel = _check_rel(q, rel_pos)
     B, H, N, _ = q.shape
     dt = q.dtype
     grads = []
@@ -269,6 +316,8 @@ def flash_bwd_reference(q, k, v, g, lse, delta, scale: float, mask=None,
         qb, kb = q[b].float(), k[b].float()
         gb = g[b].float()
         s = torch.einsum("hnd,hmd->hnm", qb, kb) * scale
+        if rel is not None:
+            s = _add_rel(s, rel[0][b], rel[1][b])
         if mask is not None:
             s = s.masked_fill(~mask[b], float("-inf"))
         p = torch.exp(s - lse[b][..., None])
@@ -284,6 +333,9 @@ def flash_bwd_reference(q, k, v, g, lse, delta, scale: float, mask=None,
         dk = torch.einsum("hnm,hnd->hmd", ds, qb) * scale
         dq = torch.einsum("hnm,hmd->hnd", ds, kb) * scale
         grads.append((dq.to(dt), dk.to(dt), dv.to(dt)))
+        if rel is not None:
+            cells = ds.view(H, N, rel[0].shape[-1], rel[1].shape[-1])
+            grads[-1] += (cells.sum(-1), cells.sum(-2))
     return tuple(torch.stack(t) for t in zip(*grads))
 
 
@@ -311,6 +363,8 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # after the pointers: B, H, N, D, mask_heads, scale, has_dropout,
 # threshold, inv_keep, stream
 _SCALARS = [_I32] * 5 + [ctypes.c_float, _I32, ctypes.c_uint, ctypes.c_float, _PTR]
+# the bias launchers': B, H, N, D, kh, kw, mask_heads, then as _SCALARS
+_REL_SCALARS = [_I32] * 2 + _SCALARS
 
 
 @functools.cache
@@ -321,6 +375,12 @@ def _fwd_lib():
         fn.restype = _I32
     lib.flash_fwd_launch_info.argtypes = [_I32] * 3 + [_PTR]
     lib.flash_fwd_launch_info.restype = _I32
+    lib.flash_fwd_rel_bf16.argtypes = [_PTR] * 9 + _REL_SCALARS
+    lib.flash_fwd_rel_bf16.restype = _I32
+    lib.flash_fwd_rel_launch_info.argtypes = [_I32] * 4 + [_PTR]
+    lib.flash_fwd_rel_launch_info.restype = _I32
+    lib.flash_rel_mode.argtypes = [_I32] * 4
+    lib.flash_rel_mode.restype = _I32
     lib.flash_fwd_error_string.argtypes = [_I32]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -338,17 +398,32 @@ def _bwd_lib():
     lib.flash_bwd_fused_fits.restype = _I32
     lib.flash_bwd_launch_info.argtypes = [_I32] * 4 + [_PTR]
     lib.flash_bwd_launch_info.restype = _I32
+    lib.flash_bwd_dq_rel_bf16.argtypes = [_PTR] * 13 + _REL_SCALARS
+    lib.flash_bwd_dkv_rel_bf16.argtypes = [_PTR] * 12 + _REL_SCALARS
+    lib.flash_bwd_dq_rel_bf16.restype = lib.flash_bwd_dkv_rel_bf16.restype = _I32
+    lib.flash_bwd_rel_launch_info.argtypes = [_I32] * 5 + [_PTR]
+    lib.flash_bwd_rel_launch_info.restype = _I32
     lib.flash_bwd_error_string.argtypes = [_I32]
     lib.flash_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _scalars(q, Hm, scale, rate):
-    """The launchers' trailing arguments before the stream."""
+def _scalars(q, Hm, scale, rate, rel=None):
+    """The launchers' trailing arguments before the stream (the bias
+    launchers' with `rel`, its grid's sides after D)."""
     B, H, N, D = q.shape
-    return (B, H, N, D, Hm, float(scale), int(rate > 0),
+    grid = () if rel is None else (rel[0].shape[-1], rel[1].shape[-1])
+    return (B, H, N, D, *grid, Hm, float(scale), int(rate > 0),
             keep_threshold(rate) if rate > 0 else 0,
             1.0 / (1.0 - rate))
+
+
+def rel_mode(n: int, d: int, kh: int, kw: int) -> int:
+    """How the bf16 kernels take the bias on a kh x kw grid of n keys at
+    head dim d: 1 (kw = 64: a grid row per 64-key span), 2 (kh, kw <= 16:
+    one-hot products), 0 where they refuse it; asked of the built library,
+    so it needs the card's build."""
+    return int(_fwd_lib().flash_rel_mode(n, d, kh, kw))
 
 
 def fused_fits(n: int, d: int, dtype: torch.dtype) -> bool:
@@ -363,14 +438,16 @@ def fused_fits(n: int, d: int, dtype: torch.dtype) -> bool:
 _BWD_KINDS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1, "flash_bwd_fused": 2}
 
 
-def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
+def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype, rel_grid=None) -> dict:
     """What a launch of `kernel` ("flash_fwd", "flash_bwd_dq",
     "flash_bwd_dkv" or "flash_bwd_fused") at sequence length n and head dim
     d runs on this card, asked of the built library: rows per block (0 for
     the fused pass, one block per head), threads, dynamic shared memory
     bytes, resident blocks per SM, registers and local (spilled) bytes per
     thread, under `LAUNCH_INFO_KEYS`, and under "kernel" which kernel runs
-    ("mma.sync", the register-resident one, or "staged"). Needs a GPU."""
+    ("mma.sync", the register-resident one, or "staged"). With rel_grid =
+    (kh, kw), the bf16 kernel with the relative-position bias on that key
+    grid (not the fused pass). Needs a GPU."""
     if kernel != "flash_fwd" and kernel not in _BWD_KINDS:
         raise ValueError(f"unknown flash kernel {kernel!r}")
     if dtype not in _DTYPES:
@@ -379,7 +456,18 @@ def launch_info(kernel: str, n: int, d: int, dtype: torch.dtype) -> dict:
         raise ValueError(f"need n > 0 and 0 < d <= {MAX_D}, got n={n}, d={d}")
     info = launch_info_buffer()
     is_bf16 = int(dtype == torch.bfloat16)
-    if kernel == "flash_fwd":
+    if rel_grid is not None:
+        if not is_bf16 or kernel == "flash_bwd_fused":
+            raise ValueError("the bias runs on the bf16 forward, dq and dkv kernels only")
+        if kernel == "flash_fwd":
+            lib = _fwd_lib()
+            err = lib.flash_fwd_rel_launch_info(n, d, *rel_grid, info)
+            errors = lib.flash_fwd_error_string
+        else:
+            lib = _bwd_lib()
+            err = lib.flash_bwd_rel_launch_info(_BWD_KINDS[kernel], n, d, *rel_grid, info)
+            errors = lib.flash_bwd_error_string
+    elif kernel == "flash_fwd":
         lib = _fwd_lib()
         err, errors = lib.flash_fwd_launch_info(n, d, is_bf16, info), lib.flash_fwd_error_string
     else:
@@ -410,40 +498,67 @@ def _check_extras(q, mask, seed) -> int:
     return mask.shape[1]
 
 
-def _fwd_cuda(q, k, v, mask, seed, scale, dropout_rate):
+def _rel_pair(rel_h, rel_w):
+    if (rel_h is None) != (rel_w is None):
+        raise ValueError("rel_h and rel_w come together")
+    return None if rel_h is None else (rel_h, rel_w)
+
+
+def _check_rel_cuda(q, rel) -> None:
+    """The bias kernels' own limits: bf16, and a head dim and key grid that
+    `rel_mode` takes."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError("the relative-position bias runs on the bf16 kernels only")
+    _, _, N, D = q.shape
+    kh, kw = rel[0].shape[-1], rel[1].shape[-1]
+    if rel_mode(N, D, kh, kw) == 0:
+        raise ValueError(f"the bias kernels take head dims 65 to 80 and key grids "
+                         f"with kw = 64 or kh, kw <= 16; got D = {D}, {kh} x {kw}")
+
+
+def _fwd_cuda(q, k, v, mask, seed, scale, dropout_rate, rel_h=None, rel_w=None):
     _check(q, k, v)
     Hm = _check_extras(q, mask, seed)
+    rel = _check_rel(q, _rel_pair(rel_h, rel_w))
     if dropout_rate > 0 and seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     lib = _fwd_lib()
     out = torch.empty_like(v)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    launch(lib.flash_fwd_error_string, "flash_fwd",
-           getattr(lib, f"flash_fwd_{dtype_suffix(q.dtype)}"), q.device,
-           q, k, v, mask, seed, out, lse, *_scalars(q, Hm, scale, dropout_rate))
+    if rel is None:
+        launch(lib.flash_fwd_error_string, "flash_fwd",
+               getattr(lib, f"flash_fwd_{dtype_suffix(q.dtype)}"), q.device,
+               q, k, v, mask, seed, out, lse, *_scalars(q, Hm, scale, dropout_rate))
+    else:
+        _check_rel_cuda(q, rel)
+        launch(lib.flash_fwd_error_string, "flash_fwd_rel", lib.flash_fwd_rel_bf16, q.device,
+               q, k, v, *rel, mask, seed, out, lse, *_scalars(q, Hm, scale, dropout_rate, rel))
     flash_attention_fwd.launches += 1
     return out, lse
 
 
-def _fwd_cpu(q, k, v, mask, seed, scale, dropout_rate):
+def _fwd_cpu(q, k, v, mask, seed, scale, dropout_rate, rel_h=None, rel_w=None):
     _check(q, k, v)
     _check_extras(q, mask, seed)
-    return flash_softmax_attention_reference(q, k, v, scale, mask, dropout_rate, seed)
+    return flash_softmax_attention_reference(q, k, v, scale, mask, dropout_rate, seed,
+                                             _rel_pair(rel_h, rel_w))
 
 
-def _fwd_fake(q, k, v, mask, seed, scale, dropout_rate):
+def _fwd_fake(q, k, v, mask, seed, scale, dropout_rate, rel_h=None, rel_w=None):
     _check(q, k, v)  # refuses meta tensors, which land here, like any other device
     _check_extras(q, mask, seed)
+    _check_rel(q, _rel_pair(rel_h, rel_w))
     return torch.empty_like(v), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 _fwd_op = define("flash_attention_fwd",
                  "(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? seed, float scale,"
-                 " float dropout_rate) -> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+                 " float dropout_rate, Tensor? rel_h=None, Tensor? rel_w=None)"
+                 " -> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
 
 
 def flash_attention_fwd(q, k, v, scale: float, mask=None,
-                        dropout_rate: float = 0.0, dropout_seed=None
+                        dropout_rate: float = 0.0, dropout_seed=None, rel_pos=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention forward with the row log-sum-exp. Replaces
     `_flash_kernel`; the custom op `efficient_rpe_vit::flash_attention_fwd`
@@ -458,6 +573,8 @@ def flash_attention_fwd(q, k, v, scale: float, mask=None,
         dropout_rate: attention-probability drop rate in [0, 1).
         dropout_seed: required when dropout_rate > 0: an int or a one-value
             integer tensor (`seed_operand`).
+        rel_pos: optional (rel_h [B, H, N, kh], rel_w [B, H, N, kw]) fp32,
+            the decomposed relative-position bias on a kh x kw key grid.
     Returns:
         (out [B, H, N, D] in v's dtype, lse [B, H, N] fp32).
     Raises:
@@ -465,7 +582,8 @@ def flash_attention_fwd(q, k, v, scale: float, mask=None,
         kernel launch is refused.
     """
     mask, _, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
-    return _fwd_op(q, k, v, mask, seed, float(scale), rate)
+    rel = _check_rel(q, rel_pos) or (None, None)
+    return _fwd_op(q, k, v, mask, seed, float(scale), rate, *rel)
 
 
 def _bwd_launch(kind: str, q, k, v, g, lse, delta, scale, mask, dropout_rate,
@@ -476,6 +594,18 @@ def _bwd_launch(kind: str, q, k, v, g, lse, delta, scale, mask, dropout_rate,
            getattr(lib, f"flash_bwd_{kind}_{dtype_suffix(q.dtype)}"), q.device,
            q, k, v, g, lse, delta, mask, seed, dq, dk, dv,
            *_scalars(q, Hm, scale, rate))
+
+
+def _bwd_rel_launch(kind: str, q, k, v, g, lse, delta, scale, mask, dropout_rate,
+                    dropout_seed, rel, *outputs) -> None:
+    """The dq (outputs dq, drel_h, drel_w) or dkv (dk, dv) bias kernel."""
+    _check_rel_cuda(q, rel)
+    mask, Hm, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
+    lib = _bwd_lib()
+    launch(lib.flash_bwd_error_string, f"flash_bwd_{kind}_rel",
+           getattr(lib, f"flash_bwd_{kind}_rel_bf16"), q.device,
+           q, k, v, g, lse, delta, *rel, mask, seed, *outputs,
+           *_scalars(q, Hm, scale, rate, rel))
 
 
 def flash_attention_bwd_fused(q, k, v, g, lse, delta, scale: float, mask=None,
@@ -497,31 +627,44 @@ def flash_attention_bwd_fused(q, k, v, g, lse, delta, scale: float, mask=None,
 
 
 def flash_attention_bwd_dq(q, k, v, g, lse, delta, scale: float, mask=None,
-                           dropout_rate: float = 0.0, dropout_seed=None):
-    """dq alone (the two-pass split's first pass). Replaces
-    `_flash_dq_kernel`."""
+                           dropout_rate: float = 0.0, dropout_seed=None, rel_pos=None):
+    """dq alone (the two-pass split's first pass); with rel_pos (dq,
+    d rel_h, d rel_w). Replaces `_flash_dq_kernel`."""
     _check(q, k, v, rest=[("g", g)], rows=[("lse", lse), ("delta", delta)])
+    rel = _check_rel(q, rel_pos)
     if on_cpu(q):
-        return flash_bwd_reference(q, k, v, g, lse, delta, scale, mask,
-                                   dropout_rate, dropout_seed)[0]
+        grads = flash_bwd_reference(q, k, v, g, lse, delta, scale, mask,
+                                    dropout_rate, dropout_seed, rel)
+        return grads[0] if rel is None else (grads[0], *grads[3:])
     dq = torch.empty_like(q)
-    _bwd_launch("dq", q, k, v, g, lse, delta, scale, mask, dropout_rate,
-                dropout_seed, dq=dq)
+    if rel is None:
+        _bwd_launch("dq", q, k, v, g, lse, delta, scale, mask, dropout_rate,
+                    dropout_seed, dq=dq)
+        out = dq
+    else:
+        out = (dq, *(torch.empty_like(t) for t in rel))
+        _bwd_rel_launch("dq", q, k, v, g, lse, delta, scale, mask, dropout_rate,
+                        dropout_seed, rel, *out)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return out
 
 
 def flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale: float, mask=None,
-                            dropout_rate: float = 0.0, dropout_seed=None):
+                            dropout_rate: float = 0.0, dropout_seed=None, rel_pos=None):
     """(dk, dv) (the two-pass split's second pass). Replaces
     `_flash_dkv_kernel`."""
     _check(q, k, v, rest=[("g", g)], rows=[("lse", lse), ("delta", delta)])
+    rel = _check_rel(q, rel_pos)
     if on_cpu(q):
         return flash_bwd_reference(q, k, v, g, lse, delta, scale, mask,
-                                   dropout_rate, dropout_seed)[1:]
+                                   dropout_rate, dropout_seed, rel)[1:3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("dkv", q, k, v, g, lse, delta, scale, mask, dropout_rate,
-                dropout_seed, dk=dk, dv=dv)
+    if rel is None:
+        _bwd_launch("dkv", q, k, v, g, lse, delta, scale, mask, dropout_rate,
+                    dropout_seed, dk=dk, dv=dv)
+    else:
+        _bwd_rel_launch("dkv", q, k, v, g, lse, delta, scale, mask, dropout_rate,
+                        dropout_seed, rel, dk, dv)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -534,23 +677,32 @@ del _fn
 
 def flash_attention_bwd(q, k, v, out, lse, g, scale: float, mask=None,
                         dropout_rate: float = 0.0, dropout_seed=None,
-                        fused: Optional[bool] = None):
+                        fused: Optional[bool] = None, rel_pos=None):
     """Backward of the flash forward from its saved (out, lse).
 
     Args:
-        q, k, v, scale, mask, dropout_rate, dropout_seed: the forward's.
+        q, k, v, scale, mask, dropout_rate, dropout_seed, rel_pos: the
+            forward's.
         out [B, H, N, D], lse [B, H, N] fp32: the forward's outputs.
         g: [B, H, N, D] cotangent of out, in q's dtype, contiguous.
         fused: True forces the fused kernel, False the dq / dkv two-pass
-            split; None picks fused where it fits (`fused_fits`).
+            split; None picks fused where it fits (`fused_fits`). With
+            rel_pos the split always runs (the fused pass has no bias).
     Returns:
-        (dq, dk, dv) in q's dtype. CPU tensors take the plain version.
+        (dq, dk, dv) in q's dtype, with rel_pos also d rel_h, d rel_w
+        (fp32). CPU tensors take the plain version.
     """
     _check(q, k, v, rest=[("out", out), ("g", g)], rows=[("lse", lse)])
     delta = flash_delta(out, g)
     args = (q, k, v, g, lse, delta, scale, mask, dropout_rate, dropout_seed)
+    rel = _check_rel(q, rel_pos)
     if on_cpu(q):
-        return flash_bwd_reference(*args)
+        return flash_bwd_reference(*args, rel)
+    if rel is not None:
+        if fused:
+            raise ValueError("the fused backward takes no relative-position bias")
+        dq, drel_h, drel_w = flash_attention_bwd_dq(*args, rel)
+        return (dq, *flash_attention_bwd_dkv(*args, rel), drel_h, drel_w)
     if fused is None:
         fused = fused_fits(q.shape[2], q.shape[3], q.dtype)
     if fused:
@@ -564,29 +716,31 @@ class _FlashSoftmax(torch.autograd.Function):
     """Forward kernel; backward kernels from the saved (out, lse)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, scale, rate):
-        out, lse = _fwd_op(q, k, v, mask, seed, scale, rate)
-        ctx.save_for_backward(q, k, v, out, lse, mask, seed)
+    def forward(ctx, q, k, v, mask, seed, scale, rate, rel_h, rel_w):
+        out, lse = _fwd_op(q, k, v, mask, seed, scale, rate, rel_h, rel_w)
+        ctx.save_for_backward(q, k, v, out, lse, mask, seed, rel_h, rel_w)
         ctx.scale, ctx.rate = scale, rate
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        q, k, v, out, lse, mask, seed = ctx.saved_tensors
+        q, k, v, out, lse, mask, seed, rel_h, rel_w = ctx.saved_tensors
         # the cotangent arrives through the head merge's transpose
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
-                                         ctx.scale, mask, ctx.rate, seed)
-        return dq, dk, dv, None, None, None, None
+        grads = flash_attention_bwd(q, k, v, out, lse, g.contiguous(), ctx.scale, mask,
+                                    ctx.rate, seed, rel_pos=_rel_pair(rel_h, rel_w))
+        return (*grads[:3], None, None, None, None, *(grads[3:] or (None, None)))
 
 
 def flash_softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: float, mask: Optional[torch.Tensor] = None,
                             dropout_rate: float = 0.0,
-                            dropout_seed=None) -> torch.Tensor:
-    """Differentiable softmax(scale * q k^T) v on the flash kernels, [B, H,
-    N, D] in v's dtype; the mask and the seed get no gradient. q, k and v
-    are made contiguous here (the head split gives transposed views).
+                            dropout_seed=None, rel_pos=None) -> torch.Tensor:
+    """Differentiable softmax(scale * q k^T + bias) v on the flash kernels,
+    [B, H, N, D] in v's dtype; the mask and the seed get no gradient, the
+    optional relative-position rows rel_pos = (rel_h, rel_w) do (see the
+    module's note; they are cast to fp32 here). q, k and v are made
+    contiguous here (the head split gives transposed views).
 
     Without autograd (inference mode, no_grad, or no input that needs a
     gradient) autograd records no node and drops what the forward saved, so
@@ -594,4 +748,5 @@ def flash_softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     q, k, v = (t.contiguous() for t in (q, k, v))
     mask, _, seed, rate = _extras(q, mask, dropout_rate, dropout_seed)
-    return _FlashSoftmax.apply(q, k, v, mask, seed, float(scale), rate)
+    rel = (None, None) if rel_pos is None else tuple(t.float().contiguous() for t in rel_pos)
+    return _FlashSoftmax.apply(q, k, v, mask, seed, float(scale), rate, *rel)

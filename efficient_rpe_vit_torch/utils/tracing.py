@@ -46,7 +46,9 @@ import torch
 
 PREFIX = "rpe."
 # the device spans, each with a begin and an end marker kernel
-DEVICE_SPANS = ("gather", "forward", "backward", "optimizer", "phi", "phi_bwd")
+DEVICE_SPANS = ("gather", "forward", "backward", "optimizer", "phi", "phi_bwd",
+                "window", "window_bwd", "relpos", "relpos_bwd", "attn_window",
+                "attn_window_bwd", "attn_global", "attn_global_bwd")
 MARKERS = tuple(f"rpe_mark_{edge}_{span}" for span in DEVICE_SPANS
                 for edge in ("begin", "end"))
 
